@@ -1,0 +1,19 @@
+"""Continuous-batching serving (``repro.serving``), one replica."""
+from repro_torch.serving.engine import Engine, EngineConfig
+from repro_torch.serving.lifecycle import TERMINAL_STATUSES, Request
+from repro_torch.serving.paged_kv import BlockTable, PageAllocator
+from repro_torch.serving.scheduler import Scheduler
+
+# api imports Engine/EngineConfig from engine: keep this import last
+from repro_torch.serving.api import build_engine
+
+__all__ = [
+    "BlockTable",
+    "Engine",
+    "EngineConfig",
+    "PageAllocator",
+    "Request",
+    "Scheduler",
+    "TERMINAL_STATUSES",
+    "build_engine",
+]

@@ -15,6 +15,10 @@ import sys
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs a CUDA device; skips without one")
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _bound_xla_jit_memory():
     """Drop jit/pjit caches after every test module.
