@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port on one NVIDIA H100 and check it.
 
-    python3 chip_smoke.py             # every phase; exits non-zero if any fails
-    python3 chip_smoke.py --profile   # also traces a short engine run
+    python3 chip_smoke.py   # every phase; exits non-zero if any fails
 
 Phases, all on the card:
 
@@ -20,9 +19,11 @@ Phases, all on the card:
    kernel gather, built with ``build_engine`` from random weights (seed
    0), serving 8 requests (prompts of 16-64 tokens, 32 new tokens each).
    Every request must end ``ok`` with finite logits, and the launch
-   counters must equal the per-step counts times the steps.  A second
-   run serves the same weights with ``block_k=512``, the K-blocked path
-   (K2), and must give the same tokens.
+   counters must equal the per-step counts times the steps.  A short
+   traced run of the same weights (``torch.profiler``) gives the device's
+   busy share and its time by kernel.  A last run serves the same
+   weights with ``block_k=512``, the K-blocked path (K2), and must give
+   the same tokens.  Each path's launch counts come from its own run.
 5. Whole-path cross-check: a 2-layer model of the same width, float32,
    on the card (kernels) and on the CPU (plain versions) from the same
    packed words, a few decode steps; logits within the stated tolerance.
@@ -312,6 +313,7 @@ def phase_engine(torch, cfg, ecfg, report: dict) -> dict:
           f"(min {run_a['step_ms_min']:.2f}); launches {counts}; build {t_build:.1f} s; "
           f"peak memory {run_a['peak_mem_gb']:.1f} GB", flush=True)
     tokens_a = {r.rid: list(r.out_tokens) for r in eng.finished}
+    profile_engine(torch, Engine(cfg, eng.params, ecfg, head=eng._head), cfg, report)
 
     # the K-blocked path: the same packed words with block_k=512 (as a
     # deployment plan with an autotuned block_k sets); the head stays K1
@@ -340,14 +342,12 @@ def phase_engine(torch, cfg, ecfg, report: dict) -> dict:
     return {"fused": run_a, "blocked": run_b}
 
 
-def profile_engine(torch, cfg, ecfg, report: dict) -> None:
-    """Trace a short engine run: device busy share and kernel time by name."""
+def profile_engine(torch, eng, cfg, report: dict) -> None:
+    """Trace a short run of a fresh engine: device busy share and kernel
+    time by name.  Its launches are not counted against any path."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serving import build_engine
-
-    eng = build_engine(cfg, ecfg, quant="packed", w_bits=4, a_bits=4, seed=0)
     rng = np.random.default_rng(2)
     for _ in range(8):
         eng.submit(rng.integers(0, cfg.vocab, 16).tolist(), 8)
@@ -379,7 +379,6 @@ def profile_engine(torch, cfg, ecfg, report: dict) -> None:
           + ", ".join(f"{g} {v:.1f} ms" for g, v in by_group.items()), flush=True)
     for r in rows[:8]:
         print(f"    {r['device_ms']:9.3f} ms  x{r['count']:5d}  {r['name'][:90]}", flush=True)
-    del eng
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -470,9 +469,7 @@ def phase_crosscheck(torch, cfg, report: dict, steps: int = 3) -> dict:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true", help="also trace a short engine run")
-    args = ap.parse_args(argv)
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
     import torch
 
@@ -529,9 +526,6 @@ def main(argv=None) -> int:
           flush=True)
     en = phase_engine(torch, cfg, ecfg, report)
     torch.cuda.empty_cache()
-    if args.profile:
-        profile_engine(torch, cfg, ecfg, report)
-        torch.cuda.empty_cache()
     print("phase 5: whole-path cross-check, 2 layers at full width, card vs CPU", flush=True)
     phase_crosscheck(torch, cfg, report)
 
@@ -549,26 +543,31 @@ def main(argv=None) -> int:
         t_o = sum(r.get("int32_ops", 0) * r["per_step"] for r in rows) / card.int32_ops_per_s * 1e3
         return "bytes" if t_b >= t_o else "operations"
 
-    launches = {k: en["fused"]["counts"][k] + en["blocked"]["counts"][k] for k in en["fused"]["counts"]}
+    # each kernel's launches come from the run of the path it serves: K1 and
+    # K3 from the fused (whole-K) run, K2 from the block_k=512 run
+    fused, blocked = en["fused"], en["blocked"]
     kernels = [
         dict(name="packed_dense_fused", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
              replaces="src/repro/kernels/packed_matmul/kernel.py:111",
-             launches=launches["packed_dense_fused"], max_abs_err=mm["max_err"],
+             launches=fused["counts"]["packed_dense_fused"], max_abs_err=mm["max_err"],
              ms=step_sum(served, "k1_ms"), plain_ms=step_sum(served, "plain_ms"),
              bound_ms=step_sum(served, "bound_ms"), bound_by=by(served),
-             library_ms=step_sum(served, "library_ms"), per="decode step"),
+             library_ms=step_sum(served, "library_ms"), path="fused", path_steps=fused["steps"],
+             per="decode step"),
         dict(name="packed_matmul", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
              replaces="src/repro/kernels/packed_matmul/kernel.py:168",
-             launches=launches["packed_matmul"], max_abs_err=mm["max_err"],
+             launches=blocked["counts"]["packed_matmul"], max_abs_err=mm["max_err"],
              ms=step_sum(layers, "k2_ms"), plain_ms=step_sum(layers, "plain_ms"),
              bound_ms=step_sum(layers, "bound_ms"), bound_by=by(layers),
-             library_ms=step_sum(layers, "library_ms"), per="decode step (block_k=512 path)"),
+             library_ms=step_sum(layers, "library_ms"), path="block_k=512",
+             path_steps=blocked["steps"], per="decode step"),
         dict(name="paged_gather", route="cuda", source="src/repro_torch/csrc/paged_gather.cu",
              replaces="src/repro/kernels/paged_gather/kernel.py:121",
-             launches=launches["paged_gather"], max_abs_err=ga["max_err"],
+             launches=fused["counts"]["paged_gather"], max_abs_err=ga["max_err"],
              ms=step_sum(gather, "k3_ms"), plain_ms=step_sum(gather, "plain_ms"),
              bound_ms=step_sum(gather, "bound_ms"), bound_by="bytes",
-             library_ms=step_sum(gather, "library_ms"), per="decode step"),
+             library_ms=step_sum(gather, "library_ms"), path="fused", path_steps=fused["steps"],
+             per="decode step"),
     ]
     report["kernels"] = kernels
     report["head"] = head

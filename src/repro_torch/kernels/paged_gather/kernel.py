@@ -22,8 +22,12 @@ _FLOAT_OUT = (torch.float32, torch.bfloat16)
 
 
 def paged_gather_plain(block_table, pos, window, pool_k, pool_v, k_scale=None, v_scale=None,
-                       *, chunk, out_dtype):
-    """Plain version: ``pool[block_table]``, null pages zeroed, + lane mask."""
+                       *, chunk, out_dtype, zero_null=True):
+    """Plain version: ``pool[block_table]``, null pages zeroed, + lane mask.
+
+    ``zero_null=False`` keeps the null page's contents, as the reference's
+    ``pool[block_table]`` ("xla") view does; only the lanes of inactive
+    slots, whose outputs are never sampled, can see the difference."""
     n_blocks = block_table.shape[1]
     page_size = pool_k.shape[1]
     table = block_table.long()
@@ -33,7 +37,7 @@ def paged_gather_plain(block_table, pos, window, pool_k, pool_v, k_scale=None, v
         view = pool[table].to(out_dtype)
         if scale is not None:
             view = view * scale[table].to(out_dtype)
-        return torch.where(live, view, torch.zeros_like(view))
+        return torch.where(live, view, torch.zeros_like(view)) if zero_null else view
 
     dev = pool_k.device
     kpos = torch.arange(n_blocks * page_size, dtype=torch.int32, device=dev).reshape(

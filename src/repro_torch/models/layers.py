@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.packed_matmul.ops import PackedDenseParams, packed_dense, prepack_dense
-from repro_torch.kernels.paged_gather.ops import check_gather_backend, paged_gather_kv
+from repro_torch.kernels.paged_gather.ops import paged_gather_kv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +120,8 @@ def attention_decode_paged(
 
     The chunk's K/V rows are written into the pools in place; ``gather``
     picks the ``pool[block_table]`` view ("xla") or the CUDA paged-gather
-    kernel ("kernel"), bit-exact with each other."""
+    kernel ("kernel"), bit-exact with each other on every active slot (the
+    kernel zeroes the null page, which only an inactive slot's lane 0 sees)."""
     if lens is not None:
         raise NotImplementedError("chunked prefill (lens) comes with the next slice (ROADMAP.md, port queue)")
     if s.use_mrope:
@@ -152,27 +153,13 @@ def attention_decode_paged(
     else:
         pool_k[page, off] = k_rows.to(pool_k.dtype)
         pool_v[page, off] = v_rows.to(pool_v.dtype)
-    if check_gather_backend(gather) == "kernel":
-        k_flat, v_flat, lane_mask = paged_gather_kv(
-            pool_k, pool_v, block_table, pos, window=window, chunk=C,
-            k_scale=pool_k_scale, v_scale=pool_v_scale, out_dtype=x.dtype,
-        )
-        k_view = k_flat.reshape(S, T, G, hd)
-        v_view = v_flat.reshape(S, T, G, hd)
-        mask = lane_mask[:, None, None, :, :]
-    else:
-        table = block_table.long()
-        if kv_int8:
-            k_view = (pool_k[table].to(x.dtype) * pool_k_scale[table].to(x.dtype)).reshape(S, T, G, hd)
-            v_view = (pool_v[table].to(x.dtype) * pool_v_scale[table].to(x.dtype)).reshape(S, T, G, hd)
-        else:
-            k_view = pool_k[table].reshape(S, T, G, hd)
-            v_view = pool_v[table].reshape(S, T, G, hd)
-        kpos = torch.arange(T, dtype=torch.int32, device=x.device)
-        mask = kpos[None, None, :] <= posc[:, :, None]  # [S, C, T]
-        if window > 0:
-            mask = mask & ((posc[:, :, None] - kpos[None, None, :]) < window)
-        mask = mask[:, None, None, :, :]
+    k_flat, v_flat, lane_mask = paged_gather_kv(
+        pool_k, pool_v, block_table, pos, window=window, chunk=C,
+        k_scale=pool_k_scale, v_scale=pool_v_scale, out_dtype=x.dtype, backend=gather,
+    )
+    k_view = k_flat.reshape(S, T, G, hd)
+    v_view = v_flat.reshape(S, T, G, hd)
+    mask = lane_mask[:, None, None, :, :]
     scores = _gqa_scores(q, k_view.to(x.dtype), scale=_attn_scale(hd, x.dtype))  # [S,G,H/G,C,T]
     scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
     p = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
