@@ -27,11 +27,33 @@ Phases, all on the card:
 5. Whole-path cross-check: a 2-layer model of the same width, float32,
    on the card (kernels) and on the CPU (plain versions) from the same
    packed words, a few decode steps; logits within the stated tolerance.
+6. The int8-lane entry points ``quant_dense`` (K4) and
+   ``quant_packed_dense`` (K5 at w2a2 and w2a3; w4a4 takes the plain
+   integer path) from float inputs at every full-width decode shape (M =
+   8) and one M = 128 shape; their launch counts; two shapes against the
+   CPU.  Then K4 and K5 against their plain versions on the same integer
+   operands at every shape: bit-exact.
+7. The Filter-Packing entry point ``packed_conv1d`` (K6) at UltraNet's
+   five 3x3 layers split into row convolutions, at w2a2, w3a4 and w4a4,
+   and one 7-tap case; its launch count; K6 against its plain version and
+   the plain convolution: bit-exact.
+8. ``build_engine`` at its default bits (w4a8 projections, the packed (8,
+   8) head), 2 layers at full width, float32: no placement exists, so
+   every matmul takes the plain integer path on the card.  8 requests
+   must end ``ok``; then the same weights on the card and the CPU, a few
+   decode steps, logits within the stated tolerance.
 
-Times come from CUDA events (median over launches, L2 flushed before
-each).  The line before the last is the kernels JSON, the one before it
-the card's ``nvidia-smi`` name and power limit, and the last line is
-``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.json``.
+Kernel and library times come from CUDA graphs of 100 launches divided
+by 100: an event pair around one launch of under about 0.1 ms measures
+the host's enqueue.  The matmuls' weights are cycled through copies
+totalling at least 256 MB, so that the 50 MB L2 cannot hold them (a
+decode step reads each layer's weights once); K3's and K6's operands are
+not.  Each kernel's event time (median of one event pair per launch, L2
+flushed before each) is kept beside it; plain versions, which synchronise
+with the host, are timed by events only.  The line before the last is the
+kernels JSON, the one before it the card's ``nvidia-smi`` name and power
+limit, and the last line is ``{"ok": true, "device": {...}}``.  Details
+go to ``chip_smoke.json`` in ``OUT_DIR``.
 """
 from __future__ import annotations
 
@@ -47,6 +69,11 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT32_LANES_PER_SM = 64  # IMAD lanes per Hopper SM and clock
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak, NVIDIA data sheet
+
+# how the kernels line's ms and library_ms are taken; events_ms beside them
+# is the median of one CUDA-event pair per launch, L2 flushed before each
+GRAPH_TIMING = "CUDA graph of 100 launches (matmul weights cycled through 256 MB), divided by 100"
 
 # phase 5 tolerance.  Both sides run float32 on the same packed words, so a
 # slot's logits differ only by float sum order (cuBLAS against the CPU)
@@ -82,7 +109,8 @@ def smi(query: str) -> str:
 
 
 class Timer:
-    """Median CUDA-event time of one call, the L2 cache flushed before each."""
+    """Median CUDA-event time of one call, the L2 cache flushed before each;
+    :meth:`graph` for launches too short for one event pair each."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -104,6 +132,49 @@ class Timer:
         vals = sorted(a.elapsed_time(b) for a, b in times)
         return vals[len(vals) // 2]
 
+    def graph(self, fn, launches: int = 100, reps: int = 5) -> float:
+        """Device time of one call: ``fn(0) .. fn(launches - 1)`` captured in
+        one CUDA graph, the median replay time over ``reps`` divided by
+        ``launches``.  Under about 0.1 ms an event pair around one launch
+        measures the host's enqueue; a graph replays back to back with no
+        host between launches.  Nothing is flushed between the calls of a
+        replay: a caller that needs its operands cold passes ``fn(i)`` that
+        cycles through :func:`cold_copies`."""
+        torch = self.torch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # first calls (handles, library loads) outside the capture
+            fn(0)
+            fn(1)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for i in range(launches):
+                fn(i)
+        g.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            g.replay()
+            e1.record()
+            times.append((e0, e1))
+        torch.cuda.synchronize()
+        vals = sorted(a.elapsed_time(b) for a, b in times)
+        del g
+        return vals[len(vals) // 2] / launches
+
+
+def cold_copies(t, budget: int = 256 << 20) -> list:
+    """``t`` and enough clones of it that cycling through them touches at
+    least ``budget`` bytes, five times the H100's 50 MB L2: a graph launch
+    that takes the next copy finds its operand in HBM, as a decode step
+    finds each layer's weights."""
+    n = max(1, min(100, -(-budget // (t.numel() * t.element_size()))))
+    return [t] + [t.clone() for _ in range(n - 1)]
+
 
 @dataclasses.dataclass
 class Card:
@@ -116,9 +187,12 @@ class Card:
     def int32_ops_per_s(self) -> float:
         return self.sms * INT32_LANES_PER_SM * self.clock_mhz * 1e6
 
-    def bound(self, n_bytes: float, ops: float) -> tuple[float, str, float, float]:
+    def bound(self, n_bytes: float, ops: float, ops_per_s: float | None = None
+              ) -> tuple[float, str, float, float]:
+        """(bound ms, what bounds it, bytes ms, ops ms); ``ops`` run at
+        ``ops_per_s``, by default the int32 IMAD peak."""
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / self.int32_ops_per_s * 1e3
+        t_ops = ops / (ops_per_s or self.int32_ops_per_s) * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_bytes, t_ops
 
 
@@ -178,19 +252,26 @@ def phase_matmul(torch, card, timer, cfg, M: int, report: dict) -> dict:
             b_ms, b_by, _, _ = card.bound(nbytes, ops)
             w_bf16 = torch.randn((K, N), generator=g, device="cuda", dtype=torch.bfloat16)
             x_bf16 = x.to(torch.bfloat16)
+            wps, w_bf16s = cold_copies(wp), cold_copies(w_bf16)
             row = dict(
                 shape=name, K=K, N=N, M=M, placement=label, per_step=per_step,
                 k1_ms=timer(lambda: packed_dense_fused_raw(x, wp, a_bits=4, **kw), reps=20),
                 k2_ms=timer(lambda: packed_matmul_raw(a_lvl, wp, block_k=512, **kw), reps=20),
                 plain_ms=timer(lambda: packed_dense_fused_plain(x, wp, a_bits=4, **kw), reps=3),
                 library_ms=timer(lambda: torch.matmul(x_bf16, w_bf16), reps=20),
+                k1_graph_ms=timer.graph(lambda i: packed_dense_fused_raw(
+                    x, wps[i % len(wps)], a_bits=4, **kw)),
+                k2_graph_ms=timer.graph(lambda i: packed_matmul_raw(
+                    a_lvl, wps[i % len(wps)], block_k=512, **kw)),
+                library_graph_ms=timer.graph(lambda i: torch.matmul(x_bf16, w_bf16s[i % len(w_bf16s)])),
                 bound_ms=b_ms, bound_by=b_by, bytes=nbytes, int32_ops=ops,
             )
             rows.append(row)
-            print(f"  {name:12s} K={K:5d} N={N:6d} {label}: K1 {row['k1_ms']:.4f} ms, "
-                  f"K2 {row['k2_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bf16 matmul "
-                  f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); bit-exact", flush=True)
-            del x, wp, acc, p_acc, acc2, p_acc2, w_bf16, x_bf16, a_lvl
+            print(f"  {name:12s} K={K:5d} N={N:6d} {label}: K1 {row['k1_ms']:.4f} ms (graph "
+                  f"{row['k1_graph_ms']:.4f}), K2 {row['k2_ms']:.4f} ms (graph {row['k2_graph_ms']:.4f}), "
+                  f"plain {row['plain_ms']:.3f} ms, bf16 matmul {row['library_ms']:.4f} ms (graph "
+                  f"{row['library_graph_ms']:.4f}), bound {b_ms:.4f} ms ({b_by}); bit-exact", flush=True)
+            del x, wp, acc, p_acc, acc2, p_acc2, w_bf16, x_bf16, a_lvl, wps, w_bf16s
     report["matmul"] = rows
     return {"max_err": max_err, "rows": rows}
 
@@ -250,13 +331,16 @@ def phase_gather(torch, card, timer, cfg, ecfg, report: dict) -> dict:
         row = dict(
             case=label, S=S, n_blocks=nb, page_size=ps, D=D, live_pages=n_live, per_step=cfg.n_layers,
             k3_ms=timer(lambda: paged_gather_raw(*args, chunk=1, out_dtype=torch.bfloat16), reps=20),
+            k3_graph_ms=timer.graph(lambda i: paged_gather_raw(*args, chunk=1, out_dtype=torch.bfloat16)),
             plain_ms=timer(lambda: paged_gather_plain(*args, chunk=1, out_dtype=torch.bfloat16), reps=10),
             library_ms=timer(lambda: (pools[0][tl], pools[1][tl]), reps=20),
+            library_graph_ms=timer.graph(lambda i: (pools[0][tl], pools[1][tl])),
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
         )
         rows.append(row)
-        print(f"  {label}: K3 {row['k3_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"pool[table] {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms; bit-exact", flush=True)
+        print(f"  {label}: K3 {row['k3_ms']:.4f} ms (graph {row['k3_graph_ms']:.4f}), plain "
+              f"{row['plain_ms']:.4f} ms, pool[table] {row['library_ms']:.4f} ms (graph "
+              f"{row['library_graph_ms']:.4f}), bound {b_ms:.4f} ms; bit-exact", flush=True)
     report["gather"] = rows
     return {"max_err": max_err, "rows": rows}
 
@@ -282,6 +366,7 @@ def _serve(torch, eng, prompts, max_new: int) -> tuple[dict, dict, float]:
 def phase_engine(torch, cfg, ecfg, report: dict) -> dict:
     import numpy as np
 
+    from repro_torch.kernels import build
     from repro_torch.kernels.packed_matmul.ops import PackedDenseParams
     from repro_torch.models import transformer as T
     from repro_torch.serving import Engine, build_engine
@@ -295,7 +380,7 @@ def phase_engine(torch, cfg, ecfg, report: dict) -> dict:
     t_build = time.monotonic() - t0
     m, counts, wall = _serve(torch, eng, prompts, 32)
     steps = m["steps"]
-    per_step = {"packed_dense_fused": cfg.n_layers * 7 + 1, "packed_matmul": 0,
+    per_step = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": cfg.n_layers * 7 + 1,
                 "paged_gather": cfg.n_layers}
     check(m["statuses"] == {"ok": len(prompts)}, f"engine statuses {m['statuses']}")
     check(all(len(r.out_tokens) == 32 for r in eng.finished), "a request ended short")
@@ -324,8 +409,8 @@ def phase_engine(torch, cfg, ecfg, report: dict) -> dict:
     eng_b = Engine(cfg, blocked, ecfg, head=eng._head)
     max_new_b = 8
     m_b, counts_b, wall_b = _serve(torch, eng_b, prompts, max_new_b)
-    per_step_b = {"packed_dense_fused": 1, "packed_matmul": cfg.n_layers * 7,
-                  "paged_gather": cfg.n_layers}
+    per_step_b = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": 1,
+                  "packed_matmul": cfg.n_layers * 7, "paged_gather": cfg.n_layers}
     check(m_b["statuses"] == {"ok": len(prompts)}, f"blocked engine statuses {m_b['statuses']}")
     check(counts_b == {k: v * m_b["steps"] for k, v in per_step_b.items()},
           f"blocked launch counters {counts_b} != {per_step_b} x {m_b['steps']} steps")
@@ -384,18 +469,17 @@ def profile_engine(torch, eng, cfg, report: dict) -> None:
 # -- phase 5 -------------------------------------------------------------------
 
 
-def phase_crosscheck(torch, cfg, report: dict, steps: int = 3) -> dict:
+def _cross_steps(torch, cfg2, packed, head, steps: int, seed: int, gather: str):
+    """Run ``steps`` decode steps of the same packed weights on the card and
+    on the CPU (8 slots, random tokens from ``seed``).  Yields per step the
+    card's and the CPU's logits (on the CPU) and, per slot, whether any
+    activation level quantized by a packed matmul differed between the two
+    at this or an earlier step."""
     import numpy as np
 
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
-    from repro_torch.serving.api import quantize_params_packed
 
-    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
-    params = T.init_params(cfg2, seed=1, device="cuda")
-    head = L.prepack_lm_head(params["embed"], w_bits=4, a_bits=4, device="cuda")
-    packed = quantize_params_packed(params, w_bits=4, a_bits=4, device="cuda")
-    del params
     cpu_packed = T.map_leaves(packed, lambda a: a.to("cpu"))
     cpu_head = head.to("cpu")
     S, ps, nb = 8, 16, 4
@@ -403,7 +487,7 @@ def phase_crosscheck(torch, cfg, report: dict, steps: int = 3) -> dict:
     states = {dev: T.init_paged_state(cfg2, S, n_pages, ps, dtype=torch.float32, device=dev)
               for dev in ("cuda", "cpu")}
     table = torch.arange(1, n_pages, dtype=torch.int32).reshape(S, nb)
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(seed)
 
     # record the activation levels every packed matmul quantizes, per slot
     levels: list = []
@@ -415,7 +499,6 @@ def phase_crosscheck(torch, cfg, report: dict, steps: int = 3) -> dict:
         return inner(x, w, **kw)
 
     flipped = torch.zeros(S, dtype=torch.bool)  # a level differed at this or an earlier step
-    results = []
     L.packed_dense = recording
     try:
         for t in range(steps):
@@ -423,46 +506,353 @@ def phase_crosscheck(torch, cfg, report: dict, steps: int = 3) -> dict:
             pos = torch.full((S,), t, dtype=torch.int32)
             levels.clear()
             g_log, _ = T.forward_decode_paged(packed, cfg2, states["cuda"], table.cuda(),
-                                              tokens.cuda(), pos.cuda(), head=head, gather="kernel")
+                                              tokens.cuda(), pos.cuda(), head=head, gather=gather)
             g_levels = list(levels)
             levels.clear()
             c_log, _ = T.forward_decode_paged(cpu_packed, cfg2, states["cpu"], table, tokens, pos,
-                                              head=cpu_head, gather="kernel")
+                                              head=cpu_head, gather=gather)
             check(len(levels) == len(g_levels) == 7 * cfg2.n_layers + 1, "packed matmul count")
             for g, c in zip(g_levels, levels):
                 flipped |= (g != c).any(dim=1)
             g_log = g_log.cpu()
             check(bool(torch.isfinite(g_log).all()), f"non-finite logits at cross-check step {t}")
-            diff = (g_log - c_log).abs()
-            row_max = diff.max(dim=1).values
-            row_rel = (torch.linalg.vector_norm(g_log - c_log, dim=1)
-                       / torch.linalg.vector_norm(c_log, dim=1))
-            clean = ~flipped
-            top2 = torch.topk(c_log, 2, dim=1).values
-            agree = torch.argmax(g_log, 1) == torch.argmax(c_log, 1)
-            decided = (top2[:, 0] - top2[:, 1]) > 2 * row_max
-            results.append(dict(
-                step=t, clean_rows=int(clean.sum()),
-                clean_max_abs=float(row_max[clean].max()) if clean.any() else None,
-                flipped_max_rel=float(row_rel[flipped].max()) if flipped.any() else None,
-                tokens_agree=int(agree.sum()), tokens_decided=int(decided.sum())))
-            r = results[-1]
-            print(f"  step {t}: {r['clean_rows']}/{S} rows with identical activation levels, their "
-                  f"max|d| {r['clean_max_abs']}; rows with a level flip: max rel L2 "
-                  f"{r['flipped_max_rel']}; greedy tokens agree {r['tokens_agree']}/{S}", flush=True)
-            check(bool((row_max[clean] <= CROSS_CLEAN_ABS_TOL).all()),
-                  f"cross-check step {t}: a row without level flips differs by more than "
-                  f"{CROSS_CLEAN_ABS_TOL}")
-            check(bool((row_rel[flipped] <= CROSS_FLIP_REL_TOL).all()),
-                  f"cross-check step {t}: a row with level flips differs by more than "
-                  f"{CROSS_FLIP_REL_TOL} relative")
-            check(bool((agree | ~decided | flipped).all()),
-                  f"cross-check step {t}: greedy token differs past the gap bound")
-            check(int(clean.sum()) >= S // 2, f"cross-check step {t}: level flips in most rows")
+            yield g_log, c_log, flipped.clone()
     finally:
         L.packed_dense = inner
+
+
+def _row_stats(torch, g_log, c_log, flipped) -> dict:
+    diff = (g_log - c_log).abs()
+    row_max = diff.max(dim=1).values
+    row_rel = torch.linalg.vector_norm(g_log - c_log, dim=1) / torch.linalg.vector_norm(c_log, dim=1)
+    clean = ~flipped
+    top2 = torch.topk(c_log, 2, dim=1).values
+    agree = torch.argmax(g_log, 1) == torch.argmax(c_log, 1)
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * row_max
+    return dict(row_max=row_max, row_rel=row_rel, clean=clean, agree=agree, decided=decided,
+                summary=dict(
+                    clean_rows=int(clean.sum()),
+                    clean_max_abs=float(row_max[clean].max()) if clean.any() else None,
+                    flipped_max_rel=float(row_rel[flipped].max()) if flipped.any() else None,
+                    max_rel=float(row_rel.max()),
+                    tokens_agree=int(agree.sum()), tokens_decided=int(decided.sum())))
+
+
+def phase_crosscheck(torch, cfg, report: dict, steps: int = 3) -> dict:
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.api import quantize_params_packed
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    params = T.init_params(cfg2, seed=1, device="cuda")
+    head = L.prepack_lm_head(params["embed"], w_bits=4, a_bits=4, device="cuda")
+    packed = quantize_params_packed(params, w_bits=4, a_bits=4, device="cuda")
+    del params
+    S = 8
+    results = []
+    for t, (g_log, c_log, flipped) in enumerate(
+            _cross_steps(torch, cfg2, packed, head, steps, seed=5, gather="kernel")):
+        st = _row_stats(torch, g_log, c_log, flipped)
+        r = dict(step=t, **st["summary"])
+        results.append(r)
+        print(f"  step {t}: {r['clean_rows']}/{S} rows with identical activation levels, their "
+              f"max|d| {r['clean_max_abs']}; rows with a level flip: max rel L2 "
+              f"{r['flipped_max_rel']}; greedy tokens agree {r['tokens_agree']}/{S}", flush=True)
+        clean = st["clean"]
+        check(bool((st["row_max"][clean] <= CROSS_CLEAN_ABS_TOL).all()),
+              f"cross-check step {t}: a row without level flips differs by more than "
+              f"{CROSS_CLEAN_ABS_TOL}")
+        check(bool((st["row_rel"][flipped] <= CROSS_FLIP_REL_TOL).all()),
+              f"cross-check step {t}: a row with level flips differs by more than "
+              f"{CROSS_FLIP_REL_TOL} relative")
+        check(bool((st["agree"] | ~st["decided"] | flipped).all()),
+              f"cross-check step {t}: greedy token differs past the gap bound")
+        check(int(clean.sum()) >= S // 2, f"cross-check step {t}: level flips in most rows")
     report["crosscheck"] = results
     return {"steps": results}
+
+
+# -- phase 6 -------------------------------------------------------------------
+
+INT8_PAIRS = ((2, 2), (2, 3))  # the only pairs with an int8-lane placement
+
+
+def _int_mm(torch, a, w):
+    """``torch._int_mm`` of ``a`` by a weight like ``w``, as a timed
+    yardstick; it refuses M <= 16, so such an ``a`` is padded with zero rows
+    to M = 32.  Returns (call taking the weight, M used)."""
+    try:
+        torch._int_mm(a, w)
+        return (lambda wt: torch._int_mm(a, wt)), a.shape[0]
+    except RuntimeError:
+        a32 = torch.zeros((32, a.shape[1]), dtype=a.dtype, device=a.device)
+        a32[: a.shape[0]] = a
+        torch._int_mm(a32, w)
+        return (lambda wt: torch._int_mm(a32, wt)), 32
+
+
+def phase_int8(torch, card, timer, cfg, M: int, report: dict) -> dict:
+    import math
+
+    from repro_torch.core.quant import weight_to_int_levels
+    from repro_torch.kernels import build
+    from repro_torch.kernels.packed_matmul import ref as pm
+    from repro_torch.kernels.quant_matmul import ref as qm
+    from repro_torch.kernels.quant_matmul.kernel import (
+        quant_matmul_plain, quant_matmul_raw, quant_packed_matmul_plain, quant_packed_matmul_raw,
+    )
+    from repro_torch.kernels.quant_matmul.ops import choose_mxu_config, quant_dense, quant_packed_dense
+
+    d = cfg.d_model
+    shapes = [(name, K, N, M, per_step) for name, (K, N, per_step) in decode_matmul_shapes(cfg).items()]
+    shapes.append(("wq|wo, M=128", d, cfg.n_heads * cfg.hd, 128, 0))
+    cfgs = {pair: choose_mxu_config(*pair) for pair in INT8_PAIRS}
+    check(cfgs[(2, 2)] == (2, 5, 7, 1) and cfgs[(2, 3)] == (2, 5, 3, 1) and choose_mxu_config(4, 4) is None,
+          f"unexpected int8-lane placements {cfgs}")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+
+    # the slice's main path: the public entry points from float inputs, on the
+    # card; w4a4 has no int8-lane placement and takes the plain integer path
+    floats = {}
+    torch.cuda.synchronize()
+    build.reset_counts()
+    for name, K, N, m, _ in shapes:
+        x = torch.rand((m, K), generator=g, device="cuda") * 1.2 - 0.1
+        w = torch.randn((K, N), generator=g, device="cuda") / math.sqrt(K)
+        outs = [quant_dense(x, w)] + [quant_packed_dense(x, w, w_bits=wb, a_bits=ab)
+                                      for wb, ab in INT8_PAIRS + ((4, 4),)]
+        for o in outs:
+            check(o.shape == (m, N) and bool(torch.isfinite(o).all()),
+                  f"int8-lane entry point gave a bad result at {name}")
+        if name in ("wq|wo", "w_down"):
+            floats[name] = (x, w, outs)
+        del x, w, outs
+    torch.cuda.synchronize()
+    counts = build.counts()
+    want = {**dict.fromkeys(build.COUNTS, 0), "quant_matmul": len(shapes),
+            "quant_packed_matmul": len(INT8_PAIRS) * len(shapes)}
+    check(counts == want, f"int8-lane launch counters {counts} != {want}")
+    print(f"  main path: quant_dense and quant_packed_dense (w2a2, w2a3, w4a4) at {len(shapes)} "
+          f"shapes; launches {counts}", flush=True)
+
+    # the same layers on the CPU: bit-exact wherever the levels agree
+    cross = []
+    for name, (x, w, outs) in floats.items():
+        xc, wc = x.cpu(), w.cpu()
+        same_w8 = bool(torch.equal(qm.quantize_symmetric(w)[0].cpu(), qm.quantize_symmetric(wc)[0]))
+        want_q = quant_dense(xc, wc)
+        rel = float(torch.linalg.vector_norm(outs[0].cpu() - want_q) / torch.linalg.vector_norm(want_q))
+        check(rel < 5e-3 and (not same_w8 or torch.equal(outs[0].cpu(), want_q)),
+              f"quant_dense on the card differs from the CPU at {name}: rel {rel}")
+        row = dict(shape=name, quant_dense_bit_exact=bool(torch.equal(outs[0].cpu(), want_q)),
+                   quant_dense_rel_l2=rel)
+        for (wb, ab), o in zip(INT8_PAIRS + ((4, 4),), outs[1:]):
+            # columns whose weight levels came out the same on both sides (tanh rounds differently)
+            clean = (weight_to_int_levels(w, wb)[0].cpu() == weight_to_int_levels(wc, wb)[0]).all(dim=0)
+            want_p = quant_packed_dense(xc, wc, w_bits=wb, a_bits=ab)
+            check(int(clean.sum()) >= clean.numel() - 16 and torch.equal(o.cpu()[:, clean], want_p[:, clean]),
+                  f"quant_packed_dense w{wb}a{ab} on the card differs from the CPU at {name}")
+            row[f"w{wb}a{ab}_level_flip_columns"] = int((~clean).sum())
+        cross.append(row)
+        print(f"  card vs CPU at {name}: {row}", flush=True)
+        del xc, wc
+    del floats
+
+    # K4 and K5 against their plain versions on identical integer operands
+    rows, max4, max5 = [], 0.0, 0.0
+    for name, K, N, m, per_step in shapes:
+        a8 = torch.randint(-127, 128, (m, K), generator=g, device="cuda", dtype=torch.int8)
+        w8 = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+        sc = torch.rand((1, N), generator=g, device="cuda") * 1e-4
+        out, p_out = quant_matmul_raw(a8, w8, sc), quant_matmul_plain(a8, w8, sc)
+        torch.cuda.synchronize()
+        err = (out - p_out).abs().max().item()
+        check(torch.equal(out, p_out), f"K4 differs from its plain version at {name}: max {err}")
+        max4 = max(max4, err)
+        lib, lib_m = _int_mm(torch, a8, w8)
+        w8s = cold_copies(w8)
+        b_ms, b_by, t_b, t_o = card.bound(m * K + K * N + 4 * N + 4 * m * N, 2 * m * K * N, INT8_OPS_PER_S)
+        row = dict(kernel="quant_matmul", shape=name, K=K, N=N, M=m, per_step=per_step,
+                   ms=timer.graph(lambda i: quant_matmul_raw(a8, w8s[i % len(w8s)], sc)),
+                   events_ms=timer(lambda: quant_matmul_raw(a8, w8, sc), reps=20),
+                   plain_ms=timer(lambda: quant_matmul_plain(a8, w8, sc), reps=3),
+                   library_ms=timer.graph(lambda i: lib(w8s[i % len(w8s)]).to(torch.float32) * sc),
+                   library_m=lib_m, bound_ms=b_ms, bound_by=b_by, t_bytes=t_b, t_ops=t_o)
+        rows.append(row)
+        print(f"  K4 {name:13s} M={m:3d} K={K:5d} N={N:6d}: {row['ms']:.4f} ms (events "
+              f"{row['events_ms']:.4f}), plain {row['plain_ms']:.3f} ms, _int_mm (M={lib_m}) "
+              f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); bit-exact", flush=True)
+        del a8, w8, w8s, out, p_out, lib
+        for pair, c in cfgs.items():
+            a_lvl = torch.randint(0, 1 << pair[1], (m, K), generator=g, device="cuda", dtype=torch.int8)
+            w_lvl = torch.randint(0, 1 << pair[0], (K, N), generator=g, device="cuda", dtype=torch.int32)
+            wp = pm.pack_weights(w_lvl, c.n_seg, c.stride).to(torch.int8)
+            del w_lvl
+            kw = dict(n_seg=c.n_seg, stride=c.stride, acc_chunk=c.acc_chunk, overlap=c.overlap)
+            acc, p_acc = quant_packed_matmul_raw(a_lvl, wp, **kw), quant_packed_matmul_plain(a_lvl, wp, **kw)
+            torch.cuda.synchronize()
+            err = (acc - p_acc).abs().max().item()
+            check(torch.equal(acc, p_acc), f"K5 differs from its plain version at {name} w{pair[0]}a{pair[1]}")
+            max5 = max(max5, err)
+            lib, lib_m = _int_mm(torch, a_lvl, wp)
+            wps = cold_copies(wp)
+            np_ = wp.shape[1]
+            b_ms, b_by, t_b, t_o = card.bound(m * K + K * np_ + 4 * m * N,
+                                              2 * m * K * np_ * (2 if c.overlap else 1), INT8_OPS_PER_S)
+            row = dict(kernel="quant_packed_matmul", shape=name, pair=f"w{pair[0]}a{pair[1]}", K=K, N=N,
+                       M=m, per_step=per_step,
+                       ms=timer.graph(lambda i: quant_packed_matmul_raw(a_lvl, wps[i % len(wps)], **kw)),
+                       events_ms=timer(lambda: quant_packed_matmul_raw(a_lvl, wp, **kw), reps=20),
+                       plain_ms=timer(lambda: quant_packed_matmul_plain(a_lvl, wp, **kw), reps=1, warmup=0),
+                       library_ms=timer.graph(lambda i: lib(wps[i % len(wps)])), library_m=lib_m,
+                       bound_ms=b_ms, bound_by=b_by, t_bytes=t_b, t_ops=t_o)
+            rows.append(row)
+            print(f"  K5 {name:13s} M={m:3d} K={K:5d} N={N:6d} {row['pair']}: {row['ms']:.4f} ms "
+                  f"(events {row['events_ms']:.4f}), plain {row['plain_ms']:.3f} ms, _int_mm on the "
+                  f"packed words (M={lib_m}) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+                  f"bit-exact", flush=True)
+            del a_lvl, wp, wps, acc, p_acc, lib
+    report["int8"] = {"main_path_counts": counts, "cpu_cross": cross, "rows": rows}
+    return {"counts": counts, "rows": rows, "max_err": {"quant_matmul": max4, "quant_packed_matmul": max5}}
+
+
+# -- phase 7 -------------------------------------------------------------------
+
+# UltraNet's five 3x3 layers at in_hw = (160, 320), each as row convolutions
+# (B = H rows, C = C_in, N = W), and the Filter-Packing pairs run at each
+ULTRANET_ROWS = ((160, 3, 320), (80, 16, 160), (40, 32, 80), (20, 64, 40), (10, 64, 20))
+FILTER_PAIRS = ((2, 2), (3, 4), (4, 4))
+
+
+def phase_filter(torch, card, timer, report: dict) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.filter_conv import ref as fc
+    from repro_torch.kernels.filter_conv.kernel import filter_conv_plain, filter_conv_raw
+    from repro_torch.kernels.filter_conv.ops import choose_filter_config, packed_conv1d
+
+    cases = [(shape, pair, 3) for shape in ULTRANET_ROWS for pair in FILTER_PAIRS]
+    cases.append((ULTRANET_ROWS[2], (2, 2), 7))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    operands = []
+    for (B, C, N), (wb, ab), k in cases:
+        s = torch.randint(0, 1 << ab, (B, C, N), generator=g, device="cuda", dtype=torch.int32)
+        f = torch.randint(0, 1 << wb, (C, k), generator=g, device="cuda", dtype=torch.int32)
+        operands.append((s, f))
+
+    # the main path: the public entry point
+    torch.cuda.synchronize()
+    build.reset_counts()
+    outs = [packed_conv1d(s, f, w_bits=wb, a_bits=ab) for (s, f), (_, (wb, ab), _) in zip(operands, cases)]
+    torch.cuda.synchronize()
+    counts = build.counts()
+    want = {**dict.fromkeys(build.COUNTS, 0), "filter_conv": len(cases)}
+    check(counts == want, f"filter-conv launch counters {counts} != {want}")
+    print(f"  main path: packed_conv1d at {len(cases)} (shape, pair, K) cases; launches {counts}",
+          flush=True)
+
+    rows, max_err = [], 0.0
+    for ((B, C, N), (wb, ab), k), (s, f), out in zip(cases, operands, outs):
+        c = choose_filter_config(wb, ab, k)
+        truth = fc.conv_full_levels(f, s)
+        n_pad = -(-N // c.n_p) * c.n_p
+        sp = F.pad(s, (0, n_pad - N)).contiguous()
+        fp = fc.pack_filter(f, c.k_p, c.stride)
+        kw = dict(k_p=c.k_p, n_p=c.n_p, stride=c.stride, acc_chunk=c.acc_chunk, k_len=k, n_len=N,
+                  overlap=c.overlap)
+        raw, plain = filter_conv_raw(sp, fp, **kw), filter_conv_plain(sp, fp, **kw)
+        torch.cuda.synchronize()
+        err = max((raw - plain).abs().max().item(), (out - truth).abs().max().item())
+        label = f"B={B} C={C} N={N} K={k} w{wb}a{ab} {tuple(c)}"
+        check(torch.equal(raw, plain) and torch.equal(raw, truth) and torch.equal(out, truth),
+              f"K6 differs from its plain version or the convolution at {label}: max {err}")
+        max_err = max(max_err, err)
+        s32, f32 = s.to(torch.float32), torch.flip(f, (1,)).to(torch.float32)[None]
+        check(torch.equal(F.conv1d(s32, f32, padding=k - 1)[:, 0], truth.to(torch.float32)),
+              "float32 conv1d yardstick is not exact")
+        n_fc = fp.shape[1]
+        nbytes = 4 * (B * C * n_pad + C * n_fc + B * (N + k - 1))
+        ops = B * (n_pad // c.n_p) * n_fc * C * (2 if c.overlap else 1)
+        b_ms, b_by, t_b, t_o = card.bound(nbytes, ops)
+        row = dict(kernel="filter_conv", B=B, C=C, N=N, K=k, pair=f"w{wb}a{ab}", config=tuple(c),
+                   ms=timer.graph(lambda i: filter_conv_raw(sp, fp, **kw)),
+                   events_ms=timer(lambda: filter_conv_raw(sp, fp, **kw), reps=20),
+                   plain_ms=timer(lambda: filter_conv_plain(sp, fp, **kw), reps=3),
+                   library_ms=timer.graph(lambda i: F.conv1d(s32, f32, padding=k - 1)),
+                   bound_ms=b_ms, bound_by=b_by, t_bytes=t_b, t_ops=t_o, bytes=nbytes, int32_ops=ops)
+        rows.append(row)
+        print(f"  K6 {label}: {1e3 * row['ms']:.2f} us (graph; events {1e3 * row['events_ms']:.1f} us), "
+              f"plain {row['plain_ms']:.3f} ms, f32 conv1d {1e3 * row['library_ms']:.2f} us, bound "
+              f"{1e3 * b_ms:.3f} us ({b_by}); bit-exact", flush=True)
+    report["filter"] = {"main_path_counts": counts, "rows": rows}
+    return {"counts": counts, "rows": rows, "max_err": max_err}
+
+
+# -- phase 8 -------------------------------------------------------------------
+
+# phase 8 tolerance.  The default bits (w4a8, head (8, 8)) have no packing
+# placement: every projection and the head run the plain integer matmul
+# (float64 on the card, int32-exact), so a slot's logits differ from the
+# CPU's only where float32 sum order (attention, norms) moved an activation
+# across one of its 255 rounding boundaries.  A slot with no such flip must
+# agree to CROSS_CLEAN_ABS_TOL per logit; a flipped 8-bit level moves one
+# product by 1/255 of an activation, so a slot with flips must stay within
+# DEFAULT_FLIP_REL_TOL relative L2.  Flips are common at 255 levels and are
+# counted, not bounded.
+DEFAULT_FLIP_REL_TOL = 1e-2
+
+
+def phase_default_engine(torch, cfg, report: dict, steps: int = 3) -> dict:
+    import numpy as np
+
+    from repro_torch.kernels.packed_matmul.ops import PackedDenseParams
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import EngineConfig, build_engine
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    ecfg = EngineConfig(packed_head=True)
+    check(ecfg.head_bits == (8, 8), f"default head bits {ecfg.head_bits}")
+    eng = build_engine(cfg2, ecfg, quant="packed", seed=0)  # the default w4a8
+    leaves = []
+    T.map_leaves(eng.params, leaves.append)
+    packed = [a for a in leaves if isinstance(a, PackedDenseParams)]
+    check(len(packed) == 7 * cfg2.n_layers and all(p.cfg is None and (p.w_bits, p.a_bits) == (4, 8)
+                                                    for p in packed) and eng._head.cfg is None,
+          "the default bits should pack nothing and take the plain integer path")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg2.vocab, int(rng.integers(16, 65))).tolist() for _ in range(8)]
+    m, counts, wall = _serve(torch, eng, prompts, 8)
+    check(m["statuses"] == {"ok": len(prompts)}, f"default-bits engine statuses {m['statuses']}")
+    check(counts == dict.fromkeys(counts, 0), f"the plain integer path launched kernels: {counts}")
+    run = dict(steps=m["steps"], wall_s=wall, tokens=m["generated_tokens"],
+               tokens_per_s=m["tokens_per_s"], step_ms_p50=float(np.median(eng.step_seconds)) * 1e3)
+    print(f"  engine: 2 layers at full width, w4a8, (8, 8) head: {m['steps']} steps, all "
+          f"{len(prompts)} requests ok, {m['tokens_per_s']:.1f} tok/s, step p50 "
+          f"{run['step_ms_p50']:.2f} ms", flush=True)
+    results = []
+    for t, (g_log, c_log, flipped) in enumerate(
+            _cross_steps(torch, cfg2, eng.params, eng._head, steps,
+                         seed=9, gather=ecfg.gather_backend)):
+        st = _row_stats(torch, g_log, c_log, flipped)
+        r = dict(step=t, **st["summary"])
+        results.append(r)
+        print(f"  cross-check step {t}: {r['clean_rows']}/8 rows without a level flip (max|d| "
+              f"{r['clean_max_abs']}), max rel L2 {r['max_rel']:.3g}; greedy tokens agree "
+              f"{r['tokens_agree']}/8", flush=True)
+        check(bool((st["row_max"][st["clean"]] <= CROSS_CLEAN_ABS_TOL).all()),
+              f"default-bits cross-check step {t}: a row without level flips differs by more than "
+              f"{CROSS_CLEAN_ABS_TOL}")
+        check(bool((st["row_rel"] <= DEFAULT_FLIP_REL_TOL).all()),
+              f"default-bits cross-check step {t}: a row differs by more than {DEFAULT_FLIP_REL_TOL} "
+              f"relative")
+        check(bool((st["agree"] | ~st["decided"] | flipped).all()),
+              f"default-bits cross-check step {t}: greedy token differs past the gap bound")
+    report["default_engine"] = {"run": run, "counts": counts, "crosscheck": results}
+    del eng
+    return run
 
 
 # -- main ------------------------------------------------------------------------
@@ -528,6 +918,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print("phase 5: whole-path cross-check, 2 layers at full width, card vs CPU", flush=True)
     phase_crosscheck(torch, cfg, report)
+    torch.cuda.empty_cache()
+    timer = Timer(torch)
+    print("phase 6: K4/K5 (int8 lane) at the full-width decode shapes, entry points card vs CPU",
+          flush=True)
+    i8 = phase_int8(torch, card, timer, cfg, ecfg.n_slots, report)
+    torch.cuda.empty_cache()
+    print("phase 7: K6 (Filter Packing) at the UltraNet row shapes", flush=True)
+    fc = phase_filter(torch, card, timer, report)
+    del timer
+    torch.cuda.empty_cache()
+    print("phase 8: engine at the default bits (w4a8, (8, 8) head), 2 layers at full width, "
+          "card vs CPU", flush=True)
+    phase_default_engine(torch, cfg, report)
 
     # per-decode-step totals per kernel: the sum over the launches of one step
     def step_sum(rows, key):
@@ -543,31 +946,72 @@ def main(argv=None) -> int:
         t_o = sum(r.get("int32_ops", 0) * r["per_step"] for r in rows) / card.int32_ops_per_s * 1e3
         return "bytes" if t_b >= t_o else "operations"
 
+    def by_t(rows, weight):
+        t_b = sum(r["t_bytes"] * weight(r) for r in rows)
+        t_o = sum(r["t_ops"] * weight(r) for r in rows)
+        return "bytes" if t_b >= t_o else "operations"
+
+    def once(rows, key):
+        return sum(r[key] for r in rows)
+
     # each kernel's launches come from the run of the path it serves: K1 and
-    # K3 from the fused (whole-K) run, K2 from the block_k=512 run
+    # K3 from the fused (whole-K) run, K2 from the block_k=512 run, K4-K6 from
+    # their entry points' runs in phases 6 and 7 (no engine path runs them)
     fused, blocked = en["fused"], en["blocked"]
+    k4 = [r for r in i8["rows"] if r["kernel"] == "quant_matmul"]
+    k5 = [r for r in i8["rows"] if r["kernel"] == "quant_packed_matmul" and r["pair"] == "w2a2"]
+    k6 = fc["rows"]
     kernels = [
         dict(name="packed_dense_fused", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
              replaces="src/repro/kernels/packed_matmul/kernel.py:111",
              launches=fused["counts"]["packed_dense_fused"], max_abs_err=mm["max_err"],
-             ms=step_sum(served, "k1_ms"), plain_ms=step_sum(served, "plain_ms"),
+             ms=step_sum(served, "k1_graph_ms"), events_ms=step_sum(served, "k1_ms"),
+             plain_ms=step_sum(served, "plain_ms"),
              bound_ms=step_sum(served, "bound_ms"), bound_by=by(served),
-             library_ms=step_sum(served, "library_ms"), path="fused", path_steps=fused["steps"],
-             per="decode step"),
+             library_ms=step_sum(served, "library_graph_ms"),
+             library_events_ms=step_sum(served, "library_ms"), path="fused", path_steps=fused["steps"],
+             per="decode step", timing=GRAPH_TIMING),
         dict(name="packed_matmul", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
              replaces="src/repro/kernels/packed_matmul/kernel.py:168",
              launches=blocked["counts"]["packed_matmul"], max_abs_err=mm["max_err"],
-             ms=step_sum(layers, "k2_ms"), plain_ms=step_sum(layers, "plain_ms"),
+             ms=step_sum(layers, "k2_graph_ms"), events_ms=step_sum(layers, "k2_ms"),
+             plain_ms=step_sum(layers, "plain_ms"),
              bound_ms=step_sum(layers, "bound_ms"), bound_by=by(layers),
-             library_ms=step_sum(layers, "library_ms"), path="block_k=512",
-             path_steps=blocked["steps"], per="decode step"),
+             library_ms=step_sum(layers, "library_graph_ms"),
+             library_events_ms=step_sum(layers, "library_ms"), path="block_k=512",
+             path_steps=blocked["steps"], per="decode step", timing=GRAPH_TIMING),
         dict(name="paged_gather", route="cuda", source="src/repro_torch/csrc/paged_gather.cu",
              replaces="src/repro/kernels/paged_gather/kernel.py:121",
              launches=fused["counts"]["paged_gather"], max_abs_err=ga["max_err"],
-             ms=step_sum(gather, "k3_ms"), plain_ms=step_sum(gather, "plain_ms"),
+             ms=step_sum(gather, "k3_graph_ms"), events_ms=step_sum(gather, "k3_ms"),
+             plain_ms=step_sum(gather, "plain_ms"),
              bound_ms=step_sum(gather, "bound_ms"), bound_by="bytes",
-             library_ms=step_sum(gather, "library_ms"), path="fused", path_steps=fused["steps"],
-             per="decode step"),
+             library_ms=step_sum(gather, "library_graph_ms"),
+             library_events_ms=step_sum(gather, "library_ms"), path="fused", path_steps=fused["steps"],
+             per="decode step", timing=GRAPH_TIMING),
+        dict(name="quant_matmul", route="cuda", source="src/repro_torch/csrc/quant_matmul.cu",
+             replaces="src/repro/kernels/quant_matmul/kernel.py:63",
+             launches=i8["counts"]["quant_matmul"], max_abs_err=i8["max_err"]["quant_matmul"],
+             ms=step_sum(k4, "ms"), events_ms=step_sum(k4, "events_ms"), plain_ms=step_sum(k4, "plain_ms"),
+             bound_ms=step_sum(k4, "bound_ms"), bound_by=by_t(k4, lambda r: r["per_step"]),
+             library_ms=step_sum(k4, "library_ms"), path="quant_dense, phase 6",
+             per="decode step at M=8 (W8A8 at every projection and the head)", timing=GRAPH_TIMING),
+        dict(name="quant_packed_matmul", route="cuda", source="src/repro_torch/csrc/quant_matmul.cu",
+             replaces="src/repro/kernels/quant_matmul/kernel.py:103",
+             launches=i8["counts"]["quant_packed_matmul"],
+             max_abs_err=i8["max_err"]["quant_packed_matmul"],
+             ms=step_sum(k5, "ms"), events_ms=step_sum(k5, "events_ms"), plain_ms=step_sum(k5, "plain_ms"),
+             bound_ms=step_sum(k5, "bound_ms"), bound_by=by_t(k5, lambda r: r["per_step"]),
+             library_ms=step_sum(k5, "library_ms"), path="quant_packed_dense, phase 6",
+             per="decode step at M=8, w2a2", timing=GRAPH_TIMING),
+        dict(name="filter_conv", route="cuda", source="src/repro_torch/csrc/filter_conv.cu",
+             replaces="src/repro/kernels/filter_conv/kernel.py:155",
+             launches=fc["counts"]["filter_conv"], max_abs_err=fc["max_err"],
+             ms=once(k6, "ms"), events_ms=once(k6, "events_ms"), plain_ms=once(k6, "plain_ms"),
+             bound_ms=once(k6, "bound_ms"),
+             bound_by=by_t(k6, lambda r: 1), library_ms=once(k6, "library_ms"),
+             path="packed_conv1d, phase 7",
+             per=f"the {len(k6)} launches of phase 7, one each, summed", timing=GRAPH_TIMING),
     ]
     report["kernels"] = kernels
     report["head"] = head

@@ -1,5 +1,5 @@
-"""Runtime kernel-placement selection (copy of the kernel-packing part of
-``repro.core.packing.select``).
+"""Runtime kernel- and filter-placement selection (copy of
+``repro.core.packing.select`` without the trivial placement).
 
 Feasible means executable on an int32 lane: the packed accumulator fits
 ``container_bits``, the pre-decode chunk obeys Eq. 4's exact bound at
@@ -11,7 +11,7 @@ from __future__ import annotations
 from typing import Iterator
 
 from .profiles import MulProfile
-from .strategies import PackingConfig, kernel_placements
+from .strategies import PackingConfig, _ceil_log2, filter_placements, kernel_placements
 
 
 def kernel_acc_chunk(cfg: PackingConfig) -> int:
@@ -72,5 +72,55 @@ def select_kernel_placement(
         if best is None or score > best[0]:
             best = (score, cfg, chunk)
     if best is None or best[1].n_w == 1:
+        return None
+    return best[1], best[2]
+
+
+def filter_acc_chunk(cfg: PackingConfig, *, container_bits: int = 31) -> int | None:
+    """Pre-decode channel-accumulation chunk for a filter placement, or
+    None when it is not executable on an int32 lane.
+
+    One multiply's segment already sums ``min(k_p, n_p)`` products and
+    ``chunk`` channels multiply that: the decoded per-segment total must
+    fit ``stride + overlap`` bits, the packed accumulator the container,
+    and (overpacked) the parity counters ``stride`` bits."""
+    k_p, n_p = cfg.n_w, cfg.n_a
+    nseg = k_p + n_p - 1
+    guard = cfg.stride + cfg.overlap - (cfg.w_bits + cfg.a_bits) - _ceil_log2(min(k_p, n_p))
+    container = cfg.w_bits + cfg.a_bits + (nseg - 1) * cfg.stride + cfg.overlap
+    if container > container_bits or guard < 0:
+        return None
+    chunk = 1 << min(guard, container_bits - container)
+    if cfg.overlap:
+        chunk = min(chunk, ((1 << cfg.stride) - 1) // min(k_p, n_p))
+        if chunk < 1:
+            return None
+        if nseg * cfg.stride > container_bits:
+            return None  # the parity-plane product itself must stay int32
+    return max(1, chunk)
+
+
+def select_filter_placement(
+    profile: MulProfile,
+    w_bits: int,
+    a_bits: int,
+    kernel_len: int,
+    *,
+    allow_overpack: bool = True,
+    container_bits: int = 31,
+) -> tuple[PackingConfig, int] | None:
+    """Best executable filter placement: maximizes ``t_mul * min(chunk, 4)``,
+    then density, then headroom; exact ties prefer no overpack."""
+    best: tuple[tuple, PackingConfig, int] | None = None
+    for cfg in filter_placements(
+        profile, w_bits, a_bits, kernel_len, 1 << 30, allow_overpack=allow_overpack
+    ):
+        chunk = filter_acc_chunk(cfg, container_bits=container_bits)
+        if chunk is None:
+            continue
+        score = (cfg.t_mul * min(chunk, 4), cfg.t_mul, chunk, -cfg.overlap)
+        if best is None or score > best[0]:
+            best = (score, cfg, chunk)
+    if best is None:
         return None
     return best[1], best[2]

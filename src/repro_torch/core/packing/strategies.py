@@ -1,19 +1,29 @@
-"""Kernel-Packing placement enumeration (copy of the kernel-packing part
-of ``repro.core.packing.strategies``, DeepBurning-MixQ Eq. 1).
+"""Kernel- and Filter-Packing placement enumeration (copy of the
+kernel- and filter-packing parts of ``repro.core.packing.strategies``,
+DeepBurning-MixQ Eq. 1 and Eq. 2).
 
-Port D carries N_d operands at stride p_b, port E carries N_e operands
-at stride N_d*p_b; constraints:
+Kernel Packing: port D carries N_d operands at stride p_b, port E carries
+N_e operands at stride N_d*p_b; constraints:
 
     d_b + (N_d-1) p_b        <= P_D
     e_b + (N_e-1) N_d p_b    <= P_E        with P_E >= P_D
     p_b = d_b + e_b + g_b,   g_b >= -overlap
+
+Filter Packing: k_p filter taps on one port and n_p sequence elements on
+the other, both at one stride, so one multiply yields the k_p + n_p - 1
+coefficients of their polynomial product.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Iterator
 
 from .profiles import MulProfile
+
+
+def _ceil_log2(x: int) -> int:
+    return math.ceil(math.log2(x)) if x > 1 else 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,4 +83,50 @@ def kernel_placements(
                         separated="",
                         t_mul=float(n_d * n_e),
                         e_g=stride - (d_b + e_b) + overlap,
+                    )
+
+
+def filter_placements(
+    profile: MulProfile,
+    w_bits: int,
+    a_bits: int,
+    kernel_len: int,
+    seq_len: int,
+    *,
+    allow_overpack: bool = True,
+) -> Iterator[PackingConfig]:
+    """Enumerate Filter-Packing placements (Eq. 2 constraints), scored by
+    the up-rounding-aware T_mul = K*N / (ceil(K/k_p) * ceil(N/n_p))."""
+    for w_on_big in (False, True):
+        p_w = profile.port_big if w_on_big else profile.port_small
+        p_a = profile.port_small if w_on_big else profile.port_big
+        for overlap in ((0, 1) if allow_overpack else (0,)):
+            max_kp = max(1, (p_w - w_bits) // max(1, w_bits + a_bits - overlap) + 1)
+            for k_p in range(1, min(max_kp, kernel_len) + 1):
+                max_np = max(1, (p_a - a_bits) // max(1, w_bits + a_bits - overlap) + 1)
+                for n_p in range(1, min(max_np, seq_len) + 1):
+                    if k_p == 1 and n_p == 1:
+                        continue  # covered by kernel packing
+                    g_min = _ceil_log2(min(k_p, n_p)) - overlap
+                    p_min = w_bits + a_bits + max(g_min, -1 if overlap else 0)
+                    cap_w = p_w if k_p == 1 else (p_w - w_bits) // (k_p - 1)
+                    cap_a = p_a if n_p == 1 else (p_a - a_bits) // (n_p - 1)
+                    stride = min(cap_w, cap_a)
+                    if stride < p_min:
+                        continue
+                    eff = (kernel_len * seq_len) / (
+                        math.ceil(kernel_len / k_p) * math.ceil(seq_len / n_p)
+                    )
+                    yield PackingConfig(
+                        strategy="filter",
+                        w_bits=w_bits,
+                        a_bits=a_bits,
+                        n_w=k_p,
+                        n_a=n_p,
+                        stride=stride,
+                        overlap=overlap,
+                        w_port_big=w_on_big,
+                        separated="",
+                        t_mul=eff,
+                        e_g=stride - (w_bits + a_bits) - _ceil_log2(min(k_p, n_p)) + overlap,
                     )

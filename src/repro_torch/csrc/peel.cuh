@@ -1,6 +1,6 @@
-// Segment peel shared by the packed matmul kernels (K1 and K2 in
-// packed_matmul.cu).  Device twin of repro_torch/kernels/peel.py, which is
-// the plain version both kernels are held against.
+// Segment peel shared by the packed kernels (K1 and K2 in packed_matmul.cu,
+// K5 in quant_matmul.cu, K6 in filter_conv.cu).  Device twin of
+// repro_torch/kernels/peel.py, which the kernels' plain versions use.
 //
 // `part` is one accumulation chunk's packed partial sum: NSEG segments of
 // `stride` bits.  With OVERLAP (1-bit overpacking, DeepBurning-MixQ Fig. 3)
@@ -22,6 +22,14 @@ __device__ __forceinline__ uint32_t lsb_mask(int stride) {
   uint32_t m = 0;
 #pragma unroll
   for (int d = 0; d < NSEG; ++d) m |= 1u << (d * stride);
+  return m;
+}
+
+// the same mask for a segment count known only at run time (Filter Packing
+// masks its sequence word at n_p segments and its filter word at k_p)
+__device__ __forceinline__ uint32_t lsb_mask_n(int n_seg, int stride) {
+  uint32_t m = 0;
+  for (int d = 0; d < n_seg; ++d) m |= 1u << (d * stride);
   return m;
 }
 

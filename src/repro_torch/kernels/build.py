@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("packed_matmul", "paged_gather")
+SOURCES = ("packed_matmul", "paged_gather", "quant_matmul", "filter_conv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -49,12 +49,25 @@ SIGNATURES = {
         # mask, S, NB, PS, D, C, out_bf16, stream
         "paged_gather_i8": (_P, _P, _I) + (_P,) * 7 + (_I,) * 6 + (_P,),
     },
+    "quant_matmul": {
+        # a, w, scale, out, ws, M, K, N, stream
+        "quant_matmul": (_P,) * 5 + (_I,) * 3 + (_P,),
+        # a, wp, acc, M, K, Np, n_seg, stride, acc_chunk, overlap, stream
+        "quant_packed_matmul": (_P,) * 3 + (_I,) * 7 + (_P,),
+    },
+    "filter_conv": {
+        # s, fp, out, B, C, n_pad, n_fc, k_p, n_p, stride, acc_chunk, overlap, n_out, stream
+        "filter_conv": (_P,) * 3 + (_I,) * 10 + (_P,),
+    },
 }
 
 # the kernel-library handles and the launch counters: the port's only
 # module-level state
 _LIBS: dict[str, ctypes.CDLL] = {}
-COUNTS: dict[str, int] = {"packed_dense_fused": 0, "packed_matmul": 0, "paged_gather": 0}
+COUNTS: dict[str, int] = {
+    "packed_dense_fused": 0, "packed_matmul": 0, "paged_gather": 0,
+    "quant_matmul": 0, "quant_packed_matmul": 0, "filter_conv": 0,
+}
 
 
 def launched(kernel: str) -> None:

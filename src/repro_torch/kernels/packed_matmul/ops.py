@@ -9,8 +9,9 @@ Dispatch mirrors the reference's ``_prepacked_fn``:
 * the resolved ``block_k`` covers K (the default: :func:`resolve_block_k`
   returns K, as the reference does off the TPU) -> K1, the fused kernel;
 * an explicit ``block_k < K`` -> K2, the K-blocked kernel;
-* a bit pair with no placement (``cfg is None``) -> plain integer matmul
-  on the CPU; on CUDA it raises, because no kernel for it exists yet.
+* a bit pair with no placement (``cfg is None``) -> the plain integer
+  matmul :func:`ref.matmul_levels` (float64 on the card, exact), as the
+  reference runs a ``jnp.dot`` outside any kernel for such pairs.
 """
 from __future__ import annotations
 

@@ -24,13 +24,14 @@ def pack_lsb_planes(w_lvl: torch.Tensor, n_seg: int, stride: int) -> torch.Tenso
 
 
 def matmul_levels(a_lvl: torch.Tensor, w_lvl: torch.Tensor) -> torch.Tensor:
-    """Plain integer matmul of levels, for bit pairs with no packing
-    placement.  CPU only: PyTorch has no CUDA int32 matmul."""
-    if a_lvl.is_cuda or w_lvl.is_cuda:
-        raise NotImplementedError(
-            "this bit pair has no packing placement; the plain-integer CUDA "
-            "kernel for such pairs comes in a later slice (ROADMAP.md, port queue)"
-        )
+    """Plain integer matmul of levels -> int32, for bit pairs with no
+    packing placement (the reference's ``jnp.dot`` outside any kernel).
+
+    PyTorch has no CUDA int32 matmul, so on the card the product runs in
+    float64, which is exact: levels of up to 8 bits give sums below 2**53
+    for any K < 2**36.  On the CPU it is the int32 matmul."""
+    if a_lvl.is_cuda:
+        return (a_lvl.to(torch.float64) @ w_lvl.to(torch.float64)).to(torch.int32)
     return a_lvl.to(torch.int32) @ w_lvl.to(torch.int32)
 
 

@@ -45,6 +45,25 @@ def chunk_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.to(torch.int32) @ w.to(torch.int32)
 
 
+def peel_chunk(part: torch.Tensor, parity: torch.Tensor | None, *, n_seg: int,
+               stride: int) -> list[torch.Tensor]:
+    """Decode one chunk's packed sums into ``n_seg`` segment values (the
+    twin of ``csrc/peel.cuh``'s ``peel_chunk``).  ``parity`` is the chunk's
+    LSB-plane dot for an overpacked placement, None otherwise."""
+    mask = (1 << stride) - 1
+    if parity is None:
+        return [(part >> (d * stride)) & mask for d in range(n_seg)]
+    vals, p = [], part
+    for d in range(n_seg - 1):
+        low = p & mask
+        bit_p = (p >> stride) & 1
+        lsb_next = (parity >> ((d + 1) * stride)) & 1
+        val = low + ((bit_p ^ lsb_next) << stride)
+        p = (p - val) >> stride
+        vals.append(val)
+    return vals + [p]  # the top segment keeps all remaining bits
+
+
 def peel_chunks(
     a: torch.Tensor,  # [M, K] activation levels
     wp: torch.Tensor,  # [K, Np] packed weight words
@@ -62,7 +81,6 @@ def peel_chunks(
     gives the same integers."""
     m, k = a.shape
     np_ = wp.shape[1]
-    mask = (1 << stride) - 1
     wmask = lsb_mask(n_seg, stride)
     acc = torch.zeros((n_seg, m, np_), dtype=torch.int32, device=a.device)
     negative = torch.zeros((), dtype=torch.bool, device=a.device)
@@ -73,22 +91,9 @@ def peel_chunks(
             w = wp[c0:c1]
             part = chunk_dot(a[:, c0:c1], w)
             negative |= (part < 0).any()
-            if overlap:
-                parity = chunk_dot(a[:, c0:c1] & 1, w & wmask)
-                p = part
-                for d in range(n_seg):
-                    if d == n_seg - 1:
-                        val = p  # the top segment keeps all remaining bits
-                    else:
-                        low = p & mask
-                        bit_p = (p >> stride) & 1
-                        lsb_next = (parity >> ((d + 1) * stride)) & 1
-                        val = low + ((bit_p ^ lsb_next) << stride)
-                        p = (p - val) >> stride
-                    acc[d] += val
-            else:
-                for d in range(n_seg):
-                    acc[d] += (part >> (d * stride)) & mask
+            parity = chunk_dot(a[:, c0:c1] & 1, w & wmask) if overlap else None
+            for d, val in enumerate(peel_chunk(part, parity, n_seg=n_seg, stride=stride)):
+                acc[d] += val
     if bool(negative):
         raise ValueError("packed partial sum went negative: placement bound violated")
     return acc

@@ -1,0 +1,106 @@
+"""int8-lane matmuls: CUDA kernels K4/K5 and their plain versions.
+
+K4 ``quant_matmul_raw`` replaces the TPU kernel
+``repro/kernels/quant_matmul/kernel.py:63 quant_matmul_raw``: an int8 x
+int8 -> int32 dot, then one float multiply by the combined scale.  K5
+``quant_packed_matmul_raw`` replaces ``kernel.py:103
+quant_packed_matmul_raw``: int8 activation levels times int8 words that
+each pack ``n_seg`` sub-4-bit weight levels (``TPU_MXU7`` placements),
+decoded by the segment peel.  Both are ``csrc/quant_matmul.cu``; see that
+file for what bounds them on the card.
+
+Given CUDA tensors a wrapper launches its kernel or raises; given CPU
+tensors it runs the plain version (``*_plain`` below).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.packed_matmul.ref import matmul_levels
+from repro_torch.kernels.peel import interleave, peel_chunks
+
+# segment counts K5 is instantiated for: choose_mxu_config packs 2 segments
+# for every bit pair in 2..8 x 2..8 that has an int8-lane placement
+KERNEL_N_SEG = (2,)
+
+
+def quant_matmul_plain(a_i8, w_i8, w_scale):
+    """Plain version of K4: ``float32(a @ w) * w_scale`` -> [M, N] float32."""
+    return matmul_levels(a_i8, w_i8).to(torch.float32) * w_scale
+
+
+def quant_packed_matmul_plain(a_i8, w_packed_i8, *, n_seg, stride, acc_chunk, overlap=0):
+    """Plain version of K5: ``acc [M, N] int32`` (int8 operands widen with
+    their sign, as the reference's int8 -> int32 dot)."""
+    acc = peel_chunks(a_i8.to(torch.int32), w_packed_i8.to(torch.int32), n_seg=n_seg,
+                      stride=stride, acc_chunk=acc_chunk, overlap=overlap)
+    return interleave(acc)
+
+
+def _check(a, w):
+    if not w.is_cuda or a.device != w.device:
+        raise ValueError("activations and weights must be on the same CUDA device")
+    if a.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"expected int8 activations and int8 weights, got {a.dtype} and {w.dtype}")
+    if a.ndim != 2 or w.ndim != 2 or a.shape[1] != w.shape[0]:
+        raise ValueError(f"shape mismatch: {tuple(a.shape)} x {tuple(w.shape)}")
+    if not (a.is_contiguous() and w.is_contiguous()):
+        raise ValueError("int8 matmul operands must be contiguous")
+    if max(a.shape[0] * a.shape[1], w.shape[0] * w.shape[1]) >= 2**31:
+        raise ValueError("operand exceeds int32 indexing")
+
+
+def quant_matmul_raw(
+    a_i8: torch.Tensor,  # [M, K] int8 levels
+    w_i8: torch.Tensor,  # [K, N] int8 levels
+    w_scale: torch.Tensor,  # [1, N] float32 combined (w x a) scales
+) -> torch.Tensor:
+    """K4: int8 dot, rescaled once -> [M, N] float32."""
+    if not a_i8.is_cuda:
+        return quant_matmul_plain(a_i8, w_i8, w_scale)
+    _check(a_i8, w_i8)
+    m, k = a_i8.shape
+    n = w_i8.shape[1]
+    if w_scale.dtype != torch.float32 or w_scale.numel() != n or w_scale.device != a_i8.device:
+        raise ValueError(f"w_scale must be float32 [1, {n}] on the operands' device")
+    scale = w_scale.contiguous()
+    out = torch.empty((m, n), dtype=torch.float32, device=a_i8.device)
+    ws = torch.empty((m, n), dtype=torch.int32, device=a_i8.device)  # a K split's int32 sums
+    lib = build.library("quant_matmul")
+    err = lib.quant_matmul(
+        a_i8.data_ptr(), w_i8.data_ptr(), scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        m, k, n, torch.cuda.current_stream(a_i8.device).cuda_stream,
+    )
+    build.check(lib, err, "quant_matmul")
+    build.launched("quant_matmul")
+    return out
+
+
+def quant_packed_matmul_raw(
+    a_i8: torch.Tensor,  # [M, K] int8 unsigned activation levels (< 2**a_bits)
+    w_packed_i8: torch.Tensor,  # [K, N // n_seg] int8 packed weight levels
+    *,
+    n_seg: int,
+    stride: int,
+    acc_chunk: int,
+    overlap: int = 0,
+) -> torch.Tensor:
+    """K5: segment-packed dot inside the int8 lane + peel -> [M, N] int32."""
+    if not a_i8.is_cuda:
+        return quant_packed_matmul_plain(a_i8, w_packed_i8, n_seg=n_seg, stride=stride,
+                                         acc_chunk=acc_chunk, overlap=overlap)
+    _check(a_i8, w_packed_i8)
+    if n_seg not in KERNEL_N_SEG or overlap not in (0, 1) or acc_chunk < 1:
+        raise ValueError(f"no kernel for n_seg={n_seg}, overlap={overlap}, acc_chunk={acc_chunk}")
+    m, k = a_i8.shape
+    np_ = w_packed_i8.shape[1]
+    acc = torch.empty((m, np_ * n_seg), dtype=torch.int32, device=a_i8.device)
+    lib = build.library("quant_matmul")
+    err = lib.quant_packed_matmul(
+        a_i8.data_ptr(), w_packed_i8.data_ptr(), acc.data_ptr(), m, k, np_, n_seg, stride,
+        acc_chunk, overlap, torch.cuda.current_stream(a_i8.device).cuda_stream,
+    )
+    build.check(lib, err, "quant_packed_matmul")
+    build.launched("quant_packed_matmul")
+    return acc

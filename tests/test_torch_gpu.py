@@ -17,7 +17,11 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.quant import weight_to_int_levels
 from repro_torch.kernels import build
+from repro_torch.kernels.filter_conv import ref as fc
+from repro_torch.kernels.filter_conv.kernel import filter_conv_plain, filter_conv_raw
+from repro_torch.kernels.filter_conv.ops import choose_filter_config, packed_conv1d
 from repro_torch.kernels.packed_matmul import ref as pm
 from repro_torch.kernels.packed_matmul.kernel import (
     packed_dense_fused_plain,
@@ -27,6 +31,13 @@ from repro_torch.kernels.packed_matmul.kernel import (
 )
 from repro_torch.kernels.packed_matmul.ops import choose_config
 from repro_torch.kernels.paged_gather.kernel import paged_gather_plain, paged_gather_raw
+from repro_torch.kernels.quant_matmul.kernel import (
+    quant_matmul_plain,
+    quant_matmul_raw,
+    quant_packed_matmul_plain,
+    quant_packed_matmul_raw,
+)
+from repro_torch.kernels.quant_matmul.ops import choose_mxu_config, quant_dense, quant_packed_dense
 from repro_torch.serving import EngineConfig, build_engine
 
 pytestmark = pytest.mark.gpu
@@ -116,6 +127,90 @@ def test_engine_runs_through_the_kernels(cuda):
     build.reset_counts()
     m = eng.run(realtime=False)
     assert m["statuses"] == {"ok": 3}
-    per_step = {"packed_dense_fused": cfg.n_layers * 7 + 1, "packed_matmul": 0,
+    per_step = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": cfg.n_layers * 7 + 1,
                 "paged_gather": cfg.n_layers}
     assert build.counts() == {k: v * m["steps"] for k, v in per_step.items()}
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 3072, 1024), (3, 257, 129), (130, 512, 64), (8, 40, 7),
+                                   (17, 8192, 36)])
+def test_quant_matmul_kernel_bit_exact(cuda, m, k, n):
+    """K4, ragged M, N and K included, with and without a K split."""
+    g = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(g.integers(-127, 128, (m, k)).astype(np.int8)).to(cuda)
+    w = torch.from_numpy(g.integers(-127, 128, (k, n)).astype(np.int8)).to(cuda)
+    scale = torch.from_numpy(g.uniform(1e-6, 1e-3, (1, n)).astype(np.float32)).to(cuda)
+    out = quant_matmul_raw(a, w, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, quant_matmul_plain(a, w, scale))
+
+
+@pytest.mark.parametrize("w_bits,a_bits,overpack", [(2, 2, True), (2, 3, True), (2, 2, False)])
+@pytest.mark.parametrize("m,k,n_groups", [(8, 3072, 512), (3, 517, 75), (13, 40, 7), (1, 9, 1)])
+def test_quant_packed_matmul_kernel_bit_exact(cuda, w_bits, a_bits, overpack, m, k, n_groups):
+    """K5 at both int8-lane placements (acc_chunk 7 and 3) and the
+    no-overpack w2a2 one, ragged packed widths included."""
+    cfg = choose_mxu_config(w_bits, a_bits, allow_overpack=overpack)
+    g = np.random.default_rng(m * k)
+    a = torch.from_numpy(g.integers(0, 1 << a_bits, (m, k)).astype(np.int8)).to(cuda)
+    w_lvl = torch.from_numpy(g.integers(0, 1 << w_bits, (k, n_groups * cfg.n_seg)).astype(np.int32))
+    wp = pm.pack_weights(w_lvl, cfg.n_seg, cfg.stride).to(torch.int8).to(cuda)
+    kw = dict(n_seg=cfg.n_seg, stride=cfg.stride, acc_chunk=cfg.acc_chunk, overlap=cfg.overlap)
+    acc = quant_packed_matmul_raw(a, wp, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, quant_packed_matmul_plain(a, wp, **kw))
+    assert torch.equal(acc.cpu().long(), a.cpu().long() @ w_lvl.long())
+
+
+@pytest.mark.parametrize("w_bits,a_bits,k_len", [(2, 2, 3), (3, 4, 3), (4, 4, 3), (2, 2, 7),
+                                                 (3, 3, 5)])
+@pytest.mark.parametrize("b,c,n", [(160, 3, 320), (10, 64, 20), (3, 6, 19), (2, 1, 300)])
+def test_filter_conv_kernel_bit_exact(cuda, w_bits, a_bits, k_len, b, c, n):
+    """K6 at every instantiated coefficient count, both overlap values,
+    rows wider than one block and ragged N."""
+    cfg = choose_filter_config(w_bits, a_bits, k_len)
+    g = np.random.default_rng(b + c + n + k_len)
+    s = torch.from_numpy(g.integers(0, 1 << a_bits, (b, c, n)).astype(np.int32)).to(cuda)
+    f = torch.from_numpy(g.integers(0, 1 << w_bits, (c, k_len)).astype(np.int32)).to(cuda)
+    n_pad = -(-n // cfg.n_p) * cfg.n_p
+    sp = torch.nn.functional.pad(s, (0, n_pad - n)).contiguous()
+    fp = fc.pack_filter(f, cfg.k_p, cfg.stride)
+    kw = dict(k_p=cfg.k_p, n_p=cfg.n_p, stride=cfg.stride, acc_chunk=cfg.acc_chunk,
+              k_len=k_len, n_len=n, overlap=cfg.overlap)
+    out = filter_conv_raw(sp, fp, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, filter_conv_plain(sp, fp, **kw))
+    assert torch.equal(out, fc.conv_full_levels(f, s))
+    assert torch.equal(packed_conv1d(s, f, w_bits=w_bits, a_bits=a_bits), out)
+
+
+@pytest.mark.parametrize("w_bits,a_bits", [(2, 2), (2, 3), (4, 4), (8, 8)])
+def test_int8_lane_dense_layers_match_the_cpu(cuda, w_bits, a_bits):
+    """quant_packed_dense (K5, or the plain integer path in float64 for
+    w4a4 and w8a8) and quant_dense (K4) on the card against the CPU, on
+    columns whose weight levels agree (tanh may round differently)."""
+    g = np.random.default_rng(w_bits * 10 + a_bits)
+    x = torch.from_numpy(g.uniform(-0.1, 1.1, (8, 300)).astype(np.float32))
+    w = torch.from_numpy(g.normal(size=(300, 98)).astype(np.float32))
+    got = quant_packed_dense(x.to(cuda), w.to(cuda), w_bits=w_bits, a_bits=a_bits).cpu()
+    want = quant_packed_dense(x, w, w_bits=w_bits, a_bits=a_bits)
+    clean = (weight_to_int_levels(w.to(cuda), w_bits)[0].cpu()
+             == weight_to_int_levels(w, w_bits)[0]).all(dim=0)
+    assert int(clean.sum()) >= 94
+    assert torch.equal(got[:, clean], want[:, clean])
+    assert torch.equal(quant_dense(x.to(cuda), w.to(cuda)).cpu(), quant_dense(x, w))
+
+
+def test_default_bits_engine_serves(cuda):
+    """build_engine's default w4a8 and the (8, 8) packed head run the plain
+    integer path on the card and launch no packing kernel."""
+    cfg = get_config("llama3.2-3b", smoke=True)
+    eng = build_engine(cfg, EngineConfig(n_slots=4, page_size=8, max_len=64, packed_head=True),
+                       quant="packed", device=cuda)
+    for n in (3, 7, 5):
+        eng.submit(list(range(1, n + 1)), 6)
+    eng.warmup()
+    build.reset_counts()
+    m = eng.run(realtime=False)
+    assert m["statuses"] == {"ok": 3}
+    assert build.counts() == dict.fromkeys(build.COUNTS, 0)
