@@ -6,11 +6,16 @@
 Phases, all on the card:
 
 1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, in parallel) and print the card's name and power limit.
+   source, in parallel) and print the card's name and power limit, and
+   each K1/K2 instantiation's registers, shared memory and spills (the
+   served one, n_seg 2 overpacked and fused, must not spill).
 2. K1 (``packed_dense_fused``) and K2 (``packed_matmul``, block_k=512)
    against their plain versions at every full-width llama3.2-3b matmul
    shape of a decode step (M = 8 slots), the 128256-wide LM head
    included, overpacked w4a4 and one no-overpack placement: bit-exact.
+   A traced call of each must run its kernel and nothing else (no
+   memset).  Yardsticks: ``torch._int_mm`` on the int8 levels (the same
+   function; M padded to 32) and a bf16 matmul; achieved GB/s per shape.
 3. K3 (``paged_gather``) against its plain version at the engine's
    geometry: a bf16 pool with null pages, with and without a sliding
    window, and an int8 pool: bit-exact.
@@ -208,13 +213,43 @@ def decode_matmul_shapes(cfg) -> dict[str, tuple[int, int, int]]:
     }
 
 
+def ptxas_ring_kernels(text: str) -> list:
+    """Registers, static shared memory and spills of every instantiation of
+    ``packed_ring_kernel<NSEG, OVERLAP, FUSED, VEC>`` in an ``nvcc
+    -Xptxas=-v`` report (empty when the library was already built)."""
+    import re
+
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"packed_ring_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E", m.group(1))
+            cur = None
+            if t:
+                cur = dict(zip(("n_seg", "overlap", "fused", "vec"), map(int, t.groups())))
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 # -- phase 2 -------------------------------------------------------------------
 
 
 def phase_matmul(torch, card, timer, cfg, M: int, report: dict) -> dict:
     from repro_torch.kernels.packed_matmul import ref as pm
     from repro_torch.kernels.packed_matmul.kernel import (
-        packed_dense_fused_plain, packed_dense_fused_raw, packed_matmul_plain, packed_matmul_raw,
+        BM, BN, grid_plan, packed_dense_fused_plain, packed_dense_fused_raw, packed_matmul_plain,
+        packed_matmul_raw,
     )
     from repro_torch.kernels.packed_matmul.ops import choose_config
 
@@ -230,6 +265,7 @@ def phase_matmul(torch, card, timer, cfg, M: int, report: dict) -> dict:
             x = torch.rand((M, K), generator=g, device="cuda") * 1.2 - 0.1
             w_lvl = torch.randint(0, 16, (K, N), generator=g, device="cuda", dtype=torch.int32)
             wp = pm.pack_weights(w_lvl, cfg_p.n_seg, cfg_p.stride)
+            w8 = w_lvl.to(torch.int8)  # the same levels for torch._int_mm
             del w_lvl
             kw = dict(n_seg=cfg_p.n_seg, stride=cfg_p.stride, acc_chunk=cfg_p.acc_chunk,
                       overlap=cfg_p.overlap)
@@ -246,34 +282,63 @@ def phase_matmul(torch, card, timer, cfg, M: int, report: dict) -> dict:
             check(torch.equal(acc2, p_acc2) and torch.equal(acc2, acc),
                   f"K2 (block_k=512) differs at {name} K={K} N={N} {label}")
             max_err = max(max_err, err, (acc2 - p_acc2).abs().max().item())
+            events = device_events(torch, lambda: (packed_dense_fused_raw(x, wp, a_bits=4, **kw),
+                                                   packed_matmul_raw(a_lvl, wp, block_k=512, **kw)))
+            check(events == ["packed_ring_kernel"] * 2,
+                  f"K1 + K2 at {name} ran other device work than their two kernels: {events}")
             Np = wp.shape[1]
+            splits, k_per_split = grid_plan(M, K, Np, card.sms)
+            blocks = -(-M // BM) * -(-Np // BN) * splits
             nbytes = M * K * 4 + K * Np * 4 + M * N * 4 + M * 4
-            ops = M * K * Np * (2 if cfg_p.overlap else 1)  # packed + parity IMADs
+            ops = M * K * Np  # packed-dot IMADs; the XOR parity runs on the logic pipe
             b_ms, b_by, _, _ = card.bound(nbytes, ops)
             w_bf16 = torch.randn((K, N), generator=g, device="cuda", dtype=torch.bfloat16)
             x_bf16 = x.to(torch.bfloat16)
-            wps, w_bf16s = cold_copies(wp), cold_copies(w_bf16)
+            int_mm, int_mm_m = _int_mm(torch, a_lvl.to(torch.int8), w8)
+            wps, w_bf16s, w8s = cold_copies(wp), cold_copies(w_bf16), cold_copies(w8)
             row = dict(
-                shape=name, K=K, N=N, M=M, placement=label, per_step=per_step,
+                shape=name, K=K, N=N, M=M, placement=label, per_step=per_step, splits=splits,
+                k_per_split=k_per_split, blocks=blocks,
                 k1_ms=timer(lambda: packed_dense_fused_raw(x, wp, a_bits=4, **kw), reps=20),
                 k2_ms=timer(lambda: packed_matmul_raw(a_lvl, wp, block_k=512, **kw), reps=20),
                 plain_ms=timer(lambda: packed_dense_fused_plain(x, wp, a_bits=4, **kw), reps=3),
-                library_ms=timer(lambda: torch.matmul(x_bf16, w_bf16), reps=20),
+                bf16_ms=timer(lambda: torch.matmul(x_bf16, w_bf16), reps=20),
                 k1_graph_ms=timer.graph(lambda i: packed_dense_fused_raw(
                     x, wps[i % len(wps)], a_bits=4, **kw)),
                 k2_graph_ms=timer.graph(lambda i: packed_matmul_raw(
                     a_lvl, wps[i % len(wps)], block_k=512, **kw)),
-                library_graph_ms=timer.graph(lambda i: torch.matmul(x_bf16, w_bf16s[i % len(w_bf16s)])),
+                bf16_graph_ms=timer.graph(lambda i: torch.matmul(x_bf16, w_bf16s[i % len(w_bf16s)])),
+                int_mm_graph_ms=timer.graph(lambda i: int_mm(w8s[i % len(w8s)])), int_mm_m=int_mm_m,
                 bound_ms=b_ms, bound_by=b_by, bytes=nbytes, int32_ops=ops,
             )
+            row["k1_gbps"] = nbytes / row["k1_graph_ms"] / 1e6
+            row["k2_gbps"] = (nbytes - M * 4) / row["k2_graph_ms"] / 1e6
             rows.append(row)
-            print(f"  {name:12s} K={K:5d} N={N:6d} {label}: K1 {row['k1_ms']:.4f} ms (graph "
-                  f"{row['k1_graph_ms']:.4f}), K2 {row['k2_ms']:.4f} ms (graph {row['k2_graph_ms']:.4f}), "
-                  f"plain {row['plain_ms']:.3f} ms, bf16 matmul {row['library_ms']:.4f} ms (graph "
-                  f"{row['library_graph_ms']:.4f}), bound {b_ms:.4f} ms ({b_by}); bit-exact", flush=True)
-            del x, wp, acc, p_acc, acc2, p_acc2, w_bf16, x_bf16, a_lvl, wps, w_bf16s
+            print(f"  {name:12s} K={K:5d} N={N:6d} {label}, {blocks} blocks ({splits} K splits): "
+                  f"K1 {row['k1_graph_ms']:.4f} ms by graph "
+                  f"({row['k1_gbps']:.0f} GB/s; events {row['k1_ms']:.4f}), K2 {row['k2_graph_ms']:.4f} "
+                  f"({row['k2_gbps']:.0f} GB/s; events {row['k2_ms']:.4f}), plain {row['plain_ms']:.3f} ms, "
+                  f"_int_mm (M={int_mm_m}) {row['int_mm_graph_ms']:.4f}, bf16 matmul "
+                  f"{row['bf16_graph_ms']:.4f} (events {row['bf16_ms']:.4f}), bound {b_ms:.4f} ms "
+                  f"({b_by}); bit-exact, no memset", flush=True)
+            del x, wp, acc, p_acc, acc2, p_acc2, w_bf16, x_bf16, a_lvl, wps, w_bf16s, w8, w8s, int_mm
     report["matmul"] = rows
     return {"max_err": max_err, "rows": rows}
+
+
+def device_events(torch, fn) -> list:
+    """Names of the device-side events (kernels, copies, memsets) one call of
+    ``fn`` runs, in order, from a ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # workspaces and counters allocated before the traced call
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    evs.sort(key=lambda e: e.time_range.start)
+    return ["packed_ring_kernel" if "packed_ring_kernel" in e.name else e.name for e in evs]
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -450,8 +515,8 @@ def profile_engine(torch, eng, cfg, report: dict) -> None:
             if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0]
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
-    groups = {"K1 packed_kernel": "packed_kernel", "K3 gather": "gather_", "memcpy": "Memcpy",
-              "memset": "Memset"}
+    groups = {"K1 packed_ring_kernel": "packed_ring_kernel", "K3 gather": "gather_",
+              "memcpy": "Memcpy", "memset": "Memset"}
     by_group = {g: sum(r["device_ms"] for r in rows if key in r["name"]) for g, key in groups.items()}
     by_group["other kernels (PyTorch)"] = busy - sum(by_group.values())
     report["profile"] = {"wall_ms": wall * 1e3, "steps": m["steps"], "device_busy_ms": busy,
@@ -889,6 +954,16 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  {name}: {line.strip()}", flush=True)
+    ring = ptxas_ring_kernels(reports["packed_matmul"])
+    report["ptxas_packed_ring_kernel"] = ring
+    for r in ring:
+        print(f"  packed_ring_kernel n_seg={r['n_seg']} overlap={r['overlap']} fused={r['fused']} "
+              f"vec={r['vec']}: {r['registers']} registers, {r['smem']} B static smem (+ dynamic "
+              f"ring and activations), spills {r['spill_stores']}/{r['spill_loads']} B", flush=True)
+    check(not reports["packed_matmul"] or len(ring) == 16, f"expected 16 ring kernels, ptxas showed {len(ring)}")
+    check(all(r["spill_stores"] == r["spill_loads"] == 0 for r in ring
+              if (r["n_seg"], r["overlap"], r["fused"]) == (2, 1, 1)),
+          "the served K1 instantiation (n_seg 2, overlap, fused) spills registers")
     smi_line = smi("name,power.limit")
     clock = float(smi("clocks.max.sm").split()[0])
     props = torch.cuda.get_device_properties(0)
@@ -954,6 +1029,9 @@ def main(argv=None) -> int:
     def once(rows, key):
         return sum(r[key] for r in rows)
 
+    def by_gbps(rows, key):  # achieved bytes per second over a step's launches
+        return sum(r["bytes"] * r["per_step"] for r in rows) / step_sum(rows, key) / 1e6
+
     # each kernel's launches come from the run of the path it serves: K1 and
     # K3 from the fused (whole-K) run, K2 from the block_k=512 run, K4-K6 from
     # their entry points' runs in phases 6 and 7 (no engine path runs them)
@@ -968,8 +1046,9 @@ def main(argv=None) -> int:
              ms=step_sum(served, "k1_graph_ms"), events_ms=step_sum(served, "k1_ms"),
              plain_ms=step_sum(served, "plain_ms"),
              bound_ms=step_sum(served, "bound_ms"), bound_by=by(served),
-             library_ms=step_sum(served, "library_graph_ms"),
-             library_events_ms=step_sum(served, "library_ms"), path="fused", path_steps=fused["steps"],
+             library_ms=step_sum(served, "int_mm_graph_ms"), library="torch._int_mm, M padded to 32",
+             bf16_ms=step_sum(served, "bf16_graph_ms"), gbps=by_gbps(served, "k1_graph_ms"),
+             path="fused", path_steps=fused["steps"],
              per="decode step", timing=GRAPH_TIMING),
         dict(name="packed_matmul", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
              replaces="src/repro/kernels/packed_matmul/kernel.py:168",
@@ -977,8 +1056,9 @@ def main(argv=None) -> int:
              ms=step_sum(layers, "k2_graph_ms"), events_ms=step_sum(layers, "k2_ms"),
              plain_ms=step_sum(layers, "plain_ms"),
              bound_ms=step_sum(layers, "bound_ms"), bound_by=by(layers),
-             library_ms=step_sum(layers, "library_graph_ms"),
-             library_events_ms=step_sum(layers, "library_ms"), path="block_k=512",
+             library_ms=step_sum(layers, "int_mm_graph_ms"), library="torch._int_mm, M padded to 32",
+             bf16_ms=step_sum(layers, "bf16_graph_ms"), gbps=by_gbps(layers, "k2_graph_ms"),
+             path="block_k=512",
              path_steps=blocked["steps"], per="decode step", timing=GRAPH_TIMING),
         dict(name="paged_gather", route="cuda", source="src/repro_torch/csrc/paged_gather.cu",
              replaces="src/repro/kernels/paged_gather/kernel.py:121",

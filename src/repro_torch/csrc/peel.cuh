@@ -13,6 +13,11 @@
 //
 // All shifts and subtractions run on uint32_t: the same bits as the
 // reference's shift_right_logical, with defined wraparound.
+//
+// K1 and K2 build `parity` by XOR (par ^= w & lsb_mask & -(a & 1)) instead of
+// the additive dot: the peel reads only bit (d+1)*stride, and each counter
+// below it holds at most acc_chunk < 2^stride ones a chunk, so no carry
+// reaches that bit and both words agree wherever the peel reads.
 #pragma once
 
 #include <cstdint>

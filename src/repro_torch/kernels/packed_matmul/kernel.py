@@ -8,12 +8,22 @@ sums each row's levels.  K2 ``packed_matmul_raw`` replaces
 ``kernel.py:168 packed_matmul_raw``: the same packed dot on activation
 levels, with chunks restarting at every multiple of ``block_k``.  Both
 are ``csrc/packed_matmul.cu`` (peel in ``csrc/peel.cuh``); see that file
-for what bounds them on the card.
+for what bounds them on the card and how the design answers it.
+
+The launch geometry lives here, where the CPU tests reach it:
+:func:`grid_plan` splits K across blocks to fill the card, and
+:func:`uses_vector_copy` picks the weight copy path from the packed width
+alone.  A K split needs a workspace of partial sums (allocated per launch)
+and one arrival counter per output tile, which the kernel leaves at zero:
+the counters are zeroed once per device and shared by every launch, so
+K1/K2 launches that split K must not run on two streams at once.
 
 Given CUDA tensors a wrapper launches its kernel or raises; given CPU
 tensors it runs the plain version (``*_plain`` below).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -23,6 +33,66 @@ from repro_torch.kernels.peel import interleave, peel_chunks
 # segment counts the CUDA kernels are instantiated for: every placement
 # choose_config selects for bit pairs 2..8 x 2..8 packs 2 or 3 segments
 KERNEL_N_SEG = (2, 3)
+
+# the kernels' tile: BM activation rows x BN packed columns (csrc/packed_matmul.cu)
+BM, BN = 8, 64
+BLOCKS_PER_SM = 2  # resident 256-thread blocks an SM at n_seg = 2
+MAX_SPLITS = 32
+MIN_K_PER_SPLIT = 32  # half a ring stage
+N_COUNTERS = 1 << 16  # arrival counters per device: output tiles of a split launch
+
+
+@functools.lru_cache(maxsize=4096)
+def grid_plan(m: int, k: int, np_: int, sms: int) -> tuple[int, int]:
+    """``(splits, k_per_split)`` for an ``[m, k] x [k, np_]`` launch on a
+    card of ``sms`` SMs.  One block per (row tile, column tile, K split);
+    when the tiles alone fill fewer than ``BLOCKS_PER_SM`` blocks an SM, K
+    is split into equal ranges, choosing the split count whose blocks fill
+    the last wave best (a larger count must fill it more than 2 % better),
+    so that every SM moves about the same bytes."""
+    tiles = -(-m // BM) * -(-np_ // BN)
+    cap = BLOCKS_PER_SM * sms
+    if k <= 0 or tiles >= cap or tiles > N_COUNTERS:
+        return 1, max(k, 1)
+    best = (0.0, 1, k)
+    for s in range(1, min(MAX_SPLITS, -(-k // MIN_K_PER_SPLIT)) + 1):
+        kps = -(-k // s)
+        splits = -(-k // kps)
+        units = tiles * splits
+        fill = units / (-(-units // cap) * cap)
+        if fill > best[0] + 0.02:
+            best = (fill, splits, kps)
+    return best[1], best[2]
+
+
+def uses_vector_copy(np_: int) -> bool:
+    """16-byte weight copies need a row stride of ``np_ * 4`` bytes that is
+    a multiple of 16; other widths take 4-byte copies (same ring, exact)."""
+    return np_ % 4 == 0
+
+
+_SMS: dict[int, int] = {}
+_COUNTERS: dict[int, torch.Tensor] = {}
+
+
+def _split_scratch(dev: torch.device, m: int, k: int, np_: int, n_seg: int):
+    """``(splits, k_per_split, workspace, counters)`` of one launch; the
+    last two are None when K is not split."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    splits, kps = grid_plan(m, k, np_, _SMS[idx])
+    if splits == 1:
+        return splits, kps, None, None
+    counters = _COUNTERS.get(idx)
+    if counters is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("packed matmul: launch once before capturing a CUDA graph, so that "
+                               "its split-K counters are allocated outside the graph")
+        counters = _COUNTERS[idx] = torch.zeros(N_COUNTERS, dtype=torch.int32, device=dev)
+    units = -(-m // BM) * -(-np_ // BN) * splits
+    ws = torch.empty(units * BM * (BN * n_seg + 1), dtype=torch.int32, device=dev)
+    return splits, kps, ws, counters
 
 
 def packed_dense_fused_plain(x, w_packed, *, a_bits, n_seg, stride, acc_chunk, overlap=0):
@@ -41,7 +111,7 @@ def packed_matmul_plain(a_lvl, w_packed, *, n_seg, stride, acc_chunk, overlap=0,
     return interleave(acc)
 
 
-def _check(a, a_dtype, w_packed, n_seg, overlap, acc_chunk):
+def _check(a, a_dtype, w_packed, n_seg, stride, overlap, acc_chunk):
     if not w_packed.is_cuda or a.device != w_packed.device:
         raise ValueError("activations and packed weights must be on the same CUDA device")
     if a.dtype != a_dtype or w_packed.dtype != torch.int32:
@@ -53,8 +123,14 @@ def _check(a, a_dtype, w_packed, n_seg, overlap, acc_chunk):
         raise ValueError("packed matmul operands must be contiguous")
     if n_seg not in KERNEL_N_SEG or overlap not in (0, 1) or acc_chunk < 1:
         raise ValueError(f"no kernel for n_seg={n_seg}, overlap={overlap}, acc_chunk={acc_chunk}")
+    if overlap and acc_chunk >= 1 << stride:
+        raise ValueError(f"acc_chunk={acc_chunk} >= 2**stride: the XOR parity word would not be exact")
+    if overlap and n_seg == 2 and stride < BM:
+        raise ValueError(f"stride={stride} < {BM}: no room for every row's parity bit in one word")
     if max(a.shape[0], a.shape[1], w_packed.shape[1] * n_seg) >= 2**31:
         raise ValueError("dimension exceeds int32 indexing")
+    if uses_vector_copy(w_packed.shape[1]) and w_packed.data_ptr() % 16:
+        raise ValueError("packed weights of a width divisible by 4 must start on a 16-byte boundary")
 
 
 def packed_dense_fused_raw(
@@ -71,16 +147,18 @@ def packed_dense_fused_raw(
     if not x.is_cuda:
         return packed_dense_fused_plain(x, w_packed, a_bits=a_bits, n_seg=n_seg, stride=stride,
                                         acc_chunk=acc_chunk, overlap=overlap)
-    _check(x, torch.float32, w_packed, n_seg, overlap, acc_chunk)
+    _check(x, torch.float32, w_packed, n_seg, stride, overlap, acc_chunk)
     m, k = x.shape
     np_ = w_packed.shape[1]
     acc = torch.empty((m, np_ * n_seg), dtype=torch.int32, device=x.device)
     a_sum = torch.empty((m,), dtype=torch.int32, device=x.device)
+    splits, kps, ws, counters = _split_scratch(x.device, m, k, np_, n_seg)
     lib = build.library("packed_matmul")
     err = lib.packed_dense_fused(
         x.data_ptr(), w_packed.data_ptr(), acc.data_ptr(), a_sum.data_ptr(),
-        m, k, np_, a_bits, n_seg, stride, acc_chunk, overlap,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr(),
+        m, k, np_, a_bits, n_seg, stride, acc_chunk, overlap, int(uses_vector_copy(np_)),
+        splits, kps, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(lib, err, "packed_dense_fused")
     build.launched("packed_dense_fused")
@@ -101,17 +179,19 @@ def packed_matmul_raw(
     if not a_lvl.is_cuda:
         return packed_matmul_plain(a_lvl, w_packed, n_seg=n_seg, stride=stride,
                                    acc_chunk=acc_chunk, overlap=overlap, block_k=block_k)
-    _check(a_lvl, torch.int32, w_packed, n_seg, overlap, acc_chunk)
+    _check(a_lvl, torch.int32, w_packed, n_seg, stride, overlap, acc_chunk)
     if block_k is not None and block_k < 1:
         raise ValueError(f"block_k must be >= 1, got {block_k}")
     m, k = a_lvl.shape
     np_ = w_packed.shape[1]
     acc = torch.empty((m, np_ * n_seg), dtype=torch.int32, device=a_lvl.device)
+    splits, kps, ws, counters = _split_scratch(a_lvl.device, m, k, np_, n_seg)
     lib = build.library("packed_matmul")
     err = lib.packed_matmul(
         a_lvl.data_ptr(), w_packed.data_ptr(), acc.data_ptr(),
-        m, k, np_, n_seg, stride, acc_chunk, overlap, block_k or 0,
-        torch.cuda.current_stream(a_lvl.device).cuda_stream,
+        None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr(),
+        m, k, np_, n_seg, stride, acc_chunk, overlap, block_k or 0, int(uses_vector_copy(np_)),
+        splits, kps, torch.cuda.current_stream(a_lvl.device).cuda_stream,
     )
     build.check(lib, err, "packed_matmul")
     build.launched("packed_matmul")

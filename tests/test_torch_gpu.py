@@ -61,8 +61,12 @@ def _packed(w_bits, a_bits, overpack, m, k, n_groups, seed, dev):
     return cfg, x, wp
 
 
+# n_groups (the packed width Np) picks the copy path: 96 and 300 take
+# 16-byte copies, 33 and 7 the 4-byte path; K = 517 and 40 end mid-stage;
+# M = 1, 8, 33 fill one, one and five row tiles; K = 3072 at Np = 96 splits K
 @pytest.mark.parametrize("w_bits,a_bits,overpack", PAIRS)
-@pytest.mark.parametrize("m,k,n_groups", [(8, 3072, 96), (3, 517, 300), (13, 40, 7)])
+@pytest.mark.parametrize("m,k,n_groups", [(8, 3072, 96), (3, 517, 300), (13, 40, 7), (1, 3072, 96),
+                                          (33, 517, 33), (8, 8192, 7), (33, 40, 96)])
 def test_fused_kernel_bit_exact(cuda, w_bits, a_bits, overpack, m, k, n_groups):
     cfg, x, wp = _packed(w_bits, a_bits, overpack, m, k, n_groups, seed=m + k, dev=cuda)
     kw = dict(a_bits=a_bits, n_seg=cfg.n_seg, stride=cfg.stride, acc_chunk=cfg.acc_chunk,
@@ -73,16 +77,46 @@ def test_fused_kernel_bit_exact(cuda, w_bits, a_bits, overpack, m, k, n_groups):
     assert torch.equal(acc, p_acc) and torch.equal(a_sum, p_sum)
 
 
+# block_k 7 restarts chunks below acc_chunk; 100 and 512 mid-stage
 @pytest.mark.parametrize("w_bits,a_bits,overpack", PAIRS)
-@pytest.mark.parametrize("block_k", [None, 64, 100])
-def test_blocked_kernel_bit_exact(cuda, w_bits, a_bits, overpack, block_k):
-    cfg, x, wp = _packed(w_bits, a_bits, overpack, 9, 1000, 33, seed=1, dev=cuda)
+@pytest.mark.parametrize("block_k", [None, 7, 64, 100, 512])
+@pytest.mark.parametrize("m,k,n_groups", [(9, 1000, 33), (8, 3072, 96)])
+def test_blocked_kernel_bit_exact(cuda, w_bits, a_bits, overpack, block_k, m, k, n_groups):
+    cfg, x, wp = _packed(w_bits, a_bits, overpack, m, k, n_groups, seed=1, dev=cuda)
     a_lvl = torch.round(torch.clamp(x, 0, 1) * ((1 << a_bits) - 1)).to(torch.int32)
     kw = dict(n_seg=cfg.n_seg, stride=cfg.stride, acc_chunk=cfg.acc_chunk, overlap=cfg.overlap,
               block_k=block_k)
     acc = packed_matmul_raw(a_lvl, wp, **kw)
     torch.cuda.synchronize()
     assert torch.equal(acc, packed_matmul_plain(a_lvl, wp, **kw))
+
+
+@pytest.mark.parametrize("n_groups", [96, 33])
+def test_split_kernels_replay_in_a_cuda_graph(cuda, n_groups):
+    """K1 and K2 at shapes that split K, captured once and replayed three
+    times on new activations: every replay must be exact, so the split
+    reduction's arrival counters must return to zero after each launch."""
+    cfg, x, wp = _packed(4, 4, True, 8, 3072, n_groups, seed=5, dev=cuda)
+    kw = dict(n_seg=cfg.n_seg, stride=cfg.stride, acc_chunk=cfg.acc_chunk, overlap=cfg.overlap)
+    a_lvl = torch.round(torch.clamp(x, 0, 1) * 15).to(torch.int32)
+    packed_dense_fused_raw(x, wp, a_bits=4, **kw)  # the counters are allocated outside the capture
+    packed_matmul_raw(a_lvl, wp, block_k=512, **kw)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        acc, a_sum = packed_dense_fused_raw(x, wp, a_bits=4, **kw)
+        acc2 = packed_matmul_raw(a_lvl, wp, block_k=512, **kw)
+    rng = np.random.default_rng(6)
+    for _ in range(3):
+        x.copy_(torch.from_numpy(rng.uniform(-0.1, 1.1, tuple(x.shape)).astype(np.float32)))
+        a_lvl.copy_(torch.round(torch.clamp(x, 0, 1) * 15).to(torch.int32))
+        for t in (acc, a_sum, acc2):
+            t.fill_(-1)
+        g.replay()
+        torch.cuda.synchronize()
+        p_acc, p_sum = packed_dense_fused_plain(x, wp, a_bits=4, **kw)
+        assert torch.equal(acc, p_acc) and torch.equal(a_sum, p_sum)
+        assert torch.equal(acc2, packed_matmul_plain(a_lvl, wp, block_k=512, **kw))
 
 
 @pytest.mark.parametrize("pool", ["bfloat16", "float32", "int8-bf16", "int8-f32"])

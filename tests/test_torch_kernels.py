@@ -223,3 +223,104 @@ def test_gather_plain_matches_jax_kernel(case, out_dtype):
         assert ours.dtype == tdt
         np.testing.assert_array_equal(ours.to(torch.float32).numpy(), np.asarray(theirs, np.float32))
     np.testing.assert_array_equal(m.numpy(), np.asarray(rm))
+
+
+# -- the Hopper kernels' design premises (K1/K2 in csrc/packed_matmul.cu) -------
+
+
+def _overpacked_placements():
+    return sorted({tuple(c) for w in BITS for a in BITS
+                   if (c := choose_config(w, a)) is not None and c.overlap})
+
+
+def test_xor_parity_premise_holds_for_every_overpacked_placement():
+    """K1/K2 accumulate the parity word by XOR: exact only if no
+    stride-aligned counter of the additive parity dot can carry, i.e.
+    ``acc_chunk < 2**stride`` for every overpacked placement."""
+    placements = _overpacked_placements()
+    assert placements
+    for n_seg, stride, acc_chunk, _ in placements:
+        assert acc_chunk < 2**stride, (n_seg, stride, acc_chunk)
+        if n_seg == 2:  # all 8 rows' parity bits share one word: 8 bits per segment
+            assert 8 <= stride and stride + 8 <= 32, (n_seg, stride)
+
+
+@pytest.mark.parametrize("placement", _overpacked_placements())
+def test_xor_parity_word_peels_like_the_additive_dot(placement):
+    """On random levels, the XOR-accumulated LSB plane equals the additive
+    ``chunk_dot(a & 1, w & lsb_mask)`` at every bit ``(d+1)*stride`` the
+    peel reads, and ``peel_chunk`` decodes the same values from either."""
+    from repro_torch.kernels.peel import chunk_dot, peel_chunk
+
+    n_seg, stride, acc_chunk, _ = placement
+    w_bits, a_bits = next((w, a) for w in BITS for a in BITS
+                          if (c := choose_config(w, a)) is not None and tuple(c) == placement)
+    rng = np.random.default_rng(n_seg * 100 + stride)
+    m, np_ = 8, 16
+    a = torch.from_numpy(rng.integers(0, 1 << a_bits, (m, acc_chunk)).astype(np.int32))
+    w_lvl = torch.from_numpy(rng.integers(0, 1 << w_bits, (acc_chunk, np_ * n_seg)).astype(np.int32))
+    wp = pm.pack_weights(w_lvl, n_seg, stride)
+    lsb = lsb_mask(n_seg, stride)
+    additive = chunk_dot(a & 1, wp & lsb)
+    am = lsb & -(a.to(torch.int64) & 1)  # [m, C]: the mask staged beside each level
+    xor = torch.zeros((m, np_), dtype=torch.int64)
+    for c in range(acc_chunk):
+        xor ^= wp[c].to(torch.int64)[None, :] & am[:, c:c + 1]
+    xor = xor.to(torch.int32)
+    for d in range(n_seg - 1):
+        bit = (d + 1) * stride
+        assert torch.equal((xor >> bit) & 1, (additive >> bit) & 1), d
+    part = chunk_dot(a, wp)
+    got = peel_chunk(part, xor, n_seg=n_seg, stride=stride)
+    want = peel_chunk(part, additive, n_seg=n_seg, stride=stride)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if n_seg == 2:
+        # the kernels' one-word form: row r's LSB at bit d*stride + r of a word
+        # staged per k; (w & lsb) * 0xFF widens each segment's LSB over 8 rows
+        bits = ((a & 1) << torch.arange(m)[:, None]).sum(dim=0)  # [C] row LSBs
+        staged = sum(bits << (d * stride) for d in range(n_seg)).to(torch.int64)
+        word = torch.zeros((np_,), dtype=torch.int64)
+        for c in range(acc_chunk):
+            word ^= ((wp[c].to(torch.int64) & lsb) * 0xFF) & staged[c]
+        rows = torch.stack([(word >> r) & 0xFFFFFFFF for r in range(m)]).to(torch.int64)
+        for d in range(n_seg - 1):
+            bit = (d + 1) * stride
+            assert torch.equal(((rows >> bit) & 1).to(torch.int32), (additive >> bit) & 1), d
+        one_word = peel_chunk(part, rows.to(torch.int32), n_seg=n_seg, stride=stride)
+        for g, w in zip(one_word, want):
+            assert torch.equal(g, w)
+    # and the decode is the true segment dot
+    for d, g in enumerate(got):
+        assert torch.equal(g.long(), a.long() @ w_lvl[:, d::n_seg].long())
+
+
+# llama3.2-3b at full width, w4a4 (n_seg 2): (K, Np) of every decode matmul
+DECODE_SHAPES = {"wq|wo": (3072, 1536), "wk|wv": (3072, 512), "w_up|w_gate": (3072, 4096),
+                 "w_down": (8192, 1536), "head": (3072, 64128)}
+
+
+@pytest.mark.parametrize("shape", sorted(DECODE_SHAPES))
+@pytest.mark.parametrize("m", [1, 8])
+def test_grid_plan_fills_an_h100_evenly_at_the_decode_shapes(shape, m):
+    """At every decode shape the plan gives each of the H100's 132 SMs at
+    least one 8-warp block and about the same bytes to move."""
+    from repro_torch.kernels.packed_matmul.kernel import BM, BN, grid_plan
+
+    k, np_ = DECODE_SHAPES[shape]
+    sms = 132
+    splits, kps = grid_plan(m, k, np_, sms)
+    assert (splits - 1) * kps < k <= splits * kps
+    units = -(-m // BM) * -(-np_ // BN) * splits
+    assert units >= sms  # 8 warps resident on every SM
+    # blocks handed out in order: the most loaded SM against the mean, in bytes
+    most = -(-units // sms) * min(kps, k) * BN
+    mean = k * np_ * -(-m // BM) / sms
+    assert most <= 1.1 * mean, (splits, kps, units)
+
+
+def test_copy_path_follows_the_packed_width():
+    from repro_torch.kernels.packed_matmul.kernel import uses_vector_copy
+
+    assert all(uses_vector_copy(np_) for _, np_ in DECODE_SHAPES.values())
+    assert [uses_vector_copy(n) for n in (96, 300, 33, 7, 2)] == [True, True, False, False, False]
