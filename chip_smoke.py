@@ -7,15 +7,18 @@ Phases, all on the card:
 
 1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the card's name and power limit, and
-   each K1/K2 instantiation's registers, shared memory and spills (the
-   served one, n_seg 2 overpacked and fused, must not spill).
+   each K1/K2, K5 and K6 instantiation's registers, shared memory and
+   spills (the served K1, n_seg 2 overpacked and fused, the K5
+   instantiations of phase 6's 16-byte copy path and the K6 ones phase 7
+   launches must not spill).
 2. K1 (``packed_dense_fused``) and K2 (``packed_matmul``, block_k=512)
    against their plain versions at every full-width llama3.2-3b matmul
    shape of a decode step (M = 8 slots), the 128256-wide LM head
    included, overpacked w4a4 and one no-overpack placement: bit-exact.
-   A traced call of each must run its kernel and nothing else (no
-   memset).  Yardsticks: ``torch._int_mm`` on the int8 levels (the same
-   function; M padded to 32) and a bf16 matmul; achieved GB/s per shape.
+   One call of each, captured in a CUDA graph, must be their two kernel
+   nodes and nothing else (no memset).  Yardsticks: ``torch._int_mm`` on
+   the int8 levels (the same function; M padded to 32) and a bf16 matmul;
+   achieved GB/s per shape.
 3. K3 (``paged_gather``) against its plain version at the engine's
    geometry: a bf16 pool with null pages, with and without a sliding
    window, and an int8 pool: bit-exact.
@@ -37,11 +40,13 @@ Phases, all on the card:
    integer path) from float inputs at every full-width decode shape (M =
    8) and one M = 128 shape; their launch counts; two shapes against the
    CPU.  Then K4 and K5 against their plain versions on the same integer
-   operands at every shape: bit-exact.
+   operands at every shape: bit-exact; one K5 call, captured in a CUDA
+   graph, must be one kernel node and nothing else (no memset).
 7. The Filter-Packing entry point ``packed_conv1d`` (K6) at UltraNet's
    five 3x3 layers split into row convolutions, at w2a2, w3a4 and w4a4,
    and one 7-tap case; its launch count; K6 against its plain version and
-   the plain convolution: bit-exact.
+   the plain convolution: bit-exact; one call, captured in a CUDA graph,
+   must be one kernel node and nothing else (no memset).
 8. ``build_engine`` at its default bits (w4a8 projections, the packed (8,
    8) head), 2 layers at full width, float32: no placement exists, so
    every matmul takes the plain integer path on the card.  8 requests
@@ -213,20 +218,30 @@ def decode_matmul_shapes(cfg) -> dict[str, tuple[int, int, int]]:
     }
 
 
-def ptxas_ring_kernels(text: str) -> list:
+# kernel symbol -> (template-argument pattern of its mangled name, field names)
+PTXAS_KERNELS = {
+    "packed_ring_kernel": (r"packed_ring_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                           ("n_seg", "overlap", "fused", "vec")),
+    "quant_packed_mma_kernel": (r"quant_packed_mma_kernelILb(\d)ELi(\d+)E", ("overlap", "copy")),
+    "filter_tile_kernel": (r"filter_tile_kernelILi(\d)ELb(\d)ELb(\d)E", ("nseg", "overlap", "v2")),
+}
+
+
+def ptxas_kernels(text: str, kernel: str) -> list:
     """Registers, static shared memory and spills of every instantiation of
-    ``packed_ring_kernel<NSEG, OVERLAP, FUSED, VEC>`` in an ``nvcc
-    -Xptxas=-v`` report (empty when the library was already built)."""
+    ``kernel`` (a key of :data:`PTXAS_KERNELS`) in an ``nvcc -Xptxas=-v``
+    report (empty when the library was already built)."""
     import re
 
+    pattern, fields = PTXAS_KERNELS[kernel]
     out, cur = [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"packed_ring_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E", m.group(1))
+            t = re.search(pattern, m.group(1))
             cur = None
             if t:
-                cur = dict(zip(("n_seg", "overlap", "fused", "vec"), map(int, t.groups())))
+                cur = dict(zip(fields, map(int, t.groups())))
                 out.append(cur)
             continue
         if cur is None:
@@ -282,10 +297,10 @@ def phase_matmul(torch, card, timer, cfg, M: int, report: dict) -> dict:
             check(torch.equal(acc2, p_acc2) and torch.equal(acc2, acc),
                   f"K2 (block_k=512) differs at {name} K={K} N={N} {label}")
             max_err = max(max_err, err, (acc2 - p_acc2).abs().max().item())
-            events = device_events(torch, lambda: (packed_dense_fused_raw(x, wp, a_bits=4, **kw),
-                                                   packed_matmul_raw(a_lvl, wp, block_k=512, **kw)))
-            check(events == ["packed_ring_kernel"] * 2,
-                  f"K1 + K2 at {name} ran other device work than their two kernels: {events}")
+            nodes = device_nodes(torch, lambda: (packed_dense_fused_raw(x, wp, a_bits=4, **kw),
+                                                 packed_matmul_raw(a_lvl, wp, block_k=512, **kw)))
+            check(nodes == (["kernel"] * 2, {"packed_dense_fused": 1, "packed_matmul": 1}),
+                  f"K1 + K2 at {name} ran other device work than their two kernels: {nodes}")
             Np = wp.shape[1]
             splits, k_per_split = grid_plan(M, K, Np, card.sms)
             blocks = -(-M // BM) * -(-Np // BN) * splits
@@ -326,19 +341,42 @@ def phase_matmul(torch, card, timer, cfg, M: int, report: dict) -> dict:
     return {"max_err": max_err, "rows": rows}
 
 
-def device_events(torch, fn) -> list:
-    """Names of the device-side events (kernels, copies, memsets) one call of
-    ``fn`` runs, in order, from a ``torch.profiler`` trace."""
-    from torch.profiler import ProfilerActivity, profile
+# CUgraphNodeType values (cuda.h)
+GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty"}
 
-    fn()  # workspaces and counters allocated before the traced call
+
+def device_nodes(torch, fn) -> tuple[list, dict]:
+    """What one call of ``fn`` runs on the device: the kinds of the nodes of
+    a CUDA graph that captures it (read with ``cuGraphGetNodes`` from
+    libcuda), and the kernel wrappers' launch counts during the capture.
+    ``fn`` runs once before, so that workspaces and split-K counters exist
+    outside the capture.  (``torch.profiler`` traces of one short call come
+    back without their device events now and then on an H100; a captured
+    graph holds every node.)"""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    before = build.counts()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
         fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
-    evs.sort(key=lambda e: e.time_range.start)
-    return ["packed_ring_kernel" if "packed_ring_kernel" in e.name else e.name for e in evs]
+    launched = {k: v - before[k] for k, v in build.counts().items() if v != before[k]}
+    cuda = ctypes.CDLL("libcuda.so.1")
+    raw, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        kinds.append(GRAPH_NODE_KINDS.get(kind.value, str(kind.value)))
+    del g
+    return kinds, launched
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -760,23 +798,27 @@ def phase_int8(torch, card, timer, cfg, M: int, report: dict) -> dict:
             err = (acc - p_acc).abs().max().item()
             check(torch.equal(acc, p_acc), f"K5 differs from its plain version at {name} w{pair[0]}a{pair[1]}")
             max5 = max(max5, err)
+            nodes = device_nodes(torch, lambda: quant_packed_matmul_raw(a_lvl, wp, **kw))
+            check(nodes == (["kernel"], {"quant_packed_matmul": 1}),
+                  f"K5 at {name} w{pair[0]}a{pair[1]} ran other device work than its kernel: {nodes}")
             lib, lib_m = _int_mm(torch, a_lvl, wp)
             wps = cold_copies(wp)
             np_ = wp.shape[1]
-            b_ms, b_by, t_b, t_o = card.bound(m * K + K * np_ + 4 * m * N,
-                                              2 * m * K * np_ * (2 if c.overlap else 1), INT8_OPS_PER_S)
+            nbytes = m * K + K * np_ + 4 * m * N
+            b_ms, b_by, t_b, t_o = card.bound(nbytes, 2 * m * K * np_ * (2 if c.overlap else 1), INT8_OPS_PER_S)
             row = dict(kernel="quant_packed_matmul", shape=name, pair=f"w{pair[0]}a{pair[1]}", K=K, N=N,
                        M=m, per_step=per_step,
                        ms=timer.graph(lambda i: quant_packed_matmul_raw(a_lvl, wps[i % len(wps)], **kw)),
                        events_ms=timer(lambda: quant_packed_matmul_raw(a_lvl, wp, **kw), reps=20),
                        plain_ms=timer(lambda: quant_packed_matmul_plain(a_lvl, wp, **kw), reps=1, warmup=0),
                        library_ms=timer.graph(lambda i: lib(wps[i % len(wps)])), library_m=lib_m,
-                       bound_ms=b_ms, bound_by=b_by, t_bytes=t_b, t_ops=t_o)
+                       bound_ms=b_ms, bound_by=b_by, t_bytes=t_b, t_ops=t_o, bytes=nbytes)
+            row["gbps"] = nbytes / row["ms"] / 1e6
             rows.append(row)
             print(f"  K5 {name:13s} M={m:3d} K={K:5d} N={N:6d} {row['pair']}: {row['ms']:.4f} ms "
-                  f"(events {row['events_ms']:.4f}), plain {row['plain_ms']:.3f} ms, _int_mm on the "
-                  f"packed words (M={lib_m}) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-                  f"bit-exact", flush=True)
+                  f"({row['gbps']:.0f} GB/s; events {row['events_ms']:.4f}), plain {row['plain_ms']:.3f} ms, "
+                  f"_int_mm on the packed words (M={lib_m}) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}); bit-exact, one kernel node", flush=True)
             del a_lvl, wp, wps, acc, p_acc, lib
     report["int8"] = {"main_path_counts": counts, "cpu_cross": cross, "rows": rows}
     return {"counts": counts, "rows": rows, "max_err": {"quant_matmul": max4, "quant_packed_matmul": max5}}
@@ -795,7 +837,7 @@ def phase_filter(torch, card, timer, report: dict) -> dict:
 
     from repro_torch.kernels import build
     from repro_torch.kernels.filter_conv import ref as fc
-    from repro_torch.kernels.filter_conv.kernel import filter_conv_plain, filter_conv_raw
+    from repro_torch.kernels.filter_conv.kernel import filter_conv_plain, filter_conv_raw, tile_plan
     from repro_torch.kernels.filter_conv.ops import choose_filter_config, packed_conv1d
 
     cases = [(shape, pair, 3) for shape in ULTRANET_ROWS for pair in FILTER_PAIRS]
@@ -835,6 +877,9 @@ def phase_filter(torch, card, timer, report: dict) -> dict:
         check(torch.equal(raw, plain) and torch.equal(raw, truth) and torch.equal(out, truth),
               f"K6 differs from its plain version or the convolution at {label}: max {err}")
         max_err = max(max_err, err)
+        nodes = device_nodes(torch, lambda: filter_conv_raw(sp, fp, **kw))
+        check(nodes == (["kernel"], {"filter_conv": 1}),
+              f"K6 at {label} ran other device work than its kernel: {nodes}")
         s32, f32 = s.to(torch.float32), torch.flip(f, (1,)).to(torch.float32)[None]
         check(torch.equal(F.conv1d(s32, f32, padding=k - 1)[:, 0], truth.to(torch.float32)),
               "float32 conv1d yardstick is not exact")
@@ -847,11 +892,14 @@ def phase_filter(torch, card, timer, report: dict) -> dict:
                    events_ms=timer(lambda: filter_conv_raw(sp, fp, **kw), reps=20),
                    plain_ms=timer(lambda: filter_conv_plain(sp, fp, **kw), reps=3),
                    library_ms=timer.graph(lambda i: F.conv1d(s32, f32, padding=k - 1)),
-                   bound_ms=b_ms, bound_by=b_by, t_bytes=t_b, t_ops=t_o, bytes=nbytes, int32_ops=ops)
+                   bound_ms=b_ms, bound_by=b_by, t_bytes=t_b, t_ops=t_o, bytes=nbytes, int32_ops=ops,
+                   plan=tuple(tile_plan(B, C, N + k - 1, c.k_p, c.n_p, n_fc, c.acc_chunk, card.sms)))
+        row["gbps"] = nbytes / row["ms"] / 1e6
         rows.append(row)
-        print(f"  K6 {label}: {1e3 * row['ms']:.2f} us (graph; events {1e3 * row['events_ms']:.1f} us), "
-              f"plain {row['plain_ms']:.3f} ms, f32 conv1d {1e3 * row['library_ms']:.2f} us, bound "
-              f"{1e3 * b_ms:.3f} us ({b_by}); bit-exact", flush=True)
+        print(f"  K6 {label}: {1e3 * row['ms']:.2f} us (graph; events {1e3 * row['events_ms']:.1f} us; "
+              f"plan {row['plan']}), plain {row['plain_ms']:.3f} ms, f32 conv1d "
+              f"{1e3 * row['library_ms']:.2f} us, bound {1e3 * b_ms:.3f} us ({b_by}); bit-exact, one "
+              f"kernel node", flush=True)
     report["filter"] = {"main_path_counts": counts, "rows": rows}
     return {"counts": counts, "rows": rows, "max_err": max_err}
 
@@ -954,16 +1002,27 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  {name}: {line.strip()}", flush=True)
-    ring = ptxas_ring_kernels(reports["packed_matmul"])
-    report["ptxas_packed_ring_kernel"] = ring
-    for r in ring:
-        print(f"  packed_ring_kernel n_seg={r['n_seg']} overlap={r['overlap']} fused={r['fused']} "
-              f"vec={r['vec']}: {r['registers']} registers, {r['smem']} B static smem (+ dynamic "
-              f"ring and activations), spills {r['spill_stores']}/{r['spill_loads']} B", flush=True)
-    check(not reports["packed_matmul"] or len(ring) == 16, f"expected 16 ring kernels, ptxas showed {len(ring)}")
-    check(all(r["spill_stores"] == r["spill_loads"] == 0 for r in ring
-              if (r["n_seg"], r["overlap"], r["fused"]) == (2, 1, 1)),
-          "the served K1 instantiation (n_seg 2, overlap, fused) spills registers")
+    ptx = {k: ptxas_kernels(reports[lib], k) for k, lib in (
+        ("packed_ring_kernel", "packed_matmul"), ("quant_packed_mma_kernel", "quant_matmul"),
+        ("filter_tile_kernel", "filter_conv"))}
+    report["ptxas"] = ptx
+    for kernel, rows in ptx.items():
+        for r in rows:
+            args = ", ".join(f"{k}={r[k]}" for k in PTXAS_KERNELS[kernel][1])
+            print(f"  {kernel} {args}: {r['registers']} registers, {r['smem']} B static smem (+ "
+                  f"dynamic), spills {r['spill_stores']}/{r['spill_loads']} B", flush=True)
+    for kernel, lib, n in (("packed_ring_kernel", "packed_matmul", 16),
+                           ("quant_packed_mma_kernel", "quant_matmul", 6),
+                           ("filter_tile_kernel", "filter_conv", 12)):
+        check(not reports[lib] or len(ptx[kernel]) == n,
+              f"expected {n} {kernel} instantiations, ptxas showed {len(ptx[kernel])}")
+    # the instantiations the served path (K1) and phases 6-7 launch must not spill
+    served = ([r for r in ptx["packed_ring_kernel"] if (r["n_seg"], r["overlap"], r["fused"]) == (2, 1, 1)]
+              + [r for r in ptx["quant_packed_mma_kernel"] if r["copy"] == 16]
+              + [r for r in ptx["filter_tile_kernel"]
+                 if (r["nseg"], r["overlap"], r["v2"]) in ((4, 1, 1), (3, 0, 1), (2, 1, 1), (4, 1, 0))])
+    check(all(r["spill_stores"] == r["spill_loads"] == 0 for r in served),
+          "a served K1, phase-6 K5 or phase-7 K6 instantiation spills registers")
     smi_line = smi("name,power.limit")
     clock = float(smi("clocks.max.sm").split()[0])
     props = torch.cuda.get_device_properties(0)
@@ -1038,6 +1097,7 @@ def main(argv=None) -> int:
     fused, blocked = en["fused"], en["blocked"]
     k4 = [r for r in i8["rows"] if r["kernel"] == "quant_matmul"]
     k5 = [r for r in i8["rows"] if r["kernel"] == "quant_packed_matmul" and r["pair"] == "w2a2"]
+    k5_w2a3 = [r for r in i8["rows"] if r["kernel"] == "quant_packed_matmul" and r["pair"] == "w2a3"]
     k6 = fc["rows"]
     kernels = [
         dict(name="packed_dense_fused", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
@@ -1083,7 +1143,11 @@ def main(argv=None) -> int:
              ms=step_sum(k5, "ms"), events_ms=step_sum(k5, "events_ms"), plain_ms=step_sum(k5, "plain_ms"),
              bound_ms=step_sum(k5, "bound_ms"), bound_by=by_t(k5, lambda r: r["per_step"]),
              library_ms=step_sum(k5, "library_ms"), path="quant_packed_dense, phase 6",
-             per="decode step at M=8, w2a2", timing=GRAPH_TIMING),
+             per="decode step at M=8, w2a2 (the w2a3 step beside it, *_w2a3)", timing=GRAPH_TIMING,
+             ms_w2a3=step_sum(k5_w2a3, "ms"), events_ms_w2a3=step_sum(k5_w2a3, "events_ms"),
+             plain_ms_w2a3=step_sum(k5_w2a3, "plain_ms"), bound_ms_w2a3=step_sum(k5_w2a3, "bound_ms"),
+             library_ms_w2a3=step_sum(k5_w2a3, "library_ms"),
+             gbps=by_gbps(k5, "ms"), gbps_w2a3=by_gbps(k5_w2a3, "ms")),
         dict(name="filter_conv", route="cuda", source="src/repro_torch/csrc/filter_conv.cu",
              replaces="src/repro/kernels/filter_conv/kernel.py:155",
              launches=fc["counts"]["filter_conv"], max_abs_err=fc["max_err"],

@@ -10,8 +10,8 @@
 //      the same packed dot on activation levels, chunks restarting at every
 //      multiple of block_k.
 // The shared peel (repro/kernels/peel.py:69 peel_chunks, :122 interleave) is
-// peel.cuh.  Plain versions and the grid plan: repro_torch/kernels/
-// packed_matmul/kernel.py.
+// peel.cuh; the cp.async ring helpers and the split-K arrival are ring.cuh.
+// Plain versions and the grid plan: repro_torch/kernels/packed_matmul/kernel.py.
 //
 // What bounds it on this card.  A decode step multiplies M = 8 rows by
 // int32 words that each pack n_seg weights: every word is read once and
@@ -87,6 +87,7 @@
 #include <cstdint>
 
 #include "peel.cuh"
+#include "ring.cuh"
 
 namespace {
 
@@ -116,23 +117,6 @@ struct Args {
   int32_t* counters;    // splits > 1: one arrival counter per (row, column) tile, all 0
   int M, K, Np, a_bits, stride, acc_chunk, restart, splits, k_per_split, mtiles, ctiles;
 };
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 template <int NSEG, bool OVERLAP, bool FUSED, bool VEC>
 __global__ void __launch_bounds__(THREADS, NSEG == 2 ? 2 : 1) packed_ring_kernel(const Args p) {
@@ -409,13 +393,8 @@ __global__ void __launch_bounds__(THREADS, NSEG == 2 ? 2 : 1) packed_ring_kernel
     mine[q] = v;
   }
   if (sums && tid < BM) p.ws[static_cast<size_t>(blockIdx.x) * SLAB + TILE + tid] = rowsum_s[tid];
-  __threadfence();  // the partials are visible device-wide before the arrival
-  __syncthreads();
   int32_t* counter = p.counters + ct * p.mtiles + mt;
-  if (tid == 0) last_s = atomicAdd(counter, 1) == p.splits - 1;
-  __syncthreads();
-  if (!last_s) return;
-  __threadfence();
+  if (!last_to_arrive(counter, p.splits, &last_s)) return;
   // this tile's slabs: split s at first + s * step
   const int32_t* first = p.ws + (static_cast<size_t>(ct) * p.mtiles + mt) * SLAB;
   const size_t step = static_cast<size_t>(p.ctiles) * p.mtiles * SLAB;

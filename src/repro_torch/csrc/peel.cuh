@@ -61,3 +61,21 @@ __device__ __forceinline__ void peel_chunk(uint32_t part, uint32_t parity, int s
     }
   }
 }
+
+// Two segments decoded as a sum (K5).  Returns peel_chunk<2, OVERLAP>'s
+// acc[0] for one chunk: segment 0 of the packed sum `part`.  Overpacked,
+// `par_hi` is the chunk's parity dot on segment 1's LSB plane alone,
+// dot(a & 1, wp & (1 << stride)): zero below bit `stride`, and its bit
+// `stride` is the bit peel_chunk reads from `parity`, since the additive
+// dot's segment-0 counter holds at most acc_chunk < 2^stride ones.  Then
+// segment 0 is the low stride bits of `part` with bit `stride` XORed by that
+// parity, one LOP3.  peel_chunk's acc[1] summed over chunks needs no
+// per-chunk work: every chunk's part = seg0 + 2^stride seg1, so the sum of
+// the top segments is (sum of parts - sum of segment 0) >> stride, taken once
+// by the caller.
+template <bool OVERLAP>
+__device__ __forceinline__ int32_t peel_low2(int32_t part, int32_t par_hi, int stride) {
+  const uint32_t p = static_cast<uint32_t>(part);
+  if (OVERLAP) return static_cast<int32_t>((p ^ static_cast<uint32_t>(par_hi)) & ((2u << stride) - 1u));
+  return static_cast<int32_t>(p & ((1u << stride) - 1u));
+}

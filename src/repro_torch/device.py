@@ -1,6 +1,8 @@
 """Device selection shared by the port's entry points."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -15,3 +17,13 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "plain PyTorch versions on the CPU"
         )
     return dev
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (its launch plans fill them)."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -54,12 +54,14 @@ SIGNATURES = {
     "quant_matmul": {
         # a, w, scale, out, ws, M, K, N, stream
         "quant_matmul": (_P,) * 5 + (_I,) * 3 + (_P,),
-        # a, wp, acc, M, K, Np, n_seg, stride, acc_chunk, overlap, stream
-        "quant_packed_matmul": (_P,) * 3 + (_I,) * 7 + (_P,),
+        # a, wp, acc, ws, counters, M, K, Np, n_seg, stride, acc_chunk, overlap,
+        # copy, splits, k_per_split, stream
+        "quant_packed_matmul": (_P,) * 5 + (_I,) * 10 + (_P,),
     },
     "filter_conv": {
-        # s, fp, out, B, C, n_pad, n_fc, k_p, n_p, stride, acc_chunk, overlap, n_out, stream
-        "filter_conv": (_P,) * 3 + (_I,) * 10 + (_P,),
+        # s, fp, out, B, C, n_pad, n_fc, k_p, n_p, stride, acc_chunk, overlap, n_out,
+        # T, cs, cp, nv_max, stream
+        "filter_conv": (_P,) * 3 + (_I,) * 14 + (_P,),
     },
 }
 

@@ -10,13 +10,21 @@ summed before the decode, and overpacked placements recover the stolen
 bit with the Fig. 3 parity dot.  The kernel is ``csrc/filter_conv.cu``;
 see that file for what bounds it on the card.
 
+The kernel's tile plan lives here, where the CPU tests reach it:
+:func:`tile_plan` picks the output tile per block, the channels per slice
+and per staged piece from the shape, and :func:`tile_windows` gives each
+tile's output positions and the sequence chunks whose products reach them.
+
 Given CUDA tensors the wrapper launches the kernel or raises; given CPU
 tensors it runs :func:`filter_conv_plain`.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 from repro_torch.kernels.peel import lsb_mask, peel_chunk
 
@@ -24,6 +32,73 @@ from repro_torch.kernels.peel import lsb_mask, peel_chunk
 # instantiated for: every placement choose_filter_config selects for bit
 # pairs 2..8 x 2..8 and filters of 3, 5 or 7 taps
 KERNEL_NSEG = (2, 3, 4)
+
+# the kernel's block (csrc/filter_conv.cu) and its plan's choices
+THREADS = 128
+TILES = (256, 128, 64, 32, 16, 8, 4, 2)  # output positions per block, largest first
+SMEM_WORDS = 12 * 1024  # int32 words of shared memory a block may use (48 KB)
+
+
+class TilePlan(NamedTuple):
+    """``T`` output positions per block, ``cs`` channels per slice, ``cp``
+    channels staged at a time, ``nv_max`` sequence chunks a tile's window
+    holds at most, ``blocks`` of the launch."""
+
+    T: int
+    cs: int
+    cp: int
+    nv_max: int
+    blocks: int
+
+
+def halo(k_p: int, n_p: int, n_fc: int) -> int:
+    """Positions a packed product reaches past its sequence chunk's first:
+    ``u * k_p + m`` at most, over filter chunks u and segments m."""
+    return (n_fc - 1) * k_p + k_p + n_p - 2
+
+
+def tile_plan(b: int, c: int, n_out: int, k_p: int, n_p: int, n_fc: int, acc_chunk: int,
+              sms: int) -> TilePlan:
+    """The kernel's launch plan for ``b`` rows of ``n_out`` outputs and ``c``
+    channels.  The tile is the largest of :data:`TILES` whose blocks cover
+    ``sms`` SMs while each thread stages at most 4 sequence words and one
+    slice of every (v, u) item fits twice into the block's threads (else
+    the smallest); then the channels are cut into as many slices (each a
+    multiple of ``acc_chunk``) as the threads left over hold, and staged in
+    pieces that fit :data:`SMEM_WORDS`."""
+    h = halo(k_p, n_p, n_fc)
+
+    def nv_max(t):
+        return (t - 1 + h) // n_p + 1
+
+    T = TILES[-1]
+    for t in TILES:
+        if (nv_max(t) * n_fc <= 2 * THREADS and c * nv_max(t) <= 4 * THREADS
+                and b * -(-n_out // t) >= sms):
+            T = t
+            break
+    nv = nv_max(T)
+    n_chunks = max(1, -(-c // acc_chunk))
+    slices = max(1, min(n_chunks, THREADS // (nv * n_fc)))
+    cs = acc_chunk * -(-n_chunks // slices)
+    cp = max(1, min(c, (SMEM_WORDS - T) // (nv + n_fc)))
+    if cs <= cp < c:
+        cp -= cp % cs  # pieces of whole slices
+    return TilePlan(T=T, cs=cs, cp=cp, nv_max=nv, blocks=b * -(-n_out // T))
+
+
+def tile_windows(n_out: int, n_sc: int, T: int, k_p: int, n_p: int, n_fc: int
+                 ) -> list[tuple[int, int, int, int]]:
+    """``(t0, t1, v_lo, v_hi)`` of every tile of a row, as the kernel
+    computes them: positions ``[t0, t1)`` and the sequence chunks
+    ``v_lo .. v_hi`` whose windows ``[v n_p, v n_p + halo]`` meet them."""
+    h = halo(k_p, n_p, n_fc)
+    out = []
+    for t0 in range(0, n_out, T):
+        v_lo = 0 if t0 - h <= 0 else -(-(t0 - h) // n_p)
+        v_hi = min(n_sc - 1, (t0 + T - 1) // n_p)
+        out.append((t0, min(t0 + T, n_out), v_lo, v_hi))
+    return out
 
 
 def filter_conv_plain(s_lvl, f_packed, *, k_p, n_p, stride, acc_chunk, k_len, n_len, overlap=0):
@@ -96,11 +171,13 @@ def filter_conv_raw(
     if b > 65535 or s_lvl.numel() >= 2**31:
         raise ValueError("batch exceeds the grid or operand exceeds int32 indexing")
     n_out = n_len + k_len - 1
+    plan = tile_plan(b, c, n_out, k_p, n_p, n_fc, acc_chunk, sm_count(s_lvl.device))
     out = torch.empty((b, n_out), dtype=torch.int32, device=s_lvl.device)
     lib = build.library("filter_conv")
     err = lib.filter_conv(
         s_lvl.data_ptr(), f_packed.data_ptr(), out.data_ptr(), b, c, n_pad, n_fc, k_p, n_p,
-        stride, acc_chunk, overlap, n_out, torch.cuda.current_stream(s_lvl.device).cuda_stream,
+        stride, acc_chunk, overlap, n_out, plan.T, plan.cs, plan.cp, plan.nv_max,
+        torch.cuda.current_stream(s_lvl.device).cuda_stream,
     )
     build.check(lib, err, "filter_conv")
     build.launched("filter_conv")

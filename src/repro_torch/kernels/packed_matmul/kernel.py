@@ -15,8 +15,9 @@ The launch geometry lives here, where the CPU tests reach it:
 :func:`uses_vector_copy` picks the weight copy path from the packed width
 alone.  A K split needs a workspace of partial sums (allocated per launch)
 and one arrival counter per output tile, which the kernel leaves at zero:
-the counters are zeroed once per device and shared by every launch, so
-K1/K2 launches that split K must not run on two streams at once.
+the counters are zeroed once per device and shared by every launch (K5
+in ``quant_matmul`` uses them too), so launches that split K must not run
+on two streams at once.
 
 Given CUDA tensors a wrapper launches its kernel or raises; given CPU
 tensors it runs the plain version (``*_plain`` below).
@@ -27,6 +28,7 @@ import functools
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 from repro_torch.kernels.peel import interleave, peel_chunks
 
@@ -43,20 +45,24 @@ N_COUNTERS = 1 << 16  # arrival counters per device: output tiles of a split lau
 
 
 @functools.lru_cache(maxsize=4096)
-def grid_plan(m: int, k: int, np_: int, sms: int) -> tuple[int, int]:
+def grid_plan(m: int, k: int, np_: int, sms: int, *, bm: int = BM, bn: int = BN, align: int = 1,
+              min_k: int = MIN_K_PER_SPLIT) -> tuple[int, int]:
     """``(splits, k_per_split)`` for an ``[m, k] x [k, np_]`` launch on a
-    card of ``sms`` SMs.  One block per (row tile, column tile, K split);
-    when the tiles alone fill fewer than ``BLOCKS_PER_SM`` blocks an SM, K
-    is split into equal ranges, choosing the split count whose blocks fill
-    the last wave best (a larger count must fill it more than 2 % better),
-    so that every SM moves about the same bytes."""
-    tiles = -(-m // BM) * -(-np_ // BN)
+    card of ``sms`` SMs, with blocks of ``bm`` rows x ``bn`` packed columns
+    (K1/K2's tile by default; K5 passes its own).  One block per (row tile,
+    column tile, K split); when the tiles alone fill fewer than
+    ``BLOCKS_PER_SM`` blocks an SM, K is split into equal ranges of at least
+    ``min_k`` rows, each a multiple of ``align``, choosing the split count
+    whose blocks fill the last wave best (a larger count must fill it more
+    than 2 % better), so that every SM moves about the same bytes."""
+    tiles = -(-m // bm) * -(-np_ // bn)
     cap = BLOCKS_PER_SM * sms
     if k <= 0 or tiles >= cap or tiles > N_COUNTERS:
         return 1, max(k, 1)
     best = (0.0, 1, k)
-    for s in range(1, min(MAX_SPLITS, -(-k // MIN_K_PER_SPLIT)) + 1):
+    for s in range(1, min(MAX_SPLITS, -(-k // min_k)) + 1):
         kps = -(-k // s)
+        kps = -(-kps // align) * align
         splits = -(-k // kps)
         units = tiles * splits
         fill = units / (-(-units // cap) * cap)
@@ -71,27 +77,28 @@ def uses_vector_copy(np_: int) -> bool:
     return np_ % 4 == 0
 
 
-_SMS: dict[int, int] = {}
 _COUNTERS: dict[int, torch.Tensor] = {}
 
 
-def _split_scratch(dev: torch.device, m: int, k: int, np_: int, n_seg: int):
-    """``(splits, k_per_split, workspace, counters)`` of one launch; the
-    last two are None when K is not split."""
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    splits, kps = grid_plan(m, k, np_, _SMS[idx])
+def _split_scratch(dev: torch.device, m: int, k: int, np_: int, slab: int, *, bm: int = BM,
+                   bn: int = BN, **plan):
+    """``(splits, k_per_split, workspace, counters)`` of one launch with
+    blocks of ``bm`` x ``bn`` that each leave ``slab`` int32 partials when K
+    is split (``plan``: :func:`grid_plan`'s other keywords); the last two
+    are None when K is not split.  The counters are shared by every kernel
+    that splits K."""
+    splits, kps = grid_plan(m, k, np_, sm_count(dev), bm=bm, bn=bn, **plan)
     if splits == 1:
         return splits, kps, None, None
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
     counters = _COUNTERS.get(idx)
     if counters is None:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("packed matmul: launch once before capturing a CUDA graph, so that "
+            raise RuntimeError("split-K launch: launch once before capturing a CUDA graph, so that "
                                "its split-K counters are allocated outside the graph")
         counters = _COUNTERS[idx] = torch.zeros(N_COUNTERS, dtype=torch.int32, device=dev)
-    units = -(-m // BM) * -(-np_ // BN) * splits
-    ws = torch.empty(units * BM * (BN * n_seg + 1), dtype=torch.int32, device=dev)
+    units = -(-m // bm) * -(-np_ // bn) * splits
+    ws = torch.empty(units * slab, dtype=torch.int32, device=dev)
     return splits, kps, ws, counters
 
 
@@ -152,7 +159,7 @@ def packed_dense_fused_raw(
     np_ = w_packed.shape[1]
     acc = torch.empty((m, np_ * n_seg), dtype=torch.int32, device=x.device)
     a_sum = torch.empty((m,), dtype=torch.int32, device=x.device)
-    splits, kps, ws, counters = _split_scratch(x.device, m, k, np_, n_seg)
+    splits, kps, ws, counters = _split_scratch(x.device, m, k, np_, BM * (BN * n_seg + 1))
     lib = build.library("packed_matmul")
     err = lib.packed_dense_fused(
         x.data_ptr(), w_packed.data_ptr(), acc.data_ptr(), a_sum.data_ptr(),
@@ -185,7 +192,7 @@ def packed_matmul_raw(
     m, k = a_lvl.shape
     np_ = w_packed.shape[1]
     acc = torch.empty((m, np_ * n_seg), dtype=torch.int32, device=a_lvl.device)
-    splits, kps, ws, counters = _split_scratch(a_lvl.device, m, k, np_, n_seg)
+    splits, kps, ws, counters = _split_scratch(a_lvl.device, m, k, np_, BM * (BN * n_seg + 1))
     lib = build.library("packed_matmul")
     err = lib.packed_matmul(
         a_lvl.data_ptr(), w_packed.data_ptr(), acc.data_ptr(),

@@ -9,6 +9,13 @@ each pack ``n_seg`` sub-4-bit weight levels (``TPU_MXU7`` placements),
 decoded by the segment peel.  Both are ``csrc/quant_matmul.cu``; see that
 file for what bounds them on the card.
 
+K5's plans live here, where the CPU tests reach them: :func:`slab_chunks`
+and :func:`k5_chunk_plan` (which rows each tensor-core accumulator that is
+decoded may hold), :data:`K5_PLAN` (K1/K2's ``grid_plan`` with K5's tile)
+and :func:`copy_width` (the weight copy path, from the packed width alone).
+A K split reuses K1/K2's workspace and arrival counters
+(``packed_matmul.kernel._split_scratch``).
+
 Given CUDA tensors a wrapper launches its kernel or raises; given CPU
 tensors it runs the plain version (``*_plain`` below).
 """
@@ -17,12 +24,42 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.packed_matmul.kernel import _split_scratch
 from repro_torch.kernels.packed_matmul.ref import matmul_levels
 from repro_torch.kernels.peel import interleave, peel_chunks
 
 # segment counts K5 is instantiated for: choose_mxu_config packs 2 segments
 # for every bit pair in 2..8 x 2..8 that has an int8-lane placement
 KERNEL_N_SEG = (2,)
+
+# K5's tile (csrc/quant_matmul.cu, namespace k5): 8 activation rows x 64
+# packed columns a block; K in slabs of 16 rows (one m16n8k16 mma), a K
+# split at least 64 rows (half a ring stage)
+K5_BM, K5_BN, K5_SLAB = 8, 64, 16
+K5_PLAN = dict(bm=K5_BM, bn=K5_BN, align=K5_SLAB, min_k=64)  # grid_plan's keywords for K5
+
+
+def slab_chunks(acc_chunk: int, slab: int = K5_SLAB) -> list[tuple[int, int]]:
+    """Row ranges ``[lo, hi)`` of one k16 slab that K5 gives an mma of
+    their own: ``min(acc_chunk, slab)`` rows each, the last one cut at the
+    slab's end."""
+    ch = min(acc_chunk, slab)
+    return [(lo, min(lo + ch, slab)) for lo in range(0, slab, ch)]
+
+
+def k5_chunk_plan(k: int, acc_chunk: int) -> list[tuple[int, int]]:
+    """Every accumulation chunk K5 decodes over ``[0, k)``: slabs start at
+    multiples of 16 (a K split starts on one too), each cut by
+    :func:`slab_chunks`; rows past ``k`` meet zero weights and are dropped."""
+    return [(s0 + lo, min(s0 + hi, k)) for s0 in range(0, k, K5_SLAB)
+            for lo, hi in slab_chunks(acc_chunk) if s0 + lo < k]
+
+
+def copy_width(np_: int) -> int:
+    """Bytes per weight copy of K5's ring: 16 needs a row stride (``np_``
+    bytes) that is a multiple of 16, 4 a multiple of 4; other widths take
+    byte loads (same ring, exact)."""
+    return 16 if np_ % 16 == 0 else 4 if np_ % 4 == 0 else 1
 
 
 def quant_matmul_plain(a_i8, w_i8, w_scale):
@@ -91,15 +128,24 @@ def quant_packed_matmul_raw(
         return quant_packed_matmul_plain(a_i8, w_packed_i8, n_seg=n_seg, stride=stride,
                                          acc_chunk=acc_chunk, overlap=overlap)
     _check(a_i8, w_packed_i8)
-    if n_seg not in KERNEL_N_SEG or overlap not in (0, 1) or acc_chunk < 1:
-        raise ValueError(f"no kernel for n_seg={n_seg}, overlap={overlap}, acc_chunk={acc_chunk}")
+    if n_seg not in KERNEL_N_SEG or overlap not in (0, 1) or acc_chunk < 1 or not 1 <= stride <= 7:
+        raise ValueError(f"no kernel for n_seg={n_seg}, stride={stride}, overlap={overlap}, "
+                         f"acc_chunk={acc_chunk}")
+    if overlap and acc_chunk >= 1 << stride:
+        raise ValueError(f"acc_chunk={acc_chunk} >= 2**stride: the parity bit would not be exact")
     m, k = a_i8.shape
     np_ = w_packed_i8.shape[1]
+    copy = copy_width(np_)
+    if w_packed_i8.data_ptr() % copy:
+        raise ValueError(f"packed weights of width {np_} must start on a {copy}-byte boundary")
     acc = torch.empty((m, np_ * n_seg), dtype=torch.int32, device=a_i8.device)
+    splits, kps, ws, counters = _split_scratch(a_i8.device, m, k, np_, K5_BM * K5_BN * n_seg, **K5_PLAN)
     lib = build.library("quant_matmul")
     err = lib.quant_packed_matmul(
-        a_i8.data_ptr(), w_packed_i8.data_ptr(), acc.data_ptr(), m, k, np_, n_seg, stride,
-        acc_chunk, overlap, torch.cuda.current_stream(a_i8.device).cuda_stream,
+        a_i8.data_ptr(), w_packed_i8.data_ptr(), acc.data_ptr(),
+        None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr(),
+        m, k, np_, n_seg, stride, acc_chunk, overlap, copy, splits, kps,
+        torch.cuda.current_stream(a_i8.device).cuda_stream,
     )
     build.check(lib, err, "quant_packed_matmul")
     build.launched("quant_packed_matmul")

@@ -179,11 +179,19 @@ def test_quant_matmul_kernel_bit_exact(cuda, m, k, n):
     assert torch.equal(out, quant_matmul_plain(a, w, scale))
 
 
+# K = 9, 40, 517 are not multiples of 16 (activations by byte loads, the last
+# slab ragged); Np = 75, 7, 1 take the byte-load weight path, 36 and 17000
+# the 4-byte copies, the rest 16-byte copies; (8, 3072, 512), (128, 3072,
+# 96), (8, 8192, 48) and (1, 3072, 36) split K, (8, 517, 17000) and (16,
+# 3072, 16896) fill the card unsplit, M = 128 takes 16 row tiles
 @pytest.mark.parametrize("w_bits,a_bits,overpack", [(2, 2, True), (2, 3, True), (2, 2, False)])
-@pytest.mark.parametrize("m,k,n_groups", [(8, 3072, 512), (3, 517, 75), (13, 40, 7), (1, 9, 1)])
+@pytest.mark.parametrize("m,k,n_groups", [(8, 3072, 512), (3, 517, 75), (13, 40, 7), (1, 9, 1),
+                                          (128, 3072, 96), (8, 8192, 48), (1, 3072, 36),
+                                          (13, 517, 75), (128, 9, 20), (8, 517, 17000),
+                                          (16, 3072, 16896)])
 def test_quant_packed_matmul_kernel_bit_exact(cuda, w_bits, a_bits, overpack, m, k, n_groups):
     """K5 at both int8-lane placements (acc_chunk 7 and 3) and the
-    no-overpack w2a2 one, ragged packed widths included."""
+    no-overpack w2a2 one, ragged M, K and packed widths included."""
     cfg = choose_mxu_config(w_bits, a_bits, allow_overpack=overpack)
     g = np.random.default_rng(m * k)
     a = torch.from_numpy(g.integers(0, 1 << a_bits, (m, k)).astype(np.int8)).to(cuda)
@@ -198,10 +206,12 @@ def test_quant_packed_matmul_kernel_bit_exact(cuda, w_bits, a_bits, overpack, m,
 
 @pytest.mark.parametrize("w_bits,a_bits,k_len", [(2, 2, 3), (3, 4, 3), (4, 4, 3), (2, 2, 7),
                                                  (3, 3, 5)])
-@pytest.mark.parametrize("b,c,n", [(160, 3, 320), (10, 64, 20), (3, 6, 19), (2, 1, 300)])
+@pytest.mark.parametrize("b,c,n", [(160, 3, 320), (10, 64, 20), (3, 6, 19), (2, 1, 300), (1, 5, 7),
+                                   (1, 64, 40), (2, 3000, 9)])
 def test_filter_conv_kernel_bit_exact(cuda, w_bits, a_bits, k_len, b, c, n):
-    """K6 at every instantiated coefficient count, both overlap values,
-    rows wider than one block and ragged N."""
+    """K6 at every instantiated coefficient count, both overlap values, rows
+    wider than one tile, ragged N, C = 1, C not a multiple of acc_chunk,
+    B = 1, and a C staged in several pieces."""
     cfg = choose_filter_config(w_bits, a_bits, k_len)
     g = np.random.default_rng(b + c + n + k_len)
     s = torch.from_numpy(g.integers(0, 1 << a_bits, (b, c, n)).astype(np.int32)).to(cuda)
@@ -216,6 +226,128 @@ def test_filter_conv_kernel_bit_exact(cuda, w_bits, a_bits, k_len, b, c, n):
     assert torch.equal(out, filter_conv_plain(sp, fp, **kw))
     assert torch.equal(out, fc.conv_full_levels(f, s))
     assert torch.equal(packed_conv1d(s, f, w_bits=w_bits, a_bits=a_bits), out)
+
+
+def _filter_placements():
+    """(w_bits, a_bits, k_len, overpack) of the first pair that picks each
+    distinct placement choose_filter_config selects for bit pairs 2..8 x
+    2..8, 3/5/7 taps, overpacked or not."""
+    seen = {}
+    for k_len in (3, 5, 7):
+        for w_bits in range(2, 9):
+            for a_bits in range(2, 9):
+                for overpack in (True, False):
+                    cfg = choose_filter_config(w_bits, a_bits, k_len, allow_overpack=overpack)
+                    if cfg is not None and cfg.k_p * cfg.n_p > 1:
+                        seen.setdefault((tuple(cfg), k_len), (w_bits, a_bits, k_len, overpack))
+    return sorted(seen.values())
+
+
+@pytest.mark.parametrize("w_bits,a_bits,k_len,overpack", _filter_placements())
+def test_filter_conv_kernel_launches_every_placement(cuda, w_bits, a_bits, k_len, overpack):
+    """K6 at every placement the chooser can pick, at all-maximum levels
+    (every chunk sum at its bound) and random ones: bit-exact."""
+    cfg = choose_filter_config(w_bits, a_bits, k_len, allow_overpack=overpack)
+    g = np.random.default_rng(w_bits * 100 + a_bits * 10 + k_len)
+    b, c, n = 3, 9, 23
+    n_pad = -(-n // cfg.n_p) * cfg.n_p
+    kw = dict(k_p=cfg.k_p, n_p=cfg.n_p, stride=cfg.stride, acc_chunk=cfg.acc_chunk,
+              k_len=k_len, n_len=n, overlap=cfg.overlap)
+    for levels in ("max", "random"):
+        if levels == "max":
+            s = np.full((b, c, n), (1 << a_bits) - 1, np.int32)
+            f = np.full((c, k_len), (1 << w_bits) - 1, np.int32)
+        else:
+            s = g.integers(0, 1 << a_bits, (b, c, n)).astype(np.int32)
+            f = g.integers(0, 1 << w_bits, (c, k_len)).astype(np.int32)
+        s, f = torch.from_numpy(s).to(cuda), torch.from_numpy(f).to(cuda)
+        sp = torch.nn.functional.pad(s, (0, n_pad - n)).contiguous()
+        fp = fc.pack_filter(f, cfg.k_p, cfg.stride)
+        out = filter_conv_raw(sp, fp, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, filter_conv_plain(sp, fp, **kw))
+        assert torch.equal(out, fc.conv_full_levels(f, s))
+
+
+@pytest.mark.parametrize("n_groups", [512, 36])
+def test_quant_packed_split_replays_in_a_cuda_graph(cuda, n_groups):
+    """K5 at shapes that split K (16-byte and 4-byte copies), captured once
+    and replayed three times on new activations: every replay exact, so the
+    split reduction's arrival counters return to zero after each launch."""
+    cfg = choose_mxu_config(2, 2)
+    g = np.random.default_rng(7)
+    a = torch.from_numpy(g.integers(0, 4, (8, 3072)).astype(np.int8)).to(cuda)
+    w_lvl = torch.from_numpy(g.integers(0, 4, (3072, 2 * n_groups)).astype(np.int32))
+    wp = pm.pack_weights(w_lvl, cfg.n_seg, cfg.stride).to(torch.int8).to(cuda)
+    kw = dict(n_seg=cfg.n_seg, stride=cfg.stride, acc_chunk=cfg.acc_chunk, overlap=cfg.overlap)
+    quant_packed_matmul_raw(a, wp, **kw)  # the counters are allocated outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        acc = quant_packed_matmul_raw(a, wp, **kw)
+    for _ in range(3):
+        a.copy_(torch.from_numpy(g.integers(0, 4, (8, 3072)).astype(np.int8)))
+        acc.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(acc, quant_packed_matmul_plain(a, wp, **kw))
+        assert torch.equal(acc.cpu().long(), a.cpu().long() @ w_lvl.long())
+
+
+def _device_kernels(fn):
+    """Names of the device-side events (kernels, copies, memsets) of one
+    call, from a ``torch.profiler`` trace.  A trace of one short call now and
+    then comes back without its device events (the activity buffer misses
+    the profiler's flush at exit), so a call is traced again, up to 5 times,
+    until one records any."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
+                     key=lambda e: e.time_range.start)
+        if evs:
+            break
+    return [e.name for e in evs]
+
+
+def test_filter_conv_is_one_kernel_node_and_replays_in_a_cuda_graph(cuda):
+    """A K6 call runs one kernel and no memset, and a captured call replays
+    exactly on new sequence levels."""
+    cfg = choose_filter_config(2, 2, 3)
+    g = np.random.default_rng(8)
+    b, c, n = 10, 64, 20
+    s = torch.from_numpy(g.integers(0, 4, (b, c, n)).astype(np.int32)).to(cuda)
+    f = torch.from_numpy(g.integers(0, 4, (c, 3)).astype(np.int32)).to(cuda)
+    fp = fc.pack_filter(f, cfg.k_p, cfg.stride)
+    kw = dict(k_p=cfg.k_p, n_p=cfg.n_p, stride=cfg.stride, acc_chunk=cfg.acc_chunk, k_len=3, n_len=n,
+              overlap=cfg.overlap)
+    names = _device_kernels(lambda: filter_conv_raw(s, fp, **kw))
+    assert len(names) == 1 and "filter_tile_kernel" in names[0], names
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = filter_conv_raw(s, fp, **kw)
+    for _ in range(3):
+        s.copy_(torch.from_numpy(g.integers(0, 4, (b, c, n)).astype(np.int32)))
+        out.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fc.conv_full_levels(f, s))
+
+
+def test_quant_packed_matmul_is_one_kernel_node(cuda):
+    """A K5 call that splits K runs one kernel: no memset, no second pass."""
+    cfg = choose_mxu_config(2, 3)
+    g = np.random.default_rng(9)
+    a = torch.from_numpy(g.integers(0, 8, (8, 3072)).astype(np.int8)).to(cuda)
+    wp = torch.from_numpy(g.integers(0, 100, (3072, 512)).astype(np.int8)).to(cuda)
+    kw = dict(n_seg=cfg.n_seg, stride=cfg.stride, acc_chunk=cfg.acc_chunk, overlap=cfg.overlap)
+    names = _device_kernels(lambda: quant_packed_matmul_raw(a, wp, **kw))
+    assert len(names) == 1 and "quant_packed_mma_kernel" in names[0], names
 
 
 @pytest.mark.parametrize("w_bits,a_bits", [(2, 2), (2, 3), (4, 4), (8, 8)])
