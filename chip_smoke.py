@@ -7,10 +7,10 @@ Phases, all on the card:
 
 1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the card's name and power limit, and
-   each K1/K2, K5 and K6 instantiation's registers, shared memory and
-   spills (the served K1, n_seg 2 overpacked and fused, the K5
-   instantiations of phase 6's 16-byte copy path and the K6 ones phase 7
-   launches must not spill).
+   each K1/K2, K4, K5 and K6 instantiation's registers, shared memory and
+   spills (the served K1, n_seg 2 overpacked and fused, the K4 and K5
+   instantiations that phase 6 launches and the K6 ones phase 7 launches
+   must not spill).
 2. K1 (``packed_dense_fused``) and K2 (``packed_matmul``, block_k=512)
    against their plain versions at every full-width llama3.2-3b matmul
    shape of a decode step (M = 8 slots), the 128256-wide LM head
@@ -40,8 +40,11 @@ Phases, all on the card:
    integer path) from float inputs at every full-width decode shape (M =
    8) and one M = 128 shape; their launch counts; two shapes against the
    CPU.  Then K4 and K5 against their plain versions on the same integer
-   operands at every shape: bit-exact; one K5 call, captured in a CUDA
-   graph, must be one kernel node and nothing else (no memset).
+   operands at every shape: bit-exact; one K4 call and one K5 call, each
+   captured in a CUDA graph, must be one kernel node and nothing else (no
+   memset).  Last, K1, K5 and K4 at shapes that split K, launched in turns
+   on two streams with no synchronisation between them, must each equal
+   their plain versions (each stream has its own split-K counters).
 7. The Filter-Packing entry point ``packed_conv1d`` (K6) at UltraNet's
    five 3x3 layers split into row convolutions, at w2a2, w3a4 and w4a4,
    and one 7-tap case; its launch count; K6 against its plain version and
@@ -223,6 +226,7 @@ PTXAS_KERNELS = {
     "packed_ring_kernel": (r"packed_ring_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E",
                            ("n_seg", "overlap", "fused", "vec")),
     "quant_packed_mma_kernel": (r"quant_packed_mma_kernelILb(\d)ELi(\d+)E", ("overlap", "copy")),
+    "quant_mma_kernel": (r"quant_mma_kernelILi(\d+)ELi(\d+)E", ("bm", "copy")),
     "filter_tile_kernel": (r"filter_tile_kernelILi(\d)ELb(\d)ELb(\d)E", ("nseg", "overlap", "v2")),
 }
 
@@ -700,9 +704,11 @@ def phase_int8(torch, card, timer, cfg, M: int, report: dict) -> dict:
     from repro_torch.core.quant import weight_to_int_levels
     from repro_torch.kernels import build
     from repro_torch.kernels.packed_matmul import ref as pm
+    from repro_torch.kernels.packed_matmul.kernel import grid_plan
     from repro_torch.kernels.quant_matmul import ref as qm
     from repro_torch.kernels.quant_matmul.kernel import (
-        quant_matmul_plain, quant_matmul_raw, quant_packed_matmul_plain, quant_packed_matmul_raw,
+        K4_PLAN, k4_bm, quant_matmul_plain, quant_matmul_raw, quant_packed_matmul_plain,
+        quant_packed_matmul_raw,
     )
     from repro_torch.kernels.quant_matmul.ops import choose_mxu_config, quant_dense, quant_packed_dense
 
@@ -773,19 +779,27 @@ def phase_int8(torch, card, timer, cfg, M: int, report: dict) -> dict:
         err = (out - p_out).abs().max().item()
         check(torch.equal(out, p_out), f"K4 differs from its plain version at {name}: max {err}")
         max4 = max(max4, err)
+        nodes = device_nodes(torch, lambda: quant_matmul_raw(a8, w8, sc))
+        check(nodes == (["kernel"], {"quant_matmul": 1}),
+              f"K4 at {name} ran other device work than its kernel: {nodes}")
         lib, lib_m = _int_mm(torch, a8, w8)
         w8s = cold_copies(w8)
-        b_ms, b_by, t_b, t_o = card.bound(m * K + K * N + 4 * N + 4 * m * N, 2 * m * K * N, INT8_OPS_PER_S)
+        nbytes = m * K + K * N + 4 * N + 4 * m * N
+        b_ms, b_by, t_b, t_o = card.bound(nbytes, 2 * m * K * N, INT8_OPS_PER_S)
+        bm = k4_bm(m)
         row = dict(kernel="quant_matmul", shape=name, K=K, N=N, M=m, per_step=per_step,
                    ms=timer.graph(lambda i: quant_matmul_raw(a8, w8s[i % len(w8s)], sc)),
                    events_ms=timer(lambda: quant_matmul_raw(a8, w8, sc), reps=20),
                    plain_ms=timer(lambda: quant_matmul_plain(a8, w8, sc), reps=3),
                    library_ms=timer.graph(lambda i: lib(w8s[i % len(w8s)]).to(torch.float32) * sc),
-                   library_m=lib_m, bound_ms=b_ms, bound_by=b_by, t_bytes=t_b, t_ops=t_o)
+                   library_m=lib_m, bound_ms=b_ms, bound_by=b_by, t_bytes=t_b, t_ops=t_o, bytes=nbytes,
+                   bm=bm, plan=grid_plan(m, K, N, card.sms, bm=bm, **K4_PLAN))
+        row["gbps"] = nbytes / row["ms"] / 1e6
         rows.append(row)
-        print(f"  K4 {name:13s} M={m:3d} K={K:5d} N={N:6d}: {row['ms']:.4f} ms (events "
-              f"{row['events_ms']:.4f}), plain {row['plain_ms']:.3f} ms, _int_mm (M={lib_m}) "
-              f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); bit-exact", flush=True)
+        print(f"  K4 {name:13s} M={m:3d} K={K:5d} N={N:6d}: {row['ms']:.4f} ms ({row['gbps']:.0f} GB/s; "
+              f"events {row['events_ms']:.4f}; row tile {bm}, (splits, k_per_split) {row['plan']}), plain "
+              f"{row['plain_ms']:.3f} ms, _int_mm (M={lib_m}) {row['library_ms']:.4f} ms, bound {b_ms:.4f} "
+              f"ms ({b_by}); bit-exact, one kernel node", flush=True)
         del a8, w8, w8s, out, p_out, lib
         for pair, c in cfgs.items():
             a_lvl = torch.randint(0, 1 << pair[1], (m, K), generator=g, device="cuda", dtype=torch.int8)
@@ -820,8 +834,72 @@ def phase_int8(torch, card, timer, cfg, M: int, report: dict) -> dict:
                   f"_int_mm on the packed words (M={lib_m}) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
                   f"({b_by}); bit-exact, one kernel node", flush=True)
             del a_lvl, wp, wps, acc, p_acc, lib
-    report["int8"] = {"main_path_counts": counts, "cpu_cross": cross, "rows": rows}
+    streams = two_stream_splits(torch, card, cfg, M)
+    report["int8"] = {"main_path_counts": counts, "cpu_cross": cross, "rows": rows, "two_streams": streams}
     return {"counts": counts, "rows": rows, "max_err": {"quant_matmul": max4, "quant_packed_matmul": max5}}
+
+
+def two_stream_splits(torch, card, cfg, M: int, rounds: int = 20) -> dict:
+    """K1 (wk|wv, w4a4), K5 (wq|wo, w2a2) and K4 (wq|wo) at shapes that
+    split K, launched in turns on two streams for ``rounds`` rounds with no
+    synchronisation between the streams; every output must equal its plain
+    version.  Each stream takes its own slot of the split-K arrival
+    counters (``packed_matmul.kernel._split_scratch``)."""
+    from repro_torch.kernels.packed_matmul import ref as pm
+    from repro_torch.kernels.packed_matmul.kernel import (
+        grid_plan, packed_dense_fused_plain, packed_dense_fused_raw,
+    )
+    from repro_torch.kernels.packed_matmul.ops import choose_config
+    from repro_torch.kernels.quant_matmul.kernel import (
+        K4_PLAN, K5_PLAN, k4_bm, quant_matmul_plain, quant_matmul_raw, quant_packed_matmul_plain,
+        quant_packed_matmul_raw,
+    )
+    from repro_torch.kernels.quant_matmul.ops import choose_mxu_config
+
+    d, kv, q = cfg.d_model, cfg.kv_heads * cfg.hd, cfg.n_heads * cfg.hd
+    c1, c5 = choose_config(4, 4), choose_mxu_config(2, 2)
+    kw1 = dict(a_bits=4, n_seg=c1.n_seg, stride=c1.stride, acc_chunk=c1.acc_chunk, overlap=c1.overlap)
+    kw5 = dict(n_seg=c5.n_seg, stride=c5.stride, acc_chunk=c5.acc_chunk, overlap=c5.overlap)
+    splits = {"K1": grid_plan(M, d, kv // c1.n_seg, card.sms)[0],
+              "K5": grid_plan(M, d, q // c5.n_seg, card.sms, **K5_PLAN)[0],
+              "K4": grid_plan(M, d, q, card.sms, bm=k4_bm(M), **K4_PLAN)[0]}
+    check(min(splits.values()) > 1, f"two-stream check: a shape does not split K: {splits}")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    ops, fns = [], []
+    for _ in range(2):
+        x = torch.rand((M, d), generator=g, device="cuda") * 1.2 - 0.1
+        wp1 = pm.pack_weights(torch.randint(0, 16, (d, kv), generator=g, device="cuda", dtype=torch.int32),
+                              c1.n_seg, c1.stride)
+        a5 = torch.randint(0, 4, (M, d), generator=g, device="cuda", dtype=torch.int8)
+        wp5 = pm.pack_weights(torch.randint(0, 4, (d, q), generator=g, device="cuda", dtype=torch.int32),
+                              c5.n_seg, c5.stride).to(torch.int8)
+        a4 = torch.randint(-128, 128, (M, d), generator=g, device="cuda", dtype=torch.int8)
+        w4 = torch.randint(-128, 128, (d, q), generator=g, device="cuda", dtype=torch.int8)
+        s4 = torch.rand((1, q), generator=g, device="cuda") * 1e-4
+        ops.append((x, wp1, a5, wp5, a4, w4, s4))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(rounds):
+        for i, st in enumerate(streams):
+            x, wp1, a5, wp5, a4, w4, s4 = ops[i]
+            with torch.cuda.stream(st):
+                outs[i].append((packed_dense_fused_raw(x, wp1, **kw1), quant_packed_matmul_raw(a5, wp5, **kw5),
+                                quant_matmul_raw(a4, w4, s4)))
+    torch.cuda.synchronize()
+    for i in range(2):
+        x, wp1, a5, wp5, a4, w4, s4 = ops[i]
+        want1, want5, want4 = (packed_dense_fused_plain(x, wp1, **kw1), quant_packed_matmul_plain(a5, wp5, **kw5),
+                               quant_matmul_plain(a4, w4, s4))
+        for r, ((acc1, sum1), acc5, out4) in enumerate(outs[i]):
+            check(torch.equal(acc1, want1[0]) and torch.equal(sum1, want1[1]),
+                  f"two-stream check: K1 on stream {i}, round {r}, differs from its plain version")
+            check(torch.equal(acc5, want5), f"two-stream check: K5 on stream {i}, round {r}, differs")
+            check(torch.equal(out4, want4), f"two-stream check: K4 on stream {i}, round {r}, differs")
+    print(f"  two streams: K1 wk|wv, K5 wq|wo w2a2, K4 wq|wo (K splits {splits}) x {rounds} rounds each, "
+          f"in turns with no synchronisation: every output equals its plain version", flush=True)
+    return {"rounds": rounds, "splits": splits}
 
 
 # -- phase 7 -------------------------------------------------------------------
@@ -1004,7 +1082,7 @@ def main(argv=None) -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
     ptx = {k: ptxas_kernels(reports[lib], k) for k, lib in (
         ("packed_ring_kernel", "packed_matmul"), ("quant_packed_mma_kernel", "quant_matmul"),
-        ("filter_tile_kernel", "filter_conv"))}
+        ("quant_mma_kernel", "quant_matmul"), ("filter_tile_kernel", "filter_conv"))}
     report["ptxas"] = ptx
     for kernel, rows in ptx.items():
         for r in rows:
@@ -1013,16 +1091,18 @@ def main(argv=None) -> int:
                   f"dynamic), spills {r['spill_stores']}/{r['spill_loads']} B", flush=True)
     for kernel, lib, n in (("packed_ring_kernel", "packed_matmul", 16),
                            ("quant_packed_mma_kernel", "quant_matmul", 6),
+                           ("quant_mma_kernel", "quant_matmul", 12),
                            ("filter_tile_kernel", "filter_conv", 12)):
         check(not reports[lib] or len(ptx[kernel]) == n,
               f"expected {n} {kernel} instantiations, ptxas showed {len(ptx[kernel])}")
     # the instantiations the served path (K1) and phases 6-7 launch must not spill
     served = ([r for r in ptx["packed_ring_kernel"] if (r["n_seg"], r["overlap"], r["fused"]) == (2, 1, 1)]
               + [r for r in ptx["quant_packed_mma_kernel"] if r["copy"] == 16]
+              + [r for r in ptx["quant_mma_kernel"] if r["copy"] == 16 and r["bm"] in (8, 128)]
               + [r for r in ptx["filter_tile_kernel"]
                  if (r["nseg"], r["overlap"], r["v2"]) in ((4, 1, 1), (3, 0, 1), (2, 1, 1), (4, 1, 0))])
     check(all(r["spill_stores"] == r["spill_loads"] == 0 for r in served),
-          "a served K1, phase-6 K5 or phase-7 K6 instantiation spills registers")
+          "a served K1, phase-6 K4 or K5 or phase-7 K6 instantiation spills registers")
     smi_line = smi("name,power.limit")
     clock = float(smi("clocks.max.sm").split()[0])
     props = torch.cuda.get_device_properties(0)
@@ -1134,7 +1214,7 @@ def main(argv=None) -> int:
              launches=i8["counts"]["quant_matmul"], max_abs_err=i8["max_err"]["quant_matmul"],
              ms=step_sum(k4, "ms"), events_ms=step_sum(k4, "events_ms"), plain_ms=step_sum(k4, "plain_ms"),
              bound_ms=step_sum(k4, "bound_ms"), bound_by=by_t(k4, lambda r: r["per_step"]),
-             library_ms=step_sum(k4, "library_ms"), path="quant_dense, phase 6",
+             library_ms=step_sum(k4, "library_ms"), gbps=by_gbps(k4, "ms"), path="quant_dense, phase 6",
              per="decode step at M=8 (W8A8 at every projection and the head)", timing=GRAPH_TIMING),
         dict(name="quant_packed_matmul", route="cuda", source="src/repro_torch/csrc/quant_matmul.cu",
              replaces="src/repro/kernels/quant_matmul/kernel.py:103",

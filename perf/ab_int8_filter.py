@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time K5 and K6 of two checkouts on one card, in turns.
+"""Time K4, K5 and K6 of two checkouts on one card, in turns.
 
     python3 perf/ab_int8_filter.py --trees OLD NEW NEW OLD [--out FILE]
 
@@ -8,6 +8,9 @@ with ``git archive``).  Each turn runs in a process of its own, builds that
 tree's ``quant_matmul`` and ``filter_conv`` libraries and times, with that
 tree's own ``chip_smoke.py`` CUDA-graph timer:
 
+* K4 (``quant_matmul``, W8A8) at every phase-6 shape: the full-width
+  llama3.2-3b decode shapes at M = 8 and wq|wo at M = 128, the int8 weights
+  cycled through 256 MB;
 * K5 (``quant_packed_matmul``) at w2a2 and w2a3 at every phase-6 shape: the
   full-width llama3.2-3b decode shapes at M = 8 and wq|wo at M = 128, the
   packed words cycled through 256 MB (cold, as a decode step finds them);
@@ -40,7 +43,9 @@ def worker(root: Path) -> dict:
     from repro_torch.kernels.filter_conv.kernel import filter_conv_plain, filter_conv_raw
     from repro_torch.kernels.filter_conv.ops import choose_filter_config
     from repro_torch.kernels.packed_matmul import ref as pm
-    from repro_torch.kernels.quant_matmul.kernel import quant_packed_matmul_plain, quant_packed_matmul_raw
+    from repro_torch.kernels.quant_matmul.kernel import (
+        quant_matmul_plain, quant_matmul_raw, quant_packed_matmul_plain, quant_packed_matmul_raw,
+    )
     from repro_torch.kernels.quant_matmul.ops import choose_mxu_config
 
     if not torch.cuda.is_available():
@@ -51,6 +56,19 @@ def worker(root: Path) -> dict:
     shapes = [(name, K, N, 8, per_step) for name, (K, N, per_step) in chip_smoke.decode_matmul_shapes(cfg).items()]
     shapes.append(("wq|wo, M=128", cfg.d_model, cfg.n_heads * cfg.hd, 128, 0))
     g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    k4 = []
+    for name, K, N, m, per_step in shapes:
+        a8 = torch.randint(-128, 128, (m, K), generator=g, device="cuda", dtype=torch.int8)
+        w8 = torch.randint(-128, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+        sc = torch.rand((1, N), generator=g, device="cuda") * 1e-4
+        if not torch.equal(quant_matmul_raw(a8, w8, sc), quant_matmul_plain(a8, w8, sc)):
+            raise SystemExit(f"ab_int8_filter: K4 differs from its plain version at {name}")
+        w8s = chip_smoke.cold_copies(w8)
+        k4.append(dict(shape=name, M=m, K=K, N=N, per_step=per_step,
+                       ms=timer.graph(lambda i: quant_matmul_raw(a8, w8s[i % len(w8s)], sc))))
+        del a8, w8, w8s
+        torch.cuda.empty_cache()
     g.manual_seed(6)
     k5 = []
     for name, K, N, m, per_step in shapes:
@@ -89,7 +107,8 @@ def worker(root: Path) -> dict:
     def step(pair):
         return sum(r["ms"] * r["per_step"] for r in k5 if r["pair"] == pair)
 
-    return dict(tree=str(root), card=chip_smoke.smi("name,power.limit"), k5=k5, k6=k6,
+    return dict(tree=str(root), card=chip_smoke.smi("name,power.limit"), k4=k4, k5=k5, k6=k6,
+                k4_step_ms=sum(r["ms"] * r["per_step"] for r in k4),
                 k5_step_ms_w2a2=step("w2a2"), k5_step_ms_w2a3=step("w2a3"),
                 k6_sum_ms=sum(r["ms"] for r in k6))
 
@@ -104,7 +123,7 @@ def main() -> int:
         print(json.dumps(worker(args.worker.resolve())))
         return 0
     turns = []
-    keys = ("tree", "card", "k5_step_ms_w2a2", "k5_step_ms_w2a3", "k6_sum_ms")
+    keys = ("tree", "card", "k4_step_ms", "k5_step_ms_w2a2", "k5_step_ms_w2a3", "k6_sum_ms")
     for root in args.trees:
         out = subprocess.run([sys.executable, __file__, "--worker", str(root)], capture_output=True,
                              text=True, timeout=900)
@@ -113,7 +132,9 @@ def main() -> int:
             return out.returncode
         turns.append(json.loads(out.stdout.strip().splitlines()[-1]))
         t = turns[-1]
-        print(f"{t['tree']}: K5 {t['k5_step_ms_w2a2']:.4f} ms/step w2a2, {t['k5_step_ms_w2a3']:.4f} w2a3; "
+        print(f"{t['tree']}: K4 {t['k4_step_ms']:.4f} ms/step; "
+              + ", ".join(f"{r['shape']} {r['ms']:.4f}" for r in t["k4"])
+              + f"; K5 {t['k5_step_ms_w2a2']:.4f} ms/step w2a2, {t['k5_step_ms_w2a3']:.4f} w2a3; "
               + ", ".join(f"{r['shape']} {r['pair']} {r['ms']:.4f}" for r in t["k5"])
               + f"; K6 {t['k6_sum_ms']:.4f} ms over {len(t['k6'])} cases: "
               + ", ".join(f"{r['B']}x{r['C']}x{r['N']} K{r['K']} {r['pair']} {1e3 * r['ms']:.2f}us"

@@ -48,16 +48,19 @@ CHECKED = ("base",)
 SPLITS = (1, 2, 4, 8, 16, 32)
 
 
-def build_variants(build) -> dict:
-    out_dir = ROOT / "build" / "k5_variants"
+def build_variants(build, variants=VARIANTS, out_name="k5_variants") -> dict:
+    """Build each of ``variants`` (name -> text substitutions in
+    ``csrc/quant_matmul.cu``) into ``build/<out_name>/<name>/``, all in
+    parallel; returns the loaded libraries by name."""
+    out_dir = ROOT / "build" / out_name
     procs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         d = out_dir / name
         d.mkdir(parents=True, exist_ok=True)
         src = (build.CSRC / "quant_matmul.cu").read_text()
         for a, b in subs:
             if a not in src:
-                raise SystemExit(f"k5_variants: {name}: text not found in quant_matmul.cu: {a!r}")
+                raise SystemExit(f"{out_name}: {name}: text not found in quant_matmul.cu: {a!r}")
             src = src.replace(a, b)
         (d / "quant_matmul.cu").write_text(src)
         for h in build.CSRC.glob("*.cuh"):
@@ -68,7 +71,7 @@ def build_variants(build) -> dict:
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise SystemExit(f"k5_variants: nvcc failed for {name}:\n{log[-3000:]}")
+            raise SystemExit(f"{out_name}: nvcc failed for {name}:\n{log[-3000:]}")
         lib = ctypes.CDLL(str(out_dir / name / "lib.so"))
         for fn, argtypes in build.SIGNATURES["quant_matmul"].items():
             f = getattr(lib, fn)

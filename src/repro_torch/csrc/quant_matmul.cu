@@ -12,20 +12,51 @@
 //      interleaved to channel order -> int32 [M, N].
 // Plain versions: repro_torch/kernels/quant_matmul/kernel.py.
 //
-// K4.  At decode (M = 8) it reads every weight byte once and does 2*M int8
-// ops per byte: bound by HBM bytes (3.35 TB/s) against the int8 tensor-core
-// peak (1979 Tops/s).  It runs on the CUDA cores with __dp4a (four int8
-// products per instruction).  Each thread owns four consecutive output
-// columns, read as one 32-bit word per weight row (coalesced across the
-// warp), and BM = 8 activation rows, so each weight word is loaded once and
-// reused 8 times from registers; activation rows are staged in shared memory
-// a K tile at a time and read as broadcasts; four weight rows are transposed
-// into per-column words of four k's with __byte_perm before the __dp4a.  When
-// the (N, M) grid alone would not fill the card, K is split across blocks:
-// the int32 sums go to a scratch and a second small kernel applies the scale,
-// since the float product of a partial sum would not be the product of the
-// whole.  Ragged M, N and K are masked; N % 4 != 0 (or a misaligned base)
-// takes byte loads.
+// K4.  What bounds it on this card: it reads every weight byte once and does
+// 2 * M int8 operations per weight byte, far below the ridge of the int8
+// tensor cores (1979 Tops/s over 3.35 TB/s, about 590 operations a byte), so
+// at decode (M = 8; M <= 32 alike) it is bound by HBM bytes: a llama3.2-3b
+// decode step of W8A8 projections and head reads 3.2 GB, 0.97 ms.  At M = 128
+// a weight byte must still come from HBM only once, or the bound moves up
+// with the row tiles.
+//
+// What the design does about it.
+// - s8 tensor cores, transposed form (as K5): mma.sync m16n8k32
+//   .s32.s8.s8.s32, weight columns as the 16 rows of A, activation rows as
+//   the 8 columns of B.  int8 x int8 sums into int32 exactly for K < 2^17, so
+//   each 32-row slab takes one mma per (m16, n8) tile: no chunk masks, no
+//   peel.
+// - Weight ring (ring.cuh).  Weights stay [K, N] row-major.  Each block
+//   streams [TK = 128] x [BN = 128] byte tiles through cp.async stages, 16-,
+//   4- or 1-byte copies by N and alignment (kernel.py copy_width), with the
+//   block's activation rows [BM] x [TK] in the same stage.  Lane (g, t)
+//   reads 8 bytes of rows 4t .. 4t+3 and 16 + 4t .. of a slab and transposes
+//   them with prmt into the A fragments of 4 m-tiles (columns 8g + 2i, 8g +
+//   2i + 1); the stage is swizzled (ring_offset) so that these reads and the
+//   copies are free of bank conflicts, and activation rows sit at a pitch of
+//   16 mod 128 bytes so that the B reads are too.
+// - A tile that scales with M (kernel.py k4_bm): BM = 8, 32, 64 or 128
+//   activation rows a block.  Eight warps split a block as (K groups) x (row
+//   groups) x (2 column groups of 64); a warp holds up to 4 n8 tiles of rows,
+//   so the A fragments it builds from a slab serve up to 16 mma's, and at
+//   M = 128 one block reads each weight byte once for all 128 rows.
+// - Grid and K split (kernel.py K4_PLAN: K1/K2's grid_plan with K4's tile).
+//   One block per (row tile, column tile, K split); K is split in multiples
+//   of 32 rows until the blocks fill two per SM.  The warps' K groups are
+//   summed in shared memory; a split's int32 partials go to a workspace and
+//   the last block to arrive at a tile (ring.cuh last_to_arrive) sums them
+//   and applies the scale: out = float(acc) * scale[n], one rounding, as the
+//   plain version.  One kernel node a call: no memset, no atomics on
+//   outputs, no second kernel.
+// - Ragged M, N and K are masked (zero-filled copies).
+//
+// Measured (chip_smoke.py phase 6, perf/ab_int8_filter.py, perf/k4_variants.py;
+// H100 80GB HBM3 at 700 W, PERF.md section 6): 2.13-2.15 ms per decode step
+// at M = 8 (from 9.70 with the earlier __dp4a kernel; bytes bound 0.97), the
+// head at 2.6 TB/s (0.151 ms), wq|wo at M = 128 0.025 ms (torch._int_mm and
+// the scale 0.117).  The layer shapes pay a fixed cost: without the split
+// reduction a step takes 0.55 ms less, without the mma's 0.05 less; the
+// split count is capped at 8, since the last block's sum grows with it.
 //
 // K5.  What bounds it on this card: a decode step (llama3.2-3b, M = 8) reads
 // 1.6 GB of packed int8 words, 0.49 ms at 3.35 TB/s.  Its integer work cannot
@@ -89,147 +120,322 @@
 
 namespace {
 
-constexpr int BM = 8;        // activation rows per block, one register set each
-constexpr int THREADS = 64;  // threads per block
-constexpr int CPT = 4;       // columns per thread: one 32-bit word of a weight row
-constexpr int BN = THREADS * CPT;
-constexpr int TK = 128;      // K rows of activations staged per tile
-static_assert(BM == 8, "a staged row group is read as two int4");
-
-// the card's SM count, read once (132 on an H100 SXM if the query fails)
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0) {
-      n = 132;
-    }
-  }
-  return n;
+// r0..r3: four bytes (columns) of four consecutive rows; c[j]: column j's four
+// rows, row i in byte i
+__device__ __forceinline__ void transpose4x4(uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3,
+                                             uint32_t* c) {
+  const uint32_t t0 = __byte_perm(r0, r1, 0x5140), t1 = __byte_perm(r0, r1, 0x7362);
+  const uint32_t t2 = __byte_perm(r2, r3, 0x5140), t3 = __byte_perm(r2, r3, 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
 }
 
-// K rows per block when K is split across gridDim.z so that about two
-// blocks per SM are in flight; a multiple of TK.  `blocks` is the (N, M)
-// grid's size.
-int k_per_split(int K, int blocks) {
-  const int tiles = (K + TK - 1) / TK;
-  const int splits = max(1, min(tiles, (2 * sm_count() + blocks - 1) / blocks));
-  return ((tiles + splits - 1) / splits) * TK;
-}
-
-// four consecutive int8 of one weight row, column n0 in byte 0; columns at
-// or past N read as 0
-template <bool VEC>
-__device__ __forceinline__ uint32_t load_word(const int8_t* row, int n0, int N) {
-  if (VEC) return __ldg(reinterpret_cast<const unsigned int*>(row + n0));
-  uint32_t v = 0;
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    if (n0 + c < N) v |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(row + n0 + c))) << (8 * c);
-  }
-  return v;
+__device__ __forceinline__ void add4(int4& v, int4 t) {
+  v.x += t.x;
+  v.y += t.y;
+  v.z += t.z;
+  v.w += t.w;
 }
 
 // ---- K4 -----------------------------------------------------------------
 
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-quant_matmul_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
-                    const float* __restrict__ scale, float* __restrict__ out,
-                    int32_t* __restrict__ ws, int M, int K, int N, int k_split) {
-  // a_s[q][r]: activations k = 4q .. 4q+3 of row r, k in byte k - 4q
-  __shared__ __align__(16) uint32_t a_s[TK / 4][BM];
-  const int tid = threadIdx.x;
-  const int n0 = (blockIdx.x * THREADS + tid) * CPT;
-  const int m0 = blockIdx.y * BM;
-  const int k_begin = blockIdx.z * k_split;
-  const int k_end = min(K, k_begin + k_split);
+namespace k4 {
 
-  int32_t acc[BM][CPT];
-#pragma unroll
-  for (int r = 0; r < BM; ++r) {
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[r][c] = 0;
-  }
+constexpr int BN = 128;               // weight columns per block: two 64-column warp groups
+constexpr int WN = 2;                 // column groups of 64 (4 m16 tiles each)
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int SLAB = 32;              // K rows of one mma (k32)
+constexpr int TK = 128;               // K rows per ring stage: four slabs
+constexpr int W_BYTES = TK * BN;      // a stage's weight tile, 16 KB
+constexpr int ACT_LD = TK + 16;       // a stage's activation row pitch: 16 mod 128 bytes
+constexpr int MAX_K = 1 << 17;        // int8 x int8 sums of fewer rows fit int32
 
-  for (int kt = k_begin; kt < k_end; kt += TK) {
-    const int tk = min(TK, k_end - kt);
-    __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < BM * (TK / 4); i += THREADS) {
-      const int r = i / (TK / 4), q = i % (TK / 4), m = m0 + r;
-      uint32_t word = 0;
-      if (m < M) {
-        const int8_t* arow = a + static_cast<size_t>(m) * K + kt;
+// The warp layout of a block of BM activation rows: NT n8 tiles a warp, WM
+// row groups, WK K groups (the slabs of a stage dealt round robin); a
+// stage holds the weight tile and the block's activation rows.
+template <int BM>
+struct Tile {
+  static constexpr int NT = BM < 32 ? BM / 8 : 4;
+  static constexpr int WM = BM / (8 * NT);
+  static constexpr int WK = WARPS / (WM * WN);
+  static constexpr int SPW = TK / SLAB / WK;        // slabs a warp takes per stage
+  static constexpr int STAGES = BM == 128 ? 3 : 4;  // two blocks an SM fit in shared memory
+  static constexpr int STAGE = W_BYTES + BM * ACT_LD;
+  static constexpr int SMEM = STAGES * STAGE;
+  static constexpr int QUADS = BM * BN / 4;         // int4 of a block's outputs
+  static_assert(WM * WN * WK == WARPS && SPW * WK * SLAB == TK, "warp layout");
+  static_assert(WK * QUADS * 16 <= SMEM, "the K groups' partial sums reuse the ring");
+  static_assert(QUADS % THREADS == 0, "whole int4 of outputs per thread");
+};
+
+struct Args {
+  const int8_t* a;      // [M, K] activation levels
+  const int8_t* w;      // [K, N] weight levels
+  const float* scale;   // [N] combined scales
+  float* out;           // [M, N]
+  int32_t* ws;          // splits > 1: QUADS int4 of partials per block
+  int32_t* counters;    // splits > 1: one arrival counter per (row, column) tile, all 0
+  int M, K, N, splits, k_per_split, mtiles, ctiles;
+  bool act_vec;         // K % 16 == 0 and a 16-byte aligned: 16-byte activation copies
+};
+
+// Byte offset in a stage's weight tile of the 16-byte granule `gran` (0..7)
+// of row `row`: the granule index is XORed with 2 * ((row / 4) % 4).  A
+// half-warp's fragment reads (lane (g, t) takes 8 bytes of granule 4 cg + g
+// / 2 of row 4t + r) then hit 8 distinct granules, all 32 banks once, and a
+// row's 16-byte copies stay on distinct banks.
+__device__ __forceinline__ int ring_offset(int row, int gran) {
+  return row * BN + ((gran ^ (((row >> 2) & 3) << 1)) << 4);
+}
+
+// d += A (16 x 32, s8; registers: rows g / g + 8 at k 4t.., rows g / g + 8 at
+// k 16 + 4t..) x B (32 x 8, s8; k 4t.. and 16 + 4t.. of column g), s32
+__device__ __forceinline__ void mma_k32(int32_t (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                        uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+template <int BM, int COPY>
+__global__ void __launch_bounds__(THREADS, 2) quant_mma_kernel(const Args p) {
+  using T = Tile<BM>;
+  extern __shared__ __align__(16) uint8_t smem[];  // ring [STAGES][weights, activations]
+  __shared__ int last_s;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int cg = warp % WN, rg = (warp / WN) % T::WM, kg = warp / (WN * T::WM);
+  // blockIdx.x = (split * ctiles + ct) * mtiles + mt: blocks that run together
+  // read the same weight columns (row tiles) or adjacent ones
+  int u = blockIdx.x;
+  const int mt = u % p.mtiles;
+  u /= p.mtiles;
+  const int ct = u % p.ctiles;
+  const int split = u / p.ctiles;
+  const int m0 = mt * BM, c0 = ct * BN;
+  const int k_begin = split * p.k_per_split;
+  const int k_end = min(p.K, k_begin + p.k_per_split);
+  const int n_tiles = max(0, (k_end - k_begin + TK - 1) / TK);
+  const uint32_t ring_base = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+
+  // stage `tile` <- weight rows [kt, kt + TK) x columns [c0, c0 + BN) and
+  // activation rows [m0, m0 + BM) x K [kt, kt + TK), zeros outside
+  auto fetch = [&](int tile) {
+    if (tile < n_tiles) {
+      const int kt = k_begin + tile * TK;
+      const int slot = (tile % T::STAGES) * T::STAGE;
+      if (COPY == 16) {
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          if (4 * q + b < tk) word |= static_cast<uint32_t>(static_cast<uint8_t>(arow[4 * q + b])) << (8 * b);
+        for (int j = 0; j < W_BYTES / 16 / THREADS; ++j) {
+          const int i = tid + j * THREADS, row = i >> 3, gran = i & 7;
+          const int k = kt + row, col = c0 + gran * 16;
+          const bool ok = k < k_end && col < p.N;
+          cp_async16(ring_base + slot + ring_offset(row, gran),
+                     ok ? p.w + static_cast<size_t>(k) * p.N + col : p.w, ok ? 16 : 0);
+        }
+      } else if (COPY == 4) {
+#pragma unroll
+        for (int j = 0; j < W_BYTES / 4 / THREADS; ++j) {
+          const int i = tid + j * THREADS, row = i >> 5, word = i & 31;
+          const int k = kt + row, col = c0 + word * 4;
+          const bool ok = k < k_end && col < p.N;
+          cp_async4(ring_base + slot + ring_offset(row, word >> 2) + (word & 3) * 4,
+                    ok ? p.w + static_cast<size_t>(k) * p.N + col : p.w, ok ? 4 : 0);
+        }
+      } else {  // N % 4 != 0: rows are not 4-byte aligned; byte loads, stored as words
+#pragma unroll 1
+        for (int j = 0; j < W_BYTES / 4 / THREADS; ++j) {
+          const int i = tid + j * THREADS, row = i >> 5, word = i & 31;
+          const int k = kt + row, col = c0 + word * 4;
+          uint32_t v = 0;
+          if (k < k_end) {
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              if (col + b < p.N) {
+                v |= static_cast<uint32_t>(static_cast<uint8_t>(
+                         __ldg(p.w + static_cast<size_t>(k) * p.N + col + b))) << (8 * b);
+              }
+            }
+          }
+          *reinterpret_cast<uint32_t*>(smem + slot + ring_offset(row, word >> 2) + (word & 3) * 4) = v;
         }
       }
-      a_s[q][r] = word;
+      const int act = slot + W_BYTES;
+      if (p.act_vec) {  // k_end is a multiple of 16: a granule is all in or all out
+        for (int i = tid; i < BM * (TK / 16); i += THREADS) {
+          const int r = i >> 3, gran = i & 7, m = m0 + r, k = kt + gran * 16;
+          const bool ok = m < p.M && k < k_end;
+          cp_async16(ring_base + act + r * ACT_LD + gran * 16,
+                     ok ? p.a + static_cast<size_t>(m) * p.K + k : p.a, ok ? 16 : 0);
+        }
+      } else {
+        for (int i = tid; i < BM * (TK / 4); i += THREADS) {
+          const int r = i / (TK / 4), q = i % (TK / 4), m = m0 + r, k = kt + 4 * q;
+          uint32_t v = 0;
+          if (m < p.M) {
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              if (k + b < k_end) {
+                v |= static_cast<uint32_t>(static_cast<uint8_t>(p.a[static_cast<size_t>(m) * p.K + k + b]))
+                     << (8 * b);
+              }
+            }
+          }
+          *reinterpret_cast<uint32_t*>(smem + act + r * ACT_LD + 4 * q) = v;
+        }
+      }
     }
-    __syncthreads();
-    if (n0 < N) {
-      const int nq = (tk + 3) / 4;
-#pragma unroll 2
-      for (int q = 0; q < nq; ++q) {
-        const int k = kt + 4 * q;
-        uint32_t row[4];
+    cp_commit();  // one group per stage, empty past the end, so the waits count stages
+  };
+
+#pragma unroll
+  for (int i = 0; i < T::STAGES - 1; ++i) fetch(i);
+
+  // acc[j][i]: n8 tile j (activation rows rg * NT * 8 + 8j ..) x m-tile i
+  // (columns cg * 64 + 8g + 2i as A row g, + 1 as A row g + 8); fragment e:
+  // column + (e >> 1), activation row 2t + (e & 1)
+  int32_t acc[T::NT][4][4];
+#pragma unroll
+  for (int j = 0; j < T::NT; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][i][e] = 0;
+    }
+  }
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_wait<T::STAGES - 2>();  // this thread's copies of stage `tile` have landed
+    __syncthreads();           // everyone's have, and stage tile - 1 is consumed
+    fetch(tile + T::STAGES - 1);
+    const int kt = k_begin + tile * TK;
+    const uint8_t* wst = smem + (tile % T::STAGES) * T::STAGE;
+    const uint8_t* ast = wst + W_BYTES + (rg * T::NT * 8 + g) * ACT_LD + 4 * t;
+#pragma unroll
+    for (int ss = 0; ss < T::SPW; ++ss) {
+      const int s = ss * T::WK + kg;
+      if (kt + s * SLAB >= k_end) break;  // warp-uniform: only zero rows left
+      // A fragments: 8 bytes (columns 8g ..) of slab rows 4t + r and 16 + 4t + r
+      uint32_t w[4][4], clo[8], chi[8];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const uint2 lo = *reinterpret_cast<const uint2*>(
+            wst + ring_offset(s * SLAB + 4 * t + r, cg * 4 + (g >> 1)) + (g & 1) * 8);
+        const uint2 hi = *reinterpret_cast<const uint2*>(
+            wst + ring_offset(s * SLAB + 16 + 4 * t + r, cg * 4 + (g >> 1)) + (g & 1) * 8);
+        w[0][r] = lo.x;
+        w[1][r] = lo.y;
+        w[2][r] = hi.x;
+        w[3][r] = hi.y;
+      }
+      transpose4x4(w[0][0], w[0][1], w[0][2], w[0][3], clo);
+      transpose4x4(w[1][0], w[1][1], w[1][2], w[1][3], clo + 4);
+      transpose4x4(w[2][0], w[2][1], w[2][2], w[2][3], chi);
+      transpose4x4(w[3][0], w[3][1], w[3][2], w[3][3], chi + 4);
+#pragma unroll
+      for (int j = 0; j < T::NT; ++j) {
+        // B fragments: activation row g of n8 tile j, k's 4t .. and 16 + 4t ..
+        const uint8_t* ar = ast + j * 8 * ACT_LD + s * SLAB;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(ar);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(ar + 16);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          row[i] = (k + i < k_end) ? load_word<VEC>(w + static_cast<size_t>(k + i) * N, n0, N) : 0u;
-        }
-        // transpose: col[c] holds column c's weights for k .. k+3, k in byte 0
-        const uint32_t t0 = __byte_perm(row[0], row[1], 0x5140);
-        const uint32_t t1 = __byte_perm(row[0], row[1], 0x7362);
-        const uint32_t t2 = __byte_perm(row[2], row[3], 0x5140);
-        const uint32_t t3 = __byte_perm(row[2], row[3], 0x7362);
-        const int col[CPT] = {
-            static_cast<int>(__byte_perm(t0, t2, 0x5410)), static_cast<int>(__byte_perm(t0, t2, 0x7632)),
-            static_cast<int>(__byte_perm(t1, t3, 0x5410)), static_cast<int>(__byte_perm(t1, t3, 0x7632))};
-        const uint4 lo = *reinterpret_cast<const uint4*>(&a_s[q][0]);
-        const uint4 hi = *reinterpret_cast<const uint4*>(&a_s[q][4]);
-        const int av[BM] = {static_cast<int>(lo.x), static_cast<int>(lo.y), static_cast<int>(lo.z),
-                            static_cast<int>(lo.w), static_cast<int>(hi.x), static_cast<int>(hi.y),
-                            static_cast<int>(hi.z), static_cast<int>(hi.w)};
-#pragma unroll
-        for (int r = 0; r < BM; ++r) {
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) acc[r][c] = __dp4a(av[r], col[c], acc[r][c]);
+          mma_k32(acc[j][i], clo[2 * i], clo[2 * i + 1], chi[2 * i], chi[2 * i + 1], b0, b1);
         }
       }
     }
   }
+  cp_wait<0>();
+  __syncthreads();  // the ring is free: it now holds the K groups' sums
 
-  if (n0 >= N) return;
-  const bool split = gridDim.z > 1;
+  // quad q = ((pos * NT + j) * 4 + 2h + p) * 32 + lane (pos = rg * WN + cg):
+  // activation row 2t + h, columns 8g + 4p .. 8g + 4p + 3 of the warp's 64
+  int4* red = reinterpret_cast<int4*>(smem);  // [WK][QUADS]
+  const int pos = rg * WN + cg;
 #pragma unroll
-  for (int r = 0; r < BM; ++r) {
-    const int m = m0 + r;
-    if (m >= M) break;
+  for (int j = 0; j < T::NT; ++j) {
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int n = n0 + c;
-      if (n >= N) break;
-      const size_t idx = static_cast<size_t>(m) * N + n;
-      if (split) {
-        atomicAdd(ws + idx, acc[r][c]);
-      } else {
-        // one rounding: float(acc) times the combined scale, as the reference
-        out[idx] = __fmul_rn(__int2float_rn(acc[r][c]), scale[n]);
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int pp = 0; pp < 2; ++pp) {
+        red[kg * T::QUADS + ((pos * T::NT + j) * 4 + 2 * h + pp) * 32 + lane] =
+            make_int4(acc[j][2 * pp][h], acc[j][2 * pp][2 + h], acc[j][2 * pp + 1][h],
+                      acc[j][2 * pp + 1][2 + h]);
       }
     }
   }
+  __syncthreads();
+  auto quad = [&](int q) {
+    int4 v = red[q];
+#pragma unroll
+    for (int kk = 1; kk < T::WK; ++kk) add4(v, red[kk * T::QUADS + q]);
+    return v;
+  };
+  // one rounding: float(acc) times the combined scale, as the plain version
+  auto store = [&](int q, int4 v) {
+    const int l = q & 31, rest = q >> 5, pp = rest & 1, h = (rest >> 1) & 1;
+    const int j = (rest >> 2) % T::NT, wpos = (rest >> 2) / T::NT;
+    const int m = m0 + ((wpos / WN) * T::NT + j) * 8 + 2 * (l & 3) + h;
+    const int n = c0 + (wpos % WN) * 64 + 8 * (l >> 2) + 4 * pp;
+    if (m >= p.M || n >= p.N) return;
+    float* dst = p.out + static_cast<size_t>(m) * p.N + n;
+    const int32_t vals[4] = {v.x, v.y, v.z, v.w};
+    float o[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      o[c] = n + c < p.N ? __fmul_rn(__int2float_rn(vals[c]), __ldg(p.scale + n + c)) : 0.f;
+    }
+    if ((p.N & 3) == 0) {
+      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (n + c < p.N) dst[c] = o[c];
+      }
+    }
+  };
+  if (p.splits == 1) {
+#pragma unroll 4
+    for (int q = tid; q < T::QUADS; q += THREADS) store(q, quad(q));
+    return;
+  }
+  int4* mine = reinterpret_cast<int4*>(p.ws) + static_cast<size_t>(blockIdx.x) * T::QUADS;
+#pragma unroll 4
+  for (int q = tid; q < T::QUADS; q += THREADS) mine[q] = quad(q);
+  int32_t* counter = p.counters + ct * p.mtiles + mt;
+  if (!last_to_arrive(counter, p.splits, &last_s)) return;
+  // this tile's partials: split s at first + s * step
+  const int4* first = reinterpret_cast<const int4*>(p.ws) + (static_cast<size_t>(ct) * p.mtiles + mt) * T::QUADS;
+  const size_t step = static_cast<size_t>(p.ctiles) * p.mtiles * T::QUADS;
+  for (int q = tid; q < T::QUADS; q += THREADS) {
+    int4 total = make_int4(0, 0, 0, 0);
+#pragma unroll 8
+    for (int s = 0; s < p.splits; ++s) add4(total, __ldcg(first + s * step + q));
+    store(q, total);
+  }
+  if (tid == 0) *counter = 0;  // ready for the next launch, or the next replay of a graph
 }
 
-__global__ void scale_kernel(const int32_t* __restrict__ ws, const float* __restrict__ scale,
-                             float* __restrict__ out, int M, int N) {
-  const size_t total = static_cast<size_t>(M) * N;
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < total;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    out[i] = __fmul_rn(__int2float_rn(ws[i]), scale[i % N]);
-  }
+template <int BM, int COPY>
+cudaError_t launch(const Args& p, cudaStream_t s) {
+  auto kern = quant_mma_kernel<BM, COPY>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<BM>::SMEM);
+  if (attr != cudaSuccess) return attr;
+  kern<<<p.mtiles * p.ctiles * p.splits, THREADS, Tile<BM>::SMEM, s>>>(p);
+  return cudaGetLastError();
 }
+
+template <int BM>
+cudaError_t launch_copy(const Args& p, int copy, cudaStream_t s) {
+  return copy == 16 ? launch<BM, 16>(p, s) : copy == 4 ? launch<BM, 4>(p, s) : launch<BM, 1>(p, s);
+}
+
+}  // namespace k4
 
 // ---- K5 -----------------------------------------------------------------
 
@@ -274,18 +480,6 @@ __device__ __forceinline__ int ring_offset(int row, int gran) {
   return line * 128 + gi * 16;
 }
 
-// r0..r3: four bytes (columns) of four consecutive rows; c[j]: column j's four
-// rows, row i in byte i
-__device__ __forceinline__ void transpose4x4(uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3,
-                                             uint32_t* c) {
-  const uint32_t t0 = __byte_perm(r0, r1, 0x5140), t1 = __byte_perm(r0, r1, 0x7362);
-  const uint32_t t2 = __byte_perm(r2, r3, 0x5140), t3 = __byte_perm(r2, r3, 0x7362);
-  c[0] = __byte_perm(t0, t2, 0x5410);
-  c[1] = __byte_perm(t0, t2, 0x7632);
-  c[2] = __byte_perm(t1, t3, 0x5410);
-  c[3] = __byte_perm(t1, t3, 0x7632);
-}
-
 // d += A (16 x 16, s8, rows a0: g, a1: g + 8) x B (16 x 8, s8), s32 accumulate
 __device__ __forceinline__ void mma_s8(int32_t (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
   asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
@@ -298,13 +492,6 @@ __device__ __forceinline__ void mma_s8_new(int32_t (&d)[4], uint32_t a0, uint32_
   asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5}, {%6}, {%7,%7,%7,%7};\n"
       : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
       : "r"(a0), "r"(a1), "r"(b), "r"(0));
-}
-
-__device__ __forceinline__ void add4(int4& v, int4 t) {
-  v.x += t.x;
-  v.y += t.y;
-  v.z += t.z;
-  v.w += t.w;
 }
 
 template <bool OVERLAP, int COPY>
@@ -559,41 +746,41 @@ cudaError_t launch(const Args& p, cudaStream_t s) {
 
 }  // namespace k5
 
-bool aligned4(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 3u) == 0; }
-
 }  // namespace
 
-// K4: a i8 [M, K], w i8 [K, N], scale f32 [N] -> out f32 [M, N];
-// ws i32 [M, N] is the scratch of a K split
+// K4: a i8 [M, K], w i8 [K, N], scale f32 [N] -> out f32 [M, N].  bm: the
+// row tile (8, 32, 64 or 128; kernel.py k4_bm).  copy: 16 (N % 16 == 0, w
+// 16-byte aligned), 4 (N % 4 == 0, w 4-byte aligned) or 1, the weight copy
+// path.  splits, k_per_split: the K split (grid_plan with kernel.py K4_PLAN, a
+// multiple of 32 when split); with splits > 1, ws holds bm * 128 ints per
+// block and counters mtiles * ctiles zeros, which the kernel leaves at zero.
 extern "C" int quant_matmul(const void* a, const void* w, const void* scale, void* out, void* ws,
-                            int M, int K, int N, void* stream) {
+                            void* counters, int M, int K, int N, int bm, int copy, int splits,
+                            int k_per_split, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0) return 0;
-  if (K <= 0) return static_cast<int>(cudaMemsetAsync(out, 0, sizeof(float) * static_cast<size_t>(M) * N, s));
-  const auto* a8 = static_cast<const int8_t*>(a);
-  const auto* w8 = static_cast<const int8_t*>(w);
-  const auto* sc = static_cast<const float*>(scale);
-  auto* o = static_cast<float*>(out);
-  auto* acc = static_cast<int32_t*>(ws);
-  const int gx = (N + BN - 1) / BN, gy = (M + BM - 1) / BM;
-  const int ks = k_per_split(K, gx * gy);
-  const int splits = (K + ks - 1) / ks;
-  if (splits > 1) {
-    const cudaError_t e = cudaMemsetAsync(acc, 0, sizeof(int32_t) * static_cast<size_t>(M) * N, s);
-    if (e != cudaSuccess) return static_cast<int>(e);
+  if (K < 0 || K >= k4::MAX_K || splits < 1 || k_per_split < 1 ||
+      static_cast<long long>(splits) * k_per_split < K ||
+      (splits > 1 && (static_cast<long long>(splits - 1) * k_per_split >= K || k_per_split % k4::SLAB ||
+                      ws == nullptr || counters == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(gx, gy, splits);
-  if (N % 4 == 0 && aligned4(w)) {
-    quant_matmul_kernel<true><<<grid, THREADS, 0, s>>>(a8, w8, sc, o, acc, M, K, N, ks);
-  } else {
-    quant_matmul_kernel<false><<<grid, THREADS, 0, s>>>(a8, w8, sc, o, acc, M, K, N, ks);
+  const uintptr_t w_addr = reinterpret_cast<uintptr_t>(w);
+  if ((copy == 16 && (N % 16 || w_addr % 16)) || (copy == 4 && (N % 4 || w_addr % 4)) ||
+      (copy != 16 && copy != 4 && copy != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  const size_t total = static_cast<size_t>(M) * N;
-  const int blocks = static_cast<int>((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  scale_kernel<<<blocks, 256, 0, s>>>(acc, sc, o, M, N);
-  return static_cast<int>(cudaGetLastError());
+  k4::Args p{static_cast<const int8_t*>(a), static_cast<const int8_t*>(w), static_cast<const float*>(scale),
+             static_cast<float*>(out), static_cast<int32_t*>(ws), static_cast<int32_t*>(counters),
+             M, K, N, splits, k_per_split, (M + bm - 1) / bm, (N + k4::BN - 1) / k4::BN,
+             K % 16 == 0 && (reinterpret_cast<uintptr_t>(a) & 15) == 0};
+  switch (bm) {
+    case 8: return static_cast<int>(k4::launch_copy<8>(p, copy, s));
+    case 32: return static_cast<int>(k4::launch_copy<32>(p, copy, s));
+    case 64: return static_cast<int>(k4::launch_copy<64>(p, copy, s));
+    case 128: return static_cast<int>(k4::launch_copy<128>(p, copy, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // K5: a i8 [M, K], wp i8 [K, Np] -> acc i32 [M, Np * n_seg] (channel order).

@@ -1,5 +1,5 @@
 // Weight-tile ring and split-K arrival shared by the streaming matmuls (K1 and
-// K2 in packed_matmul.cu, K5 in quant_matmul.cu).
+// K2 in packed_matmul.cu, K4 and K5 in quant_matmul.cu).
 //
 // Ring: a block fills shared-memory stages with cp.async (16-byte copies
 // where the source rows allow it, else 4-byte copies), one commit group per
@@ -9,8 +9,9 @@
 // partial sums to a workspace slab and calls `last_to_arrive` on its tile's
 // arrival counter; the last block to arrive sums every split's slab, writes
 // the outputs and puts the counter back to 0 (kernel.py `_split_scratch`
-// zeroes the counters once per device), so a CUDA graph may replay the
-// launch.  Integer sums are exact in any order.
+// zeroes the counters once per device and gives each stream its own slot of
+// them), so a CUDA graph may replay the launch.  Integer sums are exact in
+// any order.
 #pragma once
 
 #include <cstdint>

@@ -52,8 +52,9 @@ SIGNATURES = {
         "paged_gather_i8": (_P, _P, _I) + (_P,) * 7 + (_I,) * 6 + (_P,),
     },
     "quant_matmul": {
-        # a, w, scale, out, ws, M, K, N, stream
-        "quant_matmul": (_P,) * 5 + (_I,) * 3 + (_P,),
+        # a, w, scale, out, ws, counters, M, K, N, bm, copy, splits,
+        # k_per_split, stream
+        "quant_matmul": (_P,) * 6 + (_I,) * 7 + (_P,),
         # a, wp, acc, ws, counters, M, K, Np, n_seg, stride, acc_chunk, overlap,
         # copy, splits, k_per_split, stream
         "quant_packed_matmul": (_P,) * 5 + (_I,) * 10 + (_P,),

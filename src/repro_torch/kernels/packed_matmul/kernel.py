@@ -14,10 +14,11 @@ The launch geometry lives here, where the CPU tests reach it:
 :func:`grid_plan` splits K across blocks to fill the card, and
 :func:`uses_vector_copy` picks the weight copy path from the packed width
 alone.  A K split needs a workspace of partial sums (allocated per launch)
-and one arrival counter per output tile, which the kernel leaves at zero:
-the counters are zeroed once per device and shared by every launch (K5
-in ``quant_matmul`` uses them too), so launches that split K must not run
-on two streams at once.
+and one arrival counter per output tile, which the kernel leaves at zero.
+The counters are zeroed once per device and cut into one slot per CUDA
+stream (:class:`CounterSlots`), so split launches on two streams never
+share a counter; every kernel that splits K (K4 and K5 in
+``quant_matmul`` too) takes its counters from :func:`_split_scratch`.
 
 Given CUDA tensors a wrapper launches its kernel or raises; given CPU
 tensors it runs the plain version (``*_plain`` below).
@@ -41,26 +42,27 @@ BM, BN = 8, 64
 BLOCKS_PER_SM = 2  # resident 256-thread blocks an SM at n_seg = 2
 MAX_SPLITS = 32
 MIN_K_PER_SPLIT = 32  # half a ring stage
-N_COUNTERS = 1 << 16  # arrival counters per device: output tiles of a split launch
+N_COUNTERS = 1 << 16  # arrival counters per device, one slot of them per stream
 
 
 @functools.lru_cache(maxsize=4096)
 def grid_plan(m: int, k: int, np_: int, sms: int, *, bm: int = BM, bn: int = BN, align: int = 1,
-              min_k: int = MIN_K_PER_SPLIT) -> tuple[int, int]:
+              min_k: int = MIN_K_PER_SPLIT, max_splits: int = MAX_SPLITS) -> tuple[int, int]:
     """``(splits, k_per_split)`` for an ``[m, k] x [k, np_]`` launch on a
     card of ``sms`` SMs, with blocks of ``bm`` rows x ``bn`` packed columns
-    (K1/K2's tile by default; K5 passes its own).  One block per (row tile,
-    column tile, K split); when the tiles alone fill fewer than
-    ``BLOCKS_PER_SM`` blocks an SM, K is split into equal ranges of at least
-    ``min_k`` rows, each a multiple of ``align``, choosing the split count
-    whose blocks fill the last wave best (a larger count must fill it more
-    than 2 % better), so that every SM moves about the same bytes."""
+    (K1/K2's tile by default; K4 and K5 pass their own).  One block per (row
+    tile, column tile, K split); when the tiles alone fill fewer than
+    ``BLOCKS_PER_SM`` blocks an SM, K is split into at most ``max_splits``
+    equal ranges of at least ``min_k`` rows, each a multiple of ``align``,
+    choosing the split count whose blocks fill the last wave best (a larger
+    count must fill it more than 2 % better), so that every SM moves about
+    the same bytes."""
     tiles = -(-m // bm) * -(-np_ // bn)
     cap = BLOCKS_PER_SM * sms
-    if k <= 0 or tiles >= cap or tiles > N_COUNTERS:
+    if k <= 0 or tiles >= cap:
         return 1, max(k, 1)
     best = (0.0, 1, k)
-    for s in range(1, min(MAX_SPLITS, -(-k // min_k)) + 1):
+    for s in range(1, min(max_splits, -(-k // min_k)) + 1):
         kps = -(-k // s)
         kps = -(-kps // align) * align
         splits = -(-k // kps)
@@ -77,7 +79,29 @@ def uses_vector_copy(np_: int) -> bool:
     return np_ % 4 == 0
 
 
-_COUNTERS: dict[int, torch.Tensor] = {}
+class CounterSlots:
+    """Which slot of a device's arrival counters each stream's split
+    launches use: a stream gets the next free slot at its first split
+    launch and keeps it, so two streams never share a counter.  Assigning
+    a slot allocates nothing, so it may happen inside a graph capture; it
+    raises only when all ``n_slots`` are taken."""
+
+    def __init__(self, n_slots: int):
+        self.n_slots = n_slots
+        self._of: dict[int, int] = {}
+
+    def slot(self, stream: int) -> int:
+        s = self._of.get(stream)
+        if s is None:
+            if len(self._of) == self.n_slots:
+                raise RuntimeError(f"split-K launch: all {self.n_slots} counter slots are taken "
+                                   f"by other streams")
+            s = self._of[stream] = len(self._of)
+        return s
+
+
+# per device: (the zeroed counters, their slots, counters a slot)
+_COUNTERS: dict[int, tuple[torch.Tensor, CounterSlots, int]] = {}
 
 
 def _split_scratch(dev: torch.device, m: int, k: int, np_: int, slab: int, *, bm: int = BM,
@@ -85,21 +109,31 @@ def _split_scratch(dev: torch.device, m: int, k: int, np_: int, slab: int, *, bm
     """``(splits, k_per_split, workspace, counters)`` of one launch with
     blocks of ``bm`` x ``bn`` that each leave ``slab`` int32 partials when K
     is split (``plan``: :func:`grid_plan`'s other keywords); the last two
-    are None when K is not split.  The counters are shared by every kernel
-    that splits K."""
-    splits, kps = grid_plan(m, k, np_, sm_count(dev), bm=bm, bn=bn, **plan)
+    are None when K is not split.  ``counters`` is the current stream's
+    slot of the device's arrival counters: ``BLOCKS_PER_SM`` x SMs of them,
+    more than a split launch has output tiles (:func:`grid_plan` splits
+    only below that).  The array is allocated at the device's first split
+    launch, which must not be inside a graph capture.  A captured graph
+    keeps the counters of its capture stream: a replay must not overlap a
+    split launch on that stream or another replay of the same graph."""
+    sms = sm_count(dev)
+    splits, kps = grid_plan(m, k, np_, sms, bm=bm, bn=bn, **plan)
     if splits == 1:
         return splits, kps, None, None
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    counters = _COUNTERS.get(idx)
-    if counters is None:
+    entry = _COUNTERS.get(idx)
+    if entry is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("split-K launch: launch once before capturing a CUDA graph, so that "
                                "its split-K counters are allocated outside the graph")
-        counters = _COUNTERS[idx] = torch.zeros(N_COUNTERS, dtype=torch.int32, device=dev)
+        size = BLOCKS_PER_SM * sms
+        entry = _COUNTERS[idx] = (torch.zeros(N_COUNTERS, dtype=torch.int32, device=dev),
+                                  CounterSlots(N_COUNTERS // size), size)
+    counters, slots, size = entry
+    slot = slots.slot(torch.cuda.current_stream(dev).cuda_stream)
     units = -(-m // bm) * -(-np_ // bn) * splits
     ws = torch.empty(units * slab, dtype=torch.int32, device=dev)
-    return splits, kps, ws, counters
+    return splits, kps, ws, counters[slot * size:(slot + 1) * size]
 
 
 def packed_dense_fused_plain(x, w_packed, *, a_bits, n_seg, stride, acc_chunk, overlap=0):

@@ -9,12 +9,13 @@ each pack ``n_seg`` sub-4-bit weight levels (``TPU_MXU7`` placements),
 decoded by the segment peel.  Both are ``csrc/quant_matmul.cu``; see that
 file for what bounds them on the card.
 
-K5's plans live here, where the CPU tests reach them: :func:`slab_chunks`
-and :func:`k5_chunk_plan` (which rows each tensor-core accumulator that is
-decoded may hold), :data:`K5_PLAN` (K1/K2's ``grid_plan`` with K5's tile)
-and :func:`copy_width` (the weight copy path, from the packed width alone).
-A K split reuses K1/K2's workspace and arrival counters
-(``packed_matmul.kernel._split_scratch``).
+The plans of both live here, where the CPU tests reach them: K4's row
+tile by M (:func:`k4_bm`), :data:`K4_PLAN` and :data:`K5_PLAN` (K1/K2's
+``grid_plan`` with each kernel's tile), :func:`slab_chunks` and
+:func:`k5_chunk_plan` (which rows each tensor-core accumulator that K5
+decodes may hold) and :func:`copy_width` (the weight copy path, from the
+row width alone).  A K split reuses K1/K2's workspace and per-stream
+arrival counters (``packed_matmul.kernel._split_scratch``).
 
 Given CUDA tensors a wrapper launches its kernel or raises; given CPU
 tensors it runs the plain version (``*_plain`` below).
@@ -32,11 +33,27 @@ from repro_torch.kernels.peel import interleave, peel_chunks
 # for every bit pair in 2..8 x 2..8 that has an int8-lane placement
 KERNEL_N_SEG = (2,)
 
+# K4's tile (csrc/quant_matmul.cu, namespace k4): BM activation rows (by M,
+# k4_bm) x 128 weight columns a block; K in slabs of 32 rows (one m16n8k32
+# mma), a K split at least one ring stage of 128 rows and at most 8 ranges:
+# the last block's sum of the splits' partials grows with their number
+# (perf/k4_variants.py: wk|wv at M = 8 takes 5.95 us in 8 ranges, 7.15 in 24)
+K4_BN, K4_SLAB, K4_TK = 128, 32, 128
+K4_BMS = (8, 32, 64, 128)
+K4_MAX_K = 1 << 17  # int8 x int8 sums over fewer rows fit int32
+K4_PLAN = dict(bn=K4_BN, align=K4_SLAB, min_k=K4_TK, max_splits=8)  # grid_plan's keywords, with bm=k4_bm(m)
+
 # K5's tile (csrc/quant_matmul.cu, namespace k5): 8 activation rows x 64
 # packed columns a block; K in slabs of 16 rows (one m16n8k16 mma), a K
 # split at least 64 rows (half a ring stage)
 K5_BM, K5_BN, K5_SLAB = 8, 64, 16
 K5_PLAN = dict(bm=K5_BM, bn=K5_BN, align=K5_SLAB, min_k=64)  # grid_plan's keywords for K5
+
+
+def k4_bm(m: int) -> int:
+    """K4's row tile: the smallest of :data:`K4_BMS` that holds ``m`` rows,
+    else 128, so that a block's staged weights serve up to 128 rows."""
+    return next((bm for bm in K4_BMS if m <= bm), K4_BMS[-1])
 
 
 def slab_chunks(acc_chunk: int, slab: int = K5_SLAB) -> list[tuple[int, int]]:
@@ -56,9 +73,9 @@ def k5_chunk_plan(k: int, acc_chunk: int) -> list[tuple[int, int]]:
 
 
 def copy_width(np_: int) -> int:
-    """Bytes per weight copy of K5's ring: 16 needs a row stride (``np_``
-    bytes) that is a multiple of 16, 4 a multiple of 4; other widths take
-    byte loads (same ring, exact)."""
+    """Bytes per weight copy of K4's and K5's rings: 16 needs a row stride
+    (``np_`` bytes) that is a multiple of 16, 4 a multiple of 4; other
+    widths take byte loads (same ring, exact)."""
     return 16 if np_ % 16 == 0 else 4 if np_ % 4 == 0 else 1
 
 
@@ -101,13 +118,20 @@ def quant_matmul_raw(
     n = w_i8.shape[1]
     if w_scale.dtype != torch.float32 or w_scale.numel() != n or w_scale.device != a_i8.device:
         raise ValueError(f"w_scale must be float32 [1, {n}] on the operands' device")
+    if k >= K4_MAX_K:
+        raise ValueError(f"K = {k} >= {K4_MAX_K}: int8 x int8 sums could overflow int32")
     scale = w_scale.contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=a_i8.device)
-    ws = torch.empty((m, n), dtype=torch.int32, device=a_i8.device)  # a K split's int32 sums
+    bm = k4_bm(m)
+    copy = copy_width(n)
+    while w_i8.data_ptr() % copy:  # a view that starts off the copy's alignment
+        copy = 4 if copy == 16 else 1
+    splits, kps, ws, counters = _split_scratch(a_i8.device, m, k, n, bm * K4_BN, bm=bm, **K4_PLAN)
     lib = build.library("quant_matmul")
     err = lib.quant_matmul(
-        a_i8.data_ptr(), w_i8.data_ptr(), scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        m, k, n, torch.cuda.current_stream(a_i8.device).cuda_stream,
+        a_i8.data_ptr(), w_i8.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr(),
+        m, k, n, bm, copy, splits, kps, torch.cuda.current_stream(a_i8.device).cuda_stream,
     )
     build.check(lib, err, "quant_matmul")
     build.launched("quant_matmul")

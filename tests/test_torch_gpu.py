@@ -166,8 +166,14 @@ def test_engine_runs_through_the_kernels(cuda):
     assert build.counts() == {k: v * m["steps"] for k, v in per_step.items()}
 
 
+# row tiles by M: 8 (M 1-8), 32 (13, 17), 64 (64), 128 (128, 130); N = 1024,
+# 3072, 512, 64, 96 take 16-byte weight copies, 36 and 300 4-byte ones, 129,
+# 7 and 33 byte loads; K = 257, 40, 517, 9 are not multiples of 16 (byte
+# loads of activations, a ragged last slab); (8, 3072, 1024), (17, 8192,
+# 36), (128, 3072, 3072), (64, 3072, 96) and (1, 3072, 512) split K
 @pytest.mark.parametrize("m,k,n", [(8, 3072, 1024), (3, 257, 129), (130, 512, 64), (8, 40, 7),
-                                   (17, 8192, 36)])
+                                   (17, 8192, 36), (128, 3072, 3072), (64, 517, 300), (64, 3072, 96),
+                                   (13, 9, 33), (128, 9, 20), (1, 3072, 512)])
 def test_quant_matmul_kernel_bit_exact(cuda, m, k, n):
     """K4, ragged M, N and K included, with and without a K split."""
     g = np.random.default_rng(m + k + n)
@@ -337,6 +343,85 @@ def test_filter_conv_is_one_kernel_node_and_replays_in_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, fc.conv_full_levels(f, s))
+
+
+def _k4_operands(m, k, n, seed, dev):
+    g = np.random.default_rng(seed)
+    a = torch.from_numpy(g.integers(-128, 128, (m, k)).astype(np.int8)).to(dev)
+    w = torch.from_numpy(g.integers(-128, 128, (k, n)).astype(np.int8)).to(dev)
+    scale = torch.from_numpy(g.uniform(1e-6, 1e-3, (1, n)).astype(np.float32)).to(dev)
+    return a, w, scale
+
+
+@pytest.mark.parametrize("m,n", [(8, 1024), (128, 3072), (5, 36)])
+def test_quant_matmul_split_replays_in_a_cuda_graph(cuda, m, n):
+    """K4 at shapes that split K (row tiles of 8 and 128, 16-byte and
+    4-byte copies), captured once and replayed three times on new
+    activations: every replay exact, so the split reduction's arrival
+    counters return to zero after each launch."""
+    a, w, scale = _k4_operands(m, 3072, n, 10, cuda)
+    quant_matmul_raw(a, w, scale)  # the counters are allocated outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = quant_matmul_raw(a, w, scale)
+    g = np.random.default_rng(11)
+    for _ in range(3):
+        a.copy_(torch.from_numpy(g.integers(-128, 128, tuple(a.shape)).astype(np.int8)))
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, quant_matmul_plain(a, w, scale))
+
+
+def test_quant_matmul_is_one_kernel_node(cuda):
+    """A K4 call that splits K runs one kernel: no memset, no second pass."""
+    a, w, scale = _k4_operands(8, 3072, 1024, 12, cuda)
+    names = _device_kernels(lambda: quant_matmul_raw(a, w, scale))
+    assert len(names) == 1 and "quant_mma_kernel" in names[0], names
+
+
+def test_split_launches_on_two_streams_keep_their_own_counters(cuda):
+    """K1, K5 and K4 at shapes that split K, launched in turns on two
+    streams for many rounds with no synchronisation between the streams:
+    each stream's launches take their own arrival counters, so every output
+    equals its plain version."""
+    from repro_torch.kernels.packed_matmul.kernel import _split_scratch
+
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    ptrs = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            _, _, _, counters = _split_scratch(cuda, 8, 3072, 96, 64)
+            ptrs.append(counters.data_ptr())
+    assert ptrs[0] != ptrs[1]
+    c1, c5 = choose_config(4, 4), choose_mxu_config(2, 2)
+    kw1 = dict(n_seg=c1.n_seg, stride=c1.stride, acc_chunk=c1.acc_chunk, overlap=c1.overlap)
+    kw5 = dict(n_seg=c5.n_seg, stride=c5.stride, acc_chunk=c5.acc_chunk, overlap=c5.overlap)
+    ops = []
+    for i in range(len(streams)):
+        _, x, wp = _packed(4, 4, True, 8, 3072, 96, seed=20 + i, dev=cuda)
+        g = np.random.default_rng(30 + i)
+        a5 = torch.from_numpy(g.integers(0, 4, (8, 3072)).astype(np.int8)).to(cuda)
+        w5 = pm.pack_weights(torch.from_numpy(g.integers(0, 4, (3072, 1024)).astype(np.int32)),
+                             c5.n_seg, c5.stride).to(torch.int8).to(cuda)
+        ops.append((x, wp, a5, w5, *_k4_operands(8, 3072, 1024, 40 + i, cuda)))
+    torch.cuda.synchronize()
+    outs = [[] for _ in streams]
+    for _ in range(50):
+        for i, st in enumerate(streams):
+            x, wp, a5, w5, a4, w4, s4 = ops[i]
+            with torch.cuda.stream(st):
+                outs[i].append((packed_dense_fused_raw(x, wp, a_bits=4, **kw1),
+                                quant_packed_matmul_raw(a5, w5, **kw5), quant_matmul_raw(a4, w4, s4)))
+    torch.cuda.synchronize()
+    for i in range(len(streams)):
+        x, wp, a5, w5, a4, w4, s4 = ops[i]
+        want = (packed_dense_fused_plain(x, wp, a_bits=4, **kw1), quant_packed_matmul_plain(a5, w5, **kw5),
+                quant_matmul_plain(a4, w4, s4))
+        for (acc1, sum1), acc5, out4 in outs[i]:
+            assert torch.equal(acc1, want[0][0]) and torch.equal(sum1, want[0][1])
+            assert torch.equal(acc5, want[1]) and torch.equal(out4, want[2])
 
 
 def test_quant_packed_matmul_is_one_kernel_node(cuda):
