@@ -18,23 +18,31 @@ Phases, all on the card:
    One call of each, captured in a CUDA graph, must be their two kernel
    nodes and nothing else (no memset).  Yardsticks: ``torch._int_mm`` on
    the int8 levels (the same function; M padded to 32) and a bf16 matmul;
-   achieved GB/s per shape.
+   achieved GB/s per shape.  Then K1 at a chunked step's rows (M = 8 slots
+   x 16 lanes = 128) at every layer shape: bit-exact, timed beside its
+   bound and ``torch._int_mm``.
 3. K3 (``paged_gather``) against its plain version at the engine's
    geometry: a bf16 pool with null pages, with and without a sliding
-   window, and an int8 pool: bit-exact.
+   window, and an int8 pool, each at one lane and at the chunk width (16
+   lanes that cross a page boundary and run past the live pages): bit-exact.
 4. The engine: llama3.2-3b at full width (28 layers, d 3072, vocab
    128256), w4a4 packed projections, the packed (4, 4) LM head and the
    kernel gather, built with ``build_engine`` from random weights (seed
    0), serving 8 requests (prompts of 16-64 tokens, 32 new tokens each).
    Every request must end ``ok`` with finite logits, and the launch
-   counters must equal the per-step counts times the steps.  A short
+   counters must equal the per-step counts times the steps.  The timed
+   run sets no hook; an untimed run of the same weights records every
+   sampled logits row and its top-2 gap, and must give the same tokens.  A short
    traced run of the same weights (``torch.profiler``) gives the device's
    busy share and its time by kernel.  A last run serves the same
    weights with ``block_k=512``, the K-blocked path (K2), and must give
    the same tokens.  Each path's launch counts come from its own run.
 5. Whole-path cross-check: a 2-layer model of the same width, float32,
    on the card (kernels) and on the CPU (plain versions) from the same
-   packed words, a few decode steps; logits within the stated tolerance.
+   packed words, a few decode steps and one chunked step of 16 lanes (an
+   inactive slot, decoding slots, partial and full chunks); logits within
+   the stated tolerance, and activation-level flips rare among the rows
+   whose inputs no earlier flip moved.
 6. The int8-lane entry points ``quant_dense`` (K4) and
    ``quant_packed_dense`` (K5 at w2a2 and w2a3; w4a4 takes the plain
    integer path) from float inputs at every full-width decode shape (M =
@@ -55,6 +63,16 @@ Phases, all on the card:
    every matmul takes the plain integer path on the card.  8 requests
    must end ``ok``; then the same weights on the card and the CPU, a few
    decode steps, logits within the stated tolerance.
+9. Chunked prefill, the slice's path: phase 4's weights, prompts and
+   engine settings at ``chunk_tokens=16``, once under reserve admission and
+   once on demand with a pool of about 60 % of the requests' summed worst
+   case.  Every request must end ``ok``, the on-demand run must preempt and
+   leak nothing, the launch counters must equal the per-step counts times
+   the steps, and every sampled logits row and token must agree with phase
+   4's within the stated tolerances (rows recorded by an untimed repeat of
+   each run).  A planted fault, the head fed each slot's last lane instead
+   of its last valid one, must fail those checks.  Prints steps, tokens
+   fed, TTFT, step time and tok/s of phase 4 and both runs.
 
 Kernel and library times come from CUDA graphs of 100 launches divided
 by 100: an event pair around one launch of under about 0.1 ms measures
@@ -72,6 +90,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -98,10 +117,16 @@ GRAPH_TIMING = "CUDA graph of 100 launches (matmul weights cycled through 256 MB
 # differed must agree to CROSS_CLEAN_ABS_TOL per logit, and its greedy
 # token must agree wherever the CPU's top-2 gap exceeds twice its largest
 # |difference|; a slot with a flip must stay within CROSS_FLIP_REL_TOL
-# relative L2; and flips must stay rare (at least half the slots without
-# one).
+# relative L2; and flips must stay rare (at a decode step at least half the
+# slots without one; at a chunked step at least half the rows that no
+# earlier flip reaches, see _first_hand).
 CROSS_CLEAN_ABS_TOL = 1e-3
 CROSS_FLIP_REL_TOL = 0.2
+
+# the chunk width of phase 9's chunked engine (8 slots x 16 lanes = 128
+# rows into every projection), of phase 3's chunked gather and of phase 5's
+# chunked step
+CHUNK = 16
 
 
 class PhaseError(RuntimeError):
@@ -264,6 +289,14 @@ def ptxas_kernels(text: str, kernel: str) -> list:
 # -- phase 2 -------------------------------------------------------------------
 
 
+def k1_bound(card, M: int, K: int, N: int, nbytes: float) -> tuple[float, str, float, float]:
+    """The least time of K1's or K2's function, an int32 ``[M, N]`` product
+    of 4-bit levels: its bytes, or its ``M x K x N`` products on the s8
+    tensor cores (which the card offers for it), whichever is longer.  Not
+    the packed words' IMADs: they are this kernel's algorithm, not a floor."""
+    return card.bound(nbytes, 2 * M * K * N, INT8_OPS_PER_S)
+
+
 def phase_matmul(torch, card, timer, cfg, M: int, report: dict) -> dict:
     from repro_torch.kernels.packed_matmul import ref as pm
     from repro_torch.kernels.packed_matmul.kernel import (
@@ -309,8 +342,7 @@ def phase_matmul(torch, card, timer, cfg, M: int, report: dict) -> dict:
             splits, k_per_split = grid_plan(M, K, Np, card.sms)
             blocks = -(-M // BM) * -(-Np // BN) * splits
             nbytes = M * K * 4 + K * Np * 4 + M * N * 4 + M * 4
-            ops = M * K * Np  # packed-dot IMADs; the XOR parity runs on the logic pipe
-            b_ms, b_by, _, _ = card.bound(nbytes, ops)
+            b_ms, b_by, t_b, t_o = k1_bound(card, M, K, N, nbytes)
             w_bf16 = torch.randn((K, N), generator=g, device="cuda", dtype=torch.bfloat16)
             x_bf16 = x.to(torch.bfloat16)
             int_mm, int_mm_m = _int_mm(torch, a_lvl.to(torch.int8), w8)
@@ -328,7 +360,7 @@ def phase_matmul(torch, card, timer, cfg, M: int, report: dict) -> dict:
                     a_lvl, wps[i % len(wps)], block_k=512, **kw)),
                 bf16_graph_ms=timer.graph(lambda i: torch.matmul(x_bf16, w_bf16s[i % len(w_bf16s)])),
                 int_mm_graph_ms=timer.graph(lambda i: int_mm(w8s[i % len(w8s)])), int_mm_m=int_mm_m,
-                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, int32_ops=ops,
+                bound_ms=b_ms, bound_by=b_by, t_bytes=t_b, t_ops=t_o, bytes=nbytes,
             )
             row["k1_gbps"] = nbytes / row["k1_graph_ms"] / 1e6
             row["k2_gbps"] = (nbytes - M * 4) / row["k2_graph_ms"] / 1e6
@@ -342,6 +374,63 @@ def phase_matmul(torch, card, timer, cfg, M: int, report: dict) -> dict:
                   f"({b_by}); bit-exact, no memset", flush=True)
             del x, wp, acc, p_acc, acc2, p_acc2, w_bf16, x_bf16, a_lvl, wps, w_bf16s, w8, w8s, int_mm
     report["matmul"] = rows
+    return {"max_err": max_err, "rows": rows}
+
+
+def phase_matmul_chunk(torch, card, timer, cfg, M: int, report: dict) -> dict:
+    """K1 at a chunked step's row count (slots x chunk width) at every
+    full-width layer shape, the served w4a4 placement: bit-exact against
+    its plain version, timed by graph beside its bound and ``_int_mm``.
+    The head stays at M = slots (the step takes each slot's last lane
+    before it), so it is not repeated here."""
+    from repro_torch.kernels.packed_matmul import ref as pm
+    from repro_torch.kernels.packed_matmul.kernel import (
+        BM, BN, grid_plan, packed_dense_fused_plain, packed_dense_fused_raw,
+    )
+    from repro_torch.kernels.packed_matmul.ops import choose_config
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    c = choose_config(4, 4)
+    kw = dict(a_bits=4, n_seg=c.n_seg, stride=c.stride, acc_chunk=c.acc_chunk, overlap=c.overlap)
+    rows, max_err = [], 0.0
+    for name, (K, N, per_step) in decode_matmul_shapes(cfg).items():
+        if name == "head":
+            continue
+        x = torch.rand((M, K), generator=g, device="cuda") * 1.2 - 0.1
+        w_lvl = torch.randint(0, 16, (K, N), generator=g, device="cuda", dtype=torch.int32)
+        wp = pm.pack_weights(w_lvl, c.n_seg, c.stride)
+        w8 = w_lvl.to(torch.int8)
+        del w_lvl
+        acc, a_sum = packed_dense_fused_raw(x, wp, **kw)
+        p_acc, p_sum = packed_dense_fused_plain(x, wp, **kw)
+        torch.cuda.synchronize()
+        err = max((acc - p_acc).abs().max().item(), (a_sum - p_sum).abs().max().item())
+        check(torch.equal(acc, p_acc) and torch.equal(a_sum, p_sum),
+              f"K1 differs from its plain version at {name} M={M}: max {err}")
+        max_err = max(max_err, err)
+        Np = wp.shape[1]
+        splits, k_per_split = grid_plan(M, K, Np, card.sms)
+        nbytes = M * K * 4 + K * Np * 4 + M * N * 4 + M * 4
+        b_ms, b_by, t_b, t_o = k1_bound(card, M, K, N, nbytes)
+        a8 = torch.round(torch.clamp(x, 0, 1) * 15).to(torch.int8)
+        int_mm, int_mm_m = _int_mm(torch, a8, w8)
+        wps, w8s = cold_copies(wp), cold_copies(w8)
+        row = dict(shape=name, K=K, N=N, M=M, per_step=per_step, splits=splits,
+                   k_per_split=k_per_split, blocks=-(-M // BM) * -(-Np // BN) * splits,
+                   k1_graph_ms=timer.graph(lambda i: packed_dense_fused_raw(x, wps[i % len(wps)], **kw)),
+                   k1_ms=timer(lambda: packed_dense_fused_raw(x, wp, **kw), reps=20),
+                   plain_ms=timer(lambda: packed_dense_fused_plain(x, wp, **kw), reps=1, warmup=0),
+                   int_mm_graph_ms=timer.graph(lambda i: int_mm(w8s[i % len(w8s)])), int_mm_m=int_mm_m,
+                   bound_ms=b_ms, bound_by=b_by, t_bytes=t_b, t_ops=t_o, bytes=nbytes)
+        row["k1_gbps"] = nbytes / row["k1_graph_ms"] / 1e6
+        rows.append(row)
+        print(f"  {name:12s} K={K:5d} N={N:6d} M={M}: {row['blocks']} blocks ({splits} K splits): "
+              f"K1 {row['k1_graph_ms']:.4f} ms by graph ({row['k1_gbps']:.0f} GB/s; events "
+              f"{row['k1_ms']:.4f}), plain {row['plain_ms']:.3f} ms, _int_mm (M={int_mm_m}) "
+              f"{row['int_mm_graph_ms']:.4f}, bound {b_ms:.4f} ms ({b_by}); bit-exact", flush=True)
+        del x, wp, w8, acc, p_acc, a8, wps, w8s, int_mm
+    report["matmul_chunk"] = rows
     return {"max_err": max_err, "rows": rows}
 
 
@@ -403,11 +492,16 @@ def _gather_geometry(torch, S, nb, ps, n_pages, seed):
 
 
 def phase_gather(torch, card, timer, cfg, ecfg, report: dict) -> dict:
+    """K3 at the decode step's one lane and at the chunk width: each slot's
+    position lies on its last live page, so the chunk's lanes cross a page
+    boundary and run past the live pages onto null ones (as a chunked step's
+    invalid lanes do)."""
     from repro_torch.kernels.paged_gather.kernel import paged_gather_plain, paged_gather_raw
 
     S, nb, ps = ecfg.n_slots, ecfg.blocks_per_slot, ecfg.page_size
     P, D = ecfg.pool_pages(), cfg.kv_heads * cfg.hd
     table, pos, n_live = _gather_geometry(torch, S, nb, ps, P, seed=1)
+    check(bool((pos[:-1] % ps + CHUNK > ps).all()), "K3 geometry: a chunk does not cross its page")
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
     fp = torch.randn((2, P, ps, D), generator=g, device="cuda")
@@ -422,31 +516,34 @@ def phase_gather(torch, card, timer, cfg, ecfg, report: dict) -> dict:
         ("int8 pool -> bf16, window 40", (lv[0], lv[1]), (sc[0], sc[1]), 40),
     ]
     rows, max_err = [], 0.0
-    for label, pools, scales, window in cases:
+    for (label, pools, scales, window), chunk in itertools.product(cases, (1, CHUNK)):
         args = (table, pos, window, *pools, *scales)
-        got = paged_gather_raw(*args, chunk=1, out_dtype=torch.bfloat16)
-        want = paged_gather_plain(*args, chunk=1, out_dtype=torch.bfloat16)
+        kw = dict(chunk=chunk, out_dtype=torch.bfloat16)
+        got = paged_gather_raw(*args, **kw)
+        want = paged_gather_plain(*args, **kw)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
-            check(a.dtype == b.dtype and torch.equal(a, b), f"K3 differs from its plain version: {label}")
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"K3 differs from its plain version: {label}, chunk {chunk}")
             max_err = max(max_err, (a.float() - b.float()).abs().max().item())
         elem = pools[0].element_size()
-        nbytes = (2 * n_live * ps * D * elem + 2 * S * nb * ps * D * 2 + S * nb * ps
+        nbytes = (2 * n_live * ps * D * elem + 2 * S * nb * ps * D * 2 + S * chunk * nb * ps
                   + S * nb * 4 + S * 4 + (2 * n_live * ps * 4 if scales[0] is not None else 0))
         b_ms, b_by, _, _ = card.bound(nbytes, 0)
         tl = table.long()
         row = dict(
-            case=label, S=S, n_blocks=nb, page_size=ps, D=D, live_pages=n_live, per_step=cfg.n_layers,
-            k3_ms=timer(lambda: paged_gather_raw(*args, chunk=1, out_dtype=torch.bfloat16), reps=20),
-            k3_graph_ms=timer.graph(lambda i: paged_gather_raw(*args, chunk=1, out_dtype=torch.bfloat16)),
-            plain_ms=timer(lambda: paged_gather_plain(*args, chunk=1, out_dtype=torch.bfloat16), reps=10),
+            case=label, chunk=chunk, S=S, n_blocks=nb, page_size=ps, D=D, live_pages=n_live,
+            per_step=cfg.n_layers,
+            k3_ms=timer(lambda: paged_gather_raw(*args, **kw), reps=20),
+            k3_graph_ms=timer.graph(lambda i: paged_gather_raw(*args, **kw)),
+            plain_ms=timer(lambda: paged_gather_plain(*args, **kw), reps=10),
             library_ms=timer(lambda: (pools[0][tl], pools[1][tl]), reps=20),
             library_graph_ms=timer.graph(lambda i: (pools[0][tl], pools[1][tl])),
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
         )
         rows.append(row)
-        print(f"  {label}: K3 {row['k3_ms']:.4f} ms (graph {row['k3_graph_ms']:.4f}), plain "
-              f"{row['plain_ms']:.4f} ms, pool[table] {row['library_ms']:.4f} ms (graph "
+        print(f"  {label}, chunk {chunk}: K3 {row['k3_ms']:.4f} ms (graph {row['k3_graph_ms']:.4f}), "
+              f"plain {row['plain_ms']:.4f} ms, pool[table] {row['library_ms']:.4f} ms (graph "
               f"{row['library_graph_ms']:.4f}), bound {b_ms:.4f} ms; bit-exact", flush=True)
     report["gather"] = rows
     return {"max_err": max_err, "rows": rows}
@@ -498,13 +595,21 @@ def phase_engine(torch, cfg, ecfg, report: dict) -> dict:
         build_s=t_build, steps=steps, wall_s=wall, tokens=m["generated_tokens"],
         tokens_per_s=m["tokens_per_s"], step_ms_p50=float(np.median(step_ms)),
         step_ms_min=min(step_ms), counts=counts, per_step=per_step,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, fed_tokens=m["fed_tokens"],
+        ttft_ms_p50=1e3 * m["ttft_p50"],
     )
     print(f"  K1 path: {steps} steps, {m['generated_tokens']} tokens in {wall:.2f} s: "
           f"{m['tokens_per_s']:.1f} tok/s, step p50 {run_a['step_ms_p50']:.2f} ms "
           f"(min {run_a['step_ms_min']:.2f}); launches {counts}; build {t_build:.1f} s; "
           f"peak memory {run_a['peak_mem_gb']:.1f} GB", flush=True)
     tokens_a = {r.rid: list(r.out_tokens) for r in eng.finished}
+    samples, tokens_s = _sampled_run(Engine(cfg, eng.params, ecfg, head=eng._head), prompts, 32)
+    check(tokens_s == tokens_a, "the sampled (untimed) run gave other tokens than the timed run")
+    gaps = {k: float(np.diff(np.partition(row, -2)[-2:])[0]) for k, row in samples.items()}
+    run_a["top2_gap"] = dict(min=min(gaps.values()), p50=float(np.median(list(gaps.values()))))
+    print(f"  sampled rows' top-2 logit gap: min {run_a['top2_gap']['min']:.4g}, p50 "
+          f"{run_a['top2_gap']['p50']:.4g}; distinct tokens {len({t for v in tokens_a.values() for t in v})}",
+          flush=True)
     profile_engine(torch, Engine(cfg, eng.params, ecfg, head=eng._head), cfg, report)
 
     # the K-blocked path: the same packed words with block_k=512 (as a
@@ -530,8 +635,22 @@ def phase_engine(torch, cfg, ecfg, report: dict) -> dict:
     print(f"  K2 path: {m_b['steps']} steps, {m_b['tokens_per_s']:.1f} tok/s, step p50 "
           f"{run_b['step_ms_p50']:.2f} ms; launches {counts_b}; tokens equal the K1 path's", flush=True)
     report["engine"] = {"fused": run_a, "blocked": run_b}
+    c1 = dict(params=eng.params, head=eng._head, prompts=prompts, tokens=tokens_a, samples=samples,
+              gaps=gaps)
     del eng, eng_b, blocked
-    return {"fused": run_a, "blocked": run_b}
+    return {"fused": run_a, "blocked": run_b, "c1": c1}
+
+
+def _sampled_run(eng, prompts, max_new: int) -> tuple[dict, dict]:
+    """Serve ``prompts`` on ``eng`` (untimed, deterministic clock) and keep
+    every sampled logits row, keyed by (request id, index of the sampled
+    token), and each request's tokens.  The timed runs set no hook."""
+    rows = {}
+    eng.on_sample = lambda rid, t, row: rows.__setitem__((rid, t), row.copy())
+    for p in prompts:
+        eng.submit(p, max_new)
+    eng.run(realtime=False)
+    return rows, {r.rid: list(r.out_tokens) for r in eng.finished}
 
 
 def profile_engine(torch, eng, cfg, report: dict) -> None:
@@ -576,12 +695,17 @@ def profile_engine(torch, eng, cfg, report: dict) -> None:
 # -- phase 5 -------------------------------------------------------------------
 
 
-def _cross_steps(torch, cfg2, packed, head, steps: int, seed: int, gather: str):
+def _cross_steps(torch, cfg2, packed, head, steps: int, seed: int, gather: str, chunk_lens=None):
     """Run ``steps`` decode steps of the same packed weights on the card and
-    on the CPU (8 slots, random tokens from ``seed``).  Yields per step the
-    card's and the CPU's logits (on the CPU) and, per slot, whether any
-    activation level quantized by a packed matmul differed between the two
-    at this or an earlier step."""
+    on the CPU (8 slots, random tokens from ``seed``), then, given
+    ``chunk_lens``, one chunked step of ``CHUNK`` lanes in which slot ``i``
+    feeds ``chunk_lens[i]`` of them.  Yields per step the card's and the
+    CPU's logits (on the CPU); per slot, whether any activation level
+    quantized by a packed matmul for a row it reads (a lane it feeds, or
+    lane 0 of a slot that feeds none) differed between the two at this or
+    an earlier step; that step's ``[S, C]`` rows read and, of them, those
+    with a differing level in a layer; and per slot whether the head's
+    input row differed."""
     import numpy as np
 
     from repro_torch.models import layers as L
@@ -595,8 +719,9 @@ def _cross_steps(torch, cfg2, packed, head, steps: int, seed: int, gather: str):
               for dev in ("cuda", "cpu")}
     table = torch.arange(1, n_pages, dtype=torch.int32).reshape(S, nb)
     rng = np.random.default_rng(seed)
+    plan = [(1, None)] * steps + ([(CHUNK, chunk_lens)] if chunk_lens is not None else [])
 
-    # record the activation levels every packed matmul quantizes, per slot
+    # record the activation levels every packed matmul quantizes, per row
     levels: list = []
     inner = L.packed_dense
 
@@ -608,22 +733,31 @@ def _cross_steps(torch, cfg2, packed, head, steps: int, seed: int, gather: str):
     flipped = torch.zeros(S, dtype=torch.bool)  # a level differed at this or an earlier step
     L.packed_dense = recording
     try:
-        for t in range(steps):
-            tokens = torch.from_numpy(rng.integers(0, cfg2.vocab, (S, 1)).astype(np.int32))
+        for t, (C, lens) in enumerate(plan):
+            tokens = torch.from_numpy(rng.integers(0, cfg2.vocab, (S, C)).astype(np.int32))
             pos = torch.full((S,), t, dtype=torch.int32)
+            tlens = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+            read = torch.ones((S, C), dtype=torch.bool)  # the rows each slot's logits depend on
+            if lens is not None:
+                read = torch.arange(C)[None] < torch.clamp(tlens, min=1)[:, None]
             levels.clear()
-            g_log, _ = T.forward_decode_paged(packed, cfg2, states["cuda"], table.cuda(),
-                                              tokens.cuda(), pos.cuda(), head=head, gather=gather)
+            g_log, _ = T.forward_decode_paged(
+                packed, cfg2, states["cuda"], table.cuda(), tokens.cuda(), pos.cuda(), head=head,
+                lens=None if tlens is None else tlens.cuda(), gather=gather)
             g_levels = list(levels)
             levels.clear()
             c_log, _ = T.forward_decode_paged(cpu_packed, cfg2, states["cpu"], table, tokens, pos,
-                                              head=cpu_head, gather=gather)
+                                              head=cpu_head, lens=tlens, gather=gather)
             check(len(levels) == len(g_levels) == 7 * cfg2.n_layers + 1, "packed matmul count")
-            for g, c in zip(g_levels, levels):
-                flipped |= (g != c).any(dim=1)
+            row_flip = torch.zeros((S, C), dtype=torch.bool)
+            for g, c in zip(g_levels[:-1], levels[:-1]):  # the layers: S x C rows
+                row_flip |= (g != c).any(dim=1).reshape(S, C)
+            row_flip &= read
+            head_flip = (g_levels[-1] != levels[-1]).any(dim=1)  # the head: a row per slot
+            flipped |= row_flip.any(dim=1) | head_flip
             g_log = g_log.cpu()
             check(bool(torch.isfinite(g_log).all()), f"non-finite logits at cross-check step {t}")
-            yield g_log, c_log, flipped.clone()
+            yield g_log, c_log, flipped.clone(), read, row_flip, head_flip
     finally:
         L.packed_dense = inner
 
@@ -645,7 +779,40 @@ def _row_stats(torch, g_log, c_log, flipped) -> dict:
                     tokens_agree=int(agree.sum()), tokens_decided=int(decided.sum())))
 
 
+def _first_hand(prior, read, row_flip, head_flip) -> tuple[int, int, int]:
+    """(first-hand rows, rows with a first-hand flip, slots whose flipped
+    rows are exactly those from their first flip on) of one step.  A row
+    is first-hand when nothing it reads had a flip: its slot had none at an
+    earlier step (or the K/V rows it attends to differ) and no earlier lane
+    of this step had one (its K/V rows reach every later lane from the next
+    layer on).  Per such slot: its rows read, in lane order, up to and
+    including its first flipped one; a head flip counts at its last row."""
+    rows = fresh = suffix = 0
+    for s in range(len(prior)):
+        n = int(read[s].sum())
+        lanes = row_flip[s, :n].clone()
+        lanes[n - 1] |= head_flip[s]
+        hit = lanes.nonzero()
+        suffix += bool(len(hit)) and bool(lanes[int(hit[0]):].all())
+        if prior[s]:
+            continue
+        rows += int(hit[0]) + 1 if len(hit) else n
+        fresh += bool(len(hit))
+    return rows, fresh, suffix
+
+
+# phase 5's chunked step: an inactive slot, two decoding slots, three
+# partial chunks and two full ones
+CROSS_CHUNK_LENS = (0, 1, 5, 16, 16, 1, 9, 0)
+
+
 def phase_crosscheck(torch, cfg, report: dict, steps: int = 3) -> dict:
+    """``steps`` decode steps, then one chunked step of ``CHUNK`` lanes.
+    Flips must stay rare: at the decode steps at least half the slots
+    without one at this or an earlier step; at the chunked step, where a
+    slot's lanes attend to each other and to the rows of its earlier steps
+    so that one flip moves every later row of the slot, at least half the
+    first-hand rows (:func:`_first_hand`) without one."""
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.serving.api import quantize_params_packed
@@ -657,24 +824,40 @@ def phase_crosscheck(torch, cfg, report: dict, steps: int = 3) -> dict:
     del params
     S = 8
     results = []
-    for t, (g_log, c_log, flipped) in enumerate(
-            _cross_steps(torch, cfg2, packed, head, steps, seed=5, gather="kernel")):
+    prior = torch.zeros(S, dtype=torch.bool)
+    for t, (g_log, c_log, flipped, read, row_flip, head_flip) in enumerate(_cross_steps(
+            torch, cfg2, packed, head, steps, seed=5, gather="kernel", chunk_lens=CROSS_CHUNK_LENS)):
+        chunked = t == steps
         st = _row_stats(torch, g_log, c_log, flipped)
-        r = dict(step=t, **st["summary"])
+        first_hand, fresh, suffix = _first_hand(prior, read, row_flip, head_flip)
+        r = dict(step=t, chunk=CHUNK if chunked else 1, rows_read=read.sum(dim=1).tolist(),
+                 rows_flipped=row_flip.sum(dim=1).tolist(),
+                 flipped_lanes=[row_flip[s].nonzero().flatten().tolist() for s in range(S)],
+                 first_hand_rows=first_hand, first_hand_flips=fresh, suffix_slots=suffix,
+                 **st["summary"])
         results.append(r)
-        print(f"  step {t}: {r['clean_rows']}/{S} rows with identical activation levels, their "
-              f"max|d| {r['clean_max_abs']}; rows with a level flip: max rel L2 "
-              f"{r['flipped_max_rel']}; greedy tokens agree {r['tokens_agree']}/{S}", flush=True)
+        prior = flipped
+        what = f"chunked step (lens {list(CROSS_CHUNK_LENS)})" if chunked else f"step {t}"
+        print(f"  {what}: {r['clean_rows']}/{S} slots with identical activation levels, their "
+              f"max|d| {r['clean_max_abs']}; slots with a level flip: max rel L2 "
+              f"{r['flipped_max_rel']}; rows with a flip / rows read this step, by slot "
+              f"{list(zip(r['rows_flipped'], r['rows_read']))}, flipped lanes {r['flipped_lanes']}; "
+              f"{fresh} of {first_hand} first-hand rows flipped, {suffix} slots flipped from their "
+              f"first flip on; greedy tokens agree {r['tokens_agree']}/{S}", flush=True)
         clean = st["clean"]
         check(bool((st["row_max"][clean] <= CROSS_CLEAN_ABS_TOL).all()),
-              f"cross-check step {t}: a row without level flips differs by more than "
+              f"cross-check {what}: a row without level flips differs by more than "
               f"{CROSS_CLEAN_ABS_TOL}")
         check(bool((st["row_rel"][flipped] <= CROSS_FLIP_REL_TOL).all()),
-              f"cross-check step {t}: a row with level flips differs by more than "
+              f"cross-check {what}: a row with level flips differs by more than "
               f"{CROSS_FLIP_REL_TOL} relative")
         check(bool((st["agree"] | ~st["decided"] | flipped).all()),
-              f"cross-check step {t}: greedy token differs past the gap bound")
-        check(int(clean.sum()) >= S // 2, f"cross-check step {t}: level flips in most rows")
+              f"cross-check {what}: greedy token differs past the gap bound")
+        if not chunked:
+            check(int(clean.sum()) >= S // 2, f"cross-check {what}: level flips in most rows")
+        else:
+            check(2 * fresh <= first_hand, f"cross-check {what}: level flips in most first-hand rows")
+    check(len(results) == steps + 1, "the chunked cross-check step did not run")
     report["crosscheck"] = results
     return {"steps": results}
 
@@ -1024,7 +1207,7 @@ def phase_default_engine(torch, cfg, report: dict, steps: int = 3) -> dict:
           f"{len(prompts)} requests ok, {m['tokens_per_s']:.1f} tok/s, step p50 "
           f"{run['step_ms_p50']:.2f} ms", flush=True)
     results = []
-    for t, (g_log, c_log, flipped) in enumerate(
+    for t, (g_log, c_log, flipped, *_) in enumerate(
             _cross_steps(torch, cfg2, eng.params, eng._head, steps,
                          seed=9, gather=ecfg.gather_backend)):
         st = _row_stats(torch, g_log, c_log, flipped)
@@ -1044,6 +1227,144 @@ def phase_default_engine(torch, cfg, report: dict, steps: int = 3) -> dict:
     report["default_engine"] = {"run": run, "counts": counts, "crosscheck": results}
     del eng
     return run
+
+
+# -- phase 9 -------------------------------------------------------------------
+
+# phase 9 tolerances.  The chunked runs serve phase 4's weights and prompts
+# in bf16, so a sampled row may differ from phase 4's at the same (request,
+# token) by the sum order of the attention at 16 lanes against 1 (other
+# cuBLAS algorithms), which can move an activation across a 4-bit rounding
+# boundary and cascade through the later layers, as phase 5 sees between
+# the card and the CPU.  Each row must stay within CHUNK_ROW_REL_TOL relative
+# L2 of phase 4's (phase 5's bound for a row with flips); such rows must stay
+# rare: at least CHUNK_CLEAN_SHARE of the rows compared within
+# CROSS_CLEAN_ABS_TOL of phase 4's per logit; and a request's tokens may
+# part from phase 4's only at a token whose phase-4 top-2 logit gap is at
+# most CHUNK_TIE_UNITS head units.  The packed head's logits are w_scale *
+# a_scale times integers, so a gap is a whole number of such units (0 is a
+# true tie, which argmax breaks by index); one activation level flipped at
+# the head's input moves the gap between two columns by at most 15 units
+# (4-bit weight levels differ by at most 15).  The degenerate (4, 4) head
+# on random weights gives every row a large common part, so a wrong row
+# stays within CHUNK_ROW_REL_TOL and may emit the same tokens; the share of
+# clean rows tells it from a sound run.  Each run plants such a fault (the
+# head fed each slot's last lane instead of its last valid one) and
+# requires the checks to reject it.
+CHUNK_ROW_REL_TOL = CROSS_FLIP_REL_TOL
+CHUNK_CLEAN_SHARE = 0.5
+CHUNK_TIE_UNITS = 15
+# run (b)'s usable pool, as a share of the requests' summed worst-case pages
+ON_DEMAND_POOL_SHARE = 0.6
+
+
+def _against_c1(rows: dict, tokens: dict, c1: dict, tie_bound: float) -> dict:
+    """Phase 9's reading of one run's sampled rows and tokens against phase
+    4's, up to and including each request's first token divergence."""
+    import numpy as np
+
+    divergences, rel, clean = [], [], 0
+    for rid, theirs in c1["tokens"].items():
+        div = next((t for t in range(len(theirs)) if tokens[rid][t] != theirs[t]), None)
+        for t in range(len(theirs) if div is None else div + 1):
+            a, b = rows[(rid, t)], c1["samples"][(rid, t)]
+            rel.append(float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+            clean += float(np.abs(a - b).max()) <= CROSS_CLEAN_ABS_TOL
+        if div is not None:
+            divergences.append((rid, div, c1["gaps"][(rid, div)]))
+    r = dict(rows_compared=len(rel), rows_clean=clean, row_rel_max=max(rel),
+             row_rel_p50=float(np.median(rel)), row_rel_min=min(rel), divergences=divergences)
+    r["passes"] = (r["row_rel_max"] <= CHUNK_ROW_REL_TOL and clean >= CHUNK_CLEAN_SHARE * len(rel)
+                   and all(gap <= tie_bound for _, _, gap in divergences))
+    return r
+
+
+def phase_chunked(torch, card, cfg, ecfg, c1: dict, fused: dict, report: dict) -> dict:
+    """The slice's path at full width on phase 4's weights and prompts:
+    chunked prefill under reserve admission, then under on-demand admission
+    with a pool of about ``ON_DEMAND_POOL_SHARE`` of the worst case.  Each
+    run is timed with no hook set; a second, untimed run of the same
+    engine settings records the sampled rows, and must give the same
+    tokens.  Last, the planted fault."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Engine
+
+    prompts, max_new = c1["prompts"], 32
+    head = c1["head"]
+    tie_bound = CHUNK_TIE_UNITS * head.w_scale / ((1 << head.a_bits) - 1)
+    print(f"  tie bound: {CHUNK_TIE_UNITS} head units = {tie_bound:.4g}", flush=True)
+    worst = sum(-(-(len(p) + max_new) // ecfg.page_size) for p in prompts)
+    usable = round(ON_DEMAND_POOL_SHARE * worst)
+    print(f"  requests' summed worst case {worst} pages; on-demand pool {usable} usable pages "
+          f"({usable / worst:.2f} of it)", flush=True)
+    per_step = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": cfg.n_layers * 7 + 1,
+                "paged_gather": cfg.n_layers}
+    runs = {}
+    for admit, n_pages in (("reserve", 0), ("on-demand", usable + 1)):
+        ecfg9 = dataclasses.replace(ecfg, chunk_tokens=CHUNK, admit=admit, n_pages=n_pages)
+        eng = Engine(cfg, c1["params"], ecfg9, head=head)
+        m, counts, wall = _serve(torch, eng, prompts, max_new)
+        steps = m["steps"]
+        tokens = {r.rid: list(r.out_tokens) for r in eng.finished}
+        check(m["statuses"] == {"ok": len(prompts)}, f"C={CHUNK} {admit}: statuses {m['statuses']}")
+        check(all(len(t) == max_new for t in tokens.values()), f"C={CHUNK} {admit}: a request ended short")
+        check(counts == {k: v * steps for k, v in per_step.items()},
+              f"C={CHUNK} {admit}: launch counters {counts} != {per_step} x {steps} steps")
+        if admit == "on-demand":
+            check(m["preemptions"] > 0, "the on-demand run did not preempt")
+            eng.assert_no_leaks()
+        step_ms = [1e3 * x for x in eng.step_seconds]
+        del eng
+        rows, tokens_s = _sampled_run(Engine(cfg, c1["params"], ecfg9, head=head), prompts, max_new)
+        check(tokens_s == tokens, f"C={CHUNK} {admit}: the sampled (untimed) run gave other tokens")
+        cmp = _against_c1(rows, tokens, c1, tie_bound)
+        del rows
+        run = dict(admit=admit, chunk_tokens=CHUNK, usable_pages=ecfg9.pool_pages() - 1, steps=steps,
+                   fed_tokens=m["fed_tokens"], preemptions=m["preemptions"],
+                   tokens=m["generated_tokens"], wall_s=wall, tokens_per_s=m["tokens_per_s"],
+                   step_ms_p50=float(np.median(step_ms)), ttft_ms_p50=1e3 * m["ttft_p50"],
+                   counts=counts, per_step=per_step, **cmp)
+        runs[admit] = run
+        print(f"  C={CHUNK} {admit}: {steps} steps, {m['fed_tokens']} tokens fed, {m['preemptions']} "
+              f"preemptions; {m['tokens_per_s']:.1f} tok/s, step p50 {run['step_ms_p50']:.2f} ms, TTFT "
+              f"p50 {run['ttft_ms_p50']:.1f} ms; launches {counts}; {cmp['rows_compared']} sampled rows "
+              f"against phase 4's: {cmp['rows_clean']} within {CROSS_CLEAN_ABS_TOL}, rel L2 max "
+              f"{cmp['row_rel_max']:.3g}, p50 {cmp['row_rel_p50']:.3g}; first token divergences (rid, "
+              f"t, phase-4 top-2 gap) {cmp['divergences']}", flush=True)
+        check(cmp["row_rel_max"] <= CHUNK_ROW_REL_TOL,
+              f"C={CHUNK} {admit}: a sampled row differs from phase 4's by more than {CHUNK_ROW_REL_TOL} relative")
+        check(cmp["rows_clean"] >= CHUNK_CLEAN_SHARE * cmp["rows_compared"],
+              f"C={CHUNK} {admit}: fewer than {CHUNK_CLEAN_SHARE} of the sampled rows equal phase 4's")
+        check(all(gap <= tie_bound for _, _, gap in cmp["divergences"]),
+              f"C={CHUNK} {admit}: tokens part from phase 4's at a top-2 gap above {tie_bound:.4g}")
+
+    # planted fault: the head fed each slot's last lane, not its last valid one
+    inner = T.head_paged
+    T.head_paged = lambda params, cfg_, x, lens=None, head=None: inner(params, cfg_, x, None, head)
+    try:
+        ecfg9 = dataclasses.replace(ecfg, chunk_tokens=CHUNK)
+        rows, tokens = _sampled_run(Engine(cfg, c1["params"], ecfg9, head=head), prompts, max_new)
+    finally:
+        T.head_paged = inner
+    fault = _against_c1(rows, tokens, c1, tie_bound)
+    del rows
+    print(f"  planted fault (head fed lane {CHUNK - 1}, not lens - 1): {fault['rows_compared']} rows "
+          f"compared, {fault['rows_clean']} within {CROSS_CLEAN_ABS_TOL}, rel L2 min "
+          f"{fault['row_rel_min']:.3g}, p50 {fault['row_rel_p50']:.3g}, max {fault['row_rel_max']:.3g}; "
+          f"first token divergences {fault['divergences']}", flush=True)
+    check(not fault["passes"], "phase 9's checks pass a head fed the wrong lane")
+
+    print(f"  prefill at C=1 and C={CHUNK} on {card.name} ({card.power_limit}):", flush=True)
+    for label, r in (("C=1 reserve (phase 4)", fused), (f"C={CHUNK} reserve", runs["reserve"]),
+                     (f"C={CHUNK} on-demand", runs["on-demand"])):
+        print(f"    {label:22s} steps {r['steps']:4d}, fed {r['fed_tokens']:5d}, TTFT p50 "
+              f"{r['ttft_ms_p50']:8.1f} ms, step p50 {r['step_ms_p50']:7.2f} ms, "
+              f"{r['tokens_per_s']:6.1f} tok/s", flush=True)
+    report["chunked"] = dict(runs, tie_bound=tie_bound, planted_fault=fault)
+    return runs
 
 
 # -- main ------------------------------------------------------------------------
@@ -1122,6 +1443,8 @@ def main(argv=None) -> int:
 
     print("phase 2: K1/K2 vs plain at the full-width decode shapes", flush=True)
     mm = phase_matmul(torch, card, timer, cfg, ecfg.n_slots, report)
+    print(f"  K1 at the chunked step's rows (M = {ecfg.n_slots} x {CHUNK}):", flush=True)
+    mm_chunk = phase_matmul_chunk(torch, card, timer, cfg, ecfg.n_slots * CHUNK, report)
     print("phase 3: K3 vs plain at the engine geometry", flush=True)
     ga = phase_gather(torch, card, timer, cfg, ecfg, report)
     del timer
@@ -1145,6 +1468,10 @@ def main(argv=None) -> int:
     print("phase 8: engine at the default bits (w4a8, (8, 8) head), 2 layers at full width, "
           "card vs CPU", flush=True)
     phase_default_engine(torch, cfg, report)
+    torch.cuda.empty_cache()
+    print(f"phase 9: chunked prefill (C={CHUNK}), reserve and on-demand admission, on phase 4's "
+          f"weights and prompts", flush=True)
+    ch = phase_chunked(torch, card, cfg, ecfg, en.pop("c1"), en["fused"], report)
 
     # per-decode-step totals per kernel: the sum over the launches of one step
     def step_sum(rows, key):
@@ -1153,12 +1480,11 @@ def main(argv=None) -> int:
     served = [r for r in mm["rows"] if r["placement"] == "w4a4 overlap=1"]
     layers = [r for r in served if r["shape"] != "head"]
     head = [r for r in served if r["shape"] == "head"]
-    gather = [r for r in ga["rows"] if r["case"] == "bf16 pool, full causal"]
-
-    def by(rows, bytes_key="bytes"):
-        t_b = sum(r[bytes_key] * r["per_step"] for r in rows) / HBM_BYTES_PER_S * 1e3
-        t_o = sum(r.get("int32_ops", 0) * r["per_step"] for r in rows) / card.int32_ops_per_s * 1e3
-        return "bytes" if t_b >= t_o else "operations"
+    gather = [r for r in ga["rows"] if r["case"] == "bf16 pool, full causal" and r["chunk"] == 1]
+    gather_chunk = [r for r in ga["rows"] if r["case"] == "bf16 pool, full causal" and r["chunk"] == CHUNK]
+    chunk_step = mm_chunk["rows"] + head  # a chunked step: the layers at M = 128, the head at M = 8
+    chunked_launches = {k: {admit: r["counts"][k] for admit, r in ch.items()}
+                        for k in ("packed_dense_fused", "paged_gather")}
 
     def by_t(rows, weight):
         t_b = sum(r["t_bytes"] * weight(r) for r in rows)
@@ -1182,20 +1508,29 @@ def main(argv=None) -> int:
     kernels = [
         dict(name="packed_dense_fused", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
              replaces="src/repro/kernels/packed_matmul/kernel.py:111",
-             launches=fused["counts"]["packed_dense_fused"], max_abs_err=mm["max_err"],
+             launches=fused["counts"]["packed_dense_fused"],
+             max_abs_err=max(mm["max_err"], mm_chunk["max_err"]),
              ms=step_sum(served, "k1_graph_ms"), events_ms=step_sum(served, "k1_ms"),
              plain_ms=step_sum(served, "plain_ms"),
-             bound_ms=step_sum(served, "bound_ms"), bound_by=by(served),
+             bound_ms=step_sum(served, "bound_ms"), bound_by=by_t(served, lambda r: r["per_step"]),
              library_ms=step_sum(served, "int_mm_graph_ms"), library="torch._int_mm, M padded to 32",
              bf16_ms=step_sum(served, "bf16_graph_ms"), gbps=by_gbps(served, "k1_graph_ms"),
              path="fused", path_steps=fused["steps"],
-             per="decode step", timing=GRAPH_TIMING),
+             per="decode step", timing=GRAPH_TIMING,
+             chunk_step_ms=step_sum(chunk_step, "k1_graph_ms"),
+             chunk_step_plain_ms=step_sum(chunk_step, "plain_ms"),
+             chunk_step_bound_ms=step_sum(chunk_step, "bound_ms"), chunk_step_bound_by=by_t(chunk_step, lambda r: r["per_step"]),
+             chunk_step_library_ms=step_sum(chunk_step, "int_mm_graph_ms"),
+             chunk_step_gbps=by_gbps(chunk_step, "k1_graph_ms"),
+             chunk_step=f"chunked step: the layers at M = {ecfg.n_slots * CHUNK}, the head at M = {ecfg.n_slots}",
+             launches_chunked=chunked_launches["packed_dense_fused"],
+             steps_chunked={admit: r["steps"] for admit, r in ch.items()}),
         dict(name="packed_matmul", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
              replaces="src/repro/kernels/packed_matmul/kernel.py:168",
              launches=blocked["counts"]["packed_matmul"], max_abs_err=mm["max_err"],
              ms=step_sum(layers, "k2_graph_ms"), events_ms=step_sum(layers, "k2_ms"),
              plain_ms=step_sum(layers, "plain_ms"),
-             bound_ms=step_sum(layers, "bound_ms"), bound_by=by(layers),
+             bound_ms=step_sum(layers, "bound_ms"), bound_by=by_t(layers, lambda r: r["per_step"]),
              library_ms=step_sum(layers, "int_mm_graph_ms"), library="torch._int_mm, M padded to 32",
              bf16_ms=step_sum(layers, "bf16_graph_ms"), gbps=by_gbps(layers, "k2_graph_ms"),
              path="block_k=512",
@@ -1208,7 +1543,13 @@ def main(argv=None) -> int:
              bound_ms=step_sum(gather, "bound_ms"), bound_by="bytes",
              library_ms=step_sum(gather, "library_graph_ms"),
              library_events_ms=step_sum(gather, "library_ms"), path="fused", path_steps=fused["steps"],
-             per="decode step", timing=GRAPH_TIMING),
+             per="decode step", timing=GRAPH_TIMING,
+             chunk_step_ms=step_sum(gather_chunk, "k3_graph_ms"),
+             chunk_step_plain_ms=step_sum(gather_chunk, "plain_ms"),
+             chunk_step_bound_ms=step_sum(gather_chunk, "bound_ms"),
+             chunk_step_library_ms=step_sum(gather_chunk, "library_graph_ms"),
+             chunk_step=f"chunked step: chunk = {CHUNK}",
+             launches_chunked=chunked_launches["paged_gather"]),
         dict(name="quant_matmul", route="cuda", source="src/repro_torch/csrc/quant_matmul.cu",
              replaces="src/repro/kernels/quant_matmul/kernel.py:63",
              launches=i8["counts"]["quant_matmul"], max_abs_err=i8["max_err"]["quant_matmul"],

@@ -121,9 +121,13 @@ def attention_decode_paged(
     The chunk's K/V rows are written into the pools in place; ``gather``
     picks the ``pool[block_table]`` view ("xla") or the CUDA paged-gather
     kernel ("kernel"), bit-exact with each other on every active slot (the
-    kernel zeroes the null page, which only an inactive slot's lane 0 sees)."""
-    if lens is not None:
-        raise NotImplementedError("chunked prefill (lens) comes with the next slice (ROADMAP.md, port queue)")
+    kernel zeroes the null page, which only an inactive slot's lanes see).
+
+    Chunked prefill: with ``lens`` given, lane ``j`` of slot ``i`` is valid
+    when ``j < lens[i]``; each valid lane attends causally up to its own
+    position ``pos + j`` (the chunk's own rows included, just written), and
+    invalid lanes scatter onto null page 0.  ``lens=None``: every lane is
+    valid."""
     if s.use_mrope:
         raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md, port queue)")
     S, C, d = x.shape
@@ -141,8 +145,17 @@ def attention_decode_paged(
     k = rope(k, posc, theta=s.rope_theta)
     k_rows = k.reshape(S, C, G * hd)
     v_rows = v.reshape(S, C, G * hd)
-    page = torch.gather(block_table, 1, (posc // page_size).long()).long()  # [S, C]
-    off = (posc % page_size).long()
+    if lens is None:
+        page = torch.gather(block_table, 1, (posc // page_size).long()).long()  # [S, C]
+        off = (posc % page_size).long()
+    else:
+        # invalid lanes (j >= lens) scatter onto null page 0 (several of them
+        # onto one row: whichever write lands, no live lane reads page 0);
+        # their positions are clamped so the block-table lookup stays in range
+        lane_ok = torch.arange(C, dtype=torch.int32, device=x.device)[None] < lens[:, None]
+        idx = torch.clamp(posc, max=T - 1)
+        page = torch.where(lane_ok, torch.gather(block_table, 1, (idx // page_size).long()), 0).long()
+        off = (idx % page_size).long()
     if kv_int8:
         k_lvl, k_sc = quantize_kv_row(k_rows)
         v_lvl, v_sc = quantize_kv_row(v_rows)

@@ -193,20 +193,29 @@ def decode_paged_layer(p: dict, cfg: ModelConfig, layer_state: dict, block_table
 
 def head_paged(params: dict, cfg: ModelConfig, x: torch.Tensor, lens: torch.Tensor | None = None,
                head: PackedDenseParams | None = None) -> torch.Tensor:
-    """Final norm + last lane + LM head -> [S, V] float32."""
-    if lens is not None:
-        raise NotImplementedError("chunked prefill (lens) comes with the next slice (ROADMAP.md, port queue)")
+    """Final norm + each slot's last valid lane + LM head -> [S, V] float32.
+
+    ``lens=None``: every lane is valid, so the last lane.  The lane is
+    taken before the head, so the head runs at S rows whatever the chunk."""
     x = L.rmsnorm(params["final_ln"], x)
-    return L.lm_head(x[:, -1, :], params["embed"], cfg.dtype, packed=head)
+    if lens is None:
+        x_last = x[:, -1, :]
+    else:
+        last = torch.clamp(lens.long() - 1, min=0)
+        x_last = x[torch.arange(x.shape[0], device=x.device), last]
+    return L.lm_head(x_last, params["embed"], cfg.dtype, packed=head)
 
 
 def forward_decode_paged(params: dict, cfg: ModelConfig, state: dict, block_table: torch.Tensor,
                          tokens: torch.Tensor, pos: torch.Tensor, head: PackedDenseParams | None = None,
                          lens: torch.Tensor | None = None, gather: str = "xla"):
-    """One continuous-batching decode step over the slot set.
+    """One continuous-batching decode/prefill step over the slot set.
 
-    Returns ``(logits [S, V] float32, state)``; the pools in ``state`` are
-    updated in place, so the returned state is the same dict."""
+    ``tokens`` is ``[S, C]``; with ``lens`` given, slot ``i`` feeds its
+    first ``lens[i]`` lanes (a prompt chunk while prefilling, 1 while
+    decoding, 0 while inactive) and the logits are those of its last valid
+    lane.  Returns ``(logits [S, V] float32, state)``; the pools in
+    ``state`` are updated in place, so the returned state is the same dict."""
     _check_served(cfg)
     x = embed_paged(params, cfg, tokens)
     layers = params["layers"]

@@ -12,6 +12,8 @@ CUDA tensors (their chunk dots in float64, which is exact).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -63,10 +65,12 @@ def _packed(w_bits, a_bits, overpack, m, k, n_groups, seed, dev):
 
 # n_groups (the packed width Np) picks the copy path: 96 and 300 take
 # 16-byte copies, 33 and 7 the 4-byte path; K = 517 and 40 end mid-stage;
-# M = 1, 8, 33 fill one, one and five row tiles; K = 3072 at Np = 96 splits K
+# M = 1, 8, 33 fill one, one and five row tiles, M = 128 (8 slots x a chunk
+# of 16) sixteen; K = 3072 at Np = 96 splits K
 @pytest.mark.parametrize("w_bits,a_bits,overpack", PAIRS)
 @pytest.mark.parametrize("m,k,n_groups", [(8, 3072, 96), (3, 517, 300), (13, 40, 7), (1, 3072, 96),
-                                          (33, 517, 33), (8, 8192, 7), (33, 40, 96)])
+                                          (33, 517, 33), (8, 8192, 7), (33, 40, 96),
+                                          (128, 3072, 1536)])
 def test_fused_kernel_bit_exact(cuda, w_bits, a_bits, overpack, m, k, n_groups):
     cfg, x, wp = _packed(w_bits, a_bits, overpack, m, k, n_groups, seed=m + k, dev=cuda)
     kw = dict(a_bits=a_bits, n_seg=cfg.n_seg, stride=cfg.stride, acc_chunk=cfg.acc_chunk,
@@ -164,6 +168,62 @@ def test_engine_runs_through_the_kernels(cuda):
     per_step = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": cfg.n_layers * 7 + 1,
                 "paged_gather": cfg.n_layers}
     assert build.counts() == {k: v * m["steps"] for k, v in per_step.items()}
+
+
+# chunked on-demand engine on the card against the CPU, on the same packed
+# words.  Both run float32, so a sampled row differs only by float sum order
+# (CLEAN_ABS_TOL) unless an activation sits within an ulp of a 4-bit
+# rounding boundary and flips a level, which moves the row by about a level
+# step and cascades (FLIP_REL_TOL, relative L2); such flips must stay rare
+CLEAN_ABS_TOL = 1e-3
+FLIP_REL_TOL = 0.2
+
+
+def test_chunked_on_demand_engine_matches_the_cpu(cuda):
+    """chunk_tokens=4 and on-demand admission into a pool too small for the
+    worst case: the card preempts as the CPU does, launches K1 and K3 every
+    step, and samples the CPU's rows."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import prepack_lm_head
+    from repro_torch.serving.api import quantize_params_packed
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b", smoke=True), dtype=torch.float32)
+    params = T.init_params(cfg, seed=3, device="cpu")
+    head = prepack_lm_head(params["embed"], w_bits=4, a_bits=4, device="cpu")
+    packed = quantize_params_packed(params, w_bits=4, a_bits=4, device="cpu")
+    ecfg = EngineConfig(n_slots=3, page_size=4, max_len=32, n_pages=7, chunk_tokens=4,
+                        admit="on-demand", packed_head=True, head_bits=(4, 4), gather_backend="kernel")
+    g = np.random.default_rng(7)
+    prompts = [g.integers(1, cfg.vocab, n).tolist() for n in (9, 6, 11, 5)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        eng = build_engine(cfg, ecfg, params=packed, head=head, device=dev)
+        rows = {}
+        eng.on_sample = lambda rid, t, row, rows=rows: rows.__setitem__((rid, t), row.copy())
+        for p in prompts:
+            eng.submit(p, 6)
+        build.reset_counts()
+        m = eng.run(realtime=False)
+        assert m["statuses"] == {"ok": 4} and m["preemptions"] > 0
+        eng.assert_no_leaks()
+        runs[str(dev)] = (m, build.counts(), rows, {r.rid: r.out_tokens for r in eng.finished})
+    (m_c, _, rows_c, toks_c), (m_g, counts, rows_g, toks_g) = runs["cpu"], runs[str(cuda)]
+    for key in ("steps", "fed_tokens", "preemptions"):
+        assert m_g[key] == m_c[key], key
+    per_step = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": cfg.n_layers * 7 + 1,
+                "paged_gather": cfg.n_layers}
+    assert counts == {k: v * m_g["steps"] for k, v in per_step.items()}
+    clean = flipped = 0
+    for rid, theirs in toks_c.items():
+        div = next((t for t in range(len(theirs)) if toks_g[rid][t] != theirs[t]), len(theirs) - 1)
+        for t in range(div + 1):
+            a, b = rows_g[(rid, t)], rows_c[(rid, t)]
+            if np.abs(a - b).max() <= CLEAN_ABS_TOL:
+                clean += 1
+            else:
+                flipped += 1
+                assert np.linalg.norm(a - b) / np.linalg.norm(b) <= FLIP_REL_TOL, (rid, t)
+    assert flipped <= clean
 
 
 # row tiles by M: 8 (M 1-8), 32 (13, 17), 64 (64), 128 (128, 130); N = 1024,

@@ -160,29 +160,31 @@ TIE_BOUND = 0.25
 
 
 def _recording(eng, ref: bool):
-    """Wrap an engine's step so every sampled logits row is kept, keyed
-    by (request id, index of the sampled token)."""
-    rec, last = {}, {}
-    inner = eng._step
+    """Keep every sampled logits row of an engine's run, keyed by (request
+    id, index of the sampled token).  The port's engine hands them to its
+    ``on_sample`` hook; the reference's step is wrapped: a request sampled
+    in a step when its token count grew, from the row of the slot it held."""
+    rec = {}
+    if not ref:
+        eng.on_sample = lambda rid, t, row: rec.__setitem__((rid, t), row.copy())
+        return rec
+    last = {}
+    inner, once = eng._step, eng._step_once
 
     def step(*args):
         out = inner(*args)
-        logits = out[0] if ref else out
-        last["logits"] = np.asarray(logits, np.float32)
+        last["logits"] = np.asarray(out[0], np.float32)
         return out
 
-    eng._step = step
-    once = eng._step_once
-
     def step_once(now_fn):
-        before = {s: (r, len(r.out_tokens), r.n_fed, len(r.seq))
-                  for s, r in eng.scheduler.active.items()}
-        once(now_fn)
-        for s, (r, t, fed, n) in before.items():
-            if fed + 1 >= n:  # C == 1: this step fed the newest token and sampled
+        before = {s: (r, len(r.out_tokens)) for s, r in eng.scheduler.active.items()}
+        out = once(now_fn)
+        for s, (r, t) in before.items():
+            if len(r.out_tokens) > t:
                 rec[(r.rid, t)] = last["logits"][s]
+        return out
 
-    eng._step_once = step_once
+    eng._step, eng._step_once = step, step_once
     return rec
 
 
