@@ -28,15 +28,20 @@ Phases, all on the card:
 4. The engine: llama3.2-3b at full width (28 layers, d 3072, vocab
    128256), w4a4 packed projections, the packed (4, 4) LM head and the
    kernel gather, built with ``build_engine`` from random weights (seed
-   0), serving 8 requests (prompts of 16-64 tokens, 32 new tokens each).
-   Every request must end ``ok`` with finite logits, and the launch
-   counters must equal the per-step counts times the steps.  The timed
-   run sets no hook; an untimed run of the same weights records every
-   sampled logits row and its top-2 gap, and must give the same tokens.  A short
-   traced run of the same weights (``torch.profiler``) gives the device's
-   busy share and its time by kernel.  A last run serves the same
-   weights with ``block_k=512``, the K-blocked path (K2), and must give
-   the same tokens.  Each path's launch counts come from its own run.
+   0), serving 8 requests (prompts of 16-64 tokens, 32 new tokens each)
+   with its step captured as one CUDA graph (the engine's default on the
+   card).  Every request must end ``ok`` with finite logits, the launch
+   counters (a replay adds the launches its capture counted) must equal
+   the per-step counts times the steps, and the graph's own kernel nodes
+   (``cuGraphGetNodes``) must be those per-step counts with no memset.
+   The timed run sets no hook; an untimed run of the same weights records
+   every sampled logits row and its top-2 gap, and must give the same
+   tokens; the device time of one replay of its graph is read beside the
+   step time.  A short traced run of the same weights (``torch.profiler``)
+   gives the device's busy share and its time by kernel.  A last run
+   serves the same weights with ``block_k=512``, the K-blocked path (K2),
+   and must give the same tokens.  Each path's launch counts come from its
+   own run.
 5. Whole-path cross-check: a 2-layer model of the same width, float32,
    on the card (kernels) and on the CPU (plain versions) from the same
    packed words, a few decode steps and one chunked step of 16 lanes (an
@@ -60,19 +65,38 @@ Phases, all on the card:
    must be one kernel node and nothing else (no memset).
 8. ``build_engine`` at its default bits (w4a8 projections, the packed (8,
    8) head), 2 layers at full width, float32: no placement exists, so
-   every matmul takes the plain integer path on the card.  8 requests
-   must end ``ok``; then the same weights on the card and the CPU, a few
-   decode steps, logits within the stated tolerance.
+   every matmul takes the plain integer path on the card, captured in the
+   step's graph like any other op.  8 requests must end ``ok``; then the
+   same weights on the card and the CPU, a few decode steps, logits within
+   the stated tolerance.
 9. Chunked prefill, the slice's path: phase 4's weights, prompts and
    engine settings at ``chunk_tokens=16``, once under reserve admission and
    once on demand with a pool of about 60 % of the requests' summed worst
-   case.  Every request must end ``ok``, the on-demand run must preempt and
-   leak nothing, the launch counters must equal the per-step counts times
-   the steps, and every sampled logits row and token must agree with phase
-   4's within the stated tolerances (rows recorded by an untimed repeat of
-   each run).  A planted fault, the head fed each slot's last lane instead
-   of its last valid one, must fail those checks.  Prints steps, tokens
-   fed, TTFT, step time and tok/s of phase 4 and both runs.
+   case, each step one replay of the engine's captured graph (preemption
+   rewrites the block table between replays).  Every request must end
+   ``ok``, the on-demand run must preempt and leak nothing, the launch
+   counters and the graph's kernel nodes must equal the per-step counts
+   (times the steps), and every sampled logits row and token must agree
+   with phase 4's within the stated tolerances (rows recorded by an
+   untimed repeat of each run).  A planted fault, the head fed each
+   slot's last lane instead of its last valid one, must fail those
+   checks.  Prints steps, tokens fed, TTFT, step time and tok/s of phase
+   4 and both runs.
+10. The captured step against the eager one (``capture=False``, the
+   reference's ``jax.disable_jit()``): after a warm-up, an eager step at
+   C = 1 and at C = 16 must make no synchronising call
+   (``torch.cuda.set_sync_debug_mode("error")``); phase 4's cell and
+   phase 9's reserve cell, each served eagerly and captured by an untimed
+   recording run, must give bit-identical sampled rows and equal tokens;
+   then each cell is served in alternating timed turns (eager, captured,
+   captured, eager, ...; 4 pairs), every turn with the recorded tokens,
+   printing step p50, tok/s and TTFT of every turn and the device time
+   of one replay of each captured turn's graph.  Traces of the eager C = 1
+   run and of both C = 16 runs give each one's device busy share and time
+   by kernel.
+
+Every engine's graph and memory pool is released before the next engine
+is built, and each phase prints its peak device memory.
 
 Kernel and library times come from CUDA graphs of 100 launches divided
 by 100: an event pair around one launch of under about 0.1 ms measures
@@ -336,7 +360,8 @@ def phase_matmul(torch, card, timer, cfg, M: int, report: dict) -> dict:
             max_err = max(max_err, err, (acc2 - p_acc2).abs().max().item())
             nodes = device_nodes(torch, lambda: (packed_dense_fused_raw(x, wp, a_bits=4, **kw),
                                                  packed_matmul_raw(a_lvl, wp, block_k=512, **kw)))
-            check(nodes == (["kernel"] * 2, {"packed_dense_fused": 1, "packed_matmul": 1}),
+            two = {"packed_dense_fused": 1, "packed_matmul": 1}
+            check(nodes == (only_kernels(two), two),
                   f"K1 + K2 at {name} ran other device work than their two kernels: {nodes}")
             Np = wp.shape[1]
             splits, k_per_split = grid_plan(M, K, Np, card.sms)
@@ -434,20 +459,15 @@ def phase_matmul_chunk(torch, card, timer, cfg, M: int, report: dict) -> dict:
     return {"max_err": max_err, "rows": rows}
 
 
-# CUgraphNodeType values (cuda.h)
-GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty"}
-
-
-def device_nodes(torch, fn) -> tuple[list, dict]:
-    """What one call of ``fn`` runs on the device: the kinds of the nodes of
-    a CUDA graph that captures it (read with ``cuGraphGetNodes`` from
+def device_nodes(torch, fn) -> tuple[dict, dict]:
+    """What one call of ``fn`` runs on the device: the census of a CUDA
+    graph that captures it (``build.graph_census``: its node kinds, and its
+    kernel nodes by launch counter, read with ``cuGraphGetNodes`` from
     libcuda), and the kernel wrappers' launch counts during the capture.
     ``fn`` runs once before, so that workspaces and split-K counters exist
     outside the capture.  (``torch.profiler`` traces of one short call come
     back without their device events now and then on an H100; a captured
     graph holds every node.)"""
-    import ctypes
-
     from repro_torch.kernels import build
 
     fn()
@@ -457,19 +477,32 @@ def device_nodes(torch, fn) -> tuple[list, dict]:
     with torch.cuda.graph(g):
         fn()
     launched = {k: v - before[k] for k, v in build.counts().items() if v != before[k]}
-    cuda = ctypes.CDLL("libcuda.so.1")
-    raw, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
-    check(cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    check(cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
-    kinds = []
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
-              "cuGraphNodeGetType failed")
-        kinds.append(GRAPH_NODE_KINDS.get(kind.value, str(kind.value)))
+    census = build.graph_census(g)
     del g
-    return kinds, launched
+    return census, launched
+
+
+def only_kernels(launched: dict) -> dict:
+    """The census of a graph whose nodes are exactly the kernels ``launched``."""
+    return {"kinds": {"kernel": sum(launched.values())}, "kernels": dict(launched)}
+
+
+def check_graph(eng, per_step: dict, what: str, memset: bool = False) -> dict:
+    """An engine's captured step against its launch counters: the launches
+    its capture counted, and its graph's kernel nodes of the port's
+    kernels, must both be ``per_step``; no memset node unless ``memset``
+    (phase 8's plain integer path, which launches no port kernel)."""
+    from repro_torch.kernels import build
+
+    prog = eng._program
+    check(prog.graph is not None, f"{what}: the engine's step was not captured")
+    want = {k: v for k, v in per_step.items() if v}
+    census = build.graph_census(prog.graph)
+    ours = {k: v for k, v in census["kernels"].items() if k != "other"}
+    check(prog.launches == want, f"{what}: the capture counted {prog.launches}, not {want}")
+    check(ours == want, f"{what}: the graph's port kernel nodes {ours} != {want}")
+    check(memset or "memset" not in census["kinds"], f"{what}: the graph holds memset nodes: {census}")
+    return census
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -567,6 +600,26 @@ def _serve(torch, eng, prompts, max_new: int) -> tuple[dict, dict, float]:
     return metrics, build.counts(), wall
 
 
+def graph_replay_ms(torch, eng, reps: int = 20) -> float:
+    """Device time of one replay of an engine's captured step after its
+    run (median of ``reps`` event pairs on the engine's stream): the step's
+    device time with no host between its kernels.  The replays repeat the
+    last step on pages the finished run no longer holds, and are not
+    counted."""
+    prog = eng._program
+    pairs = []
+    with torch.cuda.stream(prog.stream):
+        for _ in range(reps):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            prog.graph.replay()
+            e1.record()
+            pairs.append((e0, e1))
+    torch.cuda.synchronize()
+    vals = sorted(a.elapsed_time(b) for a, b in pairs)
+    return vals[len(vals) // 2]
+
+
 def phase_engine(torch, cfg, ecfg, report: dict) -> dict:
     import numpy as np
 
@@ -590,27 +643,34 @@ def phase_engine(torch, cfg, ecfg, report: dict) -> dict:
     check(all(len(r.out_tokens) == 32 for r in eng.finished), "a request ended short")
     check(counts == {k: v * steps for k, v in per_step.items()},
           f"launch counters {counts} != {per_step} x {steps} steps")
+    census = check_graph(eng, per_step, "K1 path")
+    replay_ms = graph_replay_ms(torch, eng)
+    eng.close()
     step_ms = [1e3 * s for s in eng.step_seconds]
     run_a = dict(
         build_s=t_build, steps=steps, wall_s=wall, tokens=m["generated_tokens"],
         tokens_per_s=m["tokens_per_s"], step_ms_p50=float(np.median(step_ms)),
         step_ms_min=min(step_ms), counts=counts, per_step=per_step,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, fed_tokens=m["fed_tokens"],
-        ttft_ms_p50=1e3 * m["ttft_p50"],
+        ttft_ms_p50=1e3 * m["ttft_p50"], graph=census, replay_ms=replay_ms,
     )
     print(f"  K1 path: {steps} steps, {m['generated_tokens']} tokens in {wall:.2f} s: "
           f"{m['tokens_per_s']:.1f} tok/s, step p50 {run_a['step_ms_p50']:.2f} ms "
-          f"(min {run_a['step_ms_min']:.2f}); launches {counts}; build {t_build:.1f} s; "
-          f"peak memory {run_a['peak_mem_gb']:.1f} GB", flush=True)
+          f"(min {run_a['step_ms_min']:.2f}), TTFT p50 {run_a['ttft_ms_p50']:.1f} ms; one replay "
+          f"{replay_ms:.2f} ms of device time ({100 * replay_ms / run_a['step_ms_p50']:.1f} % of the step "
+          f"p50); launches {counts}; "
+          f"graph nodes {census}; build {t_build:.1f} s; peak memory {run_a['peak_mem_gb']:.1f} GB",
+          flush=True)
     tokens_a = {r.rid: list(r.out_tokens) for r in eng.finished}
-    samples, tokens_s = _sampled_run(Engine(cfg, eng.params, ecfg, head=eng._head), prompts, 32)
+    samples, tokens_s = _sampled_run(torch, Engine(cfg, eng.params, ecfg, head=eng._head), prompts, 32)
     check(tokens_s == tokens_a, "the sampled (untimed) run gave other tokens than the timed run")
     gaps = {k: float(np.diff(np.partition(row, -2)[-2:])[0]) for k, row in samples.items()}
     run_a["top2_gap"] = dict(min=min(gaps.values()), p50=float(np.median(list(gaps.values()))))
     print(f"  sampled rows' top-2 logit gap: min {run_a['top2_gap']['min']:.4g}, p50 "
           f"{run_a['top2_gap']['p50']:.4g}; distinct tokens {len({t for v in tokens_a.values() for t in v})}",
           flush=True)
-    profile_engine(torch, Engine(cfg, eng.params, ecfg, head=eng._head), cfg, report)
+    report["profile"] = profile_engine(torch, Engine(cfg, eng.params, ecfg, head=eng._head), cfg,
+                                       "C=1, captured")
 
     # the K-blocked path: the same packed words with block_k=512 (as a
     # deployment plan with an autotuned block_k sets); the head stays K1
@@ -626,14 +686,17 @@ def phase_engine(torch, cfg, ecfg, report: dict) -> dict:
     check(m_b["statuses"] == {"ok": len(prompts)}, f"blocked engine statuses {m_b['statuses']}")
     check(counts_b == {k: v * m_b["steps"] for k, v in per_step_b.items()},
           f"blocked launch counters {counts_b} != {per_step_b} x {m_b['steps']} steps")
+    census_b = check_graph(eng_b, per_step_b, "K2 path")
+    eng_b.close()
     same = all(r.out_tokens == tokens_a[r.rid][:max_new_b] for r in eng_b.finished)
     check(same, "the K-blocked path gave other tokens than the fused path")
     step_ms_b = [1e3 * s for s in eng_b.step_seconds]
     run_b = dict(steps=m_b["steps"], wall_s=wall_b, tokens=m_b["generated_tokens"],
                  tokens_per_s=m_b["tokens_per_s"], step_ms_p50=float(np.median(step_ms_b)),
-                 counts=counts_b, per_step=per_step_b)
+                 counts=counts_b, per_step=per_step_b, graph=census_b)
     print(f"  K2 path: {m_b['steps']} steps, {m_b['tokens_per_s']:.1f} tok/s, step p50 "
-          f"{run_b['step_ms_p50']:.2f} ms; launches {counts_b}; tokens equal the K1 path's", flush=True)
+          f"{run_b['step_ms_p50']:.2f} ms; launches {counts_b}; graph nodes {census_b}; tokens equal "
+          f"the K1 path's", flush=True)
     report["engine"] = {"fused": run_a, "blocked": run_b}
     c1 = dict(params=eng.params, head=eng._head, prompts=prompts, tokens=tokens_a, samples=samples,
               gaps=gaps)
@@ -641,21 +704,26 @@ def phase_engine(torch, cfg, ecfg, report: dict) -> dict:
     return {"fused": run_a, "blocked": run_b, "c1": c1}
 
 
-def _sampled_run(eng, prompts, max_new: int) -> tuple[dict, dict]:
+def _sampled_run(torch, eng, prompts, max_new: int) -> tuple[dict, dict]:
     """Serve ``prompts`` on ``eng`` (untimed, deterministic clock) and keep
     every sampled logits row, keyed by (request id, index of the sampled
-    token), and each request's tokens.  The timed runs set no hook."""
+    token), and each request's tokens; then release the engine's graph.
+    The timed runs set no hook."""
     rows = {}
     eng.on_sample = lambda rid, t, row: rows.__setitem__((rid, t), row.copy())
     for p in prompts:
         eng.submit(p, max_new)
     eng.run(realtime=False)
+    eng.close()
+    torch.cuda.empty_cache()
     return rows, {r.rid: list(r.out_tokens) for r in eng.finished}
 
 
-def profile_engine(torch, eng, cfg, report: dict) -> None:
-    """Trace a short run of a fresh engine: device busy share and kernel
-    time by name.  Its launches are not counted against any path."""
+def profile_engine(torch, eng, cfg, label: str) -> dict:
+    """Trace a short run of a fresh engine (8 requests of 16 prompt and 8
+    new tokens): device busy share and kernel time by name, in all and per
+    step.  Its launches are not counted against any path; the engine is
+    released after the run."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -669,6 +737,8 @@ def profile_engine(torch, eng, cfg, report: dict) -> None:
         m = eng.run(realtime=True)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
+    eng.close()
+    torch.cuda.empty_cache()
     # device-side events only (kernels, copies, memsets): the CPU-side op rows
     # carry the device time of the kernels they launched a second time
     rows = [{"name": ev.key, "device_ms": ev.self_device_time_total / 1e3, "count": ev.count}
@@ -676,20 +746,23 @@ def profile_engine(torch, eng, cfg, report: dict) -> None:
             if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0]
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
-    groups = {"K1 packed_ring_kernel": "packed_ring_kernel", "K3 gather": "gather_",
+    groups = {"K1/K2 packed_ring_kernel": "packed_ring_kernel", "K3 gather": "gather_",
               "memcpy": "Memcpy", "memset": "Memset"}
     by_group = {g: sum(r["device_ms"] for r in rows if key in r["name"]) for g, key in groups.items()}
     by_group["other kernels (PyTorch)"] = busy - sum(by_group.values())
-    report["profile"] = {"wall_ms": wall * 1e3, "steps": m["steps"], "device_busy_ms": busy,
-                         "device_busy_share": busy / (wall * 1e3), "by_group_ms": by_group,
-                         "top": rows[:25]}
-    (OUT_DIR / "profile.txt").write_text(
+    steps = m["steps"]
+    tag = label.replace(" ", "_").replace(",", "").replace("=", "")
+    (OUT_DIR / f"profile_{tag}.txt").write_text(
         prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
-    print(f"  profile: {m['steps']} steps in {wall * 1e3:.1f} ms (traced), device busy "
-          f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f} %): "
-          + ", ".join(f"{g} {v:.1f} ms" for g, v in by_group.items()), flush=True)
+    print(f"  profile, {label}: {steps} steps in {wall * 1e3:.1f} ms (traced), device busy "
+          f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f} %); per step: wall "
+          f"{wall * 1e3 / steps:.2f} ms, device "
+          + ", ".join(f"{g} {v / steps:.3f} ms" for g, v in by_group.items()), flush=True)
     for r in rows[:8]:
         print(f"    {r['device_ms']:9.3f} ms  x{r['count']:5d}  {r['name'][:90]}", flush=True)
+    return {"label": label, "wall_ms": wall * 1e3, "steps": steps, "device_busy_ms": busy,
+            "device_busy_share": busy / (wall * 1e3), "by_group_ms": by_group,
+            "per_step_ms": {g: v / steps for g, v in by_group.items()}, "top": rows[:25]}
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -963,7 +1036,7 @@ def phase_int8(torch, card, timer, cfg, M: int, report: dict) -> dict:
         check(torch.equal(out, p_out), f"K4 differs from its plain version at {name}: max {err}")
         max4 = max(max4, err)
         nodes = device_nodes(torch, lambda: quant_matmul_raw(a8, w8, sc))
-        check(nodes == (["kernel"], {"quant_matmul": 1}),
+        check(nodes == (only_kernels({"quant_matmul": 1}), {"quant_matmul": 1}),
               f"K4 at {name} ran other device work than its kernel: {nodes}")
         lib, lib_m = _int_mm(torch, a8, w8)
         w8s = cold_copies(w8)
@@ -996,7 +1069,7 @@ def phase_int8(torch, card, timer, cfg, M: int, report: dict) -> dict:
             check(torch.equal(acc, p_acc), f"K5 differs from its plain version at {name} w{pair[0]}a{pair[1]}")
             max5 = max(max5, err)
             nodes = device_nodes(torch, lambda: quant_packed_matmul_raw(a_lvl, wp, **kw))
-            check(nodes == (["kernel"], {"quant_packed_matmul": 1}),
+            check(nodes == (only_kernels({"quant_packed_matmul": 1}), {"quant_packed_matmul": 1}),
                   f"K5 at {name} w{pair[0]}a{pair[1]} ran other device work than its kernel: {nodes}")
             lib, lib_m = _int_mm(torch, a_lvl, wp)
             wps = cold_copies(wp)
@@ -1139,7 +1212,7 @@ def phase_filter(torch, card, timer, report: dict) -> dict:
               f"K6 differs from its plain version or the convolution at {label}: max {err}")
         max_err = max(max_err, err)
         nodes = device_nodes(torch, lambda: filter_conv_raw(sp, fp, **kw))
-        check(nodes == (["kernel"], {"filter_conv": 1}),
+        check(nodes == (only_kernels({"filter_conv": 1}), {"filter_conv": 1}),
               f"K6 at {label} ran other device work than its kernel: {nodes}")
         s32, f32 = s.to(torch.float32), torch.flip(f, (1,)).to(torch.float32)[None]
         check(torch.equal(F.conv1d(s32, f32, padding=k - 1)[:, 0], truth.to(torch.float32)),
@@ -1201,11 +1274,14 @@ def phase_default_engine(torch, cfg, report: dict, steps: int = 3) -> dict:
     m, counts, wall = _serve(torch, eng, prompts, 8)
     check(m["statuses"] == {"ok": len(prompts)}, f"default-bits engine statuses {m['statuses']}")
     check(counts == dict.fromkeys(counts, 0), f"the plain integer path launched kernels: {counts}")
+    census = check_graph(eng, {}, "default-bits engine", memset=True)
+    eng.close()
     run = dict(steps=m["steps"], wall_s=wall, tokens=m["generated_tokens"],
-               tokens_per_s=m["tokens_per_s"], step_ms_p50=float(np.median(eng.step_seconds)) * 1e3)
+               tokens_per_s=m["tokens_per_s"], step_ms_p50=float(np.median(eng.step_seconds)) * 1e3,
+               graph=census)
     print(f"  engine: 2 layers at full width, w4a8, (8, 8) head: {m['steps']} steps, all "
           f"{len(prompts)} requests ok, {m['tokens_per_s']:.1f} tok/s, step p50 "
-          f"{run['step_ms_p50']:.2f} ms", flush=True)
+          f"{run['step_ms_p50']:.2f} ms; captured graph nodes {census}", flush=True)
     results = []
     for t, (g_log, c_log, flipped, *_) in enumerate(
             _cross_steps(torch, cfg2, eng.params, eng._head, steps,
@@ -1316,9 +1392,11 @@ def phase_chunked(torch, card, cfg, ecfg, c1: dict, fused: dict, report: dict) -
         if admit == "on-demand":
             check(m["preemptions"] > 0, "the on-demand run did not preempt")
             eng.assert_no_leaks()
+        census = check_graph(eng, per_step, f"C={CHUNK} {admit}")
+        eng.close()
         step_ms = [1e3 * x for x in eng.step_seconds]
         del eng
-        rows, tokens_s = _sampled_run(Engine(cfg, c1["params"], ecfg9, head=head), prompts, max_new)
+        rows, tokens_s = _sampled_run(torch, Engine(cfg, c1["params"], ecfg9, head=head), prompts, max_new)
         check(tokens_s == tokens, f"C={CHUNK} {admit}: the sampled (untimed) run gave other tokens")
         cmp = _against_c1(rows, tokens, c1, tie_bound)
         del rows
@@ -1326,7 +1404,7 @@ def phase_chunked(torch, card, cfg, ecfg, c1: dict, fused: dict, report: dict) -
                    fed_tokens=m["fed_tokens"], preemptions=m["preemptions"],
                    tokens=m["generated_tokens"], wall_s=wall, tokens_per_s=m["tokens_per_s"],
                    step_ms_p50=float(np.median(step_ms)), ttft_ms_p50=1e3 * m["ttft_p50"],
-                   counts=counts, per_step=per_step, **cmp)
+                   counts=counts, per_step=per_step, graph=census, **cmp)
         runs[admit] = run
         print(f"  C={CHUNK} {admit}: {steps} steps, {m['fed_tokens']} tokens fed, {m['preemptions']} "
               f"preemptions; {m['tokens_per_s']:.1f} tok/s, step p50 {run['step_ms_p50']:.2f} ms, TTFT "
@@ -1346,7 +1424,7 @@ def phase_chunked(torch, card, cfg, ecfg, c1: dict, fused: dict, report: dict) -
     T.head_paged = lambda params, cfg_, x, lens=None, head=None: inner(params, cfg_, x, None, head)
     try:
         ecfg9 = dataclasses.replace(ecfg, chunk_tokens=CHUNK)
-        rows, tokens = _sampled_run(Engine(cfg, c1["params"], ecfg9, head=head), prompts, max_new)
+        rows, tokens = _sampled_run(torch, Engine(cfg, c1["params"], ecfg9, head=head), prompts, max_new)
     finally:
         T.head_paged = inner
     fault = _against_c1(rows, tokens, c1, tie_bound)
@@ -1365,6 +1443,105 @@ def phase_chunked(torch, card, cfg, ecfg, c1: dict, fused: dict, report: dict) -
               f"{r['tokens_per_s']:6.1f} tok/s", flush=True)
     report["chunked"] = dict(runs, tie_bound=tie_bound, planted_fault=fault)
     return runs
+
+
+# -- phase 10 ------------------------------------------------------------------
+
+# timed turns of each cell in phase 10: eager, captured, captured, eager, ...
+CAPTURE_PAIRS = 4
+
+
+def _sync_free_step(torch, eng) -> None:
+    """After the warm-up, one eager step of ``eng`` under
+    ``torch.cuda.set_sync_debug_mode("error")``: it must read nothing back
+    to the host (no ``.item()``, no device-to-host copy)."""
+    eng.warmup()
+    prog = eng._program
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode(), prog._on_stream():
+            prog._forward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    eng.close()
+
+
+def phase_capture(torch, card, cfg, ecfg, c1: dict, report: dict) -> dict:
+    """The captured step against the eager one on phase 4's weights and
+    prompts, at C = 1 (phase 4's cell) and C = 16 under reserve admission
+    (phase 9's): no synchronising call in an eager step; an untimed
+    recording run of each mode, bit-identical sampled rows and equal
+    tokens; then ``CAPTURE_PAIRS`` pairs of timed turns in alternating
+    order; last, traces of the eager C = 1 run and of both C = 16 runs."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.serving import Engine
+
+    prompts, max_new = c1["prompts"], 32
+    cells = {"C=1": ecfg, f"C={CHUNK}": dataclasses.replace(ecfg, chunk_tokens=CHUNK)}
+    per_step = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": cfg.n_layers * 7 + 1,
+                "paged_gather": cfg.n_layers}
+
+    def engine(e, capture: bool):
+        return Engine(cfg, c1["params"], e, head=c1["head"], capture=capture)
+
+    for e in cells.values():
+        _sync_free_step(torch, engine(e, False))
+    print(f"  an eager step at C=1 and at C={CHUNK} after its warm-up: no synchronising call", flush=True)
+    out = {}
+    for label, e in cells.items():
+        (rows_e, toks_e), (rows_c, toks_c) = (_sampled_run(torch, engine(e, capture), prompts, max_new)
+                                              for capture in (False, True))
+        check(toks_c == toks_e, f"{label}: the captured engine gave other tokens than the eager one")
+        differ = [k for k in rows_e if k not in rows_c or rows_c[k].tobytes() != rows_e[k].tobytes()]
+        check(rows_c.keys() == rows_e.keys() and not differ,
+              f"{label}: {len(differ)} of {len(rows_e)} sampled rows differ between the captured and the "
+              f"eager step, first {differ[:4]}")
+        n_rows = len(rows_e)
+        print(f"  {label}: captured and eager, {n_rows} sampled rows bit-identical, tokens equal", flush=True)
+        del rows_e, rows_c
+        turns = []
+        for i, capture in enumerate([False, True, True, False] * (CAPTURE_PAIRS // 2)):
+            eng = engine(e, capture)
+            m, counts, wall = _serve(torch, eng, prompts, max_new)
+            check(m["statuses"] == {"ok": len(prompts)}, f"{label} turn {i + 1}: statuses {m['statuses']}")
+            check({r.rid: list(r.out_tokens) for r in eng.finished} == toks_e,
+                  f"{label} turn {i + 1}: tokens differ from the recording run's")
+            check(counts == {k: v * m["steps"] for k, v in per_step.items()},
+                  f"{label} turn {i + 1}: launch counters {counts} != {per_step} x {m['steps']} steps")
+            step_ms = [1e3 * x for x in eng.step_seconds]
+            replay_ms = graph_replay_ms(torch, eng) if capture else None
+            eng.close()
+            del eng
+            torch.cuda.empty_cache()
+            t = dict(turn=i + 1, capture=capture, steps=m["steps"], wall_s=wall,
+                     step_ms_p50=float(np.median(step_ms)), step_ms_min=min(step_ms),
+                     tokens_per_s=m["tokens_per_s"], ttft_ms_p50=1e3 * m["ttft_p50"], replay_ms=replay_ms)
+            turns.append(t)
+            print(f"    turn {i + 1} {'captured' if capture else 'eager   '}: {t['steps']} steps, step p50 "
+                  f"{t['step_ms_p50']:.2f} ms (min {t['step_ms_min']:.2f}), {t['tokens_per_s']:.1f} tok/s, "
+                  f"TTFT p50 {t['ttft_ms_p50']:.1f} ms"
+                  + (f"; one replay {replay_ms:.2f} ms of device time" if capture else ""), flush=True)
+        med = {mode: {k: float(np.median([t[k] for t in turns if t["capture"] == (mode == "captured")]))
+                      for k in ("step_ms_p50", "tokens_per_s", "ttft_ms_p50")}
+               for mode in ("eager", "captured")}
+        wins = sum(c["step_ms_p50"] < e_["step_ms_p50"] for e_, c in zip(
+            [t for t in turns if not t["capture"]], [t for t in turns if t["capture"]]))
+        print(f"  {label} on {card.name} ({card.power_limit}), medians eager / captured: step p50 "
+              f"{med['eager']['step_ms_p50']:.2f} / {med['captured']['step_ms_p50']:.2f} ms, tok/s "
+              f"{med['eager']['tokens_per_s']:.1f} / {med['captured']['tokens_per_s']:.1f}, TTFT p50 "
+              f"{med['eager']['ttft_ms_p50']:.1f} / {med['captured']['ttft_ms_p50']:.1f} ms; captured "
+              f"faster in {wins} of {CAPTURE_PAIRS} pairs", flush=True)
+        out[label] = dict(turns=turns, medians=med, captured_faster_pairs=wins,
+                          sampled_rows=n_rows)
+    out["profiles"] = [profile_engine(torch, engine(ecfg, False), cfg, "C=1, eager")]
+    for capture in (True, False):
+        out["profiles"].append(profile_engine(torch, engine(cells[f"C={CHUNK}"], capture), cfg,
+                                              f"C={CHUNK}, {'captured' if capture else 'eager'}"))
+    report["capture"] = out
+    return out
 
 
 # -- main ------------------------------------------------------------------------
@@ -1441,37 +1618,54 @@ def main(argv=None) -> int:
                         packed_head=True, head_bits=(4, 4), gather_backend="kernel")
     timer = Timer(torch)
 
+    def peak(phase: str) -> None:
+        """Print and keep the phase's peak device memory, then start the next."""
+        gb = torch.cuda.max_memory_allocated() / 1e9
+        report.setdefault("peak_mem_gb", {})[phase] = gb
+        print(f"  phase {phase} peak device memory {gb:.2f} GB", flush=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
     print("phase 2: K1/K2 vs plain at the full-width decode shapes", flush=True)
     mm = phase_matmul(torch, card, timer, cfg, ecfg.n_slots, report)
     print(f"  K1 at the chunked step's rows (M = {ecfg.n_slots} x {CHUNK}):", flush=True)
     mm_chunk = phase_matmul_chunk(torch, card, timer, cfg, ecfg.n_slots * CHUNK, report)
+    peak("2")
     print("phase 3: K3 vs plain at the engine geometry", flush=True)
     ga = phase_gather(torch, card, timer, cfg, ecfg, report)
     del timer
-    torch.cuda.empty_cache()
-    print("phase 4: engine, llama3.2-3b full width, w4a4 packed, packed (4,4) head, kernel gather",
-          flush=True)
+    peak("3")
+    print("phase 4: engine, llama3.2-3b full width, w4a4 packed, packed (4,4) head, kernel gather, "
+          "step captured", flush=True)
     en = phase_engine(torch, cfg, ecfg, report)
-    torch.cuda.empty_cache()
+    c1 = en.pop("c1")
+    peak("4")
     print("phase 5: whole-path cross-check, 2 layers at full width, card vs CPU", flush=True)
     phase_crosscheck(torch, cfg, report)
-    torch.cuda.empty_cache()
+    peak("5")
     timer = Timer(torch)
     print("phase 6: K4/K5 (int8 lane) at the full-width decode shapes, entry points card vs CPU",
           flush=True)
     i8 = phase_int8(torch, card, timer, cfg, ecfg.n_slots, report)
-    torch.cuda.empty_cache()
+    peak("6")
     print("phase 7: K6 (Filter Packing) at the UltraNet row shapes", flush=True)
     fc = phase_filter(torch, card, timer, report)
     del timer
-    torch.cuda.empty_cache()
+    peak("7")
     print("phase 8: engine at the default bits (w4a8, (8, 8) head), 2 layers at full width, "
           "card vs CPU", flush=True)
     phase_default_engine(torch, cfg, report)
-    torch.cuda.empty_cache()
+    peak("8")
     print(f"phase 9: chunked prefill (C={CHUNK}), reserve and on-demand admission, on phase 4's "
-          f"weights and prompts", flush=True)
-    ch = phase_chunked(torch, card, cfg, ecfg, en.pop("c1"), en["fused"], report)
+          f"weights and prompts, step captured", flush=True)
+    ch = phase_chunked(torch, card, cfg, ecfg, c1, en["fused"], report)
+    peak("9")
+    print(f"phase 10: the captured step against the eager one, C=1 and C={CHUNK}, on phase 4's weights "
+          f"and prompts", flush=True)
+    phase_capture(torch, card, cfg, ecfg, c1, report)
+    del c1
+    peak("10")
 
     # per-decode-step totals per kernel: the sum over the launches of one step
     def step_sum(rows, key):

@@ -11,10 +11,11 @@ own ``build_engine``: llama3.2-3b at full width, w4a4 packed projections,
 the packed (4, 4) head, the kernel gather, 8 slots, page 16, max_len 256,
 C = 1, reserve admission, random weights from seed 0, 8 prompts of 16-64
 tokens from seed 0, 32 new tokens each.  Only the public engine API is
-called and no hook is set, so every tree runs the same timed code it
-ships.  Prints one line per turn (step p50, tok/s, steps, launches and a
-digest of the tokens), then the step p50 of each tree's turns, and
-writes everything to ``--out``.
+called with its defaults (a tree whose engine captures its step in a CUDA
+graph does so) and no hook is set, so every tree runs the same timed code
+it ships.  Prints one line per turn (step p50, tok/s, TTFT p50, steps,
+whether the step was captured, launches and a digest of the tokens), then
+the step p50 of each tree's turns, and writes everything to ``--out``.
 """
 from __future__ import annotations
 
@@ -58,9 +59,11 @@ def worker(root: Path) -> dict:
     wall = time.monotonic() - t0
     tokens = sorted((r.rid, list(r.out_tokens)) for r in eng.finished)
     step_ms = [1e3 * s for s in eng.step_seconds]
+    program = getattr(eng, "_program", None)  # absent in trees from before the captured step
     return dict(tree=str(root), card=card, steps=m["steps"], statuses=m["statuses"], wall_s=wall,
                 tokens_per_s=m["tokens_per_s"], step_ms_p50=float(np.median(step_ms)),
-                step_ms_min=min(step_ms), step_ms=step_ms, counts=build.counts(),
+                step_ms_min=min(step_ms), step_ms=step_ms, ttft_ms_p50=1e3 * m["ttft_p50"],
+                captured=program is not None and program.graph is not None, counts=build.counts(),
                 tokens_sha=hashlib.sha256(json.dumps(tokens).encode()).hexdigest()[:16])
 
 
@@ -83,7 +86,8 @@ def main() -> int:
         t = json.loads(out.stdout.strip().splitlines()[-1])
         turns.append(dict(turn=i + 1, **t))
         print(f"turn {i + 1} {t['tree']}: {t['steps']} steps, step p50 {t['step_ms_p50']:.2f} ms "
-              f"(min {t['step_ms_min']:.2f}), {t['tokens_per_s']:.1f} tok/s, statuses {t['statuses']}, "
+              f"(min {t['step_ms_min']:.2f}), {t['tokens_per_s']:.1f} tok/s, TTFT p50 "
+              f"{t['ttft_ms_p50']:.1f} ms, captured {t['captured']}, statuses {t['statuses']}, "
               f"launches {t['counts']}, tokens {t['tokens_sha']}; {t['card']}", flush=True)
     by_tree: dict[str, list] = {}
     for t in turns:

@@ -12,13 +12,18 @@ Each C entry point launches on the stream it is given and returns
 
 Launch counters: each kernel wrapper calls :func:`launched` once per
 kernel launch, and nowhere else, so a run can show which kernels its
-path went through (:func:`reset_counts`, :func:`counts`).
+path went through (:func:`reset_counts`, :func:`counts`).  A replay of a
+captured CUDA graph calls no wrapper: its replayer adds the launches the
+capture counted (:func:`replayed`), and :func:`graph_census` reads the
+graph's own kernel nodes to hold that count against.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -86,6 +91,82 @@ def reset_counts() -> None:
 
 def counts() -> dict[str, int]:
     return dict(COUNTS)
+
+
+def replayed(launches: dict[str, int]) -> None:
+    """Count one replay of a CUDA graph whose capture launched ``launches``."""
+    for k, n in launches.items():
+        COUNTS[k] += n
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Leave the counters as they were before the block (warm-up calls and
+    captures, whose launches no run should count)."""
+    saved = counts()
+    try:
+        yield
+    finally:
+        COUNTS.update(saved)
+
+
+# CUgraphNodeType values (cuda.h)
+GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty"}
+# each csrc kernel's name (mangled or not) -> its wrapper's launch counter;
+# packed_ring_kernel's third template argument tells K1 (fused) from K2
+_NAMED_COUNTERS = (
+    (re.compile(r"packed_ring_kernel(?:ILi\d+ELb\dELb1E|<\d+, \w+, true)"), "packed_dense_fused"),
+    (re.compile(r"packed_ring_kernel(?:ILi\d+ELb\dELb0E|<\d+, \w+, false)"), "packed_matmul"),
+    (re.compile(r"gather_(?:fp|i8)"), "paged_gather"),
+    (re.compile(r"quant_mma_kernel"), "quant_matmul"),
+    (re.compile(r"quant_packed_mma_kernel"), "quant_packed_matmul"),
+    (re.compile(r"filter_tile_kernel"), "filter_conv"),
+)
+
+
+class _KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                ("shared_mem", ctypes.c_uint), ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_census(graph) -> dict:
+    """What a captured ``torch.cuda.CUDAGraph(keep_graph=True)`` runs, read
+    from its nodes with libcuda: ``{"kinds": {node kind: n}, "kernels":
+    {launch counter: n}}``, the kernel nodes of this package's kernels
+    counted under their wrappers' counters and every other kernel node
+    under ``"other"``."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+
+    def call(fn, *args):
+        err = getattr(cuda, fn)(*args)
+        if err != 0:
+            raise RuntimeError(f"{fn} failed: CUresult {err}")
+
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    call("cuGraphGetNodes", raw, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call("cuGraphGetNodes", raw, nodes, ctypes.byref(n))
+    kinds: dict[str, int] = {}
+    kernels: dict[str, int] = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        name = GRAPH_NODE_KINDS.get(kind.value, str(kind.value))
+        kinds[name] = kinds.get(name, 0) + 1
+        if name != "kernel":
+            continue
+        p = _KernelNodeParams()
+        call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), ctypes.byref(p))
+        fname = ctypes.c_char_p()
+        if p.func:
+            call("cuFuncGetName", ctypes.byref(fname), ctypes.c_void_p(p.func))
+        else:
+            call("cuKernelGetName", ctypes.byref(fname), ctypes.c_void_p(p.kern))
+        text = fname.value.decode()
+        counter = next((c for pat, c in _NAMED_COUNTERS if pat.search(text)), "other")
+        kernels[counter] = kernels.get(counter, 0) + 1
+    return {"kinds": kinds, "kernels": kernels}
 
 
 def _digest() -> str:

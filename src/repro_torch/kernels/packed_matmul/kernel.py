@@ -115,7 +115,10 @@ def _split_scratch(dev: torch.device, m: int, k: int, np_: int, slab: int, *, bm
     only below that).  The array is allocated at the device's first split
     launch, which must not be inside a graph capture.  A captured graph
     keeps the counters of its capture stream: a replay must not overlap a
-    split launch on that stream or another replay of the same graph."""
+    split launch on that stream or another replay of the same graph.  The
+    engine's step program (``serving/engine.py StepProgram``) therefore
+    captures on a stream of its own, so two engines' graphs hold two slots,
+    and replays its graph serially: each step waits for its logits."""
     sms = sm_count(dev)
     splits, kps = grid_plan(m, k, np_, sms, bm=bm, bn=bn, **plan)
     if splits == 1:

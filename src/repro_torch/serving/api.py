@@ -38,13 +38,16 @@ def build_engine(
     a_bits: int = 8,
     seed: int = 0,
     device: str | torch.device = "cuda",
+    capture: bool | None = None,
 ) -> Engine:
     """Construct a serving :class:`Engine` on ``device``.
 
     ``params`` are float decode params (default: :func:`init_params`
     with ``seed``) or an already packed tree; ``quant="packed"`` packs
     every projection at ``(w_bits, a_bits)``.  Float params are dropped
-    once packed, so only the packed words and the embedding stay."""
+    once packed, so only the packed words and the embedding stay.
+    ``capture`` is :class:`Engine`'s: on a CUDA device the step runs as one
+    captured CUDA graph unless it is False."""
     if quant not in QUANT_MODES:
         raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
     if quant == "int8":
@@ -56,4 +59,5 @@ def build_engine(
         params = T.map_leaves(params, lambda a: a.to(dev))
     if quant == "packed":
         params = quantize_params_packed(params, w_bits=w_bits, a_bits=a_bits, device=dev)
-    return Engine(cfg, params, ecfg, head=head if head is None else head.to(dev), device=dev)
+    return Engine(cfg, params, ecfg, head=head if head is None else head.to(dev), device=dev,
+                  capture=capture)

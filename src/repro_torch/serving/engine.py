@@ -16,12 +16,20 @@ admission; ``admit="on-demand"`` grants pages before each step and, when
 the pool runs dry, preempts the lowest-progress slot (its pages freed, the
 request requeued with its generated prefix and replayed chunked later).
 
+The step is built once per engine (:meth:`Engine._build_step`, the
+reference's jitted ``_step``): a :class:`StepProgram` over static batch,
+logits and pool buffers.  On a CUDA device it is one CUDA graph, captured
+on the engine's own stream and replayed every step; ``capture=False``
+runs the same step eagerly (the reference's ``jax.disable_jit()``), as the
+CPU always does.
+
 Not ported yet, and refused where asked for: int8 KV pools, deadlines
 and cancellation, fault injection, snapshots, observability and mesh
 parallelism (see ROADMAP.md, port queue).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import Counter
@@ -30,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import build
 from repro_torch.kernels.paged_gather.ops import check_gather_backend
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import prepack_lm_head
@@ -64,14 +73,130 @@ class EngineConfig:
         return self.n_pages or self.n_slots * self.blocks_per_slot + 1
 
 
+class StepProgram:
+    """One engine's fused step over static buffers.
+
+    The batch (block table ``[S, n_blocks]``, tokens ``[S, C]``, ``pos
+    [S]`` and, at ``C > 1``, ``lens [S]``, all int32) is written into one
+    host staging buffer and copied to one device buffer whose views the
+    step reads; the step updates the pools in place and writes its logits
+    ``[S, V]`` float32 into a static output, which is copied to a host
+    buffer.  On a CUDA device the host buffers are pinned and everything
+    runs on the program's own stream; with ``capture`` the step is one CUDA
+    graph, captured by :meth:`prepare` and replayed by every :meth:`run`.
+    Otherwise (the CPU, or ``capture=False``) :meth:`run` calls the step
+    eagerly on the same buffers.
+
+    The graph keeps the split-K counter slot of its capture stream (see
+    ``kernels/packed_matmul/kernel.py _split_scratch``): each program
+    captures on a stream of its own, and its replays are serial, since
+    :meth:`run` waits for each step's logits."""
+
+    def __init__(self, step, *, n_slots: int, chunk: int, n_blocks: int, vocab: int,
+                 device: torch.device, capture: bool):
+        """``step(tokens, pos, lens, table)`` returns the logits; ``lens`` is
+        None at ``chunk == 1``, as in the reference's C = 1 step."""
+        cuda = device.type == "cuda"
+        if capture and not cuda:
+            raise ValueError("capture=True needs a CUDA device; the CPU runs the step eagerly")
+        self._step = step
+        self.device = device
+        self.capture = capture
+        S, C = n_slots, chunk
+        sizes = (S * n_blocks, S * C, S, S if C > 1 else 0)
+        ends = np.cumsum(sizes).tolist()
+        self._stage = torch.zeros(ends[-1], dtype=torch.int32, pin_memory=cuda)
+        self._stage_np = self._stage.numpy()
+        self._slices = [slice(a, b) for a, b in zip([0] + ends[:-1], ends)]
+        batch = torch.zeros(ends[-1], dtype=torch.int32, device=device)
+        table, tokens, pos, lens = (batch[sl] for sl in self._slices)
+        self._batch = batch
+        self._args = (tokens.view(S, C), pos, lens if C > 1 else None, table.view(S, n_blocks))
+        self.logits = torch.zeros((S, vocab), dtype=torch.float32, device=device)
+        self._host = torch.zeros((S, vocab), dtype=torch.float32, pin_memory=cuda)
+        self._host_np = self._host.numpy()
+        self.stream = torch.cuda.Stream(device) if cuda else None
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.launches: dict[str, int] = {}  # kernel launches of one replay
+        self._ready = False
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        if self.stream is None:
+            yield
+            return
+        # the pools and params were written on the caller's stream
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            yield
+
+    def _forward(self) -> None:
+        self.logits.copy_(self._step(*self._args))
+
+    @torch.inference_mode()
+    def prepare(self) -> None:
+        """Run the step once eagerly with every slot inactive (a zero batch,
+        so its rows land on null page 0), which loads the kernel libraries
+        and makes every one-time object (kernel attributes, cuBLAS handles,
+        the split-K counters, cached scalars) outside any capture; then,
+        with ``capture``, capture the graph and record its launches per
+        replay.  Neither call is counted (:mod:`build`)."""
+        if self._ready:
+            return
+        with build.uncounted(), self._on_stream():
+            self._batch.zero_()
+            self._forward()
+            if self.capture:
+                before = build.counts()
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                with torch.cuda.graph(graph, stream=self.stream):  # its own memory pool
+                    self._forward()
+                self.launches = {k: v - before[k] for k, v in build.counts().items() if v != before[k]}
+                graph.instantiate()
+                self.graph = graph
+        if self.stream is not None:
+            self.stream.synchronize()
+        self._ready = True
+
+    @torch.inference_mode()
+    def run(self, tokens: np.ndarray, pos: np.ndarray, lens: np.ndarray,
+            table: np.ndarray) -> np.ndarray:
+        """One step; returns the logits ``[S, V]`` as a view of the host
+        buffer, valid until the next step.  A failed replay raises."""
+        self.prepare()
+        for sl, a in zip(self._slices, (table, tokens, pos, lens)):
+            if sl.stop > sl.start:
+                self._stage_np[sl] = a.reshape(-1)
+        with self._on_stream():
+            self._batch.copy_(self._stage, non_blocking=True)
+            if self.graph is not None:
+                self.graph.replay()
+                build.replayed(self.launches)
+            else:
+                self._forward()
+            self._host.copy_(self.logits, non_blocking=True)
+        if self.stream is not None:
+            self.stream.synchronize()
+        return self._host_np
+
+    def close(self) -> None:
+        """Release the graph and its memory pool."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = None
+        self._ready = False
+
+
 class Engine:
     """Request-level serving engine: ``submit()`` prompts, ``run()`` to completion."""
 
     def __init__(self, cfg: T.ModelConfig, params: dict, ecfg: EngineConfig = EngineConfig(),
-                 head=None, *, device: str | torch.device = "cuda"):
+                 head=None, *, device: str | torch.device = "cuda", capture: bool | None = None):
         """``head`` injects prepacked LM-head weights; otherwise
         ``ecfg.packed_head`` prepacks the tied embedding at
-        ``ecfg.head_bits`` here.  ``params`` must already lie on ``device``."""
+        ``ecfg.head_bits`` here.  ``params`` must already lie on ``device``.
+        ``capture``: run the step as one captured CUDA graph (None: on a
+        CUDA device); False runs it eagerly, True on the CPU raises."""
         if ecfg.chunk_tokens < 1:
             raise ValueError("chunk_tokens must be >= 1")
         if cfg.kv_dtype == "int8":
@@ -92,6 +217,7 @@ class Engine:
         self.params = T.unstack_layers(params, cfg.n_layers)
         self.state = T.init_paged_state(cfg, ecfg.n_slots, ecfg.pool_pages(), ecfg.page_size,
                                         dtype=cfg.dtype, device=self.device)
+        self._program = self._build_step(self.device.type == "cuda" if capture is None else capture)
         self._pending: list[Request] = []
         self._next_rid = 0
         self.n_steps = 0
@@ -106,27 +232,34 @@ class Engine:
         self._vclock = 0.0
         self._wall = 0.0
 
-    @torch.inference_mode()
-    def _step(self, tokens: np.ndarray, pos: np.ndarray, lens: np.ndarray) -> torch.Tensor:
-        """One fused step; ``lens`` reaches the model only at ``C > 1``, as
-        in the reference, so the C = 1 step is the plain decode step."""
-        dev = self.device
-        logits, self.state = T.forward_decode_paged(
-            self.params, self.cfg, self.state,
-            torch.from_numpy(self.block_table.as_array()).to(dev),
-            torch.from_numpy(tokens).to(dev), torch.from_numpy(pos).to(dev),
-            head=self._head,
-            lens=torch.from_numpy(lens).to(dev) if self.ecfg.chunk_tokens > 1 else None,
-            gather=self.ecfg.gather_backend,
-        )
-        return logits
+    def _build_step(self, capture: bool) -> StepProgram:
+        """The step program: :func:`forward_decode_paged` over static
+        buffers, the pools of ``self.state`` updated in place (the
+        reference's donated state).  ``lens`` reaches the model only at
+        ``C > 1``, as in the reference, so the C = 1 step is the plain
+        decode step."""
+        params, cfg, state, head = self.params, self.cfg, self.state, self._head
+        gather = self.ecfg.gather_backend
+
+        def step(tokens, pos, lens, table):
+            logits, _ = T.forward_decode_paged(params, cfg, state, table, tokens, pos, head=head,
+                                               lens=lens, gather=gather)
+            return logits
+
+        return StepProgram(step, n_slots=self.ecfg.n_slots, chunk=self.ecfg.chunk_tokens,
+                           n_blocks=self.ecfg.blocks_per_slot, vocab=cfg.vocab, device=self.device,
+                           capture=capture)
 
     def warmup(self) -> None:
-        """Run one step with every slot inactive (rows land on null page 0),
-        so kernel builds and first-call costs stay out of the timed run."""
-        S, C = self.ecfg.n_slots, self.ecfg.chunk_tokens
-        self._step(np.zeros((S, C), np.int32), np.zeros((S,), np.int32),
-                   np.zeros((S,), np.int32)).cpu()
+        """Prepare the step program (:meth:`StepProgram.prepare`: one eager
+        step with every slot inactive, then the capture on the card), so
+        kernel builds, first-call costs and the capture stay out of the
+        timed run.  ``run`` prepares it at first use otherwise."""
+        self._program.prepare()
+
+    def close(self) -> None:
+        """Release the step's CUDA graph and its memory pool."""
+        self._program.close()
 
     def submit(self, prompt, max_new_tokens: int, arrival: float = 0.0) -> Request:
         prompt = [int(t) for t in prompt]
@@ -180,7 +313,7 @@ class Engine:
             tokens[slot, : len(chunk)] = chunk
             pos[slot] = start
             lens[slot] = len(chunk)
-        logits_np = self._step(tokens, pos, lens).cpu().numpy()  # waits for the device
+        logits_np = self._program.run(tokens, pos, lens, self.block_table.as_array())
         self.n_steps += 1
         self.slot_token_steps += len(self.scheduler.active)
         self.fed_tokens += int(lens.sum())

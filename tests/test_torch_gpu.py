@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the engine's
+captured step against its eager one (``capture=False``), on the card.
 
 Marked ``gpu``: each test takes the ``cuda`` fixture, which skips when no
 CUDA device is present (decided inside the fixture, so every pytest
@@ -525,3 +526,156 @@ def test_default_bits_engine_serves(cuda):
     m = eng.run(realtime=False)
     assert m["statuses"] == {"ok": 3}
     assert build.counts() == dict.fromkeys(build.COUNTS, 0)
+
+
+# -- the captured step ----------------------------------------------------------------
+
+
+def _packed_smoke(cuda, cfg=None, seed=3):
+    """w4a4 packed projections and the packed (4, 4) head on the card."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import prepack_lm_head
+    from repro_torch.serving.api import quantize_params_packed
+
+    cfg = cfg or get_config("llama3.2-3b", smoke=True)
+    params = T.init_params(cfg, seed=seed, device=cuda)
+    head = prepack_lm_head(params["embed"], w_bits=4, a_bits=4, device=cuda)
+    return cfg, quantize_params_packed(params, w_bits=4, a_bits=4, device=cuda), head
+
+
+def _step_logits(eng) -> list:
+    """Spy on an engine's step program: a copy of every step's logits."""
+    seen, run = [], eng._program.run
+
+    def spy(*args):
+        out = run(*args)
+        seen.append(out.copy())
+        return out
+
+    eng._program.run = spy
+    return seen
+
+
+@pytest.mark.parametrize("chunk,admit,n_pages", [(1, "reserve", 0), (4, "on-demand", 7)])
+def test_captured_engine_equals_the_eager_engine(cuda, chunk, admit, n_pages):
+    """The captured step against capture=False on the same weights: every
+    step's logits bit-identical, the same tokens, steps and preemptions,
+    and the launch counters of the eager run."""
+    from repro_torch.serving import Engine
+
+    cfg, packed, head = _packed_smoke(cuda)
+    ecfg = EngineConfig(n_slots=3, page_size=4, max_len=32, n_pages=n_pages, chunk_tokens=chunk,
+                        admit=admit, packed_head=True, head_bits=(4, 4), gather_backend="kernel")
+    g = np.random.default_rng(7)
+    prompts = [g.integers(1, cfg.vocab, n).tolist() for n in (9, 6, 11, 5)]
+    runs = []
+    for capture in (False, True):
+        eng = Engine(cfg, packed, ecfg, head=head, device=cuda, capture=capture)
+        logits = _step_logits(eng)
+        for p in prompts:
+            eng.submit(p, 6)
+        build.reset_counts()
+        m = eng.run(realtime=False)
+        assert m["statuses"] == {"ok": 4}
+        assert (eng._program.graph is not None) == capture
+        runs.append((m, build.counts(), logits, {r.rid: r.out_tokens for r in eng.finished}))
+        eng.close()
+    (m_e, counts_e, logits_e, toks_e), (m_c, counts_c, logits_c, toks_c) = runs
+    if admit == "on-demand":
+        assert m_c["preemptions"] > 0
+    for key in ("steps", "fed_tokens", "preemptions"):
+        assert m_c[key] == m_e[key], key
+    assert toks_c == toks_e and counts_c == counts_e
+    assert len(logits_c) == len(logits_e) == m_c["steps"]
+    for t, (a, b) in enumerate(zip(logits_c, logits_e)):
+        assert a.tobytes() == b.tobytes(), t
+
+
+@pytest.mark.parametrize("block_k", [None, 16], ids=["K1", "K2"])
+def test_captured_step_graph_nodes_equal_its_launches(cuda, block_k):
+    """The captured graph's kernel nodes are the launches its capture
+    counted, per replay: K1 at every projection and the head (or K2 at
+    every projection with block_k), K3 at every layer; no memset."""
+    import dataclasses as dc
+
+    from repro_torch.kernels.packed_matmul.ops import PackedDenseParams
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Engine
+
+    cfg, packed, head = _packed_smoke(cuda)
+    if block_k:
+        packed = T.map_leaves(packed, lambda a: dc.replace(a, block_k=block_k)
+                              if isinstance(a, PackedDenseParams) else a)
+    eng = Engine(cfg, packed, EngineConfig(n_slots=4, page_size=8, max_len=64, gather_backend="kernel"),
+                 head=head, device=cuda)
+    eng.warmup()
+    L = cfg.n_layers
+    want = ({"packed_dense_fused": 7 * L + 1} if block_k is None
+            else {"packed_dense_fused": 1, "packed_matmul": 7 * L})
+    want["paged_gather"] = L
+    census = build.graph_census(eng._program.graph)
+    assert eng._program.launches == want
+    assert {k: v for k, v in census["kernels"].items() if k != "other"} == want
+    assert "memset" not in census["kinds"], census
+    eng.close()
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_eager_step_reads_nothing_back_to_the_host(cuda, chunk):
+    """After the warm-up, an eager step makes no synchronising call
+    (``.item()``, a device-to-host copy): it can be captured."""
+    cfg, packed, head = _packed_smoke(cuda)
+    eng = build_engine(cfg, EngineConfig(n_slots=4, page_size=8, max_len=64, chunk_tokens=chunk,
+                                         packed_head=True, head_bits=(4, 4), gather_backend="kernel"),
+                       params=packed, head=head, device=cuda, capture=False)
+    eng.warmup()
+    prog = eng._program
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode(), prog._on_stream():
+            prog._forward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_two_engines_replay_on_their_own_streams(cuda):
+    """Two captured engines whose projections split K, each replayed in
+    turns on its own stream with no synchronisation between the streams:
+    every replay's logits equal its eager twin's, so the two graphs hold
+    different split-K counter slots."""
+    import dataclasses as dc
+
+    from repro_torch.kernels.packed_matmul.kernel import _COUNTERS
+    from repro_torch.serving import Engine
+
+    cfg = dc.replace(get_config("llama3.2-3b", smoke=True), n_layers=1, d_model=1024, n_heads=8,
+                     kv_heads=2, head_dim=128, d_ff=2048)
+    cfg, packed, head = _packed_smoke(cuda, cfg)
+    ecfg = EngineConfig(n_slots=4, page_size=8, max_len=64, packed_head=True, head_bits=(4, 4),
+                        gather_backend="kernel")
+    g = np.random.default_rng(12)
+    progs, want = [], []
+    for i in range(2):
+        table = np.zeros((4, ecfg.blocks_per_slot), np.int32)
+        table[:3, :2] = np.arange(1, 7).reshape(3, 2) + 6 * i
+        batch = (g.integers(1, cfg.vocab, (4, 1)).astype(np.int32), np.array([3, 9, 12, 0], np.int32),
+                 np.array([1, 1, 1, 0], np.int32), table)
+        eager = Engine(cfg, packed, ecfg, head=head, device=cuda, capture=False)
+        want.append(eager._program.run(*batch).copy())
+        eng = Engine(cfg, packed, ecfg, head=head, device=cuda)
+        assert eng._program.run(*batch).tobytes() == want[-1].tobytes()
+        progs.append(eng._program)
+    slots = _COUNTERS[torch.cuda.current_device()][1]._of
+    streams = [p.stream.cuda_stream for p in progs]
+    assert streams[0] != streams[1] and set(streams) <= set(slots)
+    outs = [[], []]
+    for _ in range(20):
+        for i, p in enumerate(progs):
+            with torch.cuda.stream(p.stream):
+                p.graph.replay()
+                outs[i].append(p.logits.clone())
+    torch.cuda.synchronize()
+    for i in range(2):
+        for out in outs[i]:
+            assert out.cpu().numpy().tobytes() == want[i].tobytes(), i
