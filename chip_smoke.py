@@ -94,6 +94,28 @@ Phases, all on the card:
    of one replay of each captured turn's graph.  Traces of the eager C = 1
    run and of both C = 16 runs give each one's device busy share and time
    by kernel.
+11. Deployment plans: ``search_plan`` for llama3.2-3b at full width
+   (footprint objective, budget 0.85 of w4a4; the LUT built in-process
+   when the cache under ``build/`` is missing) must give the CPU's content
+   hash (``PLAN_HASH``: layers 0-2 w8a8, 3-5 w5a4, 6-27 w3a2, head (8,
+   8)); ``autotune_plan`` times every ``block_k`` candidate on the card
+   (printed with the layers it moves to K2), ``measure_pair_times`` every
+   pair of the search's bit choices, and the search runs again with those
+   measured times (printed, not served).  K1 and K2 at every (pair, shape, block_k) the tuned
+   plan serves against their plain versions: bit-exact, timed by graph
+   beside the bound and ``torch._int_mm``.  The tuned plan served at full
+   width through ``build_engine(plan=...)`` with phase 4's settings and
+   prompts: every request ``ok``, the projection weight bytes on the card
+   equal to the plan's prediction, the launch counters and the graph's
+   port kernel nodes equal to the per-step counts the plan implies (times
+   the steps); then timed in alternating turns with phase 4's w4a4 cell
+   (plan, w4a4, w4a4, plan, ...; 3 pairs), each turn giving the tokens of
+   its cell's first run, and traced once.  The same pairs at 3 layers
+   (w8a8, w5a4, w3a2 at their tuned ``block_k``, the (8, 8) head) on the
+   card and the CPU from the same packed words, within phase 5's and
+   phase 8's tolerances (see ``_plan_cross_check``).  Last, a uniform (4,
+   4) plan through ``build_engine(plan=...)``: sampled rows bit-identical
+   to phase 4's ``quant="packed"`` engine.
 
 Every engine's graph and memory pool is released before the next engine
 is built, and each phase prints its peak device memory.
@@ -151,6 +173,10 @@ CROSS_FLIP_REL_TOL = 0.2
 # rows into every projection), of phase 3's chunked gather and of phase 5's
 # chunked step
 CHUNK = 16
+
+# phase 11: content hash of search_plan(llama3.2-3b full, footprint, budget 0.85), the
+# reference's (tests/test_torch_plan.py holds it against the reference on the CPU)
+PLAN_HASH = "442c1f04caef00bb"
 
 
 class PhaseError(RuntimeError):
@@ -777,8 +803,10 @@ def _cross_steps(torch, cfg2, packed, head, steps: int, seed: int, gather: str, 
     quantized by a packed matmul for a row it reads (a lane it feeds, or
     lane 0 of a slot that feeds none) differed between the two at this or
     an earlier step; that step's ``[S, C]`` rows read and, of them, those
-    with a differing level in a layer; and per slot whether the head's
-    input row differed."""
+    with a differing level in a layer; per slot whether the head's input
+    row differed; and per packed matmul of the step, in call order (7 a
+    layer, then the head), its rows (``[S, C]``, the head's ``[S]``)
+    with a differing level."""
     import numpy as np
 
     from repro_torch.models import layers as L
@@ -822,15 +850,13 @@ def _cross_steps(torch, cfg2, packed, head, steps: int, seed: int, gather: str, 
             c_log, _ = T.forward_decode_paged(cpu_packed, cfg2, states["cpu"], table, tokens, pos,
                                               head=cpu_head, lens=tlens, gather=gather)
             check(len(levels) == len(g_levels) == 7 * cfg2.n_layers + 1, "packed matmul count")
-            row_flip = torch.zeros((S, C), dtype=torch.bool)
-            for g, c in zip(g_levels[:-1], levels[:-1]):  # the layers: S x C rows
-                row_flip |= (g != c).any(dim=1).reshape(S, C)
-            row_flip &= read
+            calls = [(g != c).any(dim=1).reshape(S, C) & read for g, c in zip(g_levels[:-1], levels[:-1])]
             head_flip = (g_levels[-1] != levels[-1]).any(dim=1)  # the head: a row per slot
+            row_flip = torch.stack(calls).any(dim=0)  # the layers: S x C rows
             flipped |= row_flip.any(dim=1) | head_flip
             g_log = g_log.cpu()
             check(bool(torch.isfinite(g_log).all()), f"non-finite logits at cross-check step {t}")
-            yield g_log, c_log, flipped.clone(), read, row_flip, head_flip
+            yield g_log, c_log, flipped.clone(), read, row_flip, head_flip, calls + [head_flip]
     finally:
         L.packed_dense = inner
 
@@ -898,7 +924,7 @@ def phase_crosscheck(torch, cfg, report: dict, steps: int = 3) -> dict:
     S = 8
     results = []
     prior = torch.zeros(S, dtype=torch.bool)
-    for t, (g_log, c_log, flipped, read, row_flip, head_flip) in enumerate(_cross_steps(
+    for t, (g_log, c_log, flipped, read, row_flip, head_flip, _) in enumerate(_cross_steps(
             torch, cfg2, packed, head, steps, seed=5, gather="kernel", chunk_lens=CROSS_CHUNK_LENS)):
         chunked = t == steps
         st = _row_stats(torch, g_log, c_log, flipped)
@@ -1544,6 +1570,331 @@ def phase_capture(torch, card, cfg, ecfg, c1: dict, report: dict) -> dict:
     return out
 
 
+# -- phase 11 ------------------------------------------------------------------
+
+# phase 11's timed turns, alternating: plan, w4a4, w4a4, plan, ... (PLAN_PAIRS pairs)
+PLAN_PAIRS = 3
+# phase 11's card-vs-CPU fixture: one layer of each pair of the searched plan
+PLAN_CROSS_BITS = ((8, 8), (5, 4), (3, 2))
+
+
+def plan_launches(plan, cfg, n_slots: int) -> tuple[dict, dict]:
+    """Kernel launches of one decode step of an engine serving ``plan``:
+    ``(per counter, per (counter, w_bits, a_bits, K, N, block_k))``.  A
+    layer with a placement runs each projection on K1 when its
+    ``block_k`` is None or covers the projection's K, on K2 otherwise; a
+    pair with no placement (n_seg 1) runs the plain integer path, no port
+    kernel; K3 runs once a layer."""
+    from repro_torch.kernels import build
+    from repro_torch.plan.search import ProjShape, layer_matmul_shapes
+
+    per = dict.fromkeys(build.COUNTS, 0)
+    rows: dict = {}
+    shapes = layer_matmul_shapes(cfg, n_slots)
+    entries = [(lp, shapes[i]) for i, lp in enumerate(plan.layers)]
+    if plan.lm_head is not None:
+        entries.append((plan.lm_head, [ProjShape("head", n_slots, cfg.d_model, cfg.vocab)]))
+    for lp, projs in entries:
+        if lp.n_seg == 1:
+            continue
+        for p in projs:
+            kernel = "packed_dense_fused" if lp.block_k is None or lp.block_k >= p.k else "packed_matmul"
+            per[kernel] += 1
+            key = (kernel, lp.w_bits, lp.a_bits, p.k, p.n, lp.block_k if kernel == "packed_matmul" else None)
+            rows[key] = rows.get(key, 0) + 1
+    per["paged_gather"] = cfg.n_layers
+    return per, rows
+
+
+def phase_plan_kernels(torch, card, timer, rows_per_step: dict, M: int) -> list:
+    """K1 and K2 against their plain versions at every distinct (kernel,
+    pair, shape, block_k) the tuned plan serves: bit-exact; timed by CUDA
+    graph (weights cycled through 256 MB) beside their bound and
+    ``torch._int_mm`` on the same levels."""
+    from repro_torch.kernels.packed_matmul import ref as pm
+    from repro_torch.kernels.packed_matmul.kernel import (
+        packed_dense_fused_plain, packed_dense_fused_raw, packed_matmul_plain, packed_matmul_raw,
+    )
+    from repro_torch.kernels.packed_matmul.ops import choose_config
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    rows = []
+    for (kernel, w_b, a_b, K, N, bk), per_step in sorted(rows_per_step.items()):
+        c = choose_config(w_b, a_b)
+        kw = dict(n_seg=c.n_seg, stride=c.stride, acc_chunk=c.acc_chunk, overlap=c.overlap)
+        x = torch.rand((M, K), generator=g, device="cuda") * 1.2 - 0.1
+        n_pad = -(-N // c.n_seg) * c.n_seg
+        w_lvl = torch.randint(0, 1 << w_b, (K, n_pad), generator=g, device="cuda", dtype=torch.int32)
+        wp = pm.pack_weights(w_lvl, c.n_seg, c.stride)
+        w8 = w_lvl[:, :N].to(torch.int8).contiguous()
+        del w_lvl
+        a_lvl = torch.round(torch.clamp(x, 0, 1) * ((1 << a_b) - 1)).to(torch.int32)
+        if kernel == "packed_dense_fused":
+            def run(w, x=x, kw=kw):
+                return packed_dense_fused_raw(x, w, a_bits=a_b, **kw)
+
+            def plain(w=wp, x=x, kw=kw):
+                return packed_dense_fused_plain(x, w, a_bits=a_b, **kw)
+        else:
+            def run(w, a=a_lvl, kw=kw, bk=bk):
+                return packed_matmul_raw(a, w, block_k=bk, **kw)
+
+            def plain(w=wp, a=a_lvl, kw=kw, bk=bk):
+                return packed_matmul_plain(a, w, block_k=bk, **kw)
+        got, want = run(wp), plain()
+        torch.cuda.synchronize()
+        got, want = (got, want) if kernel == "packed_dense_fused" else ((got,), (want,))
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        label = f"{kernel} w{w_b}a{a_b} K={K} N={N}" + (f" block_k={bk}" if bk else "")
+        check(all(torch.equal(a, b) for a, b in zip(got, want)), f"{label} differs from its plain version")
+        nbytes = (M * K * 4 + K * wp.shape[1] * 4 + M * n_pad * 4
+                  + (M * 4 if kernel == "packed_dense_fused" else 0))
+        b_ms, b_by, t_b, t_o = k1_bound(card, M, K, N, nbytes)
+        int_mm, int_mm_m = _int_mm(torch, a_lvl.to(torch.int8), w8)
+        wps, w8s = cold_copies(wp), cold_copies(w8)
+        row = dict(kernel=kernel, pair=f"w{w_b}a{a_b}", K=K, N=N, M=M, block_k=bk, placement=list(c),
+                   per_step=per_step, max_abs_err=err, bytes=nbytes,
+                   graph_ms=timer.graph(lambda i: run(wps[i % len(wps)])),
+                   events_ms=timer(lambda: run(wp), reps=20),
+                   plain_ms=timer(plain, reps=1, warmup=0),
+                   int_mm_graph_ms=timer.graph(lambda i: int_mm(w8s[i % len(w8s)])), int_mm_m=int_mm_m,
+                   bound_ms=b_ms, bound_by=b_by, t_bytes=t_b, t_ops=t_o)
+        rows.append(row)
+        print(f"  {label} (x{per_step} a step): {row['graph_ms']:.4f} ms by graph (events "
+              f"{row['events_ms']:.4f}), plain {row['plain_ms']:.2f} ms, _int_mm (M={int_mm_m}) "
+              f"{row['int_mm_graph_ms']:.4f}, bound {b_ms:.4f} ms ({b_by}); bit-exact", flush=True)
+        del x, wp, w8, a_lvl, wps, w8s, int_mm, got, want
+    return rows
+
+
+def _plan_cross_check(torch, cfg, tuned, report: dict, steps: int = 3) -> dict:
+    """3 layers at full width, one of each of the plan's pairs at its tuned
+    ``block_k``, and the plan's head, float32, on the card and on the CPU
+    from the same packed words.  Flips are split by the quantizer they hit:
+    a fine one (8-bit activations, phase 8's) or a coarse one (2- or 4-bit,
+    phase 5's).  Rows with no flip at this or an earlier step agree to
+    CROSS_CLEAN_ABS_TOL per logit; rows whose flips are all fine stay
+    within DEFAULT_FLIP_REL_TOL relative L2 (phase 8's rule); rows with a
+    coarse flip within CROSS_FLIP_REL_TOL (phase 5's); greedy tokens agree
+    where decided (phase 5's); and first-hand coarse flips stay rare: over
+    the run, at most half the slot-steps of slots with no earlier flip take
+    one (the slot's first flipped quantizer of the step is coarse), phase
+    5's rarity rule for the quantizers where a flip moves a whole coarse
+    level, counted over all steps as phase 5 counts its chunked step's
+    rows, since cascades leave few such slots at a later step."""
+    from repro_torch.models import transformer as T
+    from repro_torch.plan import apply_plan, plan_from_bits
+
+    cfg3 = dataclasses.replace(cfg, n_layers=len(PLAN_CROSS_BITS), dtype=torch.float32)
+    block_k = {lp.bits: lp.block_k for lp in tuned.layers}
+    plan3 = plan_from_bits(cfg3, arch="llama3.2-3b", bits=list(PLAN_CROSS_BITS), smoke=False,
+                           head_bits=(tuned.lm_head.w_bits, tuned.lm_head.a_bits))
+    plan3 = dataclasses.replace(plan3, layers=[dataclasses.replace(lp, block_k=block_k[lp.bits])
+                                               for lp in plan3.layers])
+    params = T.init_params(cfg3, seed=1, device="cuda")
+    packed, head = apply_plan(params, cfg3, plan3, verbose=False, device="cuda")
+    del params
+    a_bits = [lp.a_bits for lp in plan3.layers for _ in range(7)] + [plan3.lm_head.a_bits]
+    S = 8
+    prior = torch.zeros(S, dtype=torch.bool)  # any flip at an earlier step
+    coarse_cum = torch.zeros(S, dtype=torch.bool)
+    results = []
+    fresh_total = eligible_total = 0
+    for t, (g_log, c_log, flipped, read, row_flip, head_flip, calls) in enumerate(
+            _cross_steps(torch, cfg3, packed, head, steps, seed=13, gather="kernel")):
+        calls = [c.reshape(S, -1).any(dim=1) for c in calls]
+        coarse = torch.stack([c for c, a in zip(calls, a_bits) if a <= 4]).any(dim=0)
+        coarse_cum |= coarse
+        first = [next((a for c, a in zip(calls, a_bits) if c[s]), None) for s in range(S)]
+        fresh = sum(1 for s in range(S) if not prior[s] and first[s] is not None and first[s] <= 4)
+        st = _row_stats(torch, g_log, c_log, flipped)
+        fine_only = flipped & ~coarse_cum
+        r = dict(step=t, first_flip_a_bits=first, coarse_rows=int(coarse_cum.sum()),
+                 fine_only_rows=int(fine_only.sum()), fresh_coarse=fresh, eligible=int((~prior).sum()),
+                 fine_only_max_rel=float(st["row_rel"][fine_only].max()) if fine_only.any() else None,
+                 **st["summary"])
+        results.append(r)
+        print(f"  cross-check step {t}: {r['clean_rows']}/{S} rows without a flip (max|d| "
+              f"{r['clean_max_abs']}); {r['fine_only_rows']} with 8-bit flips only (max rel L2 "
+              f"{r['fine_only_max_rel']}), {r['coarse_rows']} with a 2/4-bit flip (max rel L2 of flipped "
+              f"rows {r['flipped_max_rel']}); first flipped quantizer's a_bits by slot {first}; "
+              f"{fresh} of {r['eligible']} slots without an earlier flip took a first-hand coarse flip; "
+              f"greedy tokens agree {r['tokens_agree']}/{S}", flush=True)
+        check(bool((st["row_max"][st["clean"]] <= CROSS_CLEAN_ABS_TOL).all()),
+              f"plan cross-check step {t}: a row without flips differs by more than {CROSS_CLEAN_ABS_TOL}")
+        check(bool((st["row_rel"][fine_only] <= DEFAULT_FLIP_REL_TOL).all()),
+              f"plan cross-check step {t}: a row with 8-bit flips only differs by more than "
+              f"{DEFAULT_FLIP_REL_TOL} relative")
+        check(bool((st["row_rel"][coarse_cum] <= CROSS_FLIP_REL_TOL).all()),
+              f"plan cross-check step {t}: a row with a coarse flip differs by more than "
+              f"{CROSS_FLIP_REL_TOL} relative")
+        check(bool((st["agree"] | ~st["decided"] | flipped).all()),
+              f"plan cross-check step {t}: greedy token differs past the gap bound")
+        fresh_total, eligible_total = fresh_total + fresh, eligible_total + r["eligible"]
+        prior = flipped
+    check(len(results) == steps, "the plan cross-check did not run every step")
+    print(f"  first-hand coarse flips in {fresh_total} of {eligible_total} slot-steps without an earlier "
+          f"flip", flush=True)
+    check(2 * fresh_total <= eligible_total,
+          f"plan cross-check: first-hand coarse flips in {fresh_total} of {eligible_total} slot-steps")
+    report["plan_crosscheck"] = dict(plan=plan3.to_payload(), steps=results)
+    return results
+
+
+def _plan_turn(torch, eng, prompts, per_step: dict, what: str, memset: bool) -> dict:
+    """One timed run of a fresh engine (captured): statuses, counters and
+    the graph's port kernel nodes equal to ``per_step`` (times the steps),
+    and its times; then release it.  ``memset``: the graph may hold memset
+    nodes (check_graph)."""
+    import numpy as np
+
+    m, counts, wall = _serve(torch, eng, prompts, 32)
+    check(m["statuses"] == {"ok": len(prompts)}, f"{what}: statuses {m['statuses']}")
+    check(counts == {k: v * m["steps"] for k, v in per_step.items()},
+          f"{what}: launch counters {counts} != {per_step} x {m['steps']} steps")
+    census = check_graph(eng, per_step, what, memset=memset)
+    replay = graph_replay_ms(torch, eng)
+    eng.close()
+    step_ms = [1e3 * x for x in eng.step_seconds]
+    out = dict(steps=m["steps"], wall_s=wall, tokens_per_s=m["tokens_per_s"],
+               step_ms_p50=float(np.median(step_ms)), step_ms_min=min(step_ms),
+               ttft_ms_p50=1e3 * m["ttft_p50"], replay_ms=replay, counts=counts, graph=census,
+               tokens={r.rid: list(r.out_tokens) for r in eng.finished})
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_plan(torch, card, cfg, ecfg, c1: dict, report: dict) -> dict:
+    """Deployment plans on the card: search (hash against the CPU's), the
+    on-card autotune and pair times, K1/K2 at the tuned plan's placements
+    against their plain versions, the tuned plan served at full width
+    (graph census against the counters, weight bytes against the plan's
+    prediction, timed in alternating turns beside phase 4's w4a4 cell),
+    the card against the CPU at 3 layers, and a uniform (4, 4) plan against
+    phase 4's engine."""
+    import numpy as np
+
+    from repro_torch.kernels.packed_matmul.ops import PackedDenseParams
+    from repro_torch.models import transformer as T
+    from repro_torch.plan import autotune_plan, measure_pair_times, search_plan, summarize, uniform_plan
+    from repro_torch.plan import search as plan_search
+    from repro_torch.serving import Engine, build_engine
+
+    out: dict = {}
+    secs: dict = {}
+    t0 = time.monotonic()
+    lut_was_cached = plan_search.DEFAULT_LUT_PATH.exists()
+    plan = search_plan(cfg, arch="llama3.2-3b", objective="footprint", budget_frac=0.85, smoke=False)
+    secs["search"] = time.monotonic() - t0
+    check(plan.content_hash() == PLAN_HASH, f"searched plan hash {plan.content_hash()} != the CPU's {PLAN_HASH}")
+    print(f"  search ({'LUT loaded from the cache' if lut_was_cached else 'LUT built in-process'}, "
+          f"{secs['search']:.2f} s): {summarize(plan)}; the CPU's hash", flush=True)
+
+    t0 = time.monotonic()
+    tuned = autotune_plan(plan, cfg, n_slots=ecfg.n_slots, reps=3)
+    secs["autotune"] = time.monotonic() - t0
+    for key, entry in tuned.autotune["table"].items():
+        times = ", ".join(f"{bk}: {us:.1f}" for bk, us in entry["timings_us"].items())
+        print(f"  autotune {key}: block_k={entry['block_k']} (us a call by block_k: {times})", flush=True)
+    per_step, kernel_rows = plan_launches(tuned, cfg, ecfg.n_slots)
+    to_k2 = sorted({(lp.index, key[3]) for lp in tuned.layers for key in kernel_rows
+                    if key[0] == "packed_matmul" and (key[1], key[2]) == lp.bits and lp.n_seg > 1})
+    print(f"  autotune on the card in {secs['autotune']:.1f} s; per step {per_step}; projections on K2 "
+          f"(layer, K): {to_k2 or 'none'}", flush=True)
+    t0 = time.monotonic()
+    pair_times = measure_pair_times(cfg, bit_choices=plan_search.DEFAULT_BIT_CHOICES, n_slots=ecfg.n_slots,
+                                    reps=3)
+    secs["pair_times"] = time.monotonic() - t0
+    print(f"  pair times (whole K, us a layer at n_slots {ecfg.n_slots}, {secs['pair_times']:.1f} s): "
+          + ", ".join(f"w{w}a{a} {1e6 * t:.1f}" for (w, a), t in pair_times.items()), flush=True)
+    measured = search_plan(cfg, arch="llama3.2-3b", objective="footprint", budget_frac=0.85, smoke=False,
+                           pair_times=pair_times)
+    print(f"  search with these pair times (not served): {summarize(measured)}", flush=True)
+    out.update(hash=plan.content_hash(), plan=tuned.to_payload(), per_step=per_step, to_k2=to_k2,
+               pair_times_us={f"w{w}a{a}": 1e6 * t for (w, a), t in pair_times.items()},
+               measured_plan=dict(hash=measured.content_hash(), summary=summarize(measured),
+                                  bits=measured.bit_pairs(), predicted=measured.predicted))
+
+    timer = Timer(torch)
+    t0 = time.monotonic()
+    out["kernels"] = phase_plan_kernels(torch, card, timer, kernel_rows, ecfg.n_slots)
+    secs["kernels"] = time.monotonic() - t0
+    del timer
+    torch.cuda.empty_cache()
+
+    # the tuned plan at full width, from the random weights of phase 4 (seed 0)
+    t0 = time.monotonic()
+    eng = build_engine(cfg, ecfg, plan=tuned, seed=0)
+    torch.cuda.synchronize()
+    secs["build"] = time.monotonic() - t0
+    leaves = []
+    T.map_leaves(eng.params["layers"], leaves.append)
+    wbytes = sum(a.data.numel() * a.data.element_size() for a in leaves if isinstance(a, PackedDenseParams))
+    check(wbytes == tuned.predicted["weight_bytes"],
+          f"projection weight bytes on the card {wbytes} != the plan's {tuned.predicted['weight_bytes']}")
+    params, head = eng.params, eng._head
+    prompts = c1["prompts"]
+    first = _plan_turn(torch, eng, prompts, per_step, "plan engine", memset=True)
+    census = first["graph"]
+    print(f"  plan engine: built in {secs['build']:.1f} s, projection weights {wbytes / 1e9:.3f} GB on the "
+          f"card = the plan's prediction; {first['steps']} steps, step p50 {first['step_ms_p50']:.2f} ms, "
+          f"{first['tokens_per_s']:.1f} tok/s, TTFT p50 {first['ttft_ms_p50']:.1f} ms, one replay "
+          f"{first['replay_ms']:.2f} ms; launches {first['counts']}; graph nodes {census}", flush=True)
+    rows_p, toks_p = _sampled_run(torch, Engine(cfg, params, ecfg, head=head), prompts, 32)
+    check(toks_p == first["tokens"], "the plan's sampled (untimed) run gave other tokens than its timed run")
+    w4a4_step = {**dict.fromkeys(per_step, 0), "packed_dense_fused": cfg.n_layers * 7 + 1,
+                 "paged_gather": cfg.n_layers}
+    turns = []
+    cells = [c for i in range(PLAN_PAIRS) for c in (("plan", "w4a4") if i % 2 == 0 else ("w4a4", "plan"))]
+    for i, cell in enumerate(cells):
+        if cell == "plan":
+            t = _plan_turn(torch, Engine(cfg, params, ecfg, head=head), prompts, per_step, f"turn {i + 1}",
+                           memset=True)
+            check(t["tokens"] == first["tokens"], f"turn {i + 1}: the plan's tokens changed")
+        else:
+            t = _plan_turn(torch, Engine(cfg, c1["params"], ecfg, head=c1["head"]), prompts, w4a4_step,
+                           f"turn {i + 1}", memset=False)
+            check(t["tokens"] == c1["tokens"], f"turn {i + 1}: w4a4 tokens differ from phase 4's")
+        t.update(turn=i + 1, cell=cell)
+        del t["tokens"], t["graph"]
+        turns.append(t)
+        print(f"    turn {i + 1} {cell:5s}: {t['steps']} steps, step p50 {t['step_ms_p50']:.2f} ms (min "
+              f"{t['step_ms_min']:.2f}), {t['tokens_per_s']:.1f} tok/s, TTFT p50 {t['ttft_ms_p50']:.1f} ms, "
+              f"one replay {t['replay_ms']:.2f} ms", flush=True)
+    med = {cell: {k: float(np.median([t[k] for t in turns if t["cell"] == cell]))
+                  for k in ("step_ms_p50", "tokens_per_s", "ttft_ms_p50", "replay_ms")}
+           for cell in ("plan", "w4a4")}
+    print(f"  on {card.name} ({card.power_limit}), medians plan / w4a4 over {PLAN_PAIRS} pairs: step p50 "
+          f"{med['plan']['step_ms_p50']:.2f} / {med['w4a4']['step_ms_p50']:.2f} ms, tok/s "
+          f"{med['plan']['tokens_per_s']:.1f} / {med['w4a4']['tokens_per_s']:.1f}, TTFT p50 "
+          f"{med['plan']['ttft_ms_p50']:.1f} / {med['w4a4']['ttft_ms_p50']:.1f} ms, one replay "
+          f"{med['plan']['replay_ms']:.2f} / {med['w4a4']['replay_ms']:.2f} ms", flush=True)
+    out.update(weight_bytes=wbytes, first=dict(first, tokens=None, graph=None), graph=census, turns=turns, medians=med,
+               sampled_rows=len(rows_p))
+    out["profile"] = profile_engine(torch, Engine(cfg, params, ecfg, head=head), cfg, "plan, captured")
+    del eng, params, head, rows_p
+    torch.cuda.empty_cache()
+
+    t0 = time.monotonic()
+    out["crosscheck"] = _plan_cross_check(torch, cfg, tuned, report)
+    secs["crosscheck"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+
+    # a uniform (4, 4) plan is phase 4's quant="packed" engine, row for row
+    uplan = uniform_plan(cfg, arch="llama3.2-3b", w_bits=4, a_bits=4, head_bits=(4, 4), smoke=False)
+    rows_u, toks_u = _sampled_run(torch, build_engine(cfg, ecfg, plan=uplan, seed=0), prompts, 32)
+    differ = [k for k in c1["samples"] if k not in rows_u or rows_u[k].tobytes() != c1["samples"][k].tobytes()]
+    check(toks_u == c1["tokens"] and rows_u.keys() == c1["samples"].keys() and not differ,
+          f"uniform (4, 4) plan: {len(differ)} of {len(c1['samples'])} sampled rows differ from phase 4's")
+    print(f"  uniform (4, 4) plan through build_engine(plan=...): {len(rows_u)} sampled rows bit-identical "
+          f"to phase 4's, tokens equal", flush=True)
+    del rows_u
+    out["seconds"] = secs
+    report["plan"] = out
+    return out
+
+
 # -- main ------------------------------------------------------------------------
 
 
@@ -1664,8 +2015,13 @@ def main(argv=None) -> int:
     print(f"phase 10: the captured step against the eager one, C=1 and C={CHUNK}, on phase 4's weights "
           f"and prompts", flush=True)
     phase_capture(torch, card, cfg, ecfg, c1, report)
-    del c1
     peak("10")
+    print("phase 11: deployment plans: search, on-card autotune, K1/K2 at the plan's placements, the "
+          "tuned plan served at full width beside phase 4's cell, card vs CPU at 3 layers, a uniform "
+          "(4, 4) plan against phase 4", flush=True)
+    pl = phase_plan(torch, card, cfg, ecfg, c1, report)
+    del c1
+    peak("11")
 
     # per-decode-step totals per kernel: the sum over the launches of one step
     def step_sum(rows, key):
@@ -1772,6 +2128,23 @@ def main(argv=None) -> int:
              path="packed_conv1d, phase 7",
              per=f"the {len(k6)} launches of phase 7, one each, summed", timing=GRAPH_TIMING),
     ]
+    # K1/K2 at the tuned plan's placements: launches from the plan's first
+    # timed run (its counters equal its per-step counts times its steps)
+    plan_steps = pl["first"]["steps"]
+    for (kernel, pair), rows in itertools.groupby(pl["kernels"], key=lambda r: (r["kernel"], r["pair"])):
+        rows = list(rows)
+        line = 111 if kernel == "packed_dense_fused" else 168
+        kernels.append(dict(
+            name=f"{kernel} ({pair}, plan)", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
+            replaces=f"src/repro/kernels/packed_matmul/kernel.py:{line}",
+            launches=sum(r["per_step"] for r in rows) * plan_steps,
+            max_abs_err=max(r["max_abs_err"] for r in rows), ms=step_sum(rows, "graph_ms"),
+            events_ms=step_sum(rows, "events_ms"), plain_ms=step_sum(rows, "plain_ms"),
+            bound_ms=step_sum(rows, "bound_ms"), bound_by=by_t(rows, lambda r: r["per_step"]),
+            library_ms=step_sum(rows, "int_mm_graph_ms"), library="torch._int_mm, M padded to 32",
+            gbps=by_gbps(rows, "graph_ms"), placement=rows[0]["placement"], path="plan",
+            path_steps=plan_steps, per=f"decode step of the tuned plan (its {pair} projections)",
+            timing=GRAPH_TIMING))
     report["kernels"] = kernels
     report["head"] = head
     report["total_s"] = time.monotonic() - t_start

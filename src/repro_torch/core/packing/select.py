@@ -1,5 +1,5 @@
 """Runtime kernel- and filter-placement selection (copy of
-``repro.core.packing.select`` without the trivial placement).
+``repro.core.packing.select``).
 
 Feasible means executable on an int32 lane: the packed accumulator fits
 ``container_bits``, the pre-decode chunk obeys Eq. 4's exact bound at
@@ -124,3 +124,12 @@ def select_filter_placement(
     if best is None:
         return None
     return best[1], best[2]
+
+
+def trivial_placement(w_bits: int, a_bits: int) -> PackingConfig:
+    """The n_seg == 1 fallback (plain integer path): T_mul = 1, no guard."""
+    return PackingConfig(
+        strategy="kernel", w_bits=w_bits, a_bits=a_bits, n_w=1, n_a=1,
+        stride=w_bits + a_bits, overlap=0, w_port_big=False, separated="",
+        t_mul=1.0, e_g=0,
+    )

@@ -1,6 +1,5 @@
-"""Kernel- and Filter-Packing placement enumeration (copy of the
-kernel- and filter-packing parts of ``repro.core.packing.strategies``,
-DeepBurning-MixQ Eq. 1 and Eq. 2).
+"""Packing-placement enumeration (copy of
+``repro.core.packing.strategies``, DeepBurning-MixQ Eq. 1, 2 and 5).
 
 Kernel Packing: port D carries N_d operands at stride p_b, port E carries
 N_e operands at stride N_d*p_b; constraints:
@@ -12,6 +11,9 @@ N_e operands at stride N_d*p_b; constraints:
 Filter Packing: k_p filter taps on one port and n_p sequence elements on
 the other, both at one stride, so one multiply yields the k_p + n_p - 1
 coefficients of their polynomial product.
+
+Operand Separation splits one operand into hi/lo halves packed with one
+placement: two multipliers per product set, so T_mul halves.
 """
 from __future__ import annotations
 
@@ -42,6 +44,11 @@ class PackingConfig:
     t_mul: float
     e_g: int
     dsps: int = 1
+
+    @property
+    def key(self) -> tuple[float, int]:
+        """Sort key: maximize throughput first, then extra guard bits."""
+        return (self.t_mul, self.e_g)
 
 
 def kernel_placements(
@@ -130,3 +137,54 @@ def filter_placements(
                         t_mul=eff,
                         e_g=stride - (w_bits + a_bits) - _ceil_log2(min(k_p, n_p)) + overlap,
                     )
+
+
+def separated_placements(
+    profile: MulProfile,
+    w_bits: int,
+    a_bits: int,
+    kernel_len: int,
+    seq_len: int,
+    *,
+    allow_overpack: bool = True,
+) -> Iterator[PackingConfig]:
+    """Operand Separation (Eq. 5): both halves packed with the placement
+    sized for the wider (low) half, ``ceil(b / 2)`` bits."""
+    for which, bits in (("w", w_bits), ("a", a_bits)):
+        if bits < 3:
+            continue  # splitting below 3 bits can't help
+        lo_bits = -(-bits // 2)
+        wb, ab = (lo_bits, a_bits) if which == "w" else (w_bits, lo_bits)
+        halves = list(kernel_placements(profile, wb, ab, allow_overpack=allow_overpack))
+        halves += list(
+            filter_placements(profile, wb, ab, kernel_len, seq_len, allow_overpack=allow_overpack)
+        )
+        for cfg in halves:
+            yield dataclasses.replace(
+                cfg, w_bits=w_bits, a_bits=a_bits, separated=which, t_mul=cfg.t_mul / 2.0, dsps=2,
+            )
+
+
+def all_placements(
+    profile: MulProfile,
+    w_bits: int,
+    a_bits: int,
+    kernel_len: int,
+    seq_len: int,
+    *,
+    allow_overpack: bool = True,
+    allow_separation: bool = True,
+    allow_filter: bool = True,
+) -> list[PackingConfig]:
+    out = list(kernel_placements(profile, w_bits, a_bits, allow_overpack=allow_overpack))
+    if allow_filter and kernel_len > 1:
+        out += list(
+            filter_placements(profile, w_bits, a_bits, kernel_len, seq_len, allow_overpack=allow_overpack)
+        )
+    if allow_separation:
+        out += list(
+            separated_placements(
+                profile, w_bits, a_bits, kernel_len, seq_len, allow_overpack=allow_overpack
+            )
+        )
+    return out

@@ -1,27 +1,131 @@
-"""The projection-weight walk of ``repro.plan.apply`` (deployment plans
-themselves, and MoE expert tensors, come in later slices)."""
+"""Apply a deployment plan to real params: per-layer quantize + prepack
+(``repro.plan.apply``).
+
+Generalizes ``serving.api.quantize_params_packed`` from one global
+``(w_bits, a_bits)`` pair to a per-layer map.  Uniform plans keep the
+stacked ``[L, ...]`` layout: byte for byte the params of the global
+path.  Heterogeneous plans unstack ``params["layers"]`` into the
+per-layer list that ``transformer.forward_decode_paged`` walks (each
+layer's packed metadata differs).  Tensor-parallel shards (``tp=``) wait
+for the mesh (ROADMAP.md, port queue 1, item 12).
+"""
 from __future__ import annotations
 
 import re
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.packed_matmul.ops import prepack_dense
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import prepack_lm_head
+from repro_torch.plan.plan import DeployPlan
 
-# projection weights live at ".../<name>/w"
+# projection weights live at ".../<name>/w"; MoE expert tensors are bare
+# [E, d, f] / [L, E, d, f] arrays (no /w leaf)
 PROJ_WEIGHT_RE = r"(wq|wk|wv|wo|w_up|w_gate|w_down|in_z|in_xbc|out_proj)/w$"
+MOE_WEIGHT_RE = r"(w_up|w_gate|w_down)$"
+
+
+def _map_with_path(fn, tree, *rest, path: str = ""):
+    """``fn(path, leaf, *rest_leaves)`` over the leaves of a dict/list tree
+    (``rest``: trees of the same structure); paths join keys with "/"."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, *(r[k] for r in rest), path=f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, *(r[i] for r in rest), path=f"{path}/{i}" if path else str(i))
+                          for i, v in enumerate(tree))
+    return fn(path, tree, *rest)
+
+
+def tanh_max_tree(tree):
+    """Per-matrix tanh-domain normalizers for every leaf of a params
+    subtree (leading stack axes kept: [L, K, N] -> [L]), for
+    :func:`prepack_tree`'s ``t_max_tree``: a slice of a matrix packed
+    against the whole matrix's normalizer gives column slices of the
+    whole matrix's packed words."""
+
+    def one(_, leaf):
+        if getattr(leaf, "ndim", 0) < 2:
+            return torch.zeros(())  # never consumed (non-projection leaf)
+        return torch.amax(torch.abs(torch.tanh(leaf)), dim=(-2, -1))
+
+    return _map_with_path(one, tree)
 
 
 def prepack_tree(tree, *, w_bits: int, a_bits: int, block_k: int | None = None,
-                 device: str | torch.device = "cuda", _path: str = ""):
-    """Quantize + bit-pack every projection weight ([K, N] or stacked
-    [L, K, N]) of a params subtree into ``PackedDenseParams``."""
-    if isinstance(tree, dict):
-        return {
-            k: prepack_tree(v, w_bits=w_bits, a_bits=a_bits, block_k=block_k, device=device,
-                            _path=f"{_path}/{k}" if _path else str(k))
-            for k, v in tree.items()
-        }
-    if isinstance(tree, torch.Tensor) and tree.ndim in (2, 3) and re.search(PROJ_WEIGHT_RE, _path):
-        return prepack_dense(tree, w_bits=w_bits, a_bits=a_bits, block_k=block_k, device=device)
-    return tree
+                 skipped: list | None = None, t_max_tree=None,
+                 device: str | torch.device = "cuda"):
+    """Quantize + bit-pack every projection weight of a params subtree on
+    ``device``.
+
+    Projection matrices ([K, N] or stacked [L, K, N]) and MoE expert
+    tensors ([E, d, f] or [L, E, d, f]) become ``PackedDenseParams``
+    leaves.  Projection-shaped tensors left in float are appended to
+    ``skipped``, so precision gaps stay visible.  ``t_max_tree`` (the
+    structure of ``tree``) supplies per-matrix level normalizers
+    (:func:`tanh_max_tree`)."""
+    dev = resolve_device(device)
+
+    def one(path, leaf, t_max=None):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        proj, moe = re.search(PROJ_WEIGHT_RE, path), re.search(MOE_WEIGHT_RE, path)
+        if (proj and leaf.ndim in (2, 3)) or (moe and leaf.ndim in (3, 4)):
+            return prepack_dense(leaf, w_bits=w_bits, a_bits=a_bits, block_k=block_k, t_max=t_max,
+                                 device=dev)
+        if (proj or moe) and leaf.ndim >= 2 and skipped is not None:
+            skipped.append(path)
+        return leaf
+
+    if t_max_tree is None:
+        return _map_with_path(one, tree)
+    return _map_with_path(one, tree, t_max_tree)
+
+
+def apply_plan(params: dict, cfg, plan: DeployPlan, *, verbose: bool = True, tp=None,
+               device: str | torch.device = "cuda"):
+    """Turn float params + a plan into serveable mixed-precision params on
+    ``device``.
+
+    Returns ``(new_params, packed_head)``; ``packed_head`` is None when the
+    plan has no ``lm_head`` entry, otherwise the prepacked LM head
+    (:func:`~repro_torch.models.layers.prepack_lm_head`) for the engine.
+    The float ``embed`` stays (token lookups read it); only the head's
+    matmul goes to the plan's bits.  Uniform plans keep the stacked
+    layout, heterogeneous ones become a per-layer list."""
+    if tp is not None:
+        raise NotImplementedError("tensor-parallel plan shards need the mesh (ROADMAP.md, port "
+                                  "queue 1, item 12)")
+    plan.validate()
+    if plan.family != cfg.family:
+        raise ValueError(
+            f"plan family {plan.family!r} does not match config family {cfg.family!r}"
+        )
+    if len(plan.layers) != cfg.n_layers:
+        raise ValueError(
+            f"plan has {len(plan.layers)} layers, config {cfg.name!r} has {cfg.n_layers}"
+        )
+    dev = resolve_device(device)
+    skipped: list[str] = []
+    out = dict(params)
+    if plan.uniform:
+        lp = plan.layers[0]
+        out["layers"] = prepack_tree(params["layers"], w_bits=lp.w_bits, a_bits=lp.a_bits,
+                                     block_k=lp.block_k, skipped=skipped, device=dev)
+    else:
+        per_layer = T.unstack_layers(params, cfg.n_layers)["layers"]
+        out["layers"] = [
+            prepack_tree(layer, w_bits=lp.w_bits, a_bits=lp.a_bits, block_k=lp.block_k,
+                         skipped=skipped, device=dev)
+            for layer, lp in zip(per_layer, plan.layers)
+        ]
+    head = None
+    if plan.lm_head is not None:
+        head = prepack_lm_head(params["embed"], w_bits=plan.lm_head.w_bits,
+                               a_bits=plan.lm_head.a_bits, device=dev)
+    if skipped and verbose:
+        uniq = sorted(set(skipped))
+        print(f"apply_plan: {len(uniq)} projection tensors left in float: " + ", ".join(uniq))
+    return out, head

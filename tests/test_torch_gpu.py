@@ -45,7 +45,10 @@ from repro_torch.serving import EngineConfig, build_engine
 
 pytestmark = pytest.mark.gpu
 
-PAIRS = [(4, 4, True), (4, 4, False), (2, 3, True), (2, 2, True), (3, 4, False)]
+# w5a4 (n_seg 2, stride 10, acc_chunk 4) and w3a2 (n_seg 3, stride 6,
+# acc_chunk 6) are the placements of the searched llama3.2-3b plan
+PAIRS = [(4, 4, True), (4, 4, False), (2, 3, True), (2, 2, True), (3, 4, False), (5, 4, True),
+         (3, 2, True)]
 
 
 @pytest.fixture
@@ -94,6 +97,26 @@ def test_blocked_kernel_bit_exact(cuda, w_bits, a_bits, overpack, block_k, m, k,
     acc = packed_matmul_raw(a_lvl, wp, **kw)
     torch.cuda.synchronize()
     assert torch.equal(acc, packed_matmul_plain(a_lvl, wp, **kw))
+
+
+@pytest.mark.parametrize("block_k", [None, 512], ids=["K1", "K2"])
+def test_padded_n_seg_3_projection_drops_its_padding(cuda, block_k):
+    """w3a2 packs 3 segments a word, so N = 1024 (wk, wv of llama3.2-3b)
+    pads to 1026: ``packed_dense`` on the card returns the 1024 columns of
+    the CPU's, bit for bit, from the same packed words."""
+    from repro_torch.kernels.packed_matmul.ops import packed_dense, prepack_dense
+
+    g = np.random.default_rng(20)
+    w = torch.from_numpy(g.normal(size=(3072, 1024)).astype(np.float32))
+    x = torch.from_numpy(g.uniform(0, 1, (8, 3072)).astype(np.float32))
+    pre = prepack_dense(w, w_bits=3, a_bits=2, block_k=block_k, device="cpu")
+    assert pre.cfg.n_seg == 3 and pre.w_packed.shape == (3072, 342)
+    build.reset_counts()
+    got = packed_dense(x.to(cuda), pre.to(cuda))
+    torch.cuda.synchronize()
+    assert build.counts()["packed_dense_fused" if block_k is None else "packed_matmul"] == 1
+    want = packed_dense(x, pre)
+    assert got.shape == want.shape == (8, 1024) and torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("n_groups", [96, 33])
@@ -679,3 +702,45 @@ def test_two_engines_replay_on_their_own_streams(cuda):
     for i in range(2):
         for out in outs[i]:
             assert out.cpu().numpy().tobytes() == want[i].tobytes(), i
+
+
+def test_captured_plan_engine_equals_the_eager_engine(cuda):
+    """``build_engine(plan=...)`` on a 3-layer plan of three pairs (w8a8 on
+    the plain integer path, w5a4 at block_k 16 on K2, w3a2 on K1) and a
+    (4, 4) head, captured against capture=False from the same float
+    weights: every step's logits bit-identical, the same tokens and
+    launch counters."""
+    from repro_torch.models import transformer as T
+    from repro_torch.plan import plan_from_bits
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b", smoke=True), n_layers=3)
+    plan = plan_from_bits(cfg, arch="llama3.2-3b", bits=[(8, 8), (5, 4), (3, 2)], head_bits=(4, 4))
+    plan = dataclasses.replace(plan, layers=[plan.layers[0], dataclasses.replace(plan.layers[1], block_k=16),
+                                             plan.layers[2]])
+    params = T.init_params(cfg, seed=4, device=cuda)
+    ecfg = EngineConfig(n_slots=3, page_size=4, max_len=32, n_pages=7, chunk_tokens=4,
+                        admit="on-demand", gather_backend="kernel")
+    g = np.random.default_rng(8)
+    prompts = [g.integers(1, cfg.vocab, n).tolist() for n in (9, 6, 11, 5)]
+    runs = []
+    for capture in (False, True):
+        eng = build_engine(cfg, ecfg, params=params, plan=plan, device=cuda, capture=capture)
+        logits = _step_logits(eng)
+        for p in prompts:
+            eng.submit(p, 6)
+        build.reset_counts()
+        m = eng.run(realtime=False)
+        assert m["statuses"] == {"ok": 4} and m["preemptions"] > 0
+        eng.assert_no_leaks()
+        runs.append((m, build.counts(), logits, {r.rid: r.out_tokens for r in eng.finished}))
+        if capture:
+            assert eng._program.launches == {"packed_dense_fused": 7 + 1, "packed_matmul": 7,
+                                             "paged_gather": 3}
+        eng.close()
+    (m_e, counts_e, logits_e, toks_e), (m_c, counts_c, logits_c, toks_c) = runs
+    for key in ("steps", "fed_tokens", "preemptions"):
+        assert m_c[key] == m_e[key], key
+    assert toks_c == toks_e and counts_c == counts_e
+    assert counts_c["packed_matmul"] == 7 * m_c["steps"]
+    for t, (a, b) in enumerate(zip(logits_c, logits_e)):
+        assert a.tobytes() == b.tobytes(), t
