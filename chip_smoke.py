@@ -25,6 +25,8 @@ Phases, all on the card:
    geometry: a bf16 pool with null pages, with and without a sliding
    window, and an int8 pool, each at one lane and at the chunk width (16
    lanes that cross a page boundary and run past the live pages): bit-exact.
+   Yardsticks: ``pool[table]``, and for the int8 pool the same function,
+   ``pool[table].to(bf16) * scale[table].to(bf16)``.
 4. The engine: llama3.2-3b at full width (28 layers, d 3072, vocab
    128256), w4a4 packed projections, the packed (4, 4) LM head and the
    kernel gather, built with ``build_engine`` from random weights (seed
@@ -116,6 +118,22 @@ Phases, all on the card:
    phase 8's tolerances (see ``_plan_cross_check``).  Last, a uniform (4,
    4) plan through ``build_engine(plan=...)``: sampled rows bit-identical
    to phase 4's ``quant="packed"`` engine.
+
+12. int8 KV pools and int8 serving weights: (a) phase 4's cell with
+   ``kv_dtype="int8"``, every turn ``ok`` with its census (197 K1 and 28
+   K3, every K3 node ``gather_i8``, no memset) and counters checked, timed
+   in alternating turns with phase 4's bf16 pools (int8, bf16, bf16, int8;
+   2 pairs), its sampled rows and tokens read against phase 4's (not a
+   gate); (b) phase 9's on-demand cell on int8 pools at phase 9's page
+   count (it must preempt and leak nothing) and at phase 9's pool bytes
+   (levels and scales counted, about 1.99x the pages); (c) phase 5's
+   card-vs-CPU check on int8 pools under both gathers, with phase 5's
+   rules and the KV levels that differ counted; (d) ``build_engine(
+   quant="int8")`` with the float head: int8 levels and scales on the card
+   equal to the projections' sizes, 28 K3 and no other port kernel a
+   step, timed in alternating turns with ``quant=None`` on the same float
+   weights, then 2 layers of it on int8 pools against the CPU within the
+   stated tolerance (``INT8_W_REL_TOL``).
 
 Every engine's graph and memory pool is released before the next engine
 is built, and each phase prints its peak device memory.
@@ -504,7 +522,7 @@ def device_nodes(torch, fn) -> tuple[dict, dict]:
         fn()
     launched = {k: v - before[k] for k, v in build.counts().items() if v != before[k]}
     census = build.graph_census(g)
-    del g
+    del g, census["families"]  # only_kernels describes kinds and counters
     return census, launched
 
 
@@ -600,10 +618,20 @@ def phase_gather(torch, card, timer, cfg, ecfg, report: dict) -> dict:
             library_graph_ms=timer.graph(lambda i: (pools[0][tl], pools[1][tl])),
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
         )
+        note = ""
+        if scales[0] is not None:
+            # the same function as K3 on an int8 pool: the gather, then the
+            # dequantization in paged_gather_plain's op order
+            def dequant(pools=pools, scales=scales, tl=tl):
+                return tuple(p[tl].to(torch.bfloat16) * s[tl].to(torch.bfloat16) for p, s in zip(pools, scales))
+
+            row.update(dequant_ms=timer(dequant, reps=20), dequant_graph_ms=timer.graph(lambda i: dequant()))
+            note = (f", gather + dequantize {row['dequant_ms']:.4f} ms (graph {row['dequant_graph_ms']:.4f}; "
+                    f"the same function)")
         rows.append(row)
         print(f"  {label}, chunk {chunk}: K3 {row['k3_ms']:.4f} ms (graph {row['k3_graph_ms']:.4f}), "
               f"plain {row['plain_ms']:.4f} ms, pool[table] {row['library_ms']:.4f} ms (graph "
-              f"{row['library_graph_ms']:.4f}), bound {b_ms:.4f} ms; bit-exact", flush=True)
+              f"{row['library_graph_ms']:.4f}){note}, bound {b_ms:.4f} ms; bit-exact", flush=True)
     report["gather"] = rows
     return {"max_err": max_err, "rows": rows}
 
@@ -794,7 +822,8 @@ def profile_engine(torch, eng, cfg, label: str) -> dict:
 # -- phase 5 -------------------------------------------------------------------
 
 
-def _cross_steps(torch, cfg2, packed, head, steps: int, seed: int, gather: str, chunk_lens=None):
+def _cross_steps(torch, cfg2, packed, head, steps: int, seed: int, gather: str, chunk_lens=None,
+                 states: dict | None = None):
     """Run ``steps`` decode steps of the same packed weights on the card and
     on the CPU (8 slots, random tokens from ``seed``), then, given
     ``chunk_lens``, one chunked step of ``CHUNK`` lanes in which slot ``i``
@@ -806,7 +835,8 @@ def _cross_steps(torch, cfg2, packed, head, steps: int, seed: int, gather: str, 
     with a differing level in a layer; per slot whether the head's input
     row differed; and per packed matmul of the step, in call order (7 a
     layer, then the head), its rows (``[S, C]``, the head's ``[S]``)
-    with a differing level."""
+    with a differing level.  ``states``, when given, receives both sides'
+    pools (``"cuda"``, ``"cpu"``), updated by every step."""
     import numpy as np
 
     from repro_torch.models import layers as L
@@ -814,10 +844,11 @@ def _cross_steps(torch, cfg2, packed, head, steps: int, seed: int, gather: str, 
 
     cpu_packed = T.map_leaves(packed, lambda a: a.to("cpu"))
     cpu_head = head.to("cpu")
-    S, ps, nb = 8, 16, 4
+    S, ps, nb = CROSS_SLOTS, 16, CROSS_BLOCKS
     n_pages = S * nb + 1
-    states = {dev: T.init_paged_state(cfg2, S, n_pages, ps, dtype=torch.float32, device=dev)
-              for dev in ("cuda", "cpu")}
+    states = {} if states is None else states
+    states.update({dev: T.init_paged_state(cfg2, S, n_pages, ps, dtype=torch.float32, device=dev)
+                   for dev in ("cuda", "cpu")})
     table = torch.arange(1, n_pages, dtype=torch.int32).reshape(S, nb)
     rng = np.random.default_rng(seed)
     plan = [(1, None)] * steps + ([(CHUNK, chunk_lens)] if chunk_lens is not None else [])
@@ -861,6 +892,24 @@ def _cross_steps(torch, cfg2, packed, head, steps: int, seed: int, gather: str, 
         L.packed_dense = inner
 
 
+def _kv_level_flips(torch, states: dict) -> dict:
+    """The card's int8 KV pools against the CPU's after a cross-check step
+    (:func:`_cross_steps`' geometry: slot ``s`` owns pages ``1 + s *
+    CROSS_BLOCKS`` on), on the live pages: levels that differ by one (a
+    K/V value on a rounding boundary of ``quantize_kv_row``, or one that an
+    activation-level flip upstream moved a little), levels that differ by
+    more (rows whose inputs an earlier flip moved), and per slot whether
+    any of its levels differ."""
+    slots = torch.zeros(CROSS_SLOTS, dtype=torch.bool)
+    by_one = more = 0
+    for name in ("k", "v"):
+        d = (states["cuda"][name][:, 1:].cpu().to(torch.int16) - states["cpu"][name][:, 1:].to(torch.int16)).abs()
+        by_one += int((d == 1).sum())
+        more += int((d > 1).sum())
+        slots |= (d != 0).any(dim=3).any(dim=2).any(dim=0).reshape(CROSS_SLOTS, CROSS_BLOCKS).any(dim=1)
+    return dict(kv_levels_off_by_one=by_one, kv_levels_off_more=more, kv_slots=slots)
+
+
 def _row_stats(torch, g_log, c_log, flipped) -> dict:
     diff = (g_log - c_log).abs()
     row_max = diff.max(dim=1).values
@@ -900,32 +949,43 @@ def _first_hand(prior, read, row_flip, head_flip) -> tuple[int, int, int]:
     return rows, fresh, suffix
 
 
-# phase 5's chunked step: an inactive slot, two decoding slots, three
-# partial chunks and two full ones
+# phase 5's cross-check geometry: 8 slots of 4 pages each; its chunked
+# step: an inactive slot, two decoding slots, three partial chunks and two
+# full ones
+CROSS_SLOTS, CROSS_BLOCKS = 8, 4
 CROSS_CHUNK_LENS = (0, 1, 5, 16, 16, 1, 9, 0)
 
 
-def phase_crosscheck(torch, cfg, report: dict, steps: int = 3) -> dict:
+def phase_crosscheck(torch, cfg, steps: int = 3, *, kv_int8: bool = False,
+                     gather: str = "kernel") -> list:
     """``steps`` decode steps, then one chunked step of ``CHUNK`` lanes.
     Flips must stay rare: at the decode steps at least half the slots
     without one at this or an earlier step; at the chunked step, where a
     slot's lanes attend to each other and to the rows of its earlier steps
     so that one flip moves every later row of the slot, at least half the
-    first-hand rows (:func:`_first_hand`) without one."""
+    first-hand rows (:func:`_first_hand`) without one.  ``kv_int8`` runs
+    the same weights on int8 KV pools (phase 12) and counts the KV levels
+    that differ between the two sides (:func:`_kv_level_flips`) beside the
+    activation-level flips; the rules stay phase 5's."""
+    from repro_torch.kernels import build
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.serving.api import quantize_params_packed
 
-    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32,
+                               kv_dtype="int8" if kv_int8 else cfg.kv_dtype)
     params = T.init_params(cfg2, seed=1, device="cuda")
     head = L.prepack_lm_head(params["embed"], w_bits=4, a_bits=4, device="cuda")
     packed = quantize_params_packed(params, w_bits=4, a_bits=4, device="cuda")
     del params
-    S = 8
+    S = CROSS_SLOTS
     results = []
     prior = torch.zeros(S, dtype=torch.bool)
+    states: dict = {}
+    k3_before = build.counts()["paged_gather"]
     for t, (g_log, c_log, flipped, read, row_flip, head_flip, _) in enumerate(_cross_steps(
-            torch, cfg2, packed, head, steps, seed=5, gather="kernel", chunk_lens=CROSS_CHUNK_LENS)):
+            torch, cfg2, packed, head, steps, seed=5, gather=gather, chunk_lens=CROSS_CHUNK_LENS,
+            states=states)):
         chunked = t == steps
         st = _row_stats(torch, g_log, c_log, flipped)
         first_hand, fresh, suffix = _first_hand(prior, read, row_flip, head_flip)
@@ -934,6 +994,14 @@ def phase_crosscheck(torch, cfg, report: dict, steps: int = 3) -> dict:
                  flipped_lanes=[row_flip[s].nonzero().flatten().tolist() for s in range(S)],
                  first_hand_rows=first_hand, first_hand_flips=fresh, suffix_slots=suffix,
                  **st["summary"])
+        kv_note = ""
+        if kv_int8:
+            kv = _kv_level_flips(torch, states)
+            kv_slots = kv.pop("kv_slots")
+            r.update(kv, kv_slots=int(kv_slots.sum()), kv_only_slots=int((kv_slots & ~flipped).sum()))
+            kv_note = (f"; KV levels off by one {kv['kv_levels_off_by_one']}, by more "
+                       f"{kv['kv_levels_off_more']}, in {r['kv_slots']}/{S} slots ({r['kv_only_slots']} of "
+                       f"them without an activation-level flip)")
         results.append(r)
         prior = flipped
         what = f"chunked step (lens {list(CROSS_CHUNK_LENS)})" if chunked else f"step {t}"
@@ -942,7 +1010,7 @@ def phase_crosscheck(torch, cfg, report: dict, steps: int = 3) -> dict:
               f"{r['flipped_max_rel']}; rows with a flip / rows read this step, by slot "
               f"{list(zip(r['rows_flipped'], r['rows_read']))}, flipped lanes {r['flipped_lanes']}; "
               f"{fresh} of {first_hand} first-hand rows flipped, {suffix} slots flipped from their "
-              f"first flip on; greedy tokens agree {r['tokens_agree']}/{S}", flush=True)
+              f"first flip on; greedy tokens agree {r['tokens_agree']}/{S}{kv_note}", flush=True)
         clean = st["clean"]
         check(bool((st["row_max"][clean] <= CROSS_CLEAN_ABS_TOL).all()),
               f"cross-check {what}: a row without level flips differs by more than "
@@ -957,8 +1025,10 @@ def phase_crosscheck(torch, cfg, report: dict, steps: int = 3) -> dict:
         else:
             check(2 * fresh <= first_hand, f"cross-check {what}: level flips in most first-hand rows")
     check(len(results) == steps + 1, "the chunked cross-check step did not run")
-    report["crosscheck"] = results
-    return {"steps": results}
+    k3 = build.counts()["paged_gather"] - k3_before
+    want = cfg2.n_layers * (steps + 1) if gather == "kernel" else 0
+    check(k3 == want, f"cross-check ({gather} gather): {k3} K3 launches on the card, not {want}")
+    return results
 
 
 # -- phase 6 -------------------------------------------------------------------
@@ -1742,7 +1812,7 @@ def _plan_cross_check(torch, cfg, tuned, report: dict, steps: int = 3) -> dict:
     return results
 
 
-def _plan_turn(torch, eng, prompts, per_step: dict, what: str, memset: bool) -> dict:
+def _timed_turn(torch, eng, prompts, per_step: dict, what: str, memset: bool) -> dict:
     """One timed run of a fresh engine (captured): statuses, counters and
     the graph's port kernel nodes equal to ``per_step`` (times the steps),
     and its times; then release it.  ``memset``: the graph may hold memset
@@ -1835,7 +1905,7 @@ def phase_plan(torch, card, cfg, ecfg, c1: dict, report: dict) -> dict:
           f"projection weight bytes on the card {wbytes} != the plan's {tuned.predicted['weight_bytes']}")
     params, head = eng.params, eng._head
     prompts = c1["prompts"]
-    first = _plan_turn(torch, eng, prompts, per_step, "plan engine", memset=True)
+    first = _timed_turn(torch, eng, prompts, per_step, "plan engine", memset=True)
     census = first["graph"]
     print(f"  plan engine: built in {secs['build']:.1f} s, projection weights {wbytes / 1e9:.3f} GB on the "
           f"card = the plan's prediction; {first['steps']} steps, step p50 {first['step_ms_p50']:.2f} ms, "
@@ -1849,11 +1919,11 @@ def phase_plan(torch, card, cfg, ecfg, c1: dict, report: dict) -> dict:
     cells = [c for i in range(PLAN_PAIRS) for c in (("plan", "w4a4") if i % 2 == 0 else ("w4a4", "plan"))]
     for i, cell in enumerate(cells):
         if cell == "plan":
-            t = _plan_turn(torch, Engine(cfg, params, ecfg, head=head), prompts, per_step, f"turn {i + 1}",
+            t = _timed_turn(torch, Engine(cfg, params, ecfg, head=head), prompts, per_step, f"turn {i + 1}",
                            memset=True)
             check(t["tokens"] == first["tokens"], f"turn {i + 1}: the plan's tokens changed")
         else:
-            t = _plan_turn(torch, Engine(cfg, c1["params"], ecfg, head=c1["head"]), prompts, w4a4_step,
+            t = _timed_turn(torch, Engine(cfg, c1["params"], ecfg, head=c1["head"]), prompts, w4a4_step,
                            f"turn {i + 1}", memset=False)
             check(t["tokens"] == c1["tokens"], f"turn {i + 1}: w4a4 tokens differ from phase 4's")
         t.update(turn=i + 1, cell=cell)
@@ -1892,6 +1962,269 @@ def phase_plan(torch, card, cfg, ecfg, c1: dict, report: dict) -> dict:
     del rows_u
     out["seconds"] = secs
     report["plan"] = out
+    return out
+
+
+# -- phase 12 ------------------------------------------------------------------
+
+# timed turns of each of phase 12's cell pairs, alternating (first, second,
+# second, first, ...): INT8_TURN_PAIRS pairs
+INT8_TURN_PAIRS = 2
+
+# phase 12 (d) tolerance.  quant="int8" quantizes no activation: both sides
+# dequantize the same int8 weight levels and scales (products exact in
+# float32) and differ by float32 sum order (cuBLAS against the CPU), on int8
+# KV pools, unless a K/V value sits on a rounding boundary of
+# quantize_kv_row and its level flips (one element moves by one step,
+# 1/127 of its row's max).  A slot none of whose KV levels differ must
+# agree to INT8_W_REL_TOL relative L2 per logits row; a slot with such a
+# flip to INT8_KV_FLIP_REL_TOL; greedy tokens agree where decided (phase
+# 5's rule: the CPU's top-2 gap above twice the row's largest |difference|).
+INT8_W_REL_TOL = 1e-4
+INT8_KV_FLIP_REL_TOL = 1e-2
+
+
+def _census_gathers(census: dict, family: str, n: int, what: str) -> None:
+    """The graph's K3 nodes are ``n`` of ``family`` (``gather_fp`` or
+    ``gather_i8``) and none of the other."""
+    fams = {k: v for k, v in census["families"].items() if k.startswith("gather_")}
+    check(fams == {family: n}, f"{what}: K3 nodes by kernel {fams}, not {{{family!r}: {n}}}")
+
+
+def _alternating_turns(torch, make, prompts, cells: dict, what: str) -> dict:
+    """``INT8_TURN_PAIRS`` pairs of timed turns of two cells in alternating order.
+    ``cells`` maps each cell's label to ``(per_step, K3 family, memset)``;
+    ``make(label)`` builds a fresh engine of the cell.  Every turn is
+    checked by :func:`_timed_turn` and :func:`_census_gathers`, and gives
+    its cell's tokens of the first turn.  Returns the turns, each cell's
+    medians, tokens and graph census."""
+    import numpy as np
+
+    a, b = cells
+    turns, tokens, census = [], {}, {}
+    for i, cell in enumerate(c for k in range(INT8_TURN_PAIRS) for c in ((a, b) if k % 2 == 0 else (b, a))):
+        per_step, family, memset = cells[cell]
+        t = _timed_turn(torch, make(cell), prompts, per_step, f"{what} turn {i + 1} ({cell})", memset=memset)
+        _census_gathers(t["graph"], family, per_step["paged_gather"], f"{what} turn {i + 1} ({cell})")
+        check(tokens.setdefault(cell, t["tokens"]) == t["tokens"], f"{what} turn {i + 1}: {cell} tokens changed")
+        census[cell] = t.pop("graph")
+        del t["tokens"]
+        t.update(turn=i + 1, cell=cell)
+        turns.append(t)
+        print(f"    turn {i + 1} {cell:12s}: {t['steps']} steps, step p50 {t['step_ms_p50']:.2f} ms (min "
+              f"{t['step_ms_min']:.2f}), {t['tokens_per_s']:.1f} tok/s, TTFT p50 {t['ttft_ms_p50']:.1f} ms, "
+              f"one replay {t['replay_ms']:.2f} ms", flush=True)
+    med = {cell: {k: float(np.median([t[k] for t in turns if t["cell"] == cell]))
+                  for k in ("step_ms_p50", "tokens_per_s", "ttft_ms_p50", "replay_ms")}
+           for cell in cells}
+    return dict(turns=turns, medians=med, tokens=tokens, census=census)
+
+
+def _print_medians(card, med: dict, what: str) -> None:
+    a, b = med
+    print(f"  {what} on {card.name} ({card.power_limit}), medians {a} / {b} over {INT8_TURN_PAIRS} pairs: "
+          f"step p50 {med[a]['step_ms_p50']:.2f} / {med[b]['step_ms_p50']:.2f} ms, tok/s {med[a]['tokens_per_s']:.1f} / "
+          f"{med[b]['tokens_per_s']:.1f}, TTFT p50 {med[a]['ttft_ms_p50']:.1f} / {med[b]['ttft_ms_p50']:.1f} ms, "
+          f"one replay {med[a]['replay_ms']:.2f} / {med[b]['replay_ms']:.2f} ms", flush=True)
+
+
+def _int8_weights_cross_check(torch, cfg, steps: int = 3) -> list:
+    """``quant="int8"`` on int8 KV pools at 2 layers of full width, float32,
+    the float head: ``steps`` decode steps and phase 5's chunked step on
+    the card and on the CPU from the same int8 levels and scales, in
+    :func:`_cross_steps`' geometry, with the kernel gather."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.api import quantize_params_int8
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32, kv_dtype="int8")
+    params = T.init_params(cfg2, seed=1, device="cuda")
+    q = {"cuda": quantize_params_int8(params)}
+    del params
+    q["cpu"] = T.map_leaves(q["cuda"], lambda a: a.cpu())
+    S, ps, nb = CROSS_SLOTS, 16, CROSS_BLOCKS
+    n_pages = S * nb + 1
+    states = {dev: T.init_paged_state(cfg2, S, n_pages, ps, dtype=torch.float32, device=dev) for dev in q}
+    table = torch.arange(1, n_pages, dtype=torch.int32).reshape(S, nb)
+    rng = np.random.default_rng(17)
+    results = []
+    k3_before = build.counts()["paged_gather"]
+    for t, (C, lens) in enumerate([(1, None)] * steps + [(CHUNK, CROSS_CHUNK_LENS)]):
+        tokens = torch.from_numpy(rng.integers(0, cfg2.vocab, (S, C)).astype(np.int32))
+        pos = torch.full((S,), t, dtype=torch.int32)
+        tlens = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            logits[dev], _ = T.forward_decode_paged(
+                q[dev], cfg2, states[dev], table.to(dev), tokens.to(dev), pos.to(dev),
+                lens=None if tlens is None else tlens.to(dev), gather="kernel")
+        g_log = logits["cuda"].cpu()
+        check(bool(torch.isfinite(g_log).all()), f"int8-weight cross-check step {t}: non-finite logits")
+        kv = _kv_level_flips(torch, states)
+        kv_slots = kv.pop("kv_slots")
+        st = _row_stats(torch, g_log, logits["cpu"], kv_slots)
+        clean = ~kv_slots
+        r = dict(step=t, chunk=C, kv_slots=int(kv_slots.sum()), **kv,
+                 clean_max_rel=float(st["row_rel"][clean].max()) if clean.any() else None,
+                 kv_flip_max_rel=float(st["row_rel"][kv_slots].max()) if kv_slots.any() else None,
+                 tokens_agree=st["summary"]["tokens_agree"], tokens_decided=st["summary"]["tokens_decided"])
+        results.append(r)
+        print(f"  int8 weights + int8 KV, {'chunked step' if lens else f'step {t}'}: {S - r['kv_slots']}/{S} "
+              f"slots with identical KV levels, max rel L2 {r['clean_max_rel']}; {r['kv_slots']} with a KV "
+              f"level flip ({kv['kv_levels_off_by_one']} levels off by one, {kv['kv_levels_off_more']} by "
+              f"more), max rel L2 {r['kv_flip_max_rel']}; greedy tokens agree {r['tokens_agree']}/{S}",
+              flush=True)
+        check(bool((st["row_rel"][clean] <= INT8_W_REL_TOL).all()),
+              f"int8-weight cross-check step {t}: a row with identical KV levels differs by more than "
+              f"{INT8_W_REL_TOL} relative")
+        check(bool((st["row_rel"][kv_slots] <= INT8_KV_FLIP_REL_TOL).all()),
+              f"int8-weight cross-check step {t}: a row with a KV level flip differs by more than "
+              f"{INT8_KV_FLIP_REL_TOL} relative")
+        check(bool((st["agree"] | ~st["decided"]).all()),
+              f"int8-weight cross-check step {t}: greedy token differs past the gap bound")
+    k3 = build.counts()["paged_gather"] - k3_before
+    check(k3 == cfg2.n_layers * (steps + 1), f"int8-weight cross-check: {k3} K3 launches on the card")
+    return results
+
+
+def phase_int8_serving(torch, card, cfg, ecfg, c1: dict, chunked: dict, report: dict) -> dict:
+    """int8 KV pools and int8 serving weights at full width: (a) phase 4's
+    cell on int8 pools, timed in alternating turns beside phase 4's bf16
+    pools; (b) phase 9's on-demand chunked cell on int8 pools at phase 9's
+    page count and at its pool bytes; (c) the card against the CPU on int8
+    pools at 2 layers, both gathers (phase 5's rules); (d)
+    ``build_engine(quant="int8")`` with the float head, timed beside
+    ``quant=None`` on the same float weights, and checked against the CPU
+    at 2 layers on int8 pools."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Engine, build_engine
+
+    out: dict = {}
+    prompts = c1["prompts"]
+    cfg8 = dataclasses.replace(cfg, kv_dtype="int8")
+    D = cfg.kv_heads * cfg.hd
+    packed_step = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": cfg.n_layers * 7 + 1,
+                   "paged_gather": cfg.n_layers}
+
+    # (a) phase 4's cell on int8 pools, in turns with phase 4's bf16 pools
+    print("  (a) phase 4's cell on int8 KV pools against its bf16 pools, alternating turns", flush=True)
+    pools = {"int8 KV": cfg8, "bf16 KV": cfg}
+    a = _alternating_turns(
+        torch, lambda cell: Engine(pools[cell], c1["params"], ecfg, head=c1["head"]), prompts,
+        {"int8 KV": (packed_step, "gather_i8", False), "bf16 KV": (packed_step, "gather_fp", False)},
+        "(a)")
+    check(a["tokens"]["bf16 KV"] == c1["tokens"], "(a): the bf16-pool turns gave other tokens than phase 4")
+    _print_medians(card, a["medians"], "(a)")
+    first = next(t for t in a["turns"] if t["cell"] == "int8 KV")
+    print(f"  (a) int8 KV graph nodes {a['census']['int8 KV']}; launches of its first turn {first['counts']}",
+          flush=True)
+    rows, toks = _sampled_run(torch, Engine(cfg8, c1["params"], ecfg, head=c1["head"]), prompts, 32)
+    check(toks == a["tokens"]["int8 KV"], "(a): the sampled (untimed) int8 run gave other tokens")
+    rel = [float(np.linalg.norm(rows[k] - c1["samples"][k]) / np.linalg.norm(c1["samples"][k]))
+           for k in c1["samples"]]
+    same = sum(x == y for rid in toks for x, y in zip(toks[rid], c1["tokens"][rid]))
+    n_tok = sum(len(v) for v in c1["tokens"].values())
+    a.update(rows_rel_l2=dict(p50=float(np.median(rel)), max=max(rel), min=min(rel)),
+             tokens_equal=same, tokens=n_tok, requests_equal=sum(toks[r] == c1["tokens"][r] for r in toks))
+    print(f"  (a) int8 KV sampled rows against phase 4's bf16-pool rows (not a gate): rel L2 p50 "
+          f"{np.median(rel):.4g}, max {max(rel):.4g}; tokens equal {same}/{n_tok}, requests with equal "
+          f"tokens {a['requests_equal']}/{len(toks)}", flush=True)
+    del rows
+    a["profile"] = profile_engine(torch, Engine(cfg8, c1["params"], ecfg, head=c1["head"]), cfg,
+                                  "int8 KV, captured")
+    del a["tokens"]
+    out["a"] = a
+
+    # (b) phase 9's on-demand cell on int8 pools: its page count, then its pool bytes
+    od = chunked["on-demand"]
+    pages9 = od["usable_pages"] + 1
+    bytes9 = 2 * cfg.n_layers * pages9 * ecfg.page_size * D * 2  # bf16 K and V pools
+    row8 = 2 * cfg.n_layers * ecfg.page_size * (D + 4)  # a page of int8 levels + float32 scales
+    runs = {}
+    for label, n_pages in (("same pages", pages9), ("same bytes", bytes9 // row8)):
+        ecfg_b = dataclasses.replace(ecfg, chunk_tokens=CHUNK, admit="on-demand", n_pages=n_pages)
+        eng = Engine(cfg8, c1["params"], ecfg_b, head=c1["head"])
+        pool_bytes = sum(t.numel() * t.element_size() for t in eng.state.values())
+        m, counts, wall = _serve(torch, eng, prompts, 32)
+        check(m["statuses"] == {"ok": len(prompts)}, f"(b) {label}: statuses {m['statuses']}")
+        check(counts == {k: v * m["steps"] for k, v in packed_step.items()},
+              f"(b) {label}: launch counters {counts} != {packed_step} x {m['steps']} steps")
+        eng.assert_no_leaks()
+        census = check_graph(eng, packed_step, f"(b) {label}")
+        _census_gathers(census, "gather_i8", cfg.n_layers, f"(b) {label}")
+        eng.close()
+        step_ms = [1e3 * x for x in eng.step_seconds]
+        runs[label] = dict(pages=n_pages, pool_bytes=pool_bytes, steps=m["steps"], fed_tokens=m["fed_tokens"],
+                           preemptions=m["preemptions"], tokens_per_s=m["tokens_per_s"],
+                           step_ms_p50=float(np.median(step_ms)), ttft_ms_p50=1e3 * m["ttft_p50"],
+                           wall_s=wall, counts=counts, graph=census)
+        del eng
+        torch.cuda.empty_cache()
+    check(runs["same pages"]["preemptions"] > 0, "(b) the same-pages int8 run did not preempt")
+    check(runs["same bytes"]["pool_bytes"] <= bytes9, "(b) the same-bytes int8 pools exceed phase 9's bytes")
+    print(f"  (b) C={CHUNK} on demand, on {card.name} ({card.power_limit}):", flush=True)
+    for label, r in (("bf16 KV (phase 9)", dict(od, pages=pages9, pool_bytes=bytes9)),
+                     ("int8 KV, same pages", runs["same pages"]), ("int8 KV, same bytes", runs["same bytes"])):
+        print(f"    {label:20s} pages {r['pages']:4d} ({r['pool_bytes'] / 1e9:.3f} GB), preemptions "
+              f"{r['preemptions']:3d}, steps {r['steps']:3d}, fed {r['fed_tokens']:5d}, TTFT p50 "
+              f"{r['ttft_ms_p50']:7.1f} ms, step p50 {r['step_ms_p50']:6.2f} ms, {r['tokens_per_s']:6.1f} tok/s",
+              flush=True)
+    out["b"] = dict(runs, phase9=dict(pages=pages9, pool_bytes=bytes9))
+
+    # (c) the card against the CPU on int8 pools, phase 5's fixture and rules
+    out["c"] = {}
+    for gather in ("kernel", "xla"):
+        print(f"  (c) card vs CPU on int8 KV pools, 2 layers, {gather} gather", flush=True)
+        out["c"][gather] = phase_crosscheck(torch, cfg, kv_int8=True, gather=gather)
+    torch.cuda.empty_cache()
+
+    # (d) int8 serving weights, float head, bf16 pools, beside quant=None
+    ecfg_d = dataclasses.replace(ecfg, packed_head=False)
+    params = T.init_params(cfg, seed=0, device="cuda")
+    t0 = time.monotonic()
+    eng_q = build_engine(cfg, ecfg_d, params=params, quant="int8")
+    torch.cuda.synchronize()
+    t_quant = time.monotonic() - t0
+    eng_f = build_engine(cfg, ecfg_d, params=params)
+    q_params, f_params = eng_q.params, eng_f.params
+    del eng_q, eng_f
+    projs = [w["w"] for layer in q_params["layers"] for block in layer.values()
+             for name, w in block.items() if name != "ln"]
+    check(all(p["levels"].dtype == torch.int8 and p["scale"].dtype == torch.float32 for p in projs),
+          "(d) a projection is not in the int8 serving layout")
+    levels = sum(p["levels"].numel() for p in projs)
+    scales = sum(p["scale"].numel() * 4 for p in projs)
+    d, hd = cfg.d_model, cfg.hd
+    widths = [cfg.n_heads * hd, cfg.kv_heads * hd, cfg.kv_heads * hd, d, cfg.d_ff, cfg.d_ff, d]
+    depths = [d, d, d, cfg.n_heads * hd, d, d, cfg.d_ff]
+    want_levels = cfg.n_layers * sum(k * n for k, n in zip(depths, widths))
+    check(levels == want_levels and scales == 4 * cfg.n_layers * sum(widths),
+          f"(d) int8 projection bytes on the card {levels} levels + {scales} scale bytes")
+    print(f"  (d) quant=\"int8\" built in {t_quant:.1f} s: {levels / 1e9:.3f} G int8 levels + "
+          f"{scales / 1e6:.2f} MB of float32 scales on the card", flush=True)
+    gather_step = {**dict.fromkeys(build.COUNTS, 0), "paged_gather": cfg.n_layers}
+    weights = {"int8 weights": q_params, "float": f_params}
+    dd = _alternating_turns(
+        torch, lambda cell: Engine(cfg, weights[cell], ecfg_d), prompts,
+        {"int8 weights": (gather_step, "gather_fp", True), "float": (gather_step, "gather_fp", True)}, "(d)")
+    _print_medians(card, dd["medians"], "(d)")
+    same = sum(x == y for rid, v in dd["tokens"]["int8 weights"].items()
+               for x, y in zip(v, dd["tokens"]["float"][rid]))
+    n_tok = sum(len(v) for v in dd["tokens"]["float"].values())
+    print(f"  (d) graph nodes: int8 weights {dd['census']['int8 weights']}, float {dd['census']['float']}; "
+          f"tokens equal to quant=None's {same}/{n_tok} (not a gate)", flush=True)
+    dd.update(levels=levels, scale_bytes=scales, quantize_s=t_quant, tokens_equal=same, tokens=n_tok)
+    dd["profile"] = profile_engine(torch, Engine(cfg, q_params, ecfg_d), cfg, "int8 weights, captured")
+    del dd["tokens"], weights, q_params, f_params, params
+    torch.cuda.empty_cache()
+    dd["crosscheck"] = _int8_weights_cross_check(torch, cfg)
+    out["d"] = dd
+    report["int8_serving"] = out
     return out
 
 
@@ -1993,7 +2326,7 @@ def main(argv=None) -> int:
     c1 = en.pop("c1")
     peak("4")
     print("phase 5: whole-path cross-check, 2 layers at full width, card vs CPU", flush=True)
-    phase_crosscheck(torch, cfg, report)
+    report["crosscheck"] = phase_crosscheck(torch, cfg)
     peak("5")
     timer = Timer(torch)
     print("phase 6: K4/K5 (int8 lane) at the full-width decode shapes, entry points card vs CPU",
@@ -2020,8 +2353,13 @@ def main(argv=None) -> int:
           "tuned plan served at full width beside phase 4's cell, card vs CPU at 3 layers, a uniform "
           "(4, 4) plan against phase 4", flush=True)
     pl = phase_plan(torch, card, cfg, ecfg, c1, report)
-    del c1
     peak("11")
+    print("phase 12: int8 KV pools and int8 serving weights at full width: phase 4's cell on int8 pools "
+          "beside its bf16 pools, phase 9's on-demand cell on int8 pools, card vs CPU on int8 pools, "
+          "quant=\"int8\" beside quant=None", flush=True)
+    i8s = phase_int8_serving(torch, card, cfg, ecfg, c1, ch, report)
+    del c1
+    peak("12")
 
     # per-decode-step totals per kernel: the sum over the launches of one step
     def step_sum(rows, key):
@@ -2032,6 +2370,10 @@ def main(argv=None) -> int:
     head = [r for r in served if r["shape"] == "head"]
     gather = [r for r in ga["rows"] if r["case"] == "bf16 pool, full causal" and r["chunk"] == 1]
     gather_chunk = [r for r in ga["rows"] if r["case"] == "bf16 pool, full causal" and r["chunk"] == CHUNK]
+    gather_i8 = [r for r in ga["rows"] if r["case"] == "int8 pool -> bf16, full causal" and r["chunk"] == 1]
+    gather_i8_chunk = [r for r in ga["rows"] if r["case"] == "int8 pool -> bf16, full causal"
+                       and r["chunk"] == CHUNK]
+    i8_first = next(t for t in i8s["a"]["turns"] if t["cell"] == "int8 KV")
     chunk_step = mm_chunk["rows"] + head  # a chunked step: the layers at M = 128, the head at M = 8
     chunked_launches = {k: {admit: r["counts"][k] for admit, r in ch.items()}
                         for k in ("packed_dense_fused", "paged_gather")}
@@ -2099,7 +2441,24 @@ def main(argv=None) -> int:
              chunk_step_bound_ms=step_sum(gather_chunk, "bound_ms"),
              chunk_step_library_ms=step_sum(gather_chunk, "library_graph_ms"),
              chunk_step=f"chunked step: chunk = {CHUNK}",
-             launches_chunked=chunked_launches["paged_gather"]),
+             launches_chunked=chunked_launches["paged_gather"],
+             instantiations={"gather_fp": "bf16 pools: phases 4, 9, 10, 11, 12 (a) bf16 turns, 12 (d)",
+                             "gather_i8<true>": "int8 pools, bf16 views: phase 12 (a), (b)",
+                             "gather_i8<false>": "int8 pools, float32 views: phase 12 (c)"},
+             int8_pool=dict(
+                 launches=i8_first["counts"]["paged_gather"], path_steps=i8_first["steps"],
+                 path="phase 12 (a), first int8 KV turn",
+                 ms=step_sum(gather_i8, "k3_graph_ms"), events_ms=step_sum(gather_i8, "k3_ms"),
+                 plain_ms=step_sum(gather_i8, "plain_ms"), bound_ms=step_sum(gather_i8, "bound_ms"),
+                 bound_by="bytes", library_ms=step_sum(gather_i8, "dequant_graph_ms"),
+                 library="pool[table].to(bf16) * scale[table].to(bf16), K and V",
+                 levels_only_ms=step_sum(gather_i8, "library_graph_ms"),
+                 chunk_step_ms=step_sum(gather_i8_chunk, "k3_graph_ms"),
+                 chunk_step_plain_ms=step_sum(gather_i8_chunk, "plain_ms"),
+                 chunk_step_bound_ms=step_sum(gather_i8_chunk, "bound_ms"),
+                 chunk_step_library_ms=step_sum(gather_i8_chunk, "dequant_graph_ms"),
+                 launches_chunked={k: r["counts"]["paged_gather"] for k, r in i8s["b"].items()
+                                   if "counts" in r})),
         dict(name="quant_matmul", route="cuda", source="src/repro_torch/csrc/quant_matmul.cu",
              replaces="src/repro/kernels/quant_matmul/kernel.py:63",
              launches=i8["counts"]["quant_matmul"], max_abs_err=i8["max_err"]["quant_matmul"],

@@ -124,6 +124,12 @@ _NAMED_COUNTERS = (
 )
 
 
+# the function-name family of each csrc kernel (its name without template
+# arguments): gather_fp and gather_i8 share the paged_gather counter
+_FAMILY = re.compile(r"packed_ring_kernel|gather_fp|gather_i8|quant_packed_mma_kernel|quant_mma_kernel"
+                     r"|filter_tile_kernel")
+
+
 class _KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
     _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
                 ("shared_mem", ctypes.c_uint), ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
@@ -133,9 +139,11 @@ class _KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
 def graph_census(graph) -> dict:
     """What a captured ``torch.cuda.CUDAGraph(keep_graph=True)`` runs, read
     from its nodes with libcuda: ``{"kinds": {node kind: n}, "kernels":
-    {launch counter: n}}``, the kernel nodes of this package's kernels
-    counted under their wrappers' counters and every other kernel node
-    under ``"other"``."""
+    {launch counter: n}, "families": {kernel name: n}}``, the kernel nodes
+    of this package's kernels counted under their wrappers' counters and
+    every other kernel node under ``"other"``; ``"families"`` counts this
+    package's kernel nodes by function name (``gather_fp``, ``gather_i8``,
+    ``packed_ring_kernel``, ...)."""
     cuda = ctypes.CDLL("libcuda.so.1")
 
     def call(fn, *args):
@@ -149,6 +157,7 @@ def graph_census(graph) -> dict:
     call("cuGraphGetNodes", raw, nodes, ctypes.byref(n))
     kinds: dict[str, int] = {}
     kernels: dict[str, int] = {}
+    families: dict[str, int] = {}
     for node in nodes:
         kind = ctypes.c_int(-1)
         call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
@@ -166,7 +175,10 @@ def graph_census(graph) -> dict:
         text = fname.value.decode()
         counter = next((c for pat, c in _NAMED_COUNTERS if pat.search(text)), "other")
         kernels[counter] = kernels.get(counter, 0) + 1
-    return {"kinds": kinds, "kernels": kernels}
+        family = _FAMILY.search(text) if counter != "other" else None
+        if family:
+            families[family.group()] = families.get(family.group(), 0) + 1
+    return {"kinds": kinds, "kernels": kernels, "families": families}
 
 
 def _digest() -> str:

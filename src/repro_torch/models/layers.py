@@ -35,7 +35,9 @@ NO_QUANT = QuantConfig()
 
 
 def dense(params: dict, x: torch.Tensor, *, name: str = "", quant: QuantConfig = NO_QUANT) -> torch.Tensor:
-    """``x @ W``, or the packed serving path for prepacked weights."""
+    """``x @ W``; prepacked weights run the packed serving path, and int8
+    serving weights (``{"levels", "scale"}``) are dequantized in ``x``'s
+    dtype before the product, in the reference's op order."""
     w = params["w"]
     if isinstance(w, PackedDenseParams):
         # the sigmoid proxy bounds activations to [0, 1], as the QAT path
@@ -43,11 +45,26 @@ def dense(params: dict, x: torch.Tensor, *, name: str = "", quant: QuantConfig =
         xq = torch.sigmoid(x).to(torch.float32).reshape(-1, x.shape[-1])
         y = packed_dense(xq, w)
         return y.reshape(*lead, w.n_out).to(x.dtype)
-    if isinstance(w, dict):
-        raise NotImplementedError("int8 serving weights come with the int8 slice (ROADMAP.md, port queue)")
-    if quant.for_proj(name) is not None:
+    if isinstance(w, dict):  # int8 serving layout {"levels", "scale"}
+        w = w["levels"].to(x.dtype) * w["scale"].to(x.dtype)
+    elif quant.for_proj(name) is not None:
         raise NotImplementedError("QAT fake-quant comes with the training slice (ROADMAP.md, port queue)")
     return x @ w.to(x.dtype)
+
+
+def quantize_weight_int8(w: torch.Tensor, *, dim: int = -2, bits: int = 8) -> dict:
+    """Symmetric levels of ``w`` over ``dim`` (one scale per output column
+    of a ``[..., K, N]`` weight at ``dim=-2``; the scales keep ``dim``):
+    the int8 serving layout ``{"levels": int8, "scale": float32}``."""
+    n = (1 << (bits - 1)) - 1
+    scale = torch.amax(torch.abs(w), dim=dim, keepdim=True) / n + 1e-12
+    levels = torch.clamp(torch.round(w / scale), -n, n).to(torch.int8)
+    return {"levels": levels, "scale": scale.to(torch.float32)}
+
+
+def quantize_dense_for_serving(params: dict, bits: int = 8) -> dict:
+    """Convert a dense kernel ``[K, N]`` to symmetric int8-level storage."""
+    return {"w": quantize_weight_int8(params["w"], dim=0, bits=bits)}
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -152,15 +152,21 @@ def unstack_layers(params: dict, n_layers: int) -> dict:
 
 
 def init_paged_state(cfg: ModelConfig, n_slots: int, n_pages: int, page_size: int, *,
-                     dtype: torch.dtype = torch.bfloat16,
+                     dtype: torch.dtype = torch.bfloat16, kv_dtype=None,
                      device: str | torch.device = "cuda") -> dict:
     """Paged KV pools ``[L, n_pages, page_size, G*hd]`` (page 0 = null page):
-    ``dtype`` pools, or, for ``cfg.kv_dtype == "int8"``, int8 level pools
-    plus float32 per-row scale pools."""
+    ``dtype`` pools, or int8 level pools plus float32 per-row scale pools.
+
+    ``kv_dtype`` overrides ``cfg.kv_dtype``: "int8", ``torch.int8``, or a
+    float dtype (which then replaces ``dtype``)."""
     _check_served(cfg)
     dev = resolve_device(device)
+    kv = cfg.kv_dtype if kv_dtype is None else kv_dtype
+    kv_int8 = kv == "int8" or kv == torch.int8
+    if not kv_int8 and kv_dtype is not None and not isinstance(kv, str):
+        dtype = kv  # an explicit float override (e.g. float32 pools)
     shape = (cfg.n_layers, n_pages, page_size, (cfg.kv_heads // cfg.tp_shards) * cfg.hd)
-    if cfg.kv_dtype == "int8":
+    if kv_int8:
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=dev),
             "v": torch.zeros(shape, dtype=torch.int8, device=dev),

@@ -27,14 +27,14 @@ PROJ_WEIGHT_RE = r"(wq|wk|wv|wo|w_up|w_gate|w_down|in_z|in_xbc|out_proj)/w$"
 MOE_WEIGHT_RE = r"(w_up|w_gate|w_down)$"
 
 
-def _map_with_path(fn, tree, *rest, path: str = ""):
+def map_with_path(fn, tree, *rest, path: str = ""):
     """``fn(path, leaf, *rest_leaves)`` over the leaves of a dict/list tree
     (``rest``: trees of the same structure); paths join keys with "/"."""
     if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, *(r[k] for r in rest), path=f"{path}/{k}" if path else str(k))
+        return {k: map_with_path(fn, v, *(r[k] for r in rest), path=f"{path}/{k}" if path else str(k))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_with_path(fn, v, *(r[i] for r in rest), path=f"{path}/{i}" if path else str(i))
+        return type(tree)(map_with_path(fn, v, *(r[i] for r in rest), path=f"{path}/{i}" if path else str(i))
                           for i, v in enumerate(tree))
     return fn(path, tree, *rest)
 
@@ -51,7 +51,7 @@ def tanh_max_tree(tree):
             return torch.zeros(())  # never consumed (non-projection leaf)
         return torch.amax(torch.abs(torch.tanh(leaf)), dim=(-2, -1))
 
-    return _map_with_path(one, tree)
+    return map_with_path(one, tree)
 
 
 def prepack_tree(tree, *, w_bits: int, a_bits: int, block_k: int | None = None,
@@ -80,8 +80,8 @@ def prepack_tree(tree, *, w_bits: int, a_bits: int, block_k: int | None = None,
         return leaf
 
     if t_max_tree is None:
-        return _map_with_path(one, tree)
-    return _map_with_path(one, tree, t_max_tree)
+        return map_with_path(one, tree)
+    return map_with_path(one, tree, t_max_tree)
 
 
 def apply_plan(params: dict, cfg, plan: DeployPlan, *, verbose: bool = True, tp=None,

@@ -23,9 +23,13 @@ on the engine's own stream and replayed every step; ``capture=False``
 runs the same step eagerly (the reference's ``jax.disable_jit()``), as the
 CPU always does.
 
-Not ported yet, and refused where asked for: int8 KV pools, deadlines
-and cancellation, fault injection, snapshots, observability and mesh
-parallelism (see ROADMAP.md, port queue).
+With ``cfg.kv_dtype == "int8"`` the pools hold int8 levels and float32
+per-row scale pools; the step writes both in place (captured in the graph
+like every other write), and a replayed request rewrites both.
+
+Not ported yet, and refused where asked for: deadlines and cancellation,
+fault injection, snapshots, observability and mesh parallelism (see
+ROADMAP.md, port queue).
 """
 from __future__ import annotations
 
@@ -199,8 +203,6 @@ class Engine:
         CUDA device); False runs it eagerly, True on the CPU raises."""
         if ecfg.chunk_tokens < 1:
             raise ValueError("chunk_tokens must be >= 1")
-        if cfg.kv_dtype == "int8":
-            raise NotImplementedError("int8 KV pools in the engine come in a later slice")
         check_gather_backend(ecfg.gather_backend)
         self.device = resolve_device(device)
         self.cfg = cfg

@@ -303,7 +303,9 @@ def test_engine_config_checks(shared):
         _port_engine(shared, chunk_tokens=0)
     with pytest.raises(ValueError):
         _port_engine(shared, admit="lazy")
+    # int8 KV pools build: int8 levels beside float32 per-row scales
     cfg = get_config("llama3.2-3b", smoke=True)
-    with pytest.raises(NotImplementedError):
-        build_engine(dataclasses.replace(cfg, kv_dtype="int8"), EngineConfig(chunk_tokens=C),
-                     device="cpu")
+    eng = build_engine(dataclasses.replace(cfg, kv_dtype="int8"), EngineConfig(chunk_tokens=C),
+                       device="cpu")
+    assert {k: v.dtype for k, v in eng.state.items()} == {
+        "k": torch.int8, "v": torch.int8, "k_scale": torch.float32, "v_scale": torch.float32}

@@ -744,3 +744,107 @@ def test_captured_plan_engine_equals_the_eager_engine(cuda):
     assert counts_c["packed_matmul"] == 7 * m_c["steps"]
     for t, (a, b) in enumerate(zip(logits_c, logits_e)):
         assert a.tobytes() == b.tobytes(), t
+
+
+# -- int8 KV pools and int8 serving weights ------------------------------------------
+
+
+def _run_captured_and_eager(cfg, params, ecfg, cuda, head=None, n_prompts=4):
+    """Serve the same prompts captured and with capture=False: per mode the
+    metrics, launch counters, every step's logits, tokens and the graph's
+    census (None eagerly)."""
+    from repro_torch.serving import Engine
+
+    g = np.random.default_rng(7)
+    prompts = [g.integers(1, cfg.vocab, n).tolist() for n in (9, 6, 11, 5)[:n_prompts]]
+    runs = []
+    for capture in (False, True):
+        eng = Engine(cfg, params, ecfg, head=head, device=cuda, capture=capture)
+        logits = _step_logits(eng)
+        for p in prompts:
+            eng.submit(p, 6)
+        build.reset_counts()
+        m = eng.run(realtime=False)
+        assert m["statuses"] == {"ok": len(prompts)}
+        eng.assert_no_leaks()
+        census = build.graph_census(eng._program.graph) if capture else None
+        runs.append((m, build.counts(), logits, {r.rid: r.out_tokens for r in eng.finished}, census))
+        eng.close()
+    return runs
+
+
+def _assert_same_runs(runs) -> None:
+    (m_e, counts_e, logits_e, toks_e, _), (m_c, counts_c, logits_c, toks_c, _) = runs
+    for key in ("steps", "fed_tokens", "preemptions"):
+        assert m_c[key] == m_e[key], key
+    assert toks_c == toks_e and counts_c == counts_e
+    assert len(logits_c) == len(logits_e) == m_c["steps"]
+    for t, (a, b) in enumerate(zip(logits_c, logits_e)):
+        assert a.tobytes() == b.tobytes(), t
+
+
+@pytest.mark.parametrize("chunk,admit,n_pages", [(1, "reserve", 0), (4, "on-demand", 7)])
+def test_captured_int8_kv_engine_equals_the_eager_engine(cuda, chunk, admit, n_pages):
+    """w4a4 packed projections on int8 KV pools: the captured step against
+    capture=False, every step's logits bit-identical (preemption and replay
+    rewrite levels and scales in both), and every K3 node of the graph
+    ``gather_i8``."""
+    cfg, packed, head = _packed_smoke(cuda)
+    cfg = dataclasses.replace(cfg, kv_dtype="int8")
+    ecfg = EngineConfig(n_slots=3, page_size=4, max_len=32, n_pages=n_pages, chunk_tokens=chunk,
+                        admit=admit, packed_head=True, head_bits=(4, 4), gather_backend="kernel")
+    runs = _run_captured_and_eager(cfg, packed, ecfg, cuda, head=head)
+    _assert_same_runs(runs)
+    m, counts, _, _, census = runs[1]
+    if admit == "on-demand":
+        assert m["preemptions"] > 0
+    assert counts["paged_gather"] == cfg.n_layers * m["steps"]
+    assert census["families"]["gather_i8"] == cfg.n_layers and "gather_fp" not in census["families"]
+    assert "memset" not in census["kinds"], census
+
+
+def test_int8_kv_kernel_gather_equals_the_xla_gather(cuda):
+    """2 layers on int8 KV pools, chunked on demand: K3's int8 path and the
+    ``pool[block_table]`` view give bit-identical sampled rows."""
+    cfg, packed, head = _packed_smoke(cuda)
+    cfg = dataclasses.replace(cfg, kv_dtype="int8", n_layers=2)
+    rows = {}
+    for gather in ("kernel", "xla"):
+        ecfg = EngineConfig(n_slots=3, page_size=4, max_len=32, n_pages=7, chunk_tokens=4,
+                            admit="on-demand", packed_head=True, head_bits=(4, 4), gather_backend=gather)
+        eng = build_engine(cfg, ecfg, params=packed, head=head, device=cuda)
+        rec = rows[gather] = {}
+        eng.on_sample = lambda rid, t, row, rec=rec: rec.__setitem__((rid, t), row.copy())
+        g = np.random.default_rng(9)
+        for n in (9, 6, 11, 5):
+            eng.submit(g.integers(1, cfg.vocab, n).tolist(), 6)
+        build.reset_counts()
+        m = eng.run(realtime=False)
+        assert m["statuses"] == {"ok": 4} and m["preemptions"] > 0
+        assert build.counts()["paged_gather"] == (cfg.n_layers * m["steps"] if gather == "kernel" else 0)
+        eng.close()
+    assert rows["kernel"].keys() == rows["xla"].keys()
+    for k, row in rows["kernel"].items():
+        assert row.tobytes() == rows["xla"][k].tobytes(), k
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_captured_int8_weight_engine_equals_the_eager_engine(cuda, kv_dtype):
+    """``build_engine(quant="int8")``: the captured step against
+    capture=False on the same int8 levels and scales, every step's logits
+    bit-identical; K3 is the only port kernel of the step."""
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b", smoke=True), kv_dtype=kv_dtype)
+    params = T.init_params(cfg, seed=5, device=cuda)
+    ecfg = EngineConfig(n_slots=3, page_size=4, max_len=32, n_pages=7, chunk_tokens=4,
+                        admit="on-demand", gather_backend="kernel")
+    q = build_engine(cfg, ecfg, params=params, quant="int8", device=cuda, capture=False).params
+    assert q["layers"][0]["attn"]["wq"]["w"]["levels"].dtype == torch.int8
+    runs = _run_captured_and_eager(cfg, q, ecfg, cuda)
+    _assert_same_runs(runs)
+    m, counts, _, _, census = runs[1]
+    assert counts == {**dict.fromkeys(build.COUNTS, 0), "paged_gather": cfg.n_layers * m["steps"]}
+    assert {k: v for k, v in census["kernels"].items() if k != "other"} == {"paged_gather": cfg.n_layers}
+    family = "gather_i8" if kv_dtype == "int8" else "gather_fp"
+    assert census["families"] == {family: cfg.n_layers}
