@@ -22,9 +22,11 @@ Phases, all on the card:
    x 16 lanes = 128) at every layer shape: bit-exact, timed beside its
    bound and ``torch._int_mm``.
 3. K3 (``paged_gather``) against its plain version at the engine's
-   geometry: a bf16 pool with null pages, with and without a sliding
-   window, and an int8 pool, each at one lane and at the chunk width (16
-   lanes that cross a page boundary and run past the live pages): bit-exact.
+   geometry and at a long-context one (``LONG_GATHER``: 32 slots of 4096
+   tokens, 1024-4095 live a slot, D 1024, page 16): a bf16 pool with null
+   pages, and an int8 pool, each with and without a sliding window, at one
+   lane and at the chunk width (at the engine's geometry 16 lanes that
+   cross a page boundary and run past the live pages): bit-exact.
    Yardsticks: ``pool[table]``, and for the int8 pool the same function,
    ``pool[table].to(bf16) * scale[table].to(bf16)``.
 4. The engine: llama3.2-3b at full width (28 layers, d 3072, vocab
@@ -143,8 +145,9 @@ by 100: an event pair around one launch of under about 0.1 ms measures
 the host's enqueue.  The matmuls' weights are cycled through copies
 totalling at least 256 MB, so that the 50 MB L2 cannot hold them (a
 decode step reads each layer's weights once); K3's and K6's operands are
-not.  Each kernel's event time (median of one event pair per launch, L2
-flushed before each) is kept beside it; plain versions, which synchronise
+not (K3's at the long geometry are far past the L2 anyway).  Each
+kernel's event time (median of one event pair per launch, L2 flushed
+before each) is kept beside it; plain versions, which synchronise
 with the host, are timed by events only.  The line before the last is the
 kernels JSON, the one before it the card's ``nvidia-smi`` name and power
 limit, and the last line is ``{"ok": true, "device": {...}}``.  Details
@@ -552,7 +555,13 @@ def check_graph(eng, per_step: dict, what: str, memset: bool = False) -> dict:
 # -- phase 3 -------------------------------------------------------------------
 
 
-def _gather_geometry(torch, S, nb, ps, n_pages, seed):
+# phase 3's long-context geometry: llama3.2-3b's KV width and page size at 32
+# slots of 4096 tokens (its published context is 128k), every live slot
+# 1024-4095 tokens long, a pool of S x n_blocks + 1 pages
+LONG_GATHER = dict(S=32, max_len=4096, lengths=(1024, 4096), seed=2)
+
+
+def _gather_geometry(torch, S, nb, ps, n_pages, seed, lengths=(17, 96)):
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -561,77 +570,109 @@ def _gather_geometry(torch, S, nb, ps, n_pages, seed):
     free = list(range(1, n_pages))
     rng.shuffle(free)
     for s in range(S - 1):  # the last slot stays inactive: an all-null row
-        length = int(rng.integers(17, 96))
+        length = int(rng.integers(*lengths))
         n_live = length // ps + 1
         table[s, :n_live] = [free.pop() for _ in range(n_live)]
         pos[s] = length
     return torch.from_numpy(table).cuda(), torch.from_numpy(pos).cuda(), int(np.count_nonzero(table))
 
 
-def phase_gather(torch, card, timer, cfg, ecfg, report: dict) -> dict:
-    """K3 at the decode step's one lane and at the chunk width: each slot's
-    position lies on its last live page, so the chunk's lanes cross a page
-    boundary and run past the live pages onto null ones (as a chunked step's
-    invalid lanes do)."""
-    from repro_torch.kernels.paged_gather.kernel import paged_gather_plain, paged_gather_raw
-
-    S, nb, ps = ecfg.n_slots, ecfg.blocks_per_slot, ecfg.page_size
-    P, D = ecfg.pool_pages(), cfg.kv_heads * cfg.hd
-    table, pos, n_live = _gather_geometry(torch, S, nb, ps, P, seed=1)
-    check(bool((pos[:-1] % ps + CHUNK > ps).all()), "K3 geometry: a chunk does not cross its page")
+def gather_operands(torch, S, nb, ps, D, n_pages, seed, lengths=(17, 96)):
+    """Block table, positions, live page count, and bf16 and int8 K/V pools
+    (levels and per-row scales of the same float values) for phase 3: the
+    null page holds NaN garbage, which the views must read as zeros."""
+    table, pos, n_live = _gather_geometry(torch, S, nb, ps, n_pages, seed, lengths)
     g = torch.Generator(device="cuda")
-    g.manual_seed(1)
-    fp = torch.randn((2, P, ps, D), generator=g, device="cuda")
-    fp[:, 0] = float("nan")  # the null page holds garbage; the views must read zeros
+    g.manual_seed(seed)
+    fp = torch.randn((2, n_pages, ps, D), generator=g, device="cuda")
+    fp[:, 0] = float("nan")
     bf = fp.to(torch.bfloat16)
     sc = fp.abs().amax(-1, keepdim=True).nan_to_num(1.0) / 127 + 1e-12
     lv = torch.clamp(torch.round(fp.nan_to_num(0.0) / sc), -127, 127).to(torch.int8)
-    cases = [
-        ("bf16 pool, full causal", (bf[0], bf[1]), (None, None), 0),
-        ("bf16 pool, window 40", (bf[0], bf[1]), (None, None), 40),
-        ("int8 pool -> bf16, full causal", (lv[0], lv[1]), (sc[0], sc[1]), 0),
-        ("int8 pool -> bf16, window 40", (lv[0], lv[1]), (sc[0], sc[1]), 40),
+    del fp
+    return table, pos, n_live, bf, lv, sc
+
+
+def gather_bytes(S, nb, ps, D, n_live, chunk, elem, scaled) -> int:
+    """K3's bytes: the live pages read (and their scales), the bf16 views and
+    the mask written, the table and positions read."""
+    return (2 * n_live * ps * D * elem + 2 * S * nb * ps * D * 2 + S * chunk * nb * ps
+            + S * nb * 4 + S * 4 + (2 * n_live * ps * 4 if scaled else 0))
+
+
+def phase_gather(torch, card, timer, cfg, ecfg, report: dict) -> dict:
+    """K3 at the engine's geometry and at a long-context one.  At the
+    engine's, each slot's position lies on its last live page, so the chunk's
+    lanes cross a page boundary and run past the live pages onto null ones
+    (as a chunked step's invalid lanes do).  A call at the long geometry
+    reads and writes 0.7-0.9 GB, far past the 50 MB L2, so its graph
+    timings need no cold copies; the engine geometry's operands fit in L2,
+    as a step's do."""
+    from repro_torch.kernels.paged_gather.kernel import paged_gather_plain, paged_gather_raw
+
+    ps, D = ecfg.page_size, cfg.kv_heads * cfg.hd
+    lg = LONG_GATHER
+    geometries = [
+        ("served", ecfg.n_slots, ecfg.blocks_per_slot, ecfg.pool_pages(), 1, (17, 96)),
+        ("long", lg["S"], lg["max_len"] // ps, lg["S"] * (lg["max_len"] // ps) + 1, lg["seed"], lg["lengths"]),
     ]
     rows, max_err = [], 0.0
-    for (label, pools, scales, window), chunk in itertools.product(cases, (1, CHUNK)):
-        args = (table, pos, window, *pools, *scales)
-        kw = dict(chunk=chunk, out_dtype=torch.bfloat16)
-        got = paged_gather_raw(*args, **kw)
-        want = paged_gather_plain(*args, **kw)
-        torch.cuda.synchronize()
-        for a, b in zip(got, want):
-            check(a.dtype == b.dtype and torch.equal(a, b),
-                  f"K3 differs from its plain version: {label}, chunk {chunk}")
-            max_err = max(max_err, (a.float() - b.float()).abs().max().item())
-        elem = pools[0].element_size()
-        nbytes = (2 * n_live * ps * D * elem + 2 * S * nb * ps * D * 2 + S * chunk * nb * ps
-                  + S * nb * 4 + S * 4 + (2 * n_live * ps * 4 if scales[0] is not None else 0))
-        b_ms, b_by, _, _ = card.bound(nbytes, 0)
-        tl = table.long()
-        row = dict(
-            case=label, chunk=chunk, S=S, n_blocks=nb, page_size=ps, D=D, live_pages=n_live,
-            per_step=cfg.n_layers,
-            k3_ms=timer(lambda: paged_gather_raw(*args, **kw), reps=20),
-            k3_graph_ms=timer.graph(lambda i: paged_gather_raw(*args, **kw)),
-            plain_ms=timer(lambda: paged_gather_plain(*args, **kw), reps=10),
-            library_ms=timer(lambda: (pools[0][tl], pools[1][tl]), reps=20),
-            library_graph_ms=timer.graph(lambda i: (pools[0][tl], pools[1][tl])),
-            bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-        )
-        note = ""
-        if scales[0] is not None:
-            # the same function as K3 on an int8 pool: the gather, then the
-            # dequantization in paged_gather_plain's op order
-            def dequant(pools=pools, scales=scales, tl=tl):
-                return tuple(p[tl].to(torch.bfloat16) * s[tl].to(torch.bfloat16) for p, s in zip(pools, scales))
+    for geometry, S, nb, P, seed, lengths in geometries:
+        table, pos, n_live, bf, lv, sc = gather_operands(torch, S, nb, ps, D, P, seed, lengths)
+        if geometry == "served":
+            check(bool((pos[:-1] % ps + CHUNK > ps).all()), "K3 geometry: a chunk does not cross its page")
+        print(f"  {geometry} geometry: {S} slots x {nb} blocks of {ps} rows, D {D}, {P} pool pages, "
+              f"{n_live} live", flush=True)
+        cases = [
+            ("bf16 pool, full causal", (bf[0], bf[1]), (None, None), 0),
+            ("bf16 pool, window 40", (bf[0], bf[1]), (None, None), 40),
+            ("int8 pool -> bf16, full causal", (lv[0], lv[1]), (sc[0], sc[1]), 0),
+            ("int8 pool -> bf16, window 40", (lv[0], lv[1]), (sc[0], sc[1]), 40),
+        ]
+        for (label, pools, scales, window), chunk in itertools.product(cases, (1, CHUNK)):
+            args = (table, pos, window, *pools, *scales)
+            kw = dict(chunk=chunk, out_dtype=torch.bfloat16)
+            got = paged_gather_raw(*args, **kw)
+            want = paged_gather_plain(*args, **kw)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                check(a.dtype == b.dtype and torch.equal(a, b),
+                      f"K3 differs from its plain version: {geometry} geometry, {label}, chunk {chunk}")
+                max_err = max(max_err, (a.float() - b.float()).abs().max().item())
+            del got, want
+            nbytes = gather_bytes(S, nb, ps, D, n_live, chunk, pools[0].element_size(), scales[0] is not None)
+            b_ms, b_by, _, _ = card.bound(nbytes, 0)
+            tl = table.long()
+            row = dict(
+                geometry=geometry, case=label, chunk=chunk, S=S, n_blocks=nb, page_size=ps, D=D,
+                live_pages=n_live, per_step=cfg.n_layers,
+                k3_ms=timer(lambda: paged_gather_raw(*args, **kw), reps=20),
+                k3_graph_ms=timer.graph(lambda i: paged_gather_raw(*args, **kw)),
+                plain_ms=timer(lambda: paged_gather_plain(*args, **kw), reps=10),
+                library_ms=timer(lambda: (pools[0][tl], pools[1][tl]), reps=20),
+                library_graph_ms=timer.graph(lambda i: (pools[0][tl], pools[1][tl])),
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+            )
+            row["fraction_of_bound"] = b_ms / row["k3_graph_ms"]
+            note = ""
+            if scales[0] is not None:
+                # the same function as K3 on an int8 pool: the gather, then the
+                # dequantization in paged_gather_plain's op order
+                def dequant(pools=pools, scales=scales, tl=tl):
+                    return tuple(p[tl].to(torch.bfloat16) * s[tl].to(torch.bfloat16)
+                                 for p, s in zip(pools, scales))
 
-            row.update(dequant_ms=timer(dequant, reps=20), dequant_graph_ms=timer.graph(lambda i: dequant()))
-            note = (f", gather + dequantize {row['dequant_ms']:.4f} ms (graph {row['dequant_graph_ms']:.4f}; "
-                    f"the same function)")
-        rows.append(row)
-        print(f"  {label}, chunk {chunk}: K3 {row['k3_ms']:.4f} ms (graph {row['k3_graph_ms']:.4f}), "
-              f"plain {row['plain_ms']:.4f} ms, pool[table] {row['library_ms']:.4f} ms (graph "
-              f"{row['library_graph_ms']:.4f}){note}, bound {b_ms:.4f} ms; bit-exact", flush=True)
+                row.update(dequant_ms=timer(dequant, reps=20),
+                           dequant_graph_ms=timer.graph(lambda i: dequant()))
+                note = (f", gather + dequantize {row['dequant_ms']:.4f} ms (graph "
+                        f"{row['dequant_graph_ms']:.4f}; the same function)")
+            rows.append(row)
+            print(f"  {geometry}, {label}, chunk {chunk}: K3 {row['k3_ms']:.4f} ms (graph "
+                  f"{row['k3_graph_ms']:.4f}, {100 * row['fraction_of_bound']:.0f} % of its bound), plain "
+                  f"{row['plain_ms']:.4f} ms, pool[table] {row['library_ms']:.4f} ms (graph "
+                  f"{row['library_graph_ms']:.4f}){note}, bound {b_ms:.4f} ms; bit-exact", flush=True)
+        del table, pos, bf, lv, sc, cases, args, pools, scales
+        torch.cuda.empty_cache()
     report["gather"] = rows
     return {"max_err": max_err, "rows": rows}
 
@@ -2316,7 +2357,7 @@ def main(argv=None) -> int:
     print(f"  K1 at the chunked step's rows (M = {ecfg.n_slots} x {CHUNK}):", flush=True)
     mm_chunk = phase_matmul_chunk(torch, card, timer, cfg, ecfg.n_slots * CHUNK, report)
     peak("2")
-    print("phase 3: K3 vs plain at the engine geometry", flush=True)
+    print("phase 3: K3 vs plain at the engine geometry and a long-context one", flush=True)
     ga = phase_gather(torch, card, timer, cfg, ecfg, report)
     del timer
     peak("3")
@@ -2368,11 +2409,23 @@ def main(argv=None) -> int:
     served = [r for r in mm["rows"] if r["placement"] == "w4a4 overlap=1"]
     layers = [r for r in served if r["shape"] != "head"]
     head = [r for r in served if r["shape"] == "head"]
-    gather = [r for r in ga["rows"] if r["case"] == "bf16 pool, full causal" and r["chunk"] == 1]
-    gather_chunk = [r for r in ga["rows"] if r["case"] == "bf16 pool, full causal" and r["chunk"] == CHUNK]
-    gather_i8 = [r for r in ga["rows"] if r["case"] == "int8 pool -> bf16, full causal" and r["chunk"] == 1]
-    gather_i8_chunk = [r for r in ga["rows"] if r["case"] == "int8 pool -> bf16, full causal"
-                       and r["chunk"] == CHUNK]
+
+    def k3_rows(case, chunk, geometry="served"):
+        return [r for r in ga["rows"] if (r["geometry"], r["case"], r["chunk"]) == (geometry, case, chunk)]
+
+    gather = k3_rows("bf16 pool, full causal", 1)
+    gather_chunk = k3_rows("bf16 pool, full causal", CHUNK)
+    gather_i8 = k3_rows("int8 pool -> bf16, full causal", 1)
+    gather_i8_chunk = k3_rows("int8 pool -> bf16, full causal", CHUNK)
+    # K3 per launch at the long-context geometry, full causal (window 40's
+    # rows are in the report)
+    gather_long = [dict(case=r["case"], chunk=r["chunk"], ms=r["k3_graph_ms"], events_ms=r["k3_ms"],
+                        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                        fraction_of_bound=r["fraction_of_bound"],
+                        library_ms=r.get("dequant_graph_ms", r["library_graph_ms"]))
+                   for case in ("bf16 pool, full causal", "int8 pool -> bf16, full causal")
+                   for chunk in (1, CHUNK) for r in k3_rows(case, chunk, "long")]
+    long0 = k3_rows("int8 pool -> bf16, full causal", 1, "long")[0]
     i8_first = next(t for t in i8s["a"]["turns"] if t["cell"] == "int8 KV")
     chunk_step = mm_chunk["rows"] + head  # a chunked step: the layers at M = 128, the head at M = 8
     chunked_launches = {k: {admit: r["counts"][k] for admit, r in ch.items()}
@@ -2458,7 +2511,11 @@ def main(argv=None) -> int:
                  chunk_step_bound_ms=step_sum(gather_i8_chunk, "bound_ms"),
                  chunk_step_library_ms=step_sum(gather_i8_chunk, "dequant_graph_ms"),
                  launches_chunked={k: r["counts"]["paged_gather"] for k, r in i8s["b"].items()
-                                   if "counts" in r})),
+                                   if "counts" in r}),
+             long_context=dict(
+                 **{k: long0[k] for k in ("S", "n_blocks", "page_size", "D", "live_pages")},
+                 live_tokens=LONG_GATHER["lengths"], per="launch",
+                 library="pool[table]; int8 pools: the gather, then the dequantization", rows=gather_long)),
         dict(name="quant_matmul", route="cuda", source="src/repro_torch/csrc/quant_matmul.cu",
              replaces="src/repro/kernels/quant_matmul/kernel.py:63",
              launches=i8["counts"]["quant_matmul"], max_abs_err=i8["max_err"]["quant_matmul"],

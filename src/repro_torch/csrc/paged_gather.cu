@@ -13,30 +13,45 @@
 // element once, so its least time is (live page bytes + view bytes + mask
 // bytes) over HBM bandwidth.
 //
-// What the design does about it.  One block per (slot, block) pair reads
-// its own block-table entry (the TPU's scalar prefetch becomes a load at the
-// top of the block) and streams exactly that page with 16-byte vector loads
-// and stores, neighbouring threads on neighbouring addresses.  Null pages
-// are never read: the block writes zeros instead.  int8 pages widen 16
-// levels per load and multiply by the row's scale in registers, with one
-// rounding to the output type: bf16(level) * bf16(scale) rounded once to
-// bf16 (the product of two bf16 values is exact in float32), which is the
-// reference's op order at a bf16 output.
+// What the design does about it.  The block table is read at the top of
+// each block (the TPU's scalar prefetch becomes one load), exactly the
+// table's pages are streamed with 16-byte vector loads and stores,
+// neighbouring threads on neighbouring addresses, and null pages are never
+// read: zeros are written instead.
+//
+// float pools (gather_fp): one block per (slot, block) pair copies its page.
+//
+// int8 pools (gather_i8): each level widens to float, is multiplied by its
+// row's scale and rounded once to the output type: bf16(level) * bf16(scale)
+// rounded once to bf16 (the product of two bf16 values is exact in
+// float32), which is the reference's op order at a bf16 output.  The stores
+// bound it: a thread that turns 16 levels into 32 bytes of bf16 writes them
+// as two 16-byte stores, each warp store then covering every other 16 bytes
+// of a 1 KB span, which took 1.3-2.1x the time of one 16-byte store a unit
+// (perf/k3_variants.py, vec16 against base).  So a thread's unit is one
+// 16-byte store (8 levels at bf16, 4 at float32) and a warp store writes
+// 512 contiguous bytes.  A page is cut into row groups, one block each
+// (gather_plan: 256 threads, 4 units a thread), so the live pages spread
+// over every SM, and a thread issues all of its level and scale loads
+// before its first conversion.  A bulk copy of the group's levels into shared memory
+// (cp.async.bulk) was no faster, so the loads go straight to registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;      // gather_fp's block
+constexpr int MAX_THREADS = 512;  // gather_i8's largest block (gather_plan)
+constexpr int VPT = 4;            // gather_i8's units a thread (gather_plan's I8_VPT)
 
+// the mask lanes [s, c, b, r0 .. r0 + R) for every lane c of the chunk
 __device__ __forceinline__ void write_mask(bool* __restrict__ mask, int pos0, int window, int s,
-                                           int b, int NB, int PS, int C) {
-  for (int i = threadIdx.x; i < C * PS; i += blockDim.x) {
-    const int c = i / PS;
-    const int lane = i - c * PS;
+                                           int b, int NB, int PS, int C, int r0, int R) {
+  for (int i = threadIdx.x; i < C * R; i += blockDim.x) {
+    const int c = i / R;
+    const int lane = r0 + (i - c * R);
     const int kpos = b * PS + lane;
     const int posc = pos0 + c;
     bool m = kpos <= posc;
@@ -71,68 +86,121 @@ gather_fp(const int32_t* __restrict__ table, const int32_t* __restrict__ pos, in
       dv[i] = zero;
     }
   }
-  write_mask(mask, pos[s], window, s, b, NB, PS, C);
+  write_mask(mask, pos[s], window, s, b, NB, PS, C, 0, PS);
 }
 
-// 16 int8 levels of one page row -> 16 outputs (zeros for the null page)
-template <bool BF16>
-__device__ __forceinline__ void dequant16(const int8_t* __restrict__ src, float scale, bool live,
-                                          void* dst) {
-  int8_t lv[16];
-  if (live) {
-    *reinterpret_cast<uint4*>(lv) = __ldg(reinterpret_cast<const uint4*>(src));
-  } else {
-    *reinterpret_cast<uint4*>(lv) = make_uint4(0u, 0u, 0u, 0u);
-  }
+// int8 pools.  The launch plan (kernels/paged_gather/kernel.py gather_plan)
+// splits each page into row groups: block (x, y) owns page slot
+// x = s * NB + b and its rows [y * R, y * R + R), both pools, and writes the
+// mask lanes of those rows.  The unit of work is one 16-byte store of a
+// view: L = 8 levels at bf16, 4 at float32, read with one 8- or 4-byte load.
+// A group's R * D / L units are dealt round-robin to its threads, VPT each
+// (thread t takes units t, t + T, ..., t + (VPT - 1) T), so each warp store
+// writes 512 contiguous bytes.  A live group issues every level and scale
+// load of a thread before its first conversion; a null group writes zeros
+// and loads nothing.
+__host__ __device__ constexpr int unit_levels(bool bf16) { return bf16 ? 8 : 4; }
+
+template <int L> struct Unit;  // L int8 levels, loaded at once
+template <> struct Unit<4> { using T = uint32_t; };
+template <> struct Unit<8> { using T = uint2; };
+
+__device__ __forceinline__ uint32_t word(uint32_t q, int) { return q; }
+__device__ __forceinline__ uint32_t word(const uint2& q, int i) { return i == 0 ? q.x : q.y; }
+
+// level e of a unit, widened to float
+template <class T>
+__device__ __forceinline__ float level(const T& q, int e) {
+  return static_cast<float>(static_cast<int8_t>((word(q, e >> 2) >> (8 * (e & 3))) & 0xffu));
+}
+
+// L levels times their row's scale, stored as L outputs (16-byte vectors)
+template <bool BF16, int L, class T>
+__device__ __forceinline__ void dequant_store(const T& q, float scale, uint4* dst) {
   if (BF16) {
-    __align__(16) __nv_bfloat16 o[16];
+    // |level| <= 127 is exact in bf16, and the product of two bf16 values is
+    // exact in float32, so one rounding to bf16 gives the reference's
+    // bf16(level) * bf16(scale)
     const float sf = __bfloat162float(__float2bfloat16_rn(scale));
+    __align__(16) __nv_bfloat162 o[L / 2];
 #pragma unroll
-    for (int e = 0; e < 16; ++e) {
-      // |level| <= 127 is exact in bf16; the bf16 x bf16 product is exact in
-      // float32, so one rounding to bf16 follows
-      const float l = __bfloat162float(__float2bfloat16_rn(static_cast<float>(lv[e])));
-      o[e] = live ? __float2bfloat16_rn(__fmul_rn(l, sf)) : __float2bfloat16_rn(0.f);
+    for (int e = 0; e < L / 2; ++e) {
+      o[e] = __floats2bfloat162_rn(__fmul_rn(level(q, 2 * e), sf), __fmul_rn(level(q, 2 * e + 1), sf));
     }
-    uint4* d = static_cast<uint4*>(dst);
-    d[0] = reinterpret_cast<const uint4*>(o)[0];
-    d[1] = reinterpret_cast<const uint4*>(o)[1];
+#pragma unroll
+    for (int v = 0; v < L / 8; ++v) dst[v] = reinterpret_cast<const uint4*>(o)[v];
   } else {
-    __align__(16) float o[16];
+    __align__(16) float o[L];
 #pragma unroll
-    for (int e = 0; e < 16; ++e) o[e] = live ? __fmul_rn(static_cast<float>(lv[e]), scale) : 0.f;
-    uint4* d = static_cast<uint4*>(dst);
+    for (int e = 0; e < L; ++e) o[e] = __fmul_rn(level(q, e), scale);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) d[q] = reinterpret_cast<const uint4*>(o)[q];
+    for (int v = 0; v < L / 4; ++v) dst[v] = reinterpret_cast<const uint4*>(o)[v];
   }
 }
 
 template <bool BF16>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(MAX_THREADS)
 gather_i8(const int32_t* __restrict__ table, const int32_t* __restrict__ pos, int window,
           const int8_t* __restrict__ pool_k, const int8_t* __restrict__ pool_v,
           const float* __restrict__ k_scale, const float* __restrict__ v_scale,
           void* __restrict__ k_out, void* __restrict__ v_out, bool* __restrict__ mask, int NB,
-          int PS, int D, int C) {
-  using Out = typename std::conditional<BF16, __nv_bfloat16, float>::type;
-  const int s = blockIdx.x;
-  const int b = blockIdx.y;
-  const int page = table[static_cast<size_t>(s) * NB + b];
-  const bool live = page != 0;
-  const size_t page_elems = static_cast<size_t>(PS) * D;
-  const size_t src0 = static_cast<size_t>(page) * page_elems;
-  const size_t dst0 = (static_cast<size_t>(s) * NB + b) * page_elems;
-  const int vecs = static_cast<int>(page_elems / 16);
-  for (int i = threadIdx.x; i < vecs; i += blockDim.x) {
-    const size_t e0 = static_cast<size_t>(i) * 16;
-    const int row = static_cast<int>(e0 / D);
-    const size_t srow = static_cast<size_t>(page) * PS + row;
-    const float ks = live ? k_scale[srow] : 0.f;
-    const float vs = live ? v_scale[srow] : 0.f;
-    dequant16<BF16>(pool_k + src0 + e0, ks, live, static_cast<Out*>(k_out) + dst0 + e0);
-    dequant16<BF16>(pool_v + src0 + e0, vs, live, static_cast<Out*>(v_out) + dst0 + e0);
+          int PS, int D, int C, int R) {
+  constexpr int L = unit_levels(BF16);
+  constexpr int STORES = L * (BF16 ? 2 : 4) / 16;  // 16-byte stores a unit
+  using T = typename Unit<L>::T;
+  const int x = blockIdx.x;
+  const int s = x / NB;
+  const int b = x - s * NB;
+  const int r0 = blockIdx.y * R;
+  const int upr = D / L;  // units a row
+  const int n = R * upr;  // units of this group, each pool
+  const int nt = blockDim.x;
+  const int t = threadIdx.x;
+  const int page = __ldg(table + x);
+  // 64-bit bases: page * PS * D and S * NB * PS * D can pass 2^31
+  const size_t out_row = static_cast<size_t>(x) * PS + r0;
+  uint4* dk = static_cast<uint4*>(k_out) + out_row * upr * STORES;
+  uint4* dv = static_cast<uint4*>(v_out) + out_row * upr * STORES;
+  if (page == 0) {
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int j = t + k * nt;
+      if (j < n) {
+#pragma unroll
+        for (int q = 0; q < STORES; ++q) {
+          dk[j * STORES + q] = zero;
+          dv[j * STORES + q] = zero;
+        }
+      }
+    }
+  } else {
+    const size_t src_row = static_cast<size_t>(page) * PS + r0;
+    const T* sk = reinterpret_cast<const T*>(pool_k) + src_row * upr;
+    const T* sv = reinterpret_cast<const T*>(pool_v) + src_row * upr;
+    T lk[VPT], lv[VPT];
+    float ks[VPT], vs[VPT];
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int j = t + k * nt;
+      if (j < n) {
+        const int row = j / upr;
+        lk[k] = __ldg(sk + j);
+        lv[k] = __ldg(sv + j);
+        ks[k] = __ldg(k_scale + src_row + row);
+        vs[k] = __ldg(v_scale + src_row + row);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int j = t + k * nt;
+      if (j < n) {
+        dequant_store<BF16, L>(lk[k], ks[k], dk + j * STORES);
+        dequant_store<BF16, L>(lv[k], vs[k], dv + j * STORES);
+      }
+    }
   }
-  write_mask(mask, pos[s], window, s, b, NB, PS, C);
+  write_mask(mask, pos[s], window, s, b, NB, PS, C, r0, R);
 }
 
 }  // namespace
@@ -153,27 +221,33 @@ extern "C" int paged_gather_fp(const void* table, const void* pos, int window, c
 }
 
 // int8 pools: levels [P, PS, D] int8 (D % 16 == 0), scales [P, PS, 1] f32;
-// out_bf16 selects bf16 views, else float32
+// out_bf16 selects bf16 views, else float32; rows and threads are
+// gather_plan's (R rows a block, T threads a block, VPT units a thread)
 extern "C" int paged_gather_i8(const void* table, const void* pos, int window, const void* pool_k,
                                const void* pool_v, const void* k_scale, const void* v_scale,
                                void* k_out, void* v_out, void* mask, int S, int NB, int PS, int D,
-                               int C, int out_bf16, void* stream) {
+                               int C, int out_bf16, int rows, int threads, void* stream) {
   if (S <= 0 || NB <= 0) return 0;
-  if (D % 16 != 0 || PS <= 0 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(S, NB);
+  if (D % 16 != 0 || PS <= 0 || C <= 0 || rows <= 0 || PS % rows != 0 || threads <= 0 ||
+      threads % 32 != 0 || threads > MAX_THREADS ||
+      static_cast<long long>(threads) * VPT * unit_levels(out_bf16) < static_cast<long long>(rows) * D) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  dim3 grid(S * NB, PS / rows);
   auto* t = static_cast<const int32_t*>(table);
   auto* p = static_cast<const int32_t*>(pos);
   auto* pk = static_cast<const int8_t*>(pool_k);
   auto* pv = static_cast<const int8_t*>(pool_v);
   auto* ks = static_cast<const float*>(k_scale);
   auto* vs = static_cast<const float*>(v_scale);
+  auto* m = static_cast<bool*>(mask);
   auto st = static_cast<cudaStream_t>(stream);
   if (out_bf16) {
-    gather_i8<true><<<grid, THREADS, 0, st>>>(t, p, window, pk, pv, ks, vs, k_out, v_out,
-                                              static_cast<bool*>(mask), NB, PS, D, C);
+    gather_i8<true><<<grid, threads, 0, st>>>(t, p, window, pk, pv, ks, vs, k_out, v_out, m, NB, PS, D,
+                                              C, rows);
   } else {
-    gather_i8<false><<<grid, THREADS, 0, st>>>(t, p, window, pk, pv, ks, vs, k_out, v_out,
-                                               static_cast<bool*>(mask), NB, PS, D, C);
+    gather_i8<false><<<grid, threads, 0, st>>>(t, p, window, pk, pv, ks, vs, k_out, v_out, m, NB, PS, D,
+                                               C, rows);
   }
   return static_cast<int>(cudaGetLastError());
 }

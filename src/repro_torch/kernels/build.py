@@ -53,8 +53,8 @@ SIGNATURES = {
         # S, NB, PS, row_bytes, C, stream
         "paged_gather_fp": (_P, _P, _I, _P, _P, _P, _P, _P) + (_I,) * 5 + (_P,),
         # table, pos, window, pool_k, pool_v, k_scale, v_scale, k_out, v_out,
-        # mask, S, NB, PS, D, C, out_bf16, stream
-        "paged_gather_i8": (_P, _P, _I) + (_P,) * 7 + (_I,) * 6 + (_P,),
+        # mask, S, NB, PS, D, C, out_bf16, rows, threads, stream
+        "paged_gather_i8": (_P, _P, _I) + (_P,) * 7 + (_I,) * 8 + (_P,),
     },
     "quant_matmul": {
         # a, w, scale, out, ws, counters, M, K, N, bm, copy, splits,

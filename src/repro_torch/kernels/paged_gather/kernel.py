@@ -6,7 +6,9 @@ gathers each slot's pages through the block table into
 ``[S, n_blocks, page_size, D]`` K and V views, writes zeros for the null
 page 0, dequantizes int8 pages as ``level.to(out) * scale.to(out)``, and
 emits the causal / sliding-window lane mask ``[S, C, n_blocks, page_size]``.
-The kernel is ``csrc/paged_gather.cu``.
+The kernel is ``csrc/paged_gather.cu``; on int8 pools its launch is
+:func:`gather_plan`'s (row groups of a page, one block each, and which
+units, the levels of one 16-byte store, each thread takes: :func:`group_units`).
 
 Given CUDA tensors the wrapper launches the kernel or raises; given CPU
 tensors it runs :func:`paged_gather_plain` (``pool[block_table]`` +
@@ -14,11 +16,61 @@ where + iota mask).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.kernels import build
 
 _FLOAT_OUT = (torch.float32, torch.bfloat16)
+
+# gather_i8's blocks (csrc/paged_gather.cu): about I8_THREADS threads taking
+# I8_VPT units each (a unit: the levels of one 16-byte store of a view, 8 at
+# bf16 and 4 at float32; the kernel's VPT), at most I8_MAX_THREADS threads;
+# chosen on the H100 with perf/k3_variants.py
+I8_THREADS, I8_VPT, I8_MAX_THREADS = 256, 4, 512
+
+
+def unit_levels(out_dtype: torch.dtype) -> int:
+    """Levels of one 16-byte store of a view of ``out_dtype``."""
+    return 16 // out_dtype.itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    rows: int  # page rows a block (a divisor of page_size)
+    vpt: int  # units a thread takes from each pool
+    threads: int  # threads a block, a multiple of 32
+    grid: tuple[int, int]  # (S * n_blocks page slots, page_size // rows row groups)
+
+
+def gather_plan(S: int, n_blocks: int, page_size: int, width: int, levels: int, *,
+                vpt: int = I8_VPT, threads: int = I8_THREADS) -> GatherPlan:
+    """gather_i8's launch for units of ``levels`` levels: block ``(x, y)``
+    owns page slot ``x = s * n_blocks + b`` and its rows ``[y * rows, (y +
+    1) * rows)`` in both pools; ``rows`` is the largest divisor of
+    ``page_size`` whose ``rows * width / levels`` units ``threads`` threads
+    take ``vpt`` at a time, and the block has just enough threads (whole
+    warps) for them.  The kernel is built for ``vpt = I8_VPT``; other
+    values describe its variants (``perf/k3_variants.py``)."""
+    if width % 16 or page_size <= 0:
+        raise ValueError(f"int8 pool width {width} must be a multiple of 16")
+    upr = width // levels
+    rows = max(r for r in range(1, page_size + 1) if page_size % r == 0 and (r == 1 or r * upr <= vpt * threads))
+    t = 32 * -(-rows * upr // (32 * vpt))  # ceil(units / vpt), whole warps
+    if t > I8_MAX_THREADS:
+        raise ValueError(f"a page row of width {width} needs {t} gather_i8 threads, more than {I8_MAX_THREADS}")
+    return GatherPlan(rows=rows, vpt=vpt, threads=t, grid=(S * n_blocks, page_size // rows))
+
+
+def group_units(plan: GatherPlan, width: int, levels: int, y: int, t: int) -> list[tuple[int, int]]:
+    """``(page row, unit of the row)`` that thread ``t`` of a block of row
+    group ``y`` loads, dequantizes and stores in each pool, in the kernel's
+    order: units ``t, t + threads, ...`` of the group."""
+    upr = width // levels
+    n = plan.rows * upr
+    return [(y * plan.rows + j // upr, j % upr)
+            for j in (t + k * plan.threads for k in range(plan.vpt)) if j < n]
 
 
 def paged_gather_plain(block_table, pos, window, pool_k, pool_v, k_scale=None, v_scale=None,
@@ -108,11 +160,12 @@ def paged_gather_raw(
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = build.library("paged_gather")
     if pool_k.dtype == torch.int8:
+        plan = gather_plan(S, n_blocks, page_size, width, unit_levels(out_dtype))
         err = lib.paged_gather_i8(
             block_table.data_ptr(), pos.data_ptr(), window, pool_k.data_ptr(),
             pool_v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), k_out.data_ptr(),
             v_out.data_ptr(), mask.data_ptr(), S, n_blocks, page_size, width, chunk,
-            int(out_dtype == torch.bfloat16), stream,
+            int(out_dtype == torch.bfloat16), plan.rows, plan.threads, stream,
         )
     else:
         err = lib.paged_gather_fp(

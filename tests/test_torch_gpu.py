@@ -178,6 +178,76 @@ def test_gather_kernel_bit_exact(cuda, pool, window, chunk):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+
+def _k3_pools(cuda, S, nb, ps, D, seed, lengths, offset=0):
+    """Block table, positions and K/V pools for K3 on the card: live slots
+    of ``lengths`` tokens (the last slot inactive), pages from a shuffled
+    free list, a NaN null page; bf16 pools and int8 levels with per-row
+    scales of the same values.  ``offset``: each pool (and scale pool) is
+    a view ``offset`` bytes into a larger allocation."""
+    g = np.random.default_rng(seed)
+    P = S * nb + 1
+    table = np.zeros((S, nb), np.int32)
+    pos = np.zeros((S,), np.int32)
+    free = g.permutation(np.arange(1, P)).tolist()
+    for s in range(S - 1):
+        length = int(g.integers(*lengths))
+        n = min(nb, length // ps + 1)
+        table[s, :n] = [free.pop() for _ in range(n)]
+        pos[s] = length
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    fp = torch.randn((2, P, ps, D), generator=gen, device=cuda)
+    fp[:, 0] = float("nan")
+    sc = fp.abs().amax(-1, keepdim=True).nan_to_num(1.0) / 127 + 1e-12
+    lv = torch.clamp(torch.round(fp.nan_to_num(0.0) / sc), -127, 127).to(torch.int8)
+    bf = fp.to(torch.bfloat16)
+    del fp
+
+    def place(t):  # t's values in a fresh allocation, ``offset`` bytes in
+        n, e = t.numel(), t.element_size()
+        flat = torch.empty(n + (offset + 256) // e, dtype=t.dtype, device=cuda)
+        out = flat[offset // e:offset // e + n].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 256 == offset % 256
+        return out
+
+    pools = {"bf16": tuple(place(bf[i]) for i in range(2)),
+             "int8": tuple(place(lv[i]) for i in range(2)) + tuple(place(sc[i]) for i in range(2))}
+    return torch.from_numpy(table).to(cuda), torch.from_numpy(pos).to(cuda), pools
+
+
+def _k3_exact(table, pos, pools, pool, window, chunk):
+    out = {"bfloat16": torch.bfloat16, "int8-bf16": torch.bfloat16, "int8-f32": torch.float32}[pool]
+    ops = pools["bf16"] if pool == "bfloat16" else pools["int8"]
+    args = (table, pos, window, *ops)
+    got = paged_gather_raw(*args, chunk=chunk, out_dtype=out)
+    want = paged_gather_plain(*args, chunk=chunk, out_dtype=out)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), (pool, window, chunk)
+
+
+@pytest.mark.parametrize("pool", ["bfloat16", "int8-bf16", "int8-f32"])
+@pytest.mark.parametrize("S,nb,ps,D,lengths", [
+    (32, 256, 16, 1024, (1024, 4096)),  # chip_smoke.py's long-context geometry
+    (8, 16, 16, 256, (17, 256)), (8, 16, 16, 1536, (17, 256)),
+    (8, 32, 8, 1024, (17, 256)), (8, 8, 32, 1024, (17, 256)),
+], ids=["long", "D256", "D1536", "ps8", "ps32"])
+def test_gather_kernel_bit_exact_at_other_geometries(cuda, pool, S, nb, ps, D, lengths):
+    table, pos, pools = _k3_pools(cuda, S, nb, ps, D, seed=S + D + ps, lengths=lengths)
+    for window, chunk in ((0, 1), (40, 16)):
+        _k3_exact(table, pos, pools, pool, window, chunk)
+
+
+@pytest.mark.parametrize("pool", ["bfloat16", "int8-bf16", "int8-f32"])
+def test_gather_kernel_bit_exact_on_offset_pools(cuda, pool):
+    """Pools (and scale pools) 16 bytes past a 256-byte boundary: the
+    kernels' 16-byte vectors need no more."""
+    table, pos, pools = _k3_pools(cuda, 8, 16, 16, 1024, seed=5, lengths=(17, 256), offset=16)
+    for window, chunk in ((0, 1), (40, 16)):
+        _k3_exact(table, pos, pools, pool, window, chunk)
+
 def test_engine_runs_through_the_kernels(cuda):
     cfg = get_config("llama3.2-3b", smoke=True)
     eng = build_engine(cfg, EngineConfig(n_slots=4, page_size=8, max_len=64, packed_head=True,
