@@ -136,6 +136,23 @@ Phases, all on the card:
    step, timed in alternating turns with ``quant=None`` on the same float
    weights, then 2 layers of it on int8 pools against the CPU within the
    stated tolerance (``INT8_W_REL_TOL``).
+13. The request lifecycle, on phase 4's weights and engine settings, each
+   engine's step one captured graph: (a) ``lifecycle_schedule``'s 20
+   requests (phase 4's 8 and 12 later arrivals; interactive and batch
+   SLOs, explicit deadlines, a cancel while waiting and one mid-decode,
+   ``max_waiting=6``) on the virtual clock must give every outcome of
+   ``LIFE_OUTCOMES`` and, per request, the status, shed reason, token
+   count, first-token and finish steps (and the run's steps) of the same
+   schedule on the CPU at the smoke size; phase 4's requests that sampled
+   must match phase 4's rows and tokens within phase 9's tolerances (the
+   bit-identical rows are counted); counters and graph as in phase 4, one
+   capture, no leaks; (b) 16 requests with one straggler in each gang of 8
+   under ``policy="static"`` and ``"continuous"``: steps equal to the
+   CPU's, static taking more; (c) (a)'s schedule on the wall clock, every
+   time scaled by phase 4's step p50: terminal statuses, shed reasons in
+   the reference's set, no ``ok`` request past its deadline plus the
+   longest step, the step-time EWMA within 0.5-2x the run's step p50;
+   prints goodput (``ok`` tokens a wall second) and TTFT.
 
 Every engine's graph and memory pool is released before the next engine
 is built, and each phase prints its peak device memory.
@@ -1471,14 +1488,22 @@ CHUNK_TIE_UNITS = 15
 ON_DEMAND_POOL_SHARE = 0.6
 
 
-def _against_c1(rows: dict, tokens: dict, c1: dict, tie_bound: float) -> dict:
+def _against_c1(rows: dict, tokens: dict, c1: dict, tie_bound: float, prefix: bool = False) -> dict:
     """Phase 9's reading of one run's sampled rows and tokens against phase
-    4's, up to and including each request's first token divergence."""
+    4's, up to and including each request's first token divergence.  By
+    default every request of phase 4 must be in ``tokens`` at its full
+    length; with ``prefix`` only the requests of ``tokens`` are read, each
+    over its own tokens (a prefix of phase 4's where it ended early)."""
     import numpy as np
 
+    if not prefix:
+        check(tokens.keys() == c1["tokens"].keys(), f"requests {sorted(tokens)}, not phase 4's")
+        check(all(len(tokens[rid]) == len(t) for rid, t in c1["tokens"].items()),
+              "a request ended short of phase 4's tokens")
     divergences, rel, clean = [], [], 0
-    for rid, theirs in c1["tokens"].items():
-        div = next((t for t in range(len(theirs)) if tokens[rid][t] != theirs[t]), None)
+    for rid, ours in tokens.items():
+        theirs = c1["tokens"][rid][:len(ours)]
+        div = next((t for t in range(len(theirs)) if ours[t] != theirs[t]), None)
         for t in range(len(theirs) if div is None else div + 1):
             a, b = rows[(rid, t)], c1["samples"][(rid, t)]
             rel.append(float(np.linalg.norm(a - b) / np.linalg.norm(b)))
@@ -2269,6 +2294,255 @@ def phase_int8_serving(torch, card, cfg, ecfg, c1: dict, chunked: dict, report: 
     return out
 
 
+# -- phase 13 ------------------------------------------------------------------
+
+# phase 13's lifecycle cell: the queue bound, and the terminal outcomes its
+# schedule must give (status, and shed reasons or where a cancel found the
+# request); times are in engine steps, the virtual clock's unit, and the
+# realtime run (c) scales them by phase 4's step p50
+LIFE_MAX_WAITING = 6
+LIFE_OUTCOMES = ("ok", "cancelled while waiting", "cancelled mid-decode", "shed: ttft or infeasible",
+                 "shed: deadline", "shed: queue-overflow")
+SHED_REASONS = ("deadline", "ttft", "infeasible", "queue-overflow", "watchdog")
+# (b): 16 requests in gangs of 8 slots, one straggler a gang
+GANG_NEW = (48,) + (8,) * 7
+
+
+def lifecycle_schedule(prompts4: list, vocab: int) -> list[dict]:
+    """Phase 13's 20 requests: phase 4's 8 prompts with 32 new tokens each
+    at step 0 (batch class), then 12 prompts of 16-64 tokens (seed 13) with
+    16 new tokens each arriving over steps 5-60, most early (interactive,
+    batch or no class in turn); one explicit deadline that falls
+    mid-decode, one that cannot be met, a cancel mid-decode and one while
+    waiting.  Each request is a dict
+    of ``submit``'s arguments (``slo`` as ``(name, ttft budget, total
+    budget)``, times in engine steps) and optionally ``cancel``:
+    ``("tokens", k)`` when the request samples its k-th token, ``("step",
+    n)`` at the first sample of any request from step n on."""
+    import numpy as np
+
+    interactive, batch = ("interactive", 30.0, 150.0), ("batch", None, 400.0)
+    reqs = [dict(prompt=p, max_new=32, arrival=0.0, slo=batch) for p in prompts4]
+    reqs[2]["cancel"] = ("tokens", 10)
+    reqs[4]["deadline"] = 40.0  # its 24-token prompt decodes from step 24
+    rng = np.random.default_rng(13)
+    lens = rng.integers(16, 65, 12)
+    arrivals = np.round(5 + 55 * np.linspace(0, 1, 12) ** 2)  # most of them early
+    for i, (n, t) in enumerate(zip(lens, arrivals)):
+        reqs.append(dict(prompt=rng.integers(0, vocab, int(n)).tolist(), max_new=16,
+                         arrival=float(t), slo=(interactive, batch, None)[i % 3]))
+    reqs[9]["cancel"] = ("step", 30)
+    reqs[10]["deadline"] = reqs[10]["arrival"] + 30.0
+    return reqs
+
+
+def gang_schedule(vocab: int) -> list[dict]:
+    """Phase 13 (b)'s 16 requests: prompts of 8-24 tokens (seed 14),
+    ``GANG_NEW`` new tokens in each gang of 8, all at step 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(14)
+    return [dict(prompt=rng.integers(0, vocab, int(rng.integers(8, 25))).tolist(), max_new=g, arrival=0.0)
+            for g in GANG_NEW * 2]
+
+
+def serve_schedule(eng, reqs: list[dict], *, unit: float = 1.0, realtime: bool = False,
+                   rows: dict | None = None, vocab: int | None = None):
+    """Submit ``reqs`` to ``eng`` with every time scaled by ``unit``, arm
+    their cancels on the engine's sample hook, and run it.  ``rows``
+    collects every sampled logits row by (request id, token index);
+    ``vocab`` folds the prompts into a smaller vocabulary (the CPU's smoke
+    model).  Returns the metrics and the requests."""
+    from repro_torch.serving import SLO
+
+    def scale(x):
+        return None if x is None else x * unit
+
+    handles = []
+    for r in reqs:
+        slo = r.get("slo")
+        if slo is not None:
+            slo = SLO(slo[0], scale(slo[1]), scale(slo[2]))
+        prompt = r["prompt"] if vocab is None else [t % vocab for t in r["prompt"]]
+        handles.append(eng.submit(prompt, r["max_new"], r["arrival"] * unit,
+                                  deadline=scale(r.get("deadline")), slo=slo))
+    cancels = [(r["cancel"], h) for r, h in zip(reqs, handles) if "cancel" in r]
+
+    def on_sample(rid, t, row):
+        if rows is not None:
+            rows[(rid, t)] = row.copy()
+        for (kind, n), h in cancels:
+            if not h.cancel_requested and (h.rid == rid and t + 1 == n if kind == "tokens"
+                                           else eng.n_steps >= n):
+                eng.cancel(h)
+
+    eng.on_sample = on_sample
+    return eng.run(realtime=realtime), handles
+
+
+def decisions(m: dict, reqs) -> dict:
+    """What the virtual clock makes a function of the schedule alone: per
+    request its status, shed reason, token count, first-token and finish
+    times; the run's steps."""
+    return dict(steps=m["steps"], requests=[(r.rid, r.status, r.shed_reason, len(r.out_tokens),
+                                             r.t_first_token, r.t_finish) for r in reqs])
+
+
+def outcomes(reqs) -> dict:
+    """How many requests of the schedule ended in each of ``LIFE_OUTCOMES``."""
+    def kind(r):
+        if r.status == "cancelled":
+            if r.t_admit is None:
+                return "cancelled while waiting"
+            return "cancelled mid-decode" if r.out_tokens else "cancelled mid-prefill"
+        if r.status == "shed":
+            return ("shed: ttft or infeasible" if r.shed_reason in ("ttft", "infeasible")
+                    else f"shed: {r.shed_reason}")
+        return r.status
+
+    out = dict.fromkeys(LIFE_OUTCOMES, 0)
+    for k in map(kind, reqs):
+        out[k] = out.get(k, 0) + 1
+    return out
+
+
+def lifecycle_cpu(torch, ecfg, prompts4: list) -> dict:
+    """Phase 13's schedules on the CPU at the smoke size (the port's plain
+    versions, phase 4's engine settings): (a)'s decisions and outcomes, and
+    (b)'s steps under each policy."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Engine, build_engine
+
+    cfg = get_config("llama3.2-3b", smoke=True)
+    packed = build_engine(cfg, ecfg, quant="packed", w_bits=4, a_bits=4, device="cpu")
+    out = {}
+    for label, reqs, e in [("a", lifecycle_schedule(prompts4, cfg.vocab),
+                            dataclasses.replace(ecfg, max_waiting=LIFE_MAX_WAITING))] + [
+            (policy, gang_schedule(cfg.vocab), dataclasses.replace(ecfg, policy=policy))
+            for policy in ("continuous", "static")]:
+        eng = Engine(cfg, packed.params, e, head=packed._head, device="cpu")
+        m, handles = serve_schedule(eng, reqs, vocab=cfg.vocab)
+        out[label] = dict(decisions=decisions(m, handles), outcomes=outcomes(handles),
+                          statuses=m["statuses"])
+    return out
+
+
+def phase_lifecycle(torch, card, cfg, ecfg, c1: dict, fused: dict, report: dict) -> dict:
+    """The request lifecycle at full width on phase 4's weights and engine
+    settings, each engine's step one captured graph: (a) the lifecycle
+    schedule on the virtual clock, its decisions against the CPU's at the
+    smoke size, its rows against phase 4's, its census, counters and
+    captures; (b) static gang admission against continuous batching, steps
+    against the CPU's; (c) (a)'s schedule on the wall clock, scaled by phase
+    4's step p50."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.serving import TERMINAL_STATUSES, Engine
+
+    t0 = time.monotonic()
+    cpu = lifecycle_cpu(torch, ecfg, c1["prompts"])
+    steps_cpu = {k: v["decisions"]["steps"] for k, v in cpu.items()}
+    print(f"  the CPU's runs at the smoke size ({time.monotonic() - t0:.1f} s): (a) {steps_cpu['a']} steps, "
+          f"outcomes {cpu['a']['outcomes']}; (b) continuous {steps_cpu['continuous']}, static "
+          f"{steps_cpu['static']} steps", flush=True)
+    per_step = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": cfg.n_layers * 7 + 1,
+                "paged_gather": cfg.n_layers}
+    head = c1["head"]
+    tie_bound = CHUNK_TIE_UNITS * head.w_scale / ((1 << head.a_bits) - 1)
+    ecfg_a = dataclasses.replace(ecfg, max_waiting=LIFE_MAX_WAITING)
+    reqs = lifecycle_schedule(c1["prompts"], cfg.vocab)
+    out: dict = {}
+
+    def serve(e, schedule, **kw):
+        """A fresh engine on phase 4's weights: warmed up (captured), the
+        counters set to 0, the schedule served, the counters read, its graph
+        checked against them, then released."""
+        eng = Engine(cfg, c1["params"], e, head=head)
+        eng.warmup()
+        torch.cuda.synchronize()
+        build.reset_counts()
+        t = time.monotonic()
+        m, handles = serve_schedule(eng, schedule, **kw)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t
+        counts = build.counts()
+        check(counts == {k: v * m["steps"] for k, v in per_step.items()},
+              f"launch counters {counts} != {per_step} x {m['steps']} steps")
+        census = check_graph(eng, per_step, "lifecycle")
+        check(eng._program.captures == 1, f"the engine captured {eng._program.captures} graphs, not 1")
+        eng.assert_no_leaks()
+        eng.close()
+        torch.cuda.empty_cache()
+        return eng, m, handles, dict(wall_s=wall, counts=counts, graph=census)
+
+    # (a) the deterministic cell
+    rows = {}
+    _, m, handles, run = serve(ecfg_a, reqs, rows=rows)
+    dec, outc = decisions(m, handles), outcomes(handles)
+    check(dec == cpu["a"]["decisions"], f"(a): decisions differ from the CPU's: {dec} against "
+          f"{cpu['a']['decisions']}")
+    check(all(outc[k] >= 1 for k in LIFE_OUTCOMES), f"(a): outcomes {outc} miss one of {LIFE_OUTCOMES}")
+    compared = {r.rid: list(r.out_tokens) for r in handles
+                if r.rid in c1["tokens"] and r.out_tokens and r.status in ("ok", "cancelled")}
+    cmp = _against_c1(rows, compared, c1, tie_bound, prefix=True)
+    identical = sum(rows[k].tobytes() == c1["samples"][k].tobytes()
+                    for rid, toks in compared.items() for k in ((rid, t) for t in range(len(toks))))
+    n_rows = sum(len(t) for t in compared.values())
+    print(f"  (a) {m['steps']} steps, statuses {m['statuses']}, outcomes {outc}; decisions (status, shed "
+          f"reason, tokens, first-token and finish steps of all 20, and the steps) equal the CPU's; launches "
+          f"{run['counts']}; graph {run['graph']}; one capture, no leaks", flush=True)
+    print(f"  (a) against phase 4: requests {sorted(compared)} ({n_rows} sampled rows): {identical} "
+          f"bit-identical, {cmp['rows_clean']} within {CROSS_CLEAN_ABS_TOL}, rel L2 max {cmp['row_rel_max']:.3g}; "
+          f"first token divergences {cmp['divergences']}", flush=True)
+    check(cmp["passes"], f"(a): sampled rows or tokens outside phase 9's tolerances of phase 4's: {cmp}")
+    out["a"] = dict(steps=m["steps"], statuses=m["statuses"], outcomes=outc, decisions=dec,
+                    rows_compared=n_rows, rows_bit_identical=identical, against_phase4=cmp,
+                    preemptions=m["preemptions"], **run)
+    del rows
+
+    # (b) static gang admission against continuous batching
+    steps = {}
+    for policy in ("continuous", "static"):
+        _, m, handles, run = serve(dataclasses.replace(ecfg, policy=policy), gang_schedule(cfg.vocab))
+        check(m["statuses"] == {"ok": 16}, f"(b) {policy}: statuses {m['statuses']}")
+        check(decisions(m, handles) == cpu[policy]["decisions"], f"(b) {policy}: decisions differ from the CPU's")
+        steps[policy] = m["steps"]
+        out[policy] = dict(steps=m["steps"], **run)
+    check(steps["static"] > steps["continuous"], f"(b): static took {steps['static']} steps, continuous "
+          f"{steps['continuous']}")
+    print(f"  (b) 16 requests, one straggler a gang of 8: continuous {steps['continuous']} steps, static "
+          f"{steps['static']} (the CPU's: {steps_cpu['continuous']}, {steps_cpu['static']})", flush=True)
+
+    # (c) (a)'s schedule on the wall clock
+    unit = fused["step_ms_p50"] / 1e3
+    eng, m, handles, run = serve(ecfg_a, reqs, unit=unit, realtime=True)
+    step_s = eng.step_seconds
+    p50, longest, ewma = float(np.median(step_s)), max(step_s), eng._step_time_ewma
+    check(all(r.status in TERMINAL_STATUSES for r in handles), "(c): a request without a terminal status")
+    check(all(r.shed_reason in SHED_REASONS for r in handles if r.status == "shed"),
+          "(c): a shed reason outside the reference's set")
+    late = [(r.rid, r.t_finish, r.deadline) for r in handles
+            if r.status == "ok" and r.deadline is not None and r.t_finish > r.deadline + longest]
+    check(not late, f"(c): ok requests finished past their deadline plus the longest step {longest}: {late}")
+    check(0.5 * p50 <= ewma <= 2 * p50, f"(c): step-time EWMA {ewma} outside 0.5-2x the step p50 {p50}")
+    goodput = m["generated_tokens_ok"] / m["wall"]
+    out["c"] = dict(unit_s=unit, steps=m["steps"], statuses=m["statuses"], outcomes=outcomes(handles),
+                    engine_wall_s=m["wall"], goodput_tok_s=goodput, tokens_per_s=m["tokens_per_s"],
+                    ttft_ms_p50=1e3 * m["ttft_p50"], ttft_ms_p99=1e3 * m["ttft_p99"],
+                    latency_ms_p50=1e3 * m["latency_p50"], step_ms_p50=1e3 * p50, step_ms_max=1e3 * longest,
+                    ewma_ms=1e3 * ewma, decisions=decisions(m, handles), **run)
+    c = out["c"]
+    print(f"  (c) realtime, one step = {1e3 * unit:.2f} ms on {card.name} ({card.power_limit}): {m['steps']} "
+          f"steps in {m['wall']:.2f} s, statuses {m['statuses']}, outcomes {c['outcomes']}; goodput "
+          f"{goodput:.1f} ok tok/s ({m['tokens_per_s']:.1f} tok/s in all), TTFT p50 {c['ttft_ms_p50']:.1f} ms, "
+          f"p99 {c['ttft_ms_p99']:.1f} ms; step p50 {c['step_ms_p50']:.2f} ms, max {c['step_ms_max']:.2f}, "
+          f"EWMA {c['ewma_ms']:.2f} ms; decisions equal (a)'s: {c['decisions'] == dec}", flush=True)
+    out["cpu"] = cpu
+    report["lifecycle"] = out
+    return out
+
+
 # -- main ------------------------------------------------------------------------
 
 
@@ -2399,8 +2673,13 @@ def main(argv=None) -> int:
           "beside its bf16 pools, phase 9's on-demand cell on int8 pools, card vs CPU on int8 pools, "
           "quant=\"int8\" beside quant=None", flush=True)
     i8s = phase_int8_serving(torch, card, cfg, ecfg, c1, ch, report)
-    del c1
     peak("12")
+    print("phase 13: the request lifecycle at full width on phase 4's weights: deadlines, SLO classes, "
+          "cancels and a bounded queue on the virtual clock against the CPU, static against continuous "
+          "admission, the same schedule on the wall clock", flush=True)
+    lc = phase_lifecycle(torch, card, cfg, ecfg, c1, en["fused"], report)
+    del c1
+    peak("13")
 
     # per-decode-step totals per kernel: the sum over the launches of one step
     def step_sum(rows, key):
@@ -2469,7 +2748,8 @@ def main(argv=None) -> int:
              chunk_step_gbps=by_gbps(chunk_step, "k1_graph_ms"),
              chunk_step=f"chunked step: the layers at M = {ecfg.n_slots * CHUNK}, the head at M = {ecfg.n_slots}",
              launches_chunked=chunked_launches["packed_dense_fused"],
-             steps_chunked={admit: r["steps"] for admit, r in ch.items()}),
+             steps_chunked={admit: r["steps"] for admit, r in ch.items()},
+             launches_lifecycle=lc["a"]["counts"]["packed_dense_fused"], steps_lifecycle=lc["a"]["steps"]),
         dict(name="packed_matmul", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
              replaces="src/repro/kernels/packed_matmul/kernel.py:168",
              launches=blocked["counts"]["packed_matmul"], max_abs_err=mm["max_err"],
@@ -2495,6 +2775,7 @@ def main(argv=None) -> int:
              chunk_step_library_ms=step_sum(gather_chunk, "library_graph_ms"),
              chunk_step=f"chunked step: chunk = {CHUNK}",
              launches_chunked=chunked_launches["paged_gather"],
+             launches_lifecycle=lc["a"]["counts"]["paged_gather"], steps_lifecycle=lc["a"]["steps"],
              instantiations={"gather_fp": "bf16 pools: phases 4, 9, 10, 11, 12 (a) bf16 turns, 12 (d)",
                              "gather_i8<true>": "int8 pools, bf16 views: phase 12 (a), (b)",
                              "gather_i8<false>": "int8 pools, float32 views: phase 12 (c)"},

@@ -1,6 +1,6 @@
 """Continuous-batching serving (``repro.serving``), one replica."""
 from repro_torch.serving.engine import Engine, EngineConfig
-from repro_torch.serving.lifecycle import TERMINAL_STATUSES, Request
+from repro_torch.serving.lifecycle import SLO, TERMINAL_STATUSES, Request
 from repro_torch.serving.paged_kv import BlockTable, PageAllocator
 from repro_torch.serving.scheduler import Scheduler
 
@@ -13,6 +13,7 @@ __all__ = [
     "EngineConfig",
     "PageAllocator",
     "Request",
+    "SLO",
     "Scheduler",
     "TERMINAL_STATUSES",
     "build_engine",

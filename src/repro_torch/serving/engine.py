@@ -27,9 +27,23 @@ With ``cfg.kv_dtype == "int8"`` the pools hold int8 levels and float32
 per-row scale pools; the step writes both in place (captured in the graph
 like every other write), and a replayed request rewrites both.
 
-Not ported yet, and refused where asked for: deadlines and cancellation,
-fault injection, snapshots, observability and mesh parallelism (see
-ROADMAP.md, port queue).
+**Request lifecycle** (the reference's).  Every request ends in exactly
+one terminal status, ``ok``, ``cancelled`` or ``shed`` (see
+:mod:`repro_torch.serving.lifecycle`).  Between steps, on the host, the
+engine polices cooperative cancellation (:meth:`Engine.cancel`), TTFT and
+total deadlines (shedding requests that expired or provably cannot meet
+their deadline) and a bounded waiting queue (``max_waiting``) that sheds
+the request with the least deadline slack.  A stall watchdog sheds the
+head of the waiting queue after ``WATCHDOG_TICKS`` idle loop iterations,
+so ``run()`` never raises on a stall.  ``policy="static"`` admits only
+when every slot is free (gang admission, the fixed-batch baseline).  A
+cancelled or shed request's slot and pages are freed between two steps:
+the next step stages the cleared block-table row, so the slot's lanes
+land on null page 0; the graph is never captured again.
+
+Not ported yet, and refused where asked for: fault injection, retries and
+quarantine (non-finite logits raise), snapshots, tracing and live
+metrics, and mesh parallelism (see ROADMAP.md, port queue).
 """
 from __future__ import annotations
 
@@ -46,9 +60,15 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_gather.ops import check_gather_backend
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import prepack_lm_head
-from repro_torch.serving.lifecycle import Request
+from repro_torch.serving.lifecycle import SLO, TERMINAL_STATUSES, Request
 from repro_torch.serving.paged_kv import BlockTable, PageAllocator
 from repro_torch.serving.scheduler import Scheduler
+
+
+# idle run()-loop iterations with waiting but unplaceable work before the
+# stall watchdog sheds the head of the waiting queue (the reference's
+# default ``watchdog_ticks``)
+WATCHDOG_TICKS = 64
 
 
 def percentile(xs, q: float) -> float | None:
@@ -63,10 +83,14 @@ class EngineConfig:
     page_size: int = 16
     max_len: int = 128  # per-sequence cap: prompt + generated tokens
     n_pages: int = 0  # page-pool budget; 0 => every slot can hold max_len
+    policy: str = "continuous"  # or "static" (gang admission baseline)
     chunk_tokens: int = 1
     admit: str = "reserve"
     packed_head: bool = False
     head_bits: tuple[int, int] = (8, 8)
+    # waiting-queue bound; 0 = unbounded.  Overflow sheds the request with
+    # the least deadline slack.
+    max_waiting: int = 0
     gather_backend: str = "xla"  # "xla": pool[block_table]; "kernel": CUDA gather
 
     @property
@@ -122,6 +146,7 @@ class StepProgram:
         self.stream = torch.cuda.Stream(device) if cuda else None
         self.graph: torch.cuda.CUDAGraph | None = None
         self.launches: dict[str, int] = {}  # kernel launches of one replay
+        self.captures = 0  # graphs captured by this program
         self._ready = False
 
     @contextlib.contextmanager
@@ -158,6 +183,7 @@ class StepProgram:
                 self.launches = {k: v - before[k] for k, v in build.counts().items() if v != before[k]}
                 graph.instantiate()
                 self.graph = graph
+                self.captures += 1
         if self.stream is not None:
             self.stream.synchronize()
         self._ready = True
@@ -210,7 +236,7 @@ class Engine:
         self.allocator = PageAllocator(ecfg.pool_pages())
         self.block_table = BlockTable(ecfg.n_slots, ecfg.blocks_per_slot)
         self.scheduler = Scheduler(ecfg.n_slots, self.allocator, self.block_table, ecfg.page_size,
-                                   admit=ecfg.admit)
+                                   policy=ecfg.policy, admit=ecfg.admit)
         if head is None and ecfg.packed_head:
             head = prepack_lm_head(params["embed"], w_bits=ecfg.head_bits[0],
                                    a_bits=ecfg.head_bits[1], device=self.device)
@@ -220,19 +246,22 @@ class Engine:
         self.state = T.init_paged_state(cfg, ecfg.n_slots, ecfg.pool_pages(), ecfg.page_size,
                                         dtype=cfg.dtype, device=self.device)
         self._program = self._build_step(self.device.type == "cuda" if capture is None else capture)
-        self._pending: list[Request] = []
+        self._pending: list[Request] = []  # sorted by arrival
         self._next_rid = 0
         self.n_steps = 0
+        self.ticks = 0  # run()-loop iterations
         self.slot_token_steps = 0
         self.fed_tokens = 0  # valid token lanes summed over steps
-        self.finished: list[Request] = []
+        self.finished: list[Request] = []  # in the order they became terminal
         self.step_seconds: list[float] = []
+        self._step_time_ewma: float | None = None  # realtime deadline estimator
         # called as on_sample(rid, t, row) with every logits row sampled for
         # request rid's token t; row is a view into the step's host logits
         self.on_sample = None
         self._realtime = True
         self._vclock = 0.0
-        self._wall = 0.0
+        self._t_wall0: float | None = None  # run() start (monotonic)
+        self._t_run_end: float | None = None  # elapsed, frozen when run() returns
 
     def _build_step(self, capture: bool) -> StepProgram:
         """The step program: :func:`forward_decode_paged` over static
@@ -256,14 +285,19 @@ class Engine:
         """Prepare the step program (:meth:`StepProgram.prepare`: one eager
         step with every slot inactive, then the capture on the card), so
         kernel builds, first-call costs and the capture stay out of the
-        timed run.  ``run`` prepares it at first use otherwise."""
+        timed run.  ``run`` prepares it before its clock starts otherwise."""
         self._program.prepare()
 
     def close(self) -> None:
         """Release the step's CUDA graph and its memory pool."""
         self._program.close()
 
-    def submit(self, prompt, max_new_tokens: int, arrival: float = 0.0) -> Request:
+    def submit(self, prompt, max_new_tokens: int, arrival: float = 0.0, *,
+               deadline: float | None = None, ttft_deadline: float | None = None,
+               slo: SLO | None = None) -> Request:
+        """Queue a request.  ``deadline``/``ttft_deadline`` are absolute
+        engine-clock times; an :class:`SLO` instead carries relative
+        budgets resolved against ``arrival`` (explicit deadlines win)."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -273,11 +307,100 @@ class Engine:
             raise ValueError(
                 f"prompt({len(prompt)}) + max_new({max_new_tokens}) exceeds max_len {self.ecfg.max_len}"
             )
-        req = Request(self._next_rid, prompt, max_new_tokens, arrival=arrival)
+        slo_name = None
+        if slo is not None:
+            slo_ttft, slo_total = slo.resolve(arrival)
+            ttft_deadline = ttft_deadline if ttft_deadline is not None else slo_ttft
+            deadline = deadline if deadline is not None else slo_total
+            slo_name = slo.name
+        req = Request(self._next_rid, prompt, max_new_tokens, arrival=arrival, deadline=deadline,
+                      ttft_deadline=ttft_deadline, slo=slo_name)
         self._next_rid += 1
         self._pending.append(req)
         self._pending.sort(key=lambda r: r.arrival)
         return req
+
+    def cancel(self, req: Request) -> bool:
+        """Request cooperative cancellation.  Returns False if the request
+        already carries a terminal status; otherwise it is finalized
+        ``cancelled`` (slot and pages reclaimed, partial output kept) at the
+        next between-steps policing pass."""
+        if req.status is not None:
+            return False
+        req.cancel()
+        return True
+
+    # -- lifecycle policing: host bookkeeping only, no device work ------------
+
+    def _finalize(self, req: Request, status: str, now: float, reason: str | None = None) -> None:
+        """Move a request to its terminal status exactly once, reclaiming
+        its slot and pages if it is resident."""
+        assert req.status is None, f"rid {req.rid} already terminal ({req.status})"
+        assert status in TERMINAL_STATUSES, status
+        if req.slot != -1:
+            self.scheduler.finish(req, now)
+        else:
+            req.t_finish = now
+        req.status = status
+        if reason is not None:
+            req.shed_reason = reason
+        self.finished.append(req)
+
+    def _est_service_time(self, req: Request) -> float | None:
+        """Optimistic remaining service time on the engine clock, or None
+        before the first realtime step (no step-time estimate yet)."""
+        per_step = 1.0 if not self._realtime else self._step_time_ewma
+        if per_step is None:
+            return None
+        return req.min_steps_left(self.ecfg.chunk_tokens) * per_step
+
+    def _expired_reason(self, req: Request, now: float) -> str | None:
+        if req.deadline is not None and now >= req.deadline and not req.done:
+            return "deadline"
+        if req.ttft_deadline is not None and req.t_first_token is None and now >= req.ttft_deadline:
+            return "ttft"
+        return None
+
+    def _slack(self, req: Request, now: float) -> float:
+        """Deadline slack under the optimistic service estimate; +inf for a
+        request without a deadline."""
+        if req.deadline is None:
+            return float("inf")
+        est = self._est_service_time(req)
+        return req.deadline - now - (est if est is not None else 0.0)
+
+    def _police(self, now: float) -> None:
+        """Between-steps lifecycle pass: cooperative cancellation, deadline
+        expiry and infeasibility shedding, and bounded-queue backpressure."""
+        for req in [r for r in self._pending if r.cancel_requested]:
+            self._pending.remove(req)
+            self._finalize(req, "cancelled", now)
+        sched = self.scheduler
+        for req in [r for r in sched.waiting if r.cancel_requested]:
+            sched.remove_waiting(req)
+            self._finalize(req, "cancelled", now)
+        for req in [r for r in sched.active.values() if r.cancel_requested]:
+            self._finalize(req, "cancelled", now)
+        # active requests past a deadline are dropped mid-decode: their
+        # pages fund work that can still meet its deadline
+        for req in list(sched.active.values()):
+            reason = self._expired_reason(req, now)
+            if reason is not None:
+                self._finalize(req, "shed", now, reason=reason)
+        for req in list(sched.waiting):
+            reason = self._expired_reason(req, now)
+            if reason is None and req.deadline is not None:
+                est = self._est_service_time(req)
+                if est is not None and now + est > req.deadline:
+                    reason = "infeasible"
+            if reason is not None:
+                sched.remove_waiting(req)
+                self._finalize(req, "shed", now, reason=reason)
+        if self.ecfg.max_waiting:
+            while len(sched.waiting) > self.ecfg.max_waiting:
+                victim = min(sched.waiting, key=lambda r: (self._slack(r, now), -r.arrival, -r.rid))
+                sched.remove_waiting(victim)
+                self._finalize(victim, "shed", now, reason="queue-overflow")
 
     def _fund_pages(self) -> None:
         """On-demand admission: before the step, grow every active slot's
@@ -333,44 +456,77 @@ class Engine:
                 req.t_first_token = t
             req.out_tokens.append(int(np.argmax(row)))
             if req.done:
-                self.scheduler.finish(req, t)
-                req.status = "ok"
-                self.finished.append(req)
+                self._finalize(req, "ok", t)
         return True
 
-    def run(self, *, realtime: bool = True) -> dict:
-        """Drive the engine until every submitted request is done.
+    def run(self, *, realtime: bool = True, max_steps: int | None = None) -> dict:
+        """Drive the engine until every submitted request reaches a terminal
+        status, or until ``max_steps`` steps in all (a later call resumes).
 
-        ``realtime=False`` uses a deterministic virtual clock (1.0 per step)."""
+        ``realtime=False`` uses a deterministic virtual clock (1.0 per step;
+        idle ticks also advance it, idle gaps jump to the next arrival).
+        Each loop iteration polices, then admits, then steps.  The step
+        program is prepared (on the card: captured) before the clock
+        starts, so neither the capture nor first-call costs enter the
+        step-time estimate that realtime deadlines use."""
         self._realtime = realtime
-        t_wall0 = time.monotonic()
+        self._program.prepare()
+        t_wall0 = self._t_wall0 = time.monotonic()
+        self._t_run_end = None
+        sched = self.scheduler
+        idle = 0
 
         def now() -> float:
             return (time.monotonic() - t_wall0) if realtime else self._vclock
 
-        while self._pending or not self.scheduler.all_done():
+        while self._pending or not sched.all_done():
+            if max_steps is not None and self.n_steps >= max_steps:
+                break
+            self.ticks += 1
+            self._police(now())
             while self._pending and self._pending[0].arrival <= now():
-                self.scheduler.submit(self._pending.pop(0))
-            self.scheduler.admit(now())
-            if not self.scheduler.active:
-                if not self._pending:
-                    # submit() bounds every request by the pool and nothing
-                    # holds a page while no slot is active, so admission
-                    # always places the head of a non-empty waiting queue
-                    raise RuntimeError("waiting requests cannot be admitted")
+                sched.submit(self._pending.pop(0))
+            sched.admit(now())
+            if not sched.active:
+                if self._pending:
+                    # nothing running: wait for (or jump to) the next arrival
+                    nxt = self._pending[0].arrival
+                    if realtime:
+                        time.sleep(min(max(nxt - now(), 0.0), 0.01))
+                    else:
+                        self._vclock = max(self._vclock, nxt)
+                    idle = 0
+                    continue
+                if sched.all_done():
+                    continue  # the loop condition exits
+                # waiting work but nothing placeable: after WATCHDOG_TICKS
+                # idle ticks the watchdog sheds the head, so run() neither
+                # raises nor spins forever
+                idle += 1
                 if realtime:
-                    time.sleep(min(max(self._pending[0].arrival - now(), 0.0), 0.01))
+                    time.sleep(0.001)
                 else:
-                    self._vclock = max(self._vclock, self._pending[0].arrival)
+                    self._vclock += 1.0
+                if idle > WATCHDOG_TICKS:
+                    victim = sched.waiting[0]
+                    sched.remove_waiting(victim)
+                    self._finalize(victim, "shed", now(), reason="watchdog")
+                    idle = 0
                 continue
+            idle = 0
             t0 = time.monotonic()
             stepped = self._step_once(now)
-            if not realtime:
+            if realtime:
+                dt = time.monotonic() - t0
+                if stepped:
+                    self.step_seconds.append(dt)
+                ewma = self._step_time_ewma
+                self._step_time_ewma = dt if ewma is None else 0.8 * ewma + 0.2 * dt
+            else:
                 self._vclock += 1.0
-            elif stepped:
-                self.step_seconds.append(time.monotonic() - t0)
-        self.assert_no_leaks()
-        self._wall = time.monotonic() - t_wall0
+        if not self._pending and sched.all_done():
+            self.assert_no_leaks()
+        self._t_run_end = time.monotonic() - t_wall0
         return self.metrics()
 
     def assert_no_leaks(self) -> None:
@@ -379,18 +535,36 @@ class Engine:
         self.allocator.assert_no_leaks()
         self.scheduler.assert_all_reclaimed()
 
+    def _elapsed(self) -> float:
+        """Engine-clock time since run() started: the virtual clock, or wall
+        time (frozen once the run returns).  0.0 before any run."""
+        if not self._realtime:
+            return self._vclock
+        if self._t_run_end is not None:
+            return self._t_run_end
+        if self._t_wall0 is None:
+            return 0.0
+        return time.monotonic() - self._t_wall0
+
     def metrics(self) -> dict:
-        wall = self._wall if self._realtime else self._vclock
+        """End-of-run (or so-far) summary on the engine's own clock.
+        Latency counts ``ok`` requests, TTFT every request with a first
+        token; an empty percentile is None, never NaN."""
+        wall = self._elapsed()
         done = self.finished
-        lat = [r.t_finish - r.arrival for r in done]
-        ttft = [r.t_first_token - r.arrival for r in done]
+        ok = [r for r in done if r.status == "ok"]
+        lat = [r.t_finish - r.arrival for r in ok if r.t_finish is not None]
+        ttft = [r.t_first_token - r.arrival for r in done if r.t_first_token is not None]
         gen = sum(len(r.out_tokens) for r in done)
         return {
+            "engine": self.ecfg.policy,
             "admit": self.ecfg.admit,
             "chunk_tokens": self.ecfg.chunk_tokens,
             "n_requests": len(done),
+            "n_ok": len(ok),
             "statuses": dict(Counter(r.status for r in done)),
             "generated_tokens": gen,
+            "generated_tokens_ok": sum(len(r.out_tokens) for r in ok),
             "prompt_tokens": sum(len(r.prompt) for r in done),
             "fed_tokens": self.fed_tokens,
             "preemptions": self.scheduler.n_preemptions,
@@ -399,7 +573,9 @@ class Engine:
             "tokens_per_s": gen / wall if wall > 0 else None,
             "step_s_p50": percentile(self.step_seconds, 50),
             "latency_p50": percentile(lat, 50),
+            "latency_p99": percentile(lat, 99),
             "ttft_p50": percentile(ttft, 50),
+            "ttft_p99": percentile(ttft, 99),
             "slot_occupancy": (self.slot_token_steps / (self.n_steps * self.ecfg.n_slots)
                                if self.n_steps else 0.0),
         }

@@ -303,6 +303,10 @@ def test_engine_config_checks(shared):
         _port_engine(shared, chunk_tokens=0)
     with pytest.raises(ValueError):
         _port_engine(shared, admit="lazy")
+    with pytest.raises(ValueError, match="unknown scheduling policy"):
+        _port_engine(shared, policy="gang")
+    with pytest.raises(ValueError, match="static gang admission requires"):
+        _port_engine(shared, policy="static", admit="on-demand")
     # int8 KV pools build: int8 levels beside float32 per-row scales
     cfg = get_config("llama3.2-3b", smoke=True)
     eng = build_engine(dataclasses.replace(cfg, kv_dtype="int8"), EngineConfig(chunk_tokens=C),

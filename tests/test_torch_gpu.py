@@ -918,3 +918,61 @@ def test_captured_int8_weight_engine_equals_the_eager_engine(cuda, kv_dtype):
     assert {k: v for k, v in census["kernels"].items() if k != "other"} == {"paged_gather": cfg.n_layers}
     family = "gather_i8" if kv_dtype == "int8" else "gather_fp"
     assert census["families"] == {family: cfg.n_layers}
+
+
+# -- the request lifecycle -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_captured_lifecycle_engine_equals_the_eager_engine(cuda, kv_dtype):
+    """Two slots in a pool of 10 usable pages: request 0 is cancelled at its
+    3rd token, request 1 is shed on its deadline mid-decode, and requests 2
+    and 3, waiting meanwhile, are admitted into pages the two freed.  The
+    captured engine (one capture across the cancel and the shed) against
+    capture=False on the same schedule: every step's logits bit-identical,
+    the same statuses, tokens and launch counters, which are the graph's
+    per-step launches times the steps."""
+    from repro_torch.serving import Engine
+
+    cfg, packed, head = _packed_smoke(cuda)
+    cfg = dataclasses.replace(cfg, kv_dtype=kv_dtype)
+    ecfg = EngineConfig(n_slots=2, page_size=4, max_len=32, n_pages=11, packed_head=True,
+                        head_bits=(4, 4), gather_backend="kernel")
+    g = np.random.default_rng(11)
+    prompts = [g.integers(1, cfg.vocab, n).tolist() for n in (9, 6, 7, 5)]
+    runs = []
+    for capture in (False, True):
+        eng = Engine(cfg, packed, ecfg, head=head, device=cuda, capture=capture)
+        logits = _step_logits(eng)
+        reqs = [eng.submit(prompts[0], 8), eng.submit(prompts[1], 12, deadline=12.0),
+                eng.submit(prompts[2], 6, arrival=2.0), eng.submit(prompts[3], 6, arrival=3.0)]
+        pages: dict = {}
+
+        def on_sample(rid, t, row, eng=eng, reqs=reqs, pages=pages):
+            pages.setdefault(rid, set()).update(reqs[rid].pages)
+            if rid == 0 and t == 2:
+                eng.cancel(reqs[0])
+
+        eng.on_sample = on_sample
+        build.reset_counts()
+        m = eng.run(realtime=False)
+        assert [(r.status, r.shed_reason) for r in reqs] == [
+            ("cancelled", None), ("shed", "deadline"), ("ok", None), ("ok", None)]
+        assert len(reqs[0].out_tokens) == 3 and reqs[1].out_tokens
+        for late in reqs[2:]:
+            assert late.t_admit >= min(reqs[0].t_finish, reqs[1].t_finish)
+        assert pages[2] & (pages[0] | pages[1]) and pages[3] & (pages[0] | pages[1])
+        eng.assert_no_leaks()
+        counts = build.counts()
+        if capture:
+            prog = eng._program
+            assert prog.captures == 1
+            assert counts == {k: prog.launches.get(k, 0) * m["steps"] for k in build.COUNTS}
+        runs.append((m, counts, logits, {r.rid: r.out_tokens for r in reqs}))
+        eng.close()
+    (m_e, counts_e, logits_e, toks_e), (m_c, counts_c, logits_c, toks_c) = runs
+    assert m_c["steps"] == m_e["steps"] and m_c["statuses"] == m_e["statuses"]
+    assert toks_c == toks_e and counts_c == counts_e
+    assert len(logits_c) == len(logits_e) == m_c["steps"]
+    for t, (a, b) in enumerate(zip(logits_c, logits_e)):
+        assert a.tobytes() == b.tobytes(), t
