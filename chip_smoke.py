@@ -153,6 +153,29 @@ Phases, all on the card:
    the reference's set, no ``ok`` request past its deadline plus the
    longest step, the step-time EWMA within 0.5-2x the run's step p50;
    prints goodput (``ok`` tokens a wall second) and TTFT.
+14. gemma3-1b at full width (26 layers, 21 of them with a 1024-token
+   sliding window, one KV head of width 256, geglu, vocab 262144), bf16,
+   random weights from seed 0, nothing cut, served past its window: w4a4
+   projections, the packed (4, 4) head and the kernel gather, 8 slots,
+   page 16, ``max_len`` 2048 (128 blocks a slot), ``chunk_tokens=16``,
+   reserve admission, 8 requests of 1135-1444 prompt and 32 new tokens.
+   First K1 at the engine's per-step shapes (the layers at 128 rows, the
+   head at 8) against its plain version, timed by graph beside its bound
+   and ``torch._int_mm``.  (a) The serve, one capture: every request
+   ``ok``, no leaks, counters and graph nodes 26 x 7 + 1 K1 and 26 K3 a
+   step, no memset; step p50, one replay's device time, tok/s, TTFT; an
+   untimed repeat records every sampled row and each step's batch, and
+   traces 10 decode steps.  (b) The same on int8 KV pools, its rows and
+   tokens read against (a)'s (not a gate).  (c) K3 on (a)'s and (b)'s
+   layer-0 pools and block tables against its plain version, bit-exact
+   (window 1024 and 0, chunk 1 and 16), timed beside its bytes bound and
+   ``pool[table]``; at every step of (a), the live keys K3's window mask
+   drops for each decoding slot must be ``pos + 1 - 1024`` > 0.  (d)
+   Phase 5's card-vs-CPU check at 2 layers (both windowed, float MLP
+   projections, packed attention projections and head) from position
+   1500, and a planted fault it must reject: the CPU side run with
+   ``window_pattern=(0,)``; beside it, not a gate, the w_down input levels
+   that differ between the card and the CPU when the MLP is packed.
 
 Every engine's graph and memory pool is released before the next engine
 is built, and each phase prints its peak device memory.
@@ -323,10 +346,13 @@ class Card:
 
 
 def decode_matmul_shapes(cfg) -> dict[str, tuple[int, int, int]]:
-    """name -> (K, N, launches per decode step) for every packed matmul."""
+    """name -> (K, N, launches per decode step) for every packed matmul
+    (wq and wo apart where ``n_heads x hd`` is not ``d_model``)."""
     d, hd, L = cfg.d_model, cfg.hd, cfg.n_layers
+    qo = cfg.n_heads * hd
+    attn = ({"wq|wo": (d, qo, 2 * L)} if qo == d else {"wq": (d, qo, L), "wo": (qo, d, L)})
     return {
-        "wq|wo": (d, cfg.n_heads * hd, 2 * L),
+        **attn,
         "wk|wv": (d, cfg.kv_heads * hd, 2 * L),
         "w_up|w_gate": (d, cfg.d_ff, 2 * L),
         "w_down": (cfg.d_ff, d, L),
@@ -466,12 +492,15 @@ def phase_matmul(torch, card, timer, cfg, M: int, report: dict) -> dict:
     return {"max_err": max_err, "rows": rows}
 
 
-def phase_matmul_chunk(torch, card, timer, cfg, M: int, report: dict) -> dict:
+def phase_matmul_chunk(torch, card, timer, cfg, M: int, report: dict, *, key: str = "matmul_chunk",
+                       head_m: int = 0) -> dict:
     """K1 at a chunked step's row count (slots x chunk width) at every
     full-width layer shape, the served w4a4 placement: bit-exact against
     its plain version, timed by graph beside its bound and ``_int_mm``.
     The head stays at M = slots (the step takes each slot's last lane
-    before it), so it is not repeated here."""
+    before it): it is left out, or with ``head_m`` taken at that M, so
+    that the rows make up a whole chunked step.  The rows go to
+    ``report[key]``."""
     from repro_torch.kernels.packed_matmul import ref as pm
     from repro_torch.kernels.packed_matmul.kernel import (
         BM, BN, grid_plan, packed_dense_fused_plain, packed_dense_fused_raw,
@@ -484,9 +513,10 @@ def phase_matmul_chunk(torch, card, timer, cfg, M: int, report: dict) -> dict:
     kw = dict(a_bits=4, n_seg=c.n_seg, stride=c.stride, acc_chunk=c.acc_chunk, overlap=c.overlap)
     rows, max_err = [], 0.0
     for name, (K, N, per_step) in decode_matmul_shapes(cfg).items():
-        if name == "head":
+        if name == "head" and not head_m:
             continue
-        x = torch.rand((M, K), generator=g, device="cuda") * 1.2 - 0.1
+        m = head_m if name == "head" else M
+        x = torch.rand((m, K), generator=g, device="cuda") * 1.2 - 0.1
         w_lvl = torch.randint(0, 16, (K, N), generator=g, device="cuda", dtype=torch.int32)
         wp = pm.pack_weights(w_lvl, c.n_seg, c.stride)
         w8 = w_lvl.to(torch.int8)
@@ -496,17 +526,17 @@ def phase_matmul_chunk(torch, card, timer, cfg, M: int, report: dict) -> dict:
         torch.cuda.synchronize()
         err = max((acc - p_acc).abs().max().item(), (a_sum - p_sum).abs().max().item())
         check(torch.equal(acc, p_acc) and torch.equal(a_sum, p_sum),
-              f"K1 differs from its plain version at {name} M={M}: max {err}")
+              f"K1 differs from its plain version at {name} M={m}: max {err}")
         max_err = max(max_err, err)
         Np = wp.shape[1]
-        splits, k_per_split = grid_plan(M, K, Np, card.sms)
-        nbytes = M * K * 4 + K * Np * 4 + M * N * 4 + M * 4
-        b_ms, b_by, t_b, t_o = k1_bound(card, M, K, N, nbytes)
+        splits, k_per_split = grid_plan(m, K, Np, card.sms)
+        nbytes = m * K * 4 + K * Np * 4 + m * N * 4 + m * 4
+        b_ms, b_by, t_b, t_o = k1_bound(card, m, K, N, nbytes)
         a8 = torch.round(torch.clamp(x, 0, 1) * 15).to(torch.int8)
         int_mm, int_mm_m = _int_mm(torch, a8, w8)
         wps, w8s = cold_copies(wp), cold_copies(w8)
-        row = dict(shape=name, K=K, N=N, M=M, per_step=per_step, splits=splits,
-                   k_per_split=k_per_split, blocks=-(-M // BM) * -(-Np // BN) * splits,
+        row = dict(shape=name, K=K, N=N, M=m, per_step=per_step, splits=splits,
+                   k_per_split=k_per_split, blocks=-(-m // BM) * -(-Np // BN) * splits,
                    k1_graph_ms=timer.graph(lambda i: packed_dense_fused_raw(x, wps[i % len(wps)], **kw)),
                    k1_ms=timer(lambda: packed_dense_fused_raw(x, wp, **kw), reps=20),
                    plain_ms=timer(lambda: packed_dense_fused_plain(x, wp, **kw), reps=1, warmup=0),
@@ -514,12 +544,12 @@ def phase_matmul_chunk(torch, card, timer, cfg, M: int, report: dict) -> dict:
                    bound_ms=b_ms, bound_by=b_by, t_bytes=t_b, t_ops=t_o, bytes=nbytes)
         row["k1_gbps"] = nbytes / row["k1_graph_ms"] / 1e6
         rows.append(row)
-        print(f"  {name:12s} K={K:5d} N={N:6d} M={M}: {row['blocks']} blocks ({splits} K splits): "
+        print(f"  {name:12s} K={K:5d} N={N:6d} M={m}: {row['blocks']} blocks ({splits} K splits): "
               f"K1 {row['k1_graph_ms']:.4f} ms by graph ({row['k1_gbps']:.0f} GB/s; events "
               f"{row['k1_ms']:.4f}), plain {row['plain_ms']:.3f} ms, _int_mm (M={int_mm_m}) "
               f"{row['int_mm_graph_ms']:.4f}, bound {b_ms:.4f} ms ({b_by}); bit-exact", flush=True)
         del x, wp, w8, acc, p_acc, a8, wps, w8s, int_mm
-    report["matmul_chunk"] = rows
+    report[key] = rows
     return {"max_err": max_err, "rows": rows}
 
 
@@ -851,6 +881,13 @@ def profile_engine(torch, eng, cfg, label: str) -> dict:
         wall = time.monotonic() - t0
     eng.close()
     torch.cuda.empty_cache()
+    return trace_summary(prof, wall, m["steps"], label)
+
+
+def trace_summary(prof, wall: float, steps: int, label: str) -> dict:
+    """A profiler run of ``steps`` engine steps in ``wall`` seconds: device
+    busy share and kernel time by name and by group, in all and per step;
+    the table goes to ``OUT_DIR``."""
     # device-side events only (kernels, copies, memsets): the CPU-side op rows
     # carry the device time of the kernels they launched a second time
     rows = [{"name": ev.key, "device_ms": ev.self_device_time_total / 1e3, "count": ev.count}
@@ -862,7 +899,6 @@ def profile_engine(torch, eng, cfg, label: str) -> dict:
               "memcpy": "Memcpy", "memset": "Memset"}
     by_group = {g: sum(r["device_ms"] for r in rows if key in r["name"]) for g, key in groups.items()}
     by_group["other kernels (PyTorch)"] = busy - sum(by_group.values())
-    steps = m["steps"]
     tag = label.replace(" ", "_").replace(",", "").replace("=", "")
     (OUT_DIR / f"profile_{tag}.txt").write_text(
         prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
@@ -880,20 +916,32 @@ def profile_engine(torch, eng, cfg, label: str) -> dict:
 # -- phase 5 -------------------------------------------------------------------
 
 
+# phase 5's cross-check geometry: 8 slots of 4 pages each; its chunked
+# step: an inactive slot, two decoding slots, three partial chunks and two
+# full ones
+CROSS_SLOTS, CROSS_BLOCKS = 8, 4
+CROSS_CHUNK_LENS = (0, 1, 5, 16, 16, 1, 9, 0)
+
+
 def _cross_steps(torch, cfg2, packed, head, steps: int, seed: int, gather: str, chunk_lens=None,
-                 states: dict | None = None):
+                 states: dict | None = None, *, pos0: int = 0, blocks: int = CROSS_BLOCKS,
+                 cpu_cfg=None, per_layer: int = 7):
     """Run ``steps`` decode steps of the same packed weights on the card and
-    on the CPU (8 slots, random tokens from ``seed``), then, given
-    ``chunk_lens``, one chunked step of ``CHUNK`` lanes in which slot ``i``
-    feeds ``chunk_lens[i]`` of them.  Yields per step the card's and the
-    CPU's logits (on the CPU); per slot, whether any activation level
+    on the CPU (8 slots of ``blocks`` pages, random tokens from ``seed``),
+    then, given ``chunk_lens``, one chunked step of ``CHUNK`` lanes in which
+    slot ``i`` feeds ``chunk_lens[i]`` of them.  The first step is at
+    position ``pos0``; the float pools' rows before it hold the same random
+    values on both sides (seeded).  ``cpu_cfg`` replaces ``cfg2`` on the
+    CPU side (a planted fault); ``per_layer`` packed matmuls run a layer.
+    Yields per step the card's and the CPU's logits (on the CPU); per
+    slot, whether any activation level
     quantized by a packed matmul for a row it reads (a lane it feeds, or
     lane 0 of a slot that feeds none) differed between the two at this or
     an earlier step; that step's ``[S, C]`` rows read and, of them, those
     with a differing level in a layer; per slot whether the head's input
-    row differed; and per packed matmul of the step, in call order (7 a
-    layer, then the head), its rows (``[S, C]``, the head's ``[S]``)
-    with a differing level.  ``states``, when given, receives both sides'
+    row differed; and per packed matmul of the step, in call order
+    (``per_layer`` a layer, then the head), its rows (``[S, C]``, the
+    head's ``[S]``) with a differing level.  ``states``, when given, receives both sides'
     pools (``"cuda"``, ``"cpu"``), updated by every step."""
     import numpy as np
 
@@ -902,11 +950,17 @@ def _cross_steps(torch, cfg2, packed, head, steps: int, seed: int, gather: str, 
 
     cpu_packed = T.map_leaves(packed, lambda a: a.to("cpu"))
     cpu_head = head.to("cpu")
-    S, ps, nb = CROSS_SLOTS, 16, CROSS_BLOCKS
+    S, ps, nb = CROSS_SLOTS, 16, blocks
     n_pages = S * nb + 1
     states = {} if states is None else states
     states.update({dev: T.init_paged_state(cfg2, S, n_pages, ps, dtype=torch.float32, device=dev)
                    for dev in ("cuda", "cpu")})
+    if pos0:
+        check(all(p.dtype == torch.float32 for p in states["cpu"].values()), "pos0 needs float pools")
+        g = torch.Generator().manual_seed(seed)
+        for name, pool in states["cpu"].items():
+            pool.copy_(torch.randn(pool.shape, generator=g))
+            states["cuda"][name].copy_(pool)
     table = torch.arange(1, n_pages, dtype=torch.int32).reshape(S, nb)
     rng = np.random.default_rng(seed)
     plan = [(1, None)] * steps + ([(CHUNK, chunk_lens)] if chunk_lens is not None else [])
@@ -925,7 +979,7 @@ def _cross_steps(torch, cfg2, packed, head, steps: int, seed: int, gather: str, 
     try:
         for t, (C, lens) in enumerate(plan):
             tokens = torch.from_numpy(rng.integers(0, cfg2.vocab, (S, C)).astype(np.int32))
-            pos = torch.full((S,), t, dtype=torch.int32)
+            pos = torch.full((S,), pos0 + t, dtype=torch.int32)
             tlens = None if lens is None else torch.tensor(lens, dtype=torch.int32)
             read = torch.ones((S, C), dtype=torch.bool)  # the rows each slot's logits depend on
             if lens is not None:
@@ -936,9 +990,9 @@ def _cross_steps(torch, cfg2, packed, head, steps: int, seed: int, gather: str, 
                 lens=None if tlens is None else tlens.cuda(), gather=gather)
             g_levels = list(levels)
             levels.clear()
-            c_log, _ = T.forward_decode_paged(cpu_packed, cfg2, states["cpu"], table, tokens, pos,
-                                              head=cpu_head, lens=tlens, gather=gather)
-            check(len(levels) == len(g_levels) == 7 * cfg2.n_layers + 1, "packed matmul count")
+            c_log, _ = T.forward_decode_paged(cpu_packed, cpu_cfg or cfg2, states["cpu"], table, tokens,
+                                              pos, head=cpu_head, lens=tlens, gather=gather)
+            check(len(levels) == len(g_levels) == per_layer * cfg2.n_layers + 1, "packed matmul count")
             calls = [(g != c).any(dim=1).reshape(S, C) & read for g, c in zip(g_levels[:-1], levels[:-1])]
             head_flip = (g_levels[-1] != levels[-1]).any(dim=1)  # the head: a row per slot
             row_flip = torch.stack(calls).any(dim=0)  # the layers: S x C rows
@@ -1007,24 +1061,22 @@ def _first_hand(prior, read, row_flip, head_flip) -> tuple[int, int, int]:
     return rows, fresh, suffix
 
 
-# phase 5's cross-check geometry: 8 slots of 4 pages each; its chunked
-# step: an inactive slot, two decoding slots, three partial chunks and two
-# full ones
-CROSS_SLOTS, CROSS_BLOCKS = 8, 4
-CROSS_CHUNK_LENS = (0, 1, 5, 16, 16, 1, 9, 0)
-
-
-def phase_crosscheck(torch, cfg, steps: int = 3, *, kv_int8: bool = False,
-                     gather: str = "kernel") -> list:
-    """``steps`` decode steps, then one chunked step of ``CHUNK`` lanes.
-    Flips must stay rare: at the decode steps at least half the slots
+def phase_crosscheck(torch, cfg, steps: int = 3, *, kv_int8: bool = False, gather: str = "kernel",
+                     pos0: int = 0, blocks: int = CROSS_BLOCKS, chunk_step: bool = True,
+                     packed_mlp: bool = True, cpu_window_pattern: tuple | None = None) -> list:
+    """``steps`` decode steps, then (``chunk_step``) one chunked step of
+    ``CHUNK`` lanes.  Flips must stay rare: at the decode steps at least half the slots
     without one at this or an earlier step; at the chunked step, where a
     slot's lanes attend to each other and to the rows of its earlier steps
     so that one flip moves every later row of the slot, at least half the
     first-hand rows (:func:`_first_hand`) without one.  ``kv_int8`` runs
     the same weights on int8 KV pools (phase 12) and counts the KV levels
     that differ between the two sides (:func:`_kv_level_flips`) beside the
-    activation-level flips; the rules stay phase 5's."""
+    activation-level flips; the rules stay phase 5's.  ``pos0`` and
+    ``blocks`` place the steps in longer pools (phase 14 (d): past a
+    window), ``packed_mlp=False`` keeps the MLP projections float (packed:
+    the attention projections and the head), and ``cpu_window_pattern``
+    plants a fault: the CPU side with that window pattern."""
     from repro_torch.kernels import build
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
@@ -1035,15 +1087,21 @@ def phase_crosscheck(torch, cfg, steps: int = 3, *, kv_int8: bool = False,
     params = T.init_params(cfg2, seed=1, device="cuda")
     head = L.prepack_lm_head(params["embed"], w_bits=4, a_bits=4, device="cuda")
     packed = quantize_params_packed(params, w_bits=4, a_bits=4, device="cuda")
+    if not packed_mlp:
+        packed["layers"]["mlp"] = params["layers"]["mlp"]
     del params
     S = CROSS_SLOTS
     results = []
     prior = torch.zeros(S, dtype=torch.bool)
     states: dict = {}
     k3_before = build.counts()["paged_gather"]
+    cpu_cfg = (None if cpu_window_pattern is None
+               else dataclasses.replace(cfg2, window_pattern=cpu_window_pattern))
+    chunk_lens = CROSS_CHUNK_LENS if chunk_step else None
     for t, (g_log, c_log, flipped, read, row_flip, head_flip, _) in enumerate(_cross_steps(
-            torch, cfg2, packed, head, steps, seed=5, gather=gather, chunk_lens=CROSS_CHUNK_LENS,
-            states=states)):
+            torch, cfg2, packed, head, steps, seed=5, gather=gather,
+            chunk_lens=chunk_lens, states=states, pos0=pos0, blocks=blocks,
+            cpu_cfg=cpu_cfg, per_layer=7 if packed_mlp else 4)):
         chunked = t == steps
         st = _row_stats(torch, g_log, c_log, flipped)
         first_hand, fresh, suffix = _first_hand(prior, read, row_flip, head_flip)
@@ -1063,6 +1121,7 @@ def phase_crosscheck(torch, cfg, steps: int = 3, *, kv_int8: bool = False,
         results.append(r)
         prior = flipped
         what = f"chunked step (lens {list(CROSS_CHUNK_LENS)})" if chunked else f"step {t}"
+        what += f" at position {pos0 + t}" if pos0 else ""
         print(f"  {what}: {r['clean_rows']}/{S} slots with identical activation levels, their "
               f"max|d| {r['clean_max_abs']}; slots with a level flip: max rel L2 "
               f"{r['flipped_max_rel']}; rows with a flip / rows read this step, by slot "
@@ -1082,9 +1141,10 @@ def phase_crosscheck(torch, cfg, steps: int = 3, *, kv_int8: bool = False,
             check(int(clean.sum()) >= S // 2, f"cross-check {what}: level flips in most rows")
         else:
             check(2 * fresh <= first_hand, f"cross-check {what}: level flips in most first-hand rows")
-    check(len(results) == steps + 1, "the chunked cross-check step did not run")
+    n_steps = steps + (chunk_lens is not None)
+    check(len(results) == n_steps, "a cross-check step did not run")
     k3 = build.counts()["paged_gather"] - k3_before
-    want = cfg2.n_layers * (steps + 1) if gather == "kernel" else 0
+    want = cfg2.n_layers * n_steps if gather == "kernel" else 0
     check(k3 == want, f"cross-check ({gather} gather): {k3} K3 launches on the card, not {want}")
     return results
 
@@ -2543,6 +2603,331 @@ def phase_lifecycle(torch, card, cfg, ecfg, c1: dict, fused: dict, report: dict)
     return out
 
 
+# -- phase 14 ------------------------------------------------------------------
+
+# phase 14's cell: gemma3-1b at full width ([hf:google/gemma-3-1b-pt]: 26
+# layers, local:global 5:1 with a 1024-token window, d 1152, 4 heads and one
+# KV head of width 256, geglu d_ff 6912, vocab 262144), nothing cut, past its
+# window: 8 requests whose prompts (lengths drawn from seed 14) are all
+# longer than the window, GEMMA_NEW new tokens each (_timed_turn's 32)
+GEMMA_ARCH = "gemma3-1b"
+GEMMA_PROMPTS = (1100, 1501)
+GEMMA_MAX_LEN = 2048
+GEMMA_NEW = 32
+GEMMA_TRACE_STEPS = 10  # traced steps, every slot decoding
+# (d): the card against the CPU at 2 layers of full width (both windowed),
+# decode steps from position GEMMA_CROSS["pos0"] in pools of 96 blocks; the
+# MLP projections float (see _geglu_flips: packed, every row flips levels)
+GEMMA_CROSS = dict(steps=2, pos0=1500, blocks=96, packed_mlp=False)
+
+
+def _recorded_run(torch, eng, prompts, trace: int = 0):
+    """Serve ``prompts`` on ``eng`` untimed (the virtual clock): every
+    sampled logits row, each request's tokens and each step's batch (its
+    positions, valid lanes and block table).  With ``trace``, that many
+    steps from the first at which every slot decodes run under the
+    profiler (the sampling hook included).  The engine's graph is released
+    after the run; its pools are kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows, batches = {}, []
+    eng.on_sample = lambda rid, t, row: rows.__setitem__((rid, t), row.copy())
+    run = eng._program.run
+
+    def recording(tokens, pos, lens, table):
+        batches.append((pos.copy(), lens.copy(), table.copy()))
+        return run(tokens, pos, lens, table)
+
+    eng._program.run = recording
+    for p in prompts:
+        eng.submit(p, GEMMA_NEW)
+    summary = None
+    if trace:
+        first = max(-(-len(p) // eng.ecfg.chunk_tokens) for p in prompts)
+        eng.run(realtime=False, max_steps=first)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            eng.run(realtime=False, max_steps=first + trace)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        check(all((b[1] == 1).all() for b in batches[first:]), "a traced step was not all decode")
+        summary = trace_summary(prof, wall, trace, f"gemma3-1b decode steps {first}-{first + trace - 1}")
+    eng.run(realtime=False)
+    eng.close()
+    torch.cuda.empty_cache()
+    return rows, {r.rid: list(r.out_tokens) for r in eng.finished}, batches, summary
+
+
+def _window_drops(torch, win: int, pools, batches) -> dict:
+    """At every step of a served run, the live keys that K3's mask at the
+    window ``win`` drops against full causal (the engine's launch, chunk
+    CHUNK, on the run's block table and positions), per valid lane: a
+    decoding slot's count must be ``pos + 1 - win`` > 0 (its pages hold
+    every earlier position), and no lane may keep a key that causal drops."""
+    from repro_torch.kernels.paged_gather.kernel import paged_gather_raw
+
+    decode, prefill = [], []
+    for pos, lens, table in batches:
+        t, p = torch.from_numpy(table).cuda(), torch.from_numpy(pos).cuda()
+        m_win, m_all = (paged_gather_raw(t, p, w, *pools, chunk=CHUNK, out_dtype=torch.bfloat16)[2]
+                        .flatten(2) for w in (win, 0))
+        check(not bool((m_win & ~m_all).any()), "K3's window mask keeps a key its causal mask drops")
+        dropped = (m_all & ~m_win).sum(-1).cpu().numpy()  # [S, CHUNK]
+        for s, n in enumerate(lens.tolist()):
+            if n == 1:
+                check(dropped[s, 0] == pos[s] + 1 - win,
+                      f"slot {s} at position {pos[s]}: K3's window drops {dropped[s, 0]} keys")
+                decode.append(int(dropped[s, 0]))
+            else:
+                prefill.extend(int(d) for d in dropped[s, :n])
+    check(len(decode) > 0 and min(decode) > 0, "a decoding slot's window dropped no live key")
+    return dict(decode_slot_steps=len(decode), decode_min=min(decode), decode_max=max(decode),
+                prefill_lanes=len(prefill), prefill_lanes_dropping=sum(d > 0 for d in prefill))
+
+
+def _gemma_gather(torch, card, timer, win: int, pools: dict, batches) -> dict:
+    """K3 against its plain version on the served run's pools (layer 0, a
+    windowed one; bf16 from (a), int8 from (b)) and block tables: at the
+    first step at which every slot decodes, window ``win`` and 0, chunk 1
+    and CHUNK, timed by graph beside its bytes bound; at the last step at
+    which every slot feeds a full chunk, bit-exact only."""
+    from repro_torch.kernels.paged_gather.kernel import paged_gather_plain, paged_gather_raw
+
+    decode = next(b for b in batches if (b[1] == 1).all())
+    prefill = [b for b in batches if (b[1] == CHUNK).all()][-1]
+    rows, max_err = [], 0.0
+    for kind, ops in pools.items():
+        scaled = len(ops) == 4
+        # the timed launches cycle through copies of the layer's pools that
+        # together pass 256 MB, so that each finds its pages in HBM, as a
+        # step does (26 layers apart); the views it writes stay in L2, where
+        # the attention reads them
+        n_copies = max(1, min(100, -(-(256 << 20) // sum(o.numel() * o.element_size() for o in ops))))
+        cold = [ops] + [tuple(o.clone() for o in ops) for _ in range(n_copies - 1)]
+        for step, (pos, _, table) in (("decode", decode), ("prefill", prefill)):
+            t, p = torch.from_numpy(table).cuda(), torch.from_numpy(pos).cuda()
+            S, nb = table.shape
+            _, ps, D = ops[0].shape
+            n_live = int((table != 0).sum())
+            for window, chunk in itertools.product((win, 0), (1, CHUNK)):
+                if step == "prefill" and chunk == 1:
+                    continue
+                args, kw = (t, p, window, *ops), dict(chunk=chunk, out_dtype=torch.bfloat16)
+                got, want = paged_gather_raw(*args, **kw), paged_gather_plain(*args, **kw)
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    check(a.dtype == b.dtype and torch.equal(a, b),
+                          f"K3 differs from its plain version: gemma {kind} pool, {step} step, window "
+                          f"{window}, chunk {chunk}")
+                    max_err = max(max_err, (a.float() - b.float()).abs().max().item())
+                del got, want
+                if step != "decode":
+                    continue
+                nbytes = gather_bytes(S, nb, ps, D, n_live, chunk, ops[0].element_size(), scaled)
+                b_ms, b_by, _, _ = card.bound(nbytes, 0)
+                tl = t.long()
+                row = dict(pool=kind, window=window, chunk=chunk, S=S, n_blocks=nb, page_size=ps, D=D,
+                           live_pages=n_live, min_pos=int(pos.min()), max_pos=int(pos.max()),
+                           k3_ms=timer(lambda: paged_gather_raw(*args, **kw), reps=20),
+                           k3_graph_ms=timer.graph(
+                               lambda i: paged_gather_raw(t, p, window, *cold[i % len(cold)], **kw)),
+                           k3_warm_graph_ms=timer.graph(lambda i: paged_gather_raw(*args, **kw)),
+                           plain_ms=timer(lambda: paged_gather_plain(*args, **kw), reps=10),
+                           library_graph_ms=timer.graph(lambda i: tuple(q[tl] for q in cold[i % len(cold)][:2])),
+                           bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+                if scaled:  # the same function: the gather, then paged_gather_plain's dequantization
+                    row["dequant_graph_ms"] = timer.graph(lambda i: tuple(
+                        q[tl].to(torch.bfloat16) * s[tl].to(torch.bfloat16)
+                        for q, s in zip(cold[i % len(cold)][:2], cold[i % len(cold)][2:])))
+                row["fraction_of_bound"] = b_ms / row["k3_graph_ms"]
+                rows.append(row)
+                lib = f", gather + dequantize {row['dequant_graph_ms']:.4f}" if scaled else ""
+                print(f"  (c) {kind} pool, window {window}, chunk {chunk}: K3 {row['k3_graph_ms']:.4f} ms by "
+                      f"graph ({100 * row['fraction_of_bound']:.0f} % of its {b_ms:.4f} ms bound; pools in L2 "
+                      f"{row['k3_warm_graph_ms']:.4f}; events {row['k3_ms']:.4f}), plain "
+                      f"{row['plain_ms']:.3f} ms, pool[table] "
+                      f"{row['library_graph_ms']:.4f}{lib}; bit-exact", flush=True)
+        del cold
+    return dict(rows=rows, max_err=max_err, live_pages=rows[0]["live_pages"],
+                positions=(rows[0]["min_pos"], rows[0]["max_pos"]))
+
+
+def _geglu_flips(torch, cfg) -> dict:
+    """Not a gate: why (d) keeps the MLP projections float.  Layer 0's
+    packed geglu MLP at full width, float32, from the same 8 input rows and
+    packed words on the card and on the CPU: up and gate (integer products
+    dequantized) must be bit-identical; then the 4-bit levels of w_down's
+    input, ``sigmoid(gelu(gate) * up)``, that differ in each row, with
+    gelu in float32 on each device (the port's) and in float64 on both."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.api import quantize_params_packed
+
+    cfg1 = dataclasses.replace(cfg, n_layers=1, dtype=torch.float32)
+    packed = quantize_params_packed(T.init_params(cfg1, seed=1, device="cuda"), w_bits=4, a_bits=4, device="cuda")
+    mlp = {"cuda": T.layer_params(packed["layers"], 0)["mlp"]}
+    mlp["cpu"] = T.map_leaves(mlp["cuda"], lambda a: a.to("cpu"))
+    x = torch.randn((8, 1, cfg.d_model), generator=torch.Generator().manual_seed(3))
+    side = {}
+    for dev, p in mlp.items():
+        h = L.rmsnorm(p["ln"], x.to(dev))
+        up, gate = L.dense(p["w_up"], h), L.dense(p["w_gate"], h)
+        side[dev] = dict(up=up, gate=gate, act32=F.gelu(gate, approximate="tanh") * up,
+                         act64=F.gelu(gate.double(), approximate="tanh").float() * up)
+    check(all(torch.equal(side["cuda"][k].cpu(), side["cpu"][k]) for k in ("up", "gate")),
+          "(d) reading: up or gate differ between the card and the CPU")
+    out = {}
+    for k in ("act32", "act64"):
+        lv = {dev: torch.round(torch.clamp(torch.sigmoid(v[k]), 0, 1) * 15).cpu() for dev, v in side.items()}
+        out[k] = dict(values_differ=int((side["cuda"][k].cpu() != side["cpu"][k]).sum()),
+                      level_flips_by_row=(lv["cuda"] != lv["cpu"]).reshape(8, -1).sum(dim=1).tolist())
+    return out
+
+
+def phase_gemma(torch, card, report: dict) -> dict:
+    """gemma3-1b served at full width past its 1024-token window, w4a4
+    projections, the packed (4, 4) head and the kernel gather, 8 slots,
+    page 16, ``max_len`` GEMMA_MAX_LEN (128 blocks a slot), chunked prefill
+    (C = 16), reserve admission, random weights from seed 0; every decode
+    position and the later prefill chunks lie past the window of the 21
+    windowed layers.  First, K1 at the engine's per-step shapes (the layers
+    at 128 rows, the head at 8) against its plain version, timed.
+    (a) The serve, its step one captured graph: every request ``ok``, one
+    capture, no leaks, launch counters and graph nodes 26 x 7 + 1 K1 and
+    26 K3 a step; an untimed repeat records every sampled row, each step's
+    batch, and a trace of decode steps.  (b) The same on int8 KV pools:
+    rows and tokens read against (a)'s (not a gate).  (c) K3 on (a)'s and
+    (b)'s pools and block tables against its plain version, bit-exact,
+    timed; the live keys the window drops, counted at every step of (a).
+    (d) The card against the CPU from the same packed words with phase 5's
+    rules, at 2 layers (both windowed) and 8 slots, GEMMA_CROSS's steps
+    from position 1500 (rows before it random and equal on both sides), and
+    a planted fault those rules must reject: the CPU side with
+    ``window_pattern=(0,)`` (one decode step).  Cuts in (d) only: 2 of 26
+    layers; 8 slots of 96 blocks; the earlier rows random rather than
+    served; the MLP projections float, not packed (packed, the gelu's last
+    float32 bit, which differs between the card and the CPU, flips w_down
+    input levels in every row, past phase 5's flip budget:
+    :func:`_geglu_flips` prints it), so the packed ones are the attention
+    projections and the head."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import layers as L
+    from repro_torch.serving import Engine, EngineConfig, build_engine
+
+    t_phase = time.monotonic()
+    cfg = get_config(GEMMA_ARCH)
+    win = max(cfg.windows())
+    check(sorted(set(cfg.windows())) == [0, 1024], f"gemma windows {cfg.windows()}")
+    ecfg = EngineConfig(n_slots=8, page_size=16, max_len=GEMMA_MAX_LEN, chunk_tokens=CHUNK, admit="reserve",
+                        packed_head=True, head_bits=(4, 4), gather_backend="kernel")
+    rng = np.random.default_rng(14)
+    lengths = rng.integers(*GEMMA_PROMPTS, size=ecfg.n_slots)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist() for n in lengths]
+    print(f"  {ecfg.n_slots} prompts of {sorted(lengths.tolist())} tokens (window {win}), "
+          f"{GEMMA_NEW} new tokens each; {ecfg.blocks_per_slot} blocks a slot", flush=True)
+    per_step = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": cfg.n_layers * 7 + 1,
+                "paged_gather": cfg.n_layers}
+    out: dict = {}
+
+    print(f"  K1 at the engine's per-step shapes (the layers at M = {ecfg.n_slots * CHUNK}, the head at "
+          f"M = {ecfg.n_slots}):", flush=True)
+    timer = Timer(torch)
+    out["k1"] = phase_matmul_chunk(torch, card, timer, cfg, ecfg.n_slots * CHUNK, report, key="gemma_matmul",
+                                   head_m=ecfg.n_slots)
+    torch.cuda.empty_cache()
+
+    # (a) the serve
+    t0 = time.monotonic()
+    eng = build_engine(cfg, ecfg, quant="packed", w_bits=4, a_bits=4, seed=0)
+    torch.cuda.synchronize()
+    t_build = time.monotonic() - t0
+    pool_gb = sum(x.numel() * x.element_size() for x in eng.state.values()) / 1e9
+    params, head = eng.params, eng._head
+    a = _timed_turn(torch, eng, prompts, per_step, "(a)", memset=False)
+    _census_gathers(a["graph"], "gather_fp", cfg.n_layers, "(a)")
+    check(all(len(t) == GEMMA_NEW for t in a["tokens"].values()), "(a): a request ended short")
+    check(eng._program.captures == 1, f"(a): {eng._program.captures} captures")
+    eng.assert_no_leaks()
+    del eng
+    a.update(build_s=t_build, kv_pool_gb=pool_gb)
+    print(f"  (a) built in {t_build:.1f} s, bf16 KV pools {pool_gb:.3f} GB; {a['steps']} steps, "
+          f"{a['tokens_per_s']:.1f} tok/s, step p50 {a['step_ms_p50']:.2f} ms (min {a['step_ms_min']:.2f}), "
+          f"one replay {a['replay_ms']:.2f} ms, TTFT p50 {a['ttft_ms_p50']:.1f} ms; launches {a['counts']}; "
+          f"graph nodes {a['graph']}; one capture, no leaks", flush=True)
+    eng_a = Engine(cfg, params, ecfg, head=head)
+    rows_a, toks_a, batches, a["profile"] = _recorded_run(torch, eng_a, prompts, trace=GEMMA_TRACE_STEPS)
+    check(toks_a == a["tokens"], "(a): the sampled (untimed) run gave other tokens than the timed run")
+    check(all(bool(np.isfinite(r).all()) for r in rows_a.values()), "(a): non-finite logits")
+    out["a"] = a
+
+    # (b) int8 KV pools
+    cfg8 = dataclasses.replace(cfg, kv_dtype="int8")
+    b = _timed_turn(torch, Engine(cfg8, params, ecfg, head=head), prompts, per_step, "(b)", memset=False)
+    _census_gathers(b["graph"], "gather_i8", cfg.n_layers, "(b)")
+    eng_b = Engine(cfg8, params, ecfg, head=head)
+    rows_b, toks_b, batches_b, _ = _recorded_run(torch, eng_b, prompts)
+    check(toks_b == b["tokens"], "(b): the sampled (untimed) run gave other tokens than the timed run")
+    check(len(batches_b) == len(batches) and all(
+        all(np.array_equal(x, y) for x, y in zip(p, q)) for p, q in zip(batches, batches_b)),
+        "(b): the int8 run's batches differ from (a)'s")
+    rel = [float(np.linalg.norm(rows_b[k] - rows_a[k]) / np.linalg.norm(rows_a[k])) for k in rows_a]
+    same = sum(x == y for rid in toks_a for x, y in zip(toks_a[rid], toks_b[rid]))
+    b.update(rows_rel_l2=dict(p50=float(np.median(rel)), max=max(rel), min=min(rel)), tokens_equal=same,
+             n_tokens=sum(map(len, toks_a.values())))
+    print(f"  (b) int8 KV: {b['steps']} steps, {b['tokens_per_s']:.1f} tok/s, step p50 {b['step_ms_p50']:.2f} "
+          f"ms, one replay {b['replay_ms']:.2f} ms, TTFT p50 {b['ttft_ms_p50']:.1f} ms; graph nodes "
+          f"{b['graph']}; sampled rows against (a)'s (not a gate): rel L2 p50 {np.median(rel):.4g}, max "
+          f"{max(rel):.4g}; tokens equal {same}/{b['n_tokens']}", flush=True)
+    del rows_a, rows_b
+    out["b"] = b
+
+    # (c) K3 on the served pools, and the keys the window drops
+    layer0 = {"bf16": (eng_a.state["k"][0], eng_a.state["v"][0]),
+              "int8": tuple(eng_b.state[k][0] for k in ("k", "v", "k_scale", "v_scale"))}
+    drops = _window_drops(torch, win, layer0["bf16"], batches)
+    print(f"  (c) window {win} in a windowed layer, over (a)'s {len(batches)} steps: every one of "
+          f"{drops['decode_slot_steps']} decoding slot-steps drops {drops['decode_min']}-{drops['decode_max']} "
+          f"live keys; {drops['prefill_lanes_dropping']} of {drops['prefill_lanes']} prefill lanes drop some",
+          flush=True)
+    c = _gemma_gather(torch, card, timer, win, layer0, batches)
+    c["window_drops"] = drops
+    out["c"] = c
+    del eng_a, eng_b, layer0, batches, batches_b, timer
+    torch.cuda.empty_cache()
+
+    # (d) the card against the CPU past the window, and the planted fault
+    print(f"  (d) card vs CPU, 2 layers of gemma3-1b at full width (windows {cfg.windows()[:2]}), "
+          f"positions from {GEMMA_CROSS['pos0']}", flush=True)
+    t0 = time.monotonic()
+    out["d"] = phase_crosscheck(torch, cfg, **GEMMA_CROSS)
+    t_d = time.monotonic() - t0
+    inner = L.packed_dense
+    print("  (d) planted fault: the CPU side with window_pattern=(0,)", flush=True)
+    try:
+        phase_crosscheck(torch, cfg, **dict(GEMMA_CROSS, steps=1), chunk_step=False, cpu_window_pattern=(0,))
+        fault = None
+    except PhaseError as e:
+        fault = str(e)
+    check(L.packed_dense is inner, "(d): the planted fault's run left packed_dense patched")
+    check(fault is not None and fault.startswith("cross-check"),
+          "(d): phase 5's rules pass the CPU side run without the window")
+    print(f"  (d) {t_d:.1f} s; the planted fault was rejected: {fault}", flush=True)
+    out["d_fault"] = fault
+    out["geglu_flips"] = _geglu_flips(torch, cfg)
+    print(f"  (d) reading, not a gate: layer 0's packed geglu MLP on the card and the CPU from the same rows: "
+          f"up and gate bit-identical; w_down input levels that differ by row, gelu in float32 "
+          f"{out['geglu_flips']['act32']}, gelu in float64 {out['geglu_flips']['act64']}", flush=True)
+    out["phase_s"] = time.monotonic() - t_phase
+    print(f"  phase 14 on {card.name} ({card.power_limit}): {out['phase_s']:.1f} s", flush=True)
+    report["gemma"] = out
+    return out
+
+
 # -- main ------------------------------------------------------------------------
 
 
@@ -2680,6 +3065,11 @@ def main(argv=None) -> int:
     lc = phase_lifecycle(torch, card, cfg, ecfg, c1, en["fused"], report)
     del c1
     peak("13")
+    print(f"phase 14: gemma3-1b at full width past its 1024-token window: K1 at its shapes, the serve "
+          f"(C={CHUNK}, 8 slots x {GEMMA_MAX_LEN} tokens) on bf16 and int8 KV pools, K3 on the served "
+          f"pools, card vs CPU past the window", flush=True)
+    gm = phase_gemma(torch, card, report)
+    peak("14")
 
     # per-decode-step totals per kernel: the sum over the launches of one step
     def step_sum(rows, key):
@@ -2707,6 +3097,7 @@ def main(argv=None) -> int:
     long0 = k3_rows("int8 pool -> bf16, full causal", 1, "long")[0]
     i8_first = next(t for t in i8s["a"]["turns"] if t["cell"] == "int8 KV")
     chunk_step = mm_chunk["rows"] + head  # a chunked step: the layers at M = 128, the head at M = 8
+    gemma_k1 = gm["k1"]["rows"]  # phase 14's chunked step: the layers at M = 128, the head at M = 8
     chunked_launches = {k: {admit: r["counts"][k] for admit, r in ch.items()}
                         for k in ("packed_dense_fused", "paged_gather")}
 
@@ -2733,7 +3124,7 @@ def main(argv=None) -> int:
         dict(name="packed_dense_fused", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
              replaces="src/repro/kernels/packed_matmul/kernel.py:111",
              launches=fused["counts"]["packed_dense_fused"],
-             max_abs_err=max(mm["max_err"], mm_chunk["max_err"]),
+             max_abs_err=max(mm["max_err"], mm_chunk["max_err"], gm["k1"]["max_err"]),
              ms=step_sum(served, "k1_graph_ms"), events_ms=step_sum(served, "k1_ms"),
              plain_ms=step_sum(served, "plain_ms"),
              bound_ms=step_sum(served, "bound_ms"), bound_by=by_t(served, lambda r: r["per_step"]),
@@ -2749,7 +3140,15 @@ def main(argv=None) -> int:
              chunk_step=f"chunked step: the layers at M = {ecfg.n_slots * CHUNK}, the head at M = {ecfg.n_slots}",
              launches_chunked=chunked_launches["packed_dense_fused"],
              steps_chunked={admit: r["steps"] for admit, r in ch.items()},
-             launches_lifecycle=lc["a"]["counts"]["packed_dense_fused"], steps_lifecycle=lc["a"]["steps"]),
+             launches_lifecycle=lc["a"]["counts"]["packed_dense_fused"], steps_lifecycle=lc["a"]["steps"],
+             launches_gemma=gm["a"]["counts"]["packed_dense_fused"], steps_gemma=gm["a"]["steps"],
+             gemma=dict(
+                 per="gemma3-1b chunked step (phase 14): the layers at M = 128, the head at M = 8",
+                 ms=step_sum(gemma_k1, "k1_graph_ms"), events_ms=step_sum(gemma_k1, "k1_ms"),
+                 plain_ms=step_sum(gemma_k1, "plain_ms"), bound_ms=step_sum(gemma_k1, "bound_ms"),
+                 bound_by=by_t(gemma_k1, lambda r: r["per_step"]),
+                 library_ms=step_sum(gemma_k1, "int_mm_graph_ms"), library="torch._int_mm, M padded to 32",
+                 gbps=by_gbps(gemma_k1, "k1_graph_ms"), max_abs_err=gm["k1"]["max_err"])),
         dict(name="packed_matmul", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
              replaces="src/repro/kernels/packed_matmul/kernel.py:168",
              launches=blocked["counts"]["packed_matmul"], max_abs_err=mm["max_err"],
@@ -2762,7 +3161,7 @@ def main(argv=None) -> int:
              path_steps=blocked["steps"], per="decode step", timing=GRAPH_TIMING),
         dict(name="paged_gather", route="cuda", source="src/repro_torch/csrc/paged_gather.cu",
              replaces="src/repro/kernels/paged_gather/kernel.py:121",
-             launches=fused["counts"]["paged_gather"], max_abs_err=ga["max_err"],
+             launches=fused["counts"]["paged_gather"], max_abs_err=max(ga["max_err"], gm["c"]["max_err"]),
              ms=step_sum(gather, "k3_graph_ms"), events_ms=step_sum(gather, "k3_ms"),
              plain_ms=step_sum(gather, "plain_ms"),
              bound_ms=step_sum(gather, "bound_ms"), bound_by="bytes",
@@ -2776,6 +3175,16 @@ def main(argv=None) -> int:
              chunk_step=f"chunked step: chunk = {CHUNK}",
              launches_chunked=chunked_launches["paged_gather"],
              launches_lifecycle=lc["a"]["counts"]["paged_gather"], steps_lifecycle=lc["a"]["steps"],
+             launches_gemma=gm["a"]["counts"]["paged_gather"], steps_gemma=gm["a"]["steps"],
+             launches_gemma_int8=gm["b"]["counts"]["paged_gather"],
+             gemma=dict(
+                 per="launch on phase 14's served pools and block table, every slot decoding",
+                 **{k: gm["c"][k] for k in ("live_pages", "positions", "max_err", "window_drops")},
+                 rows=[{k: r[k] for k in ("pool", "window", "chunk", "k3_graph_ms", "k3_warm_graph_ms", "k3_ms",
+                                          "plain_ms", "bound_ms", "bound_by", "fraction_of_bound",
+                                          "library_graph_ms")}
+                       | ({"dequant_graph_ms": r["dequant_graph_ms"]} if "dequant_graph_ms" in r else {})
+                       for r in gm["c"]["rows"]]),
              instantiations={"gather_fp": "bf16 pools: phases 4, 9, 10, 11, 12 (a) bf16 turns, 12 (d)",
                              "gather_i8<true>": "int8 pools, bf16 views: phase 12 (a), (b)",
                              "gather_i8<false>": "int8 pools, float32 views: phase 12 (c)"},

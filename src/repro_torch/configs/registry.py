@@ -1,7 +1,8 @@
 """Architecture registry (``repro.configs``): ``get_config(arch, smoke=)``.
 
-The same ten architectures as the reference, field for field.  Only
-llama3.2-3b is served by the port so far; the rest are data.
+The same ten architectures as the reference, field for field.  The port
+serves llama3.2-3b and gemma3-1b (its 5:1 sliding windows, geglu and one KV
+head of width 256), each held against the reference; the rest are data.
 """
 from __future__ import annotations
 

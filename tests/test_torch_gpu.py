@@ -976,3 +976,86 @@ def test_captured_lifecycle_engine_equals_the_eager_engine(cuda, kv_dtype):
     assert len(logits_c) == len(logits_e) == m_c["steps"]
     for t, (a, b) in enumerate(zip(logits_c, logits_e)):
         assert a.tobytes() == b.tobytes(), t
+
+
+# -- gemma3-1b at its served geometry ------------------------------------------------
+
+# phase 14's engine: one KV head of width 256, page 16, max_len 2048 (128 blocks
+# a slot), live slots of 1100-1532 tokens, past the 1024-token window
+GEMMA_WINDOW = 1024
+
+
+@pytest.mark.parametrize("pool", ["bfloat16", "int8-bf16", "int8-f32"])
+def test_gather_kernel_bit_exact_at_gemma_geometry(cuda, pool):
+    """K3 at 8 slots x 128 blocks of 16 rows, D 256, window 1024 and 0,
+    chunk 1 and 16: bit-exact, and the window drops live keys of every
+    live slot."""
+    table, pos, pools = _k3_pools(cuda, 8, 128, 16, 256, seed=26, lengths=(1100, 1533))
+    for window in (GEMMA_WINDOW, 0):
+        for chunk in (1, 16):
+            _k3_exact(table, pos, pools, pool, window, chunk)
+    z = pools["bf16"]
+    masks = [paged_gather_raw(table, pos, w, *z, chunk=1, out_dtype=torch.bfloat16)[2].reshape(8, -1)
+             for w in (GEMMA_WINDOW, 0)]
+    dropped = (masks[1] & ~masks[0]).sum(dim=1)
+    live = table[:, 0] != 0
+    assert bool((dropped[live] == pos[live] + 1 - GEMMA_WINDOW).all()), dropped
+    assert not bool((masks[0] & ~masks[1]).any())
+
+
+# (K, N) of gemma3-1b's decode step: wq, wk|wv, wo, w_up|w_gate, w_down, the head
+GEMMA_SHAPES = [(1152, 1024), (1152, 256), (1024, 1152), (1152, 6912), (6912, 1152), (1152, 262144)]
+
+
+@pytest.mark.parametrize("m", [8, 128])
+@pytest.mark.parametrize("k,n", GEMMA_SHAPES)
+def test_fused_kernel_bit_exact_at_gemma_shapes(cuda, m, k, n):
+    """K1 at w4a4 (n_seg 2: packed widths 512, 128, 576, 3456 and 131072
+    words, every one on the 16-byte copy path) against its plain version."""
+    cfg = choose_config(4, 4)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(m + k + n)
+    x = torch.rand((m, k), generator=g, device=cuda) * 1.2 - 0.1
+    w_lvl = torch.randint(0, 16, (k, n), generator=g, device=cuda, dtype=torch.int32)
+    wp = pm.pack_weights(w_lvl, cfg.n_seg, cfg.stride)
+    del w_lvl
+    kw = dict(a_bits=4, n_seg=cfg.n_seg, stride=cfg.stride, acc_chunk=cfg.acc_chunk, overlap=cfg.overlap)
+    acc, a_sum = packed_dense_fused_raw(x, wp, **kw)
+    p_acc, p_sum = packed_dense_fused_plain(x, wp, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, p_acc) and torch.equal(a_sum, p_sum)
+
+
+def test_captured_gemma_engine_past_the_window_equals_the_eager_engine(cuda):
+    """2 layers of gemma3-1b at full width (both windowed, 1024), w4a4 and
+    the packed (4, 4) head, chunked prefill of 1030- and 1100-token prompts:
+    every step's logits of the captured step bit-identical to
+    capture=False's, one capture, equal tokens and launch counters."""
+    from repro_torch.serving import Engine
+
+    cfg = dataclasses.replace(get_config("gemma3-1b"), n_layers=2)
+    assert cfg.windows() == [GEMMA_WINDOW] * 2
+    cfg, packed, head = _packed_smoke(cuda, cfg)
+    ecfg = EngineConfig(n_slots=2, page_size=16, max_len=1280, chunk_tokens=16, packed_head=True,
+                        head_bits=(4, 4), gather_backend="kernel")
+    g = np.random.default_rng(26)
+    prompts = [g.integers(1, cfg.vocab, n).tolist() for n in (1030, 1100)]
+    runs = []
+    for capture in (False, True):
+        eng = Engine(cfg, packed, ecfg, head=head, device=cuda, capture=capture)
+        logits = _step_logits(eng)
+        for p in prompts:
+            eng.submit(p, 6)
+        build.reset_counts()
+        m = eng.run(realtime=False)
+        assert m["statuses"] == {"ok": 2}
+        eng.assert_no_leaks()
+        assert eng._program.captures == int(capture)
+        runs.append((m, build.counts(), logits, {r.rid: r.out_tokens for r in eng.finished}))
+        eng.close()
+    (m_e, counts_e, logits_e, toks_e), (m_c, counts_c, logits_c, toks_c) = runs
+    assert m_c["steps"] == m_e["steps"] and toks_c == toks_e and counts_c == counts_e
+    assert counts_c["paged_gather"] == cfg.n_layers * m_c["steps"]
+    assert len(logits_c) == len(logits_e) == m_c["steps"]
+    for t, (a, b) in enumerate(zip(logits_c, logits_e)):
+        assert a.tobytes() == b.tobytes(), t
