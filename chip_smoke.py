@@ -177,6 +177,28 @@ Phases, all on the card:
    ``window_pattern=(0,)``; beside it, not a gate, the w_down input levels
    that differ between the card and the CPU when the MLP is packed.
 
+15. mamba2-130m at full width (24 layers, d 768, d_inner 1536, 24 heads of
+   64, state 128, conv width 4, vocab 50432), bf16, random weights from
+   seed 0, nothing cut: the SSM family's path, which runs K1 (three
+   projections a layer and lane, and the head) and no K3, its float32
+   recurrent state written in place by the captured step and zeroed per
+   slot on every (re-)admission, between steps.  (a) K1 at its four shapes
+   at M = 16 against its plain version, timed by graph beside its bound and
+   ``torch._int_mm``.  (b) The serve, w4a4 and the packed (4, 4) head, 16
+   slots, page 16, ``max_len`` 2048, on demand: at C = 16 16 prompts of
+   512-1536 tokens and at C = 1 16 of 64-128, 64 new tokens each; every
+   request ``ok``, one capture, no leaks, counters and graph nodes 3 x 24
+   x C + 1 K1 a step; step p50, one replay's device time, tok/s, TTFT, the
+   step's bytes bound (the state read and written once, or once a lane as
+   the chunk loop does), a trace of a short run.  (c) 16 prompts of 2-8
+   tokens in pages of 4 with a pool that forces at least 8 preemptions,
+   against the same requests with none: every sampled row bit-identical;
+   with the reset skipped on re-admission (a planted fault) rows must
+   differ.  (d) The card against the CPU at 2 layers (float: rows and
+   states within 1e-4 relative L2; w4a4: phase 5's rules) over decode
+   steps, chunked steps and a re-admission, and the planted fault (the
+   card keeps a re-admitted slot's state) that the float check must reject.
+
 Every engine's graph and memory pool is released before the next engine
 is built, and each phase prints its peak device memory.
 
@@ -493,13 +515,14 @@ def phase_matmul(torch, card, timer, cfg, M: int, report: dict) -> dict:
 
 
 def phase_matmul_chunk(torch, card, timer, cfg, M: int, report: dict, *, key: str = "matmul_chunk",
-                       head_m: int = 0) -> dict:
+                       head_m: int = 0, shapes: dict | None = None) -> dict:
     """K1 at a chunked step's row count (slots x chunk width) at every
-    full-width layer shape, the served w4a4 placement: bit-exact against
-    its plain version, timed by graph beside its bound and ``_int_mm``.
-    The head stays at M = slots (the step takes each slot's last lane
-    before it): it is left out, or with ``head_m`` taken at that M, so
-    that the rows make up a whole chunked step.  The rows go to
+    full-width layer shape (``shapes``, by default
+    :func:`decode_matmul_shapes`), the served w4a4 placement: bit-exact
+    against its plain version, timed by graph beside its bound and
+    ``_int_mm``.  The head stays at M = slots (the step takes each slot's
+    last lane before it): it is left out, or with ``head_m`` taken at that
+    M, so that the rows make up a whole chunked step.  The rows go to
     ``report[key]``."""
     from repro_torch.kernels.packed_matmul import ref as pm
     from repro_torch.kernels.packed_matmul.kernel import (
@@ -512,7 +535,7 @@ def phase_matmul_chunk(torch, card, timer, cfg, M: int, report: dict, *, key: st
     c = choose_config(4, 4)
     kw = dict(a_bits=4, n_seg=c.n_seg, stride=c.stride, acc_chunk=c.acc_chunk, overlap=c.overlap)
     rows, max_err = [], 0.0
-    for name, (K, N, per_step) in decode_matmul_shapes(cfg).items():
+    for name, (K, N, per_step) in (shapes or decode_matmul_shapes(cfg)).items():
         if name == "head" and not head_m:
             continue
         m = head_m if name == "head" else M
@@ -861,17 +884,20 @@ def _sampled_run(torch, eng, prompts, max_new: int) -> tuple[dict, dict]:
     return rows, {r.rid: list(r.out_tokens) for r in eng.finished}
 
 
-def profile_engine(torch, eng, cfg, label: str) -> dict:
-    """Trace a short run of a fresh engine (8 requests of 16 prompt and 8
-    new tokens): device busy share and kernel time by name, in all and per
-    step.  Its launches are not counted against any path; the engine is
-    released after the run."""
+def profile_engine(torch, eng, cfg, label: str, n_requests: int = 8, max_new: int = 8,
+                   prompt_len: int = 16) -> dict:
+    """Trace a short run of an engine (``n_requests`` requests of
+    ``prompt_len`` prompt and ``max_new`` new tokens; a fresh engine, or
+    one whose earlier run has ended): device busy share and kernel time by
+    name, in all and per step.  Its launches are not counted against any
+    path; the engine is released after the run."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(2)
-    for _ in range(8):
-        eng.submit(rng.integers(0, cfg.vocab, 16).tolist(), 8)
+    steps0 = eng.n_steps
+    for _ in range(n_requests):
+        eng.submit(rng.integers(0, cfg.vocab, prompt_len).tolist(), max_new)
     eng.warmup()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -881,7 +907,7 @@ def profile_engine(torch, eng, cfg, label: str) -> dict:
         wall = time.monotonic() - t0
     eng.close()
     torch.cuda.empty_cache()
-    return trace_summary(prof, wall, m["steps"], label)
+    return trace_summary(prof, wall, m["steps"] - steps0, label)
 
 
 def trace_summary(prof, wall: float, steps: int, label: str) -> dict:
@@ -1938,26 +1964,31 @@ def _plan_cross_check(torch, cfg, tuned, report: dict, steps: int = 3) -> dict:
     return results
 
 
-def _timed_turn(torch, eng, prompts, per_step: dict, what: str, memset: bool) -> dict:
-    """One timed run of a fresh engine (captured): statuses, counters and
-    the graph's port kernel nodes equal to ``per_step`` (times the steps),
-    and its times; then release it.  ``memset``: the graph may hold memset
-    nodes (check_graph)."""
+def _timed_turn(torch, eng, prompts, per_step: dict, what: str, memset: bool, max_new: int = 32,
+                keep: bool = False) -> dict:
+    """One timed run of a fresh engine (captured), ``max_new`` tokens a
+    request: statuses, counters and the graph's port kernel nodes equal to
+    ``per_step`` (times the steps), and its times; then release it, unless
+    ``keep`` (a later run on it, say a trace, releases it).  ``memset``:
+    the graph may hold memset nodes (check_graph)."""
     import numpy as np
 
-    m, counts, wall = _serve(torch, eng, prompts, 32)
+    m, counts, wall = _serve(torch, eng, prompts, max_new)
     check(m["statuses"] == {"ok": len(prompts)}, f"{what}: statuses {m['statuses']}")
     check(counts == {k: v * m["steps"] for k, v in per_step.items()},
           f"{what}: launch counters {counts} != {per_step} x {m['steps']} steps")
     census = check_graph(eng, per_step, what, memset=memset)
     replay = graph_replay_ms(torch, eng)
-    eng.close()
+    if not keep:
+        eng.close()
     step_ms = [1e3 * x for x in eng.step_seconds]
     out = dict(steps=m["steps"], wall_s=wall, tokens_per_s=m["tokens_per_s"],
                step_ms_p50=float(np.median(step_ms)), step_ms_min=min(step_ms),
                ttft_ms_p50=1e3 * m["ttft_p50"], replay_ms=replay, counts=counts, graph=census,
+               preemptions=m["preemptions"], fed_tokens=m["fed_tokens"],
                tokens={r.rid: list(r.out_tokens) for r in eng.finished})
-    torch.cuda.empty_cache()
+    if not keep:
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2928,6 +2959,372 @@ def phase_gemma(torch, card, report: dict) -> dict:
     return out
 
 
+# -- phase 15 ------------------------------------------------------------------
+
+# phase 15's cell: mamba2-130m at full width (the reference's config,
+# [arXiv:2405.21060]: 24 layers, d 768, d_inner 1536, 24 heads of 64, state
+# 128, conv width 4, vocab 50432), nothing cut: 16 slots, page 16, max_len
+# 2048, C = 16, on demand; 16 prompts of 512-1536 tokens (lengths drawn from
+# seed 15), MAMBA_NEW new tokens each.  Beside it the same engine at C = 1
+# on 16 prompts of 64-128 tokens.
+MAMBA_ARCH = "mamba2-130m"
+MAMBA_SLOTS = 16
+MAMBA_PROMPTS = (512, 1537)
+MAMBA_SHORT_PROMPTS = (64, 129)
+MAMBA_NEW = 64
+# the traced short runs, (prompt tokens, new tokens) a request: at C = 16 one
+# step (all 16 lanes run whether they prefill or decode; about 30,000 kernel
+# events, which the profiler takes some 5 s to read), at C = 1 three
+MAMBA_TRACE = {"C=16": (16, 1), "C=1": (2, 2)}
+# (c): 16 prompts of 2-8 tokens, 32 new each, C = 16 on demand in pages of 4
+# rows, the pool at half the summed worst case.  Small pages make a request
+# preempted a few tokens into its run, so that its replay is short: the
+# state a skipped reset leaves decays by about exp(-0.8) a token in the
+# slowest head and has left no bit in a row 20-odd tokens later.
+MAMBA_PREEMPT = dict(prompts=(2, 9), new=32, page_size=4, max_len=256, share=0.5, min_preemptions=8)
+# (d): the card against the CPU at 2 layers of full width, float32, 8 slots:
+# two decode steps, phase 5's chunked step, slots 3 and 4 re-admitted (their
+# states zeroed), and a chunked step in which they feed 1 and 2 lanes.
+# Float projections: rows and the states after the run within
+# MAMBA_CROSS_REL_TOL relative L2 (cuBLAS and the CPU sum in other orders);
+# w4a4 projections and the packed (4, 4) head: phase 5's rules.
+MAMBA_CROSS_RESET = (3, 4)
+MAMBA_REFEED_LENS = (0, 1, 1, 1, 2, 1, 1, 0)
+MAMBA_CROSS_REL_TOL = 1e-4
+
+
+def mamba_matmul_shapes(cfg, chunk: int) -> dict[str, tuple[int, int, int]]:
+    """name -> (K, N, launches per step) for every packed matmul of a
+    mamba step of ``chunk`` lanes (each lane runs every layer's three)."""
+    s = cfg.ssm_spec()
+    n = cfg.n_layers * chunk
+    return {"in_z": (cfg.d_model, s.d_inner, n), "in_xbc": (cfg.d_model, s.d_inner + 2 * s.d_state, n),
+            "out_proj": (s.d_inner, cfg.d_model, n), "head": (cfg.d_model, cfg.vocab, 1)}
+
+
+def mamba_step_bound(eng) -> dict:
+    """The least bytes, and time at HBM_BYTES_PER_S, of one served mamba
+    step: every weight read once (the layers' packed words and float
+    leaves, the packed head) and the recurrent state read and written once
+    (the step's function), or once a lane (the chunk loop as the reference
+    writes it, each lane's state update reading and writing all of it)."""
+    from repro_torch.kernels.packed_matmul.ops import PackedDenseParams
+    from repro_torch.models import transformer as T
+
+    def nbytes(t):
+        return t.data.numel() * t.data.element_size() if isinstance(t, PackedDenseParams) else (
+            t.numel() * t.element_size())
+
+    weights = []
+    T.map_leaves(eng.params["layers"], lambda a: weights.append(nbytes(a)))
+    weights = sum(weights) + nbytes(eng._head)
+    state = sum(nbytes(t) for t in eng.state.values())
+    C = eng.ecfg.chunk_tokens
+    once, lanes = weights + 2 * state, weights + 2 * state * C
+    return dict(weights_bytes=weights, state_bytes=state, bytes_once=once, bytes_lanes=lanes,
+                bound_ms_once=once / HBM_BYTES_PER_S * 1e3, bound_ms_lanes=lanes / HBM_BYTES_PER_S * 1e3)
+
+
+def _sampled_serve(torch, eng, prompts, max_new: int, skip_readmit_reset: bool = False,
+                   keep: bool = False) -> dict:
+    """Serve ``prompts`` on a captured engine (fresh, or one whose earlier
+    run has ended), untimed (the virtual clock), keeping every sampled row
+    by (request index in ``prompts``, token); the slots its admissions
+    reset, and with ``skip_readmit_reset`` (a planted fault) a request's
+    re-admissions keep the state their slot holds.  The engine is released
+    after, unless ``keep``."""
+    rows, resets, seen = {}, [], set()
+    rid0, steps0, fed0, pre0 = eng._next_rid, eng.n_steps, eng.fed_tokens, eng.scheduler.n_preemptions
+    eng.on_sample = lambda rid, t, row: rows.__setitem__((rid - rid0, t), row.copy())
+    reset = eng._reset_slot
+
+    def counted(slot):
+        rid = next(r.rid for r in eng.scheduler.active.values() if r.slot == slot)
+        resets.append(slot)
+        if not (skip_readmit_reset and rid in seen):
+            reset(slot)
+        seen.add(rid)
+
+    eng._reset_slot = counted
+    reqs = [eng.submit(p, max_new) for p in prompts]
+    eng.run(realtime=False)
+    eng._reset_slot = reset
+    check(all(r.status == "ok" for r in reqs), f"statuses {[r.status for r in reqs]}")
+    eng.assert_no_leaks()
+    captures = eng._program.captures
+    if not keep:
+        eng.close()
+        torch.cuda.empty_cache()
+    return dict(rows=rows, steps=eng.n_steps - steps0, preemptions=eng.scheduler.n_preemptions - pre0,
+                fed_tokens=eng.fed_tokens - fed0, resets=len(resets), captures=captures,
+                tokens={r.rid - rid0: list(r.out_tokens) for r in reqs})
+
+
+def _rows_differ(a: dict, b: dict) -> list:
+    """The (request, token) keys whose rows are not bit-identical."""
+    check(a.keys() == b.keys(), "the runs sampled different (request, token) rows")
+    return [k for k in a if a[k].tobytes() != b[k].tobytes()]
+
+
+def _mamba_cross(torch, cfg, packed: bool, skip_reset: bool = False) -> dict:
+    """(d): the card against the CPU at 2 layers of full width, float32, on
+    the same weights (seed 1; ``packed``: w4a4 projections and the packed
+    (4, 4) head, else float projections and the tied float head), 8 slots:
+    two decode steps, a chunked step (lens ``CROSS_CHUNK_LENS``), the
+    states of slots ``MAMBA_CROSS_RESET`` zeroed (a re-admission), and a
+    chunked step (lens ``MAMBA_REFEED_LENS``).  Float: every row and the
+    states after the run within MAMBA_CROSS_REL_TOL relative L2.  Packed:
+    phase 5's rules on the activation levels every packed matmul
+    quantizes (a zeroed slot carries no earlier flip).  ``skip_reset``
+    plants a fault: the card keeps slot 3's state at the re-admission."""
+    import numpy as np
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.api import quantize_params_packed
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    params = T.init_params(cfg2, seed=1, device="cuda")
+    head = None
+    if packed:
+        head = L.prepack_lm_head(params["embed"], w_bits=4, a_bits=4, device="cuda")
+        params = quantize_params_packed(params, w_bits=4, a_bits=4, device="cuda")
+    sides = {"cuda": (params, head),
+             "cpu": (T.map_leaves(params, lambda a: a.to("cpu")), None if head is None else head.to("cpu"))}
+    S = CROSS_SLOTS
+    states = {dev: T.init_paged_state(cfg2, S, 1, 16, dtype=torch.float32, device=dev) for dev in sides}
+    table = torch.zeros((S, 1), dtype=torch.int32)  # the SSM family reads no block table
+    plan = [(1, None)] * 2 + [(CHUNK, CROSS_CHUNK_LENS), None, (CHUNK, MAMBA_REFEED_LENS)]
+    rng = np.random.default_rng(5)
+    levels: list = []
+    inner = L.packed_dense
+
+    def recording(x, w, **kw):
+        n = (1 << w.a_bits) - 1
+        levels.append(torch.round(torch.clamp(x.float(), 0.0, 1.0) * n).to(torch.int16).cpu())
+        return inner(x, w, **kw)
+
+    flipped = torch.zeros(S, dtype=torch.bool)
+    steps = []
+    L.packed_dense = recording
+    try:
+        for item in plan:
+            if item is None:  # re-admission: the slots' states zeroed between steps
+                for slot in MAMBA_CROSS_RESET:
+                    T.reset_paged_slot(cfg2, states["cpu"], slot)
+                    if not (skip_reset and slot == MAMBA_CROSS_RESET[0]):
+                        T.reset_paged_slot(cfg2, states["cuda"], slot)
+                    flipped[slot] = False
+                continue
+            C, lens = item
+            tokens = torch.from_numpy(rng.integers(0, cfg2.vocab, (S, C)).astype(np.int32))
+            tlens = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+            read = torch.ones((S, C), dtype=torch.bool)
+            if lens is not None:
+                read = torch.arange(C)[None] < torch.clamp(tlens, min=1)[:, None]
+            logs, lv = {}, {}
+            for dev, (p, h) in sides.items():
+                levels.clear()
+                lg, _ = T.forward_decode_paged(p, cfg2, states[dev], table.to(dev), tokens.to(dev),
+                                               torch.zeros(S, dtype=torch.int32, device=dev), head=h,
+                                               lens=None if tlens is None else tlens.to(dev))
+                logs[dev], lv[dev] = lg.cpu(), list(levels)
+            n_calls = 3 * cfg2.n_layers * C + 1 if packed else 0
+            check(len(lv["cuda"]) == len(lv["cpu"]) == n_calls, f"(d): {len(lv['cuda'])} packed matmuls")
+            row_flip = torch.zeros((S, C), dtype=torch.bool)
+            for i, (g, c) in enumerate(zip(lv["cuda"][:-1], lv["cpu"][:-1])):
+                row_flip[:, (i // 3) % C] |= (g != c).any(dim=1)  # 3 a layer and lane, lanes inner
+            row_flip &= read
+            head_flip = ((lv["cuda"][-1] != lv["cpu"][-1]).any(dim=1) if packed
+                         else torch.zeros(S, dtype=torch.bool))
+            prior = flipped.clone()
+            flipped |= row_flip.any(dim=1) | head_flip
+            g_log, c_log = logs["cuda"], logs["cpu"]
+            check(bool(torch.isfinite(g_log).all()), "(d): non-finite logits on the card")
+            st = _row_stats(torch, g_log, c_log, flipped)
+            first_hand, fresh, _ = _first_hand(prior, read, row_flip, head_flip)
+            what = f"(d) {'w4a4' if packed else 'float'} step {len(steps)} (C={C}, lens {lens})"
+            r = dict(step=len(steps), chunk=C, lens=lens, rows_flipped=row_flip.sum(dim=1).tolist(),
+                     first_hand_rows=first_hand, first_hand_flips=fresh, **st["summary"])
+            steps.append(r)
+            if not packed:
+                check(bool((st["row_rel"] <= MAMBA_CROSS_REL_TOL).all()),
+                      f"{what}: a row differs by {float(st['row_rel'].max()):.3g} relative L2, past "
+                      f"{MAMBA_CROSS_REL_TOL}")
+                continue
+            clean = st["clean"]
+            check(bool((st["row_max"][clean] <= CROSS_CLEAN_ABS_TOL).all()),
+                  f"{what}: a row without level flips differs by more than {CROSS_CLEAN_ABS_TOL}")
+            check(bool((st["row_rel"][flipped] <= CROSS_FLIP_REL_TOL).all()),
+                  f"{what}: a row with level flips differs by more than {CROSS_FLIP_REL_TOL} relative")
+            check(bool((st["agree"] | ~st["decided"] | flipped).all()),
+                  f"{what}: greedy token differs past the gap bound")
+            if C == 1:
+                check(int(clean.sum()) >= S // 2, f"{what}: level flips in most rows")
+            else:
+                check(2 * fresh <= first_hand, f"{what}: level flips in most first-hand rows")
+    finally:
+        L.packed_dense = inner
+    state_rel = {k: float(torch.linalg.vector_norm(states["cuda"][k].cpu() - states["cpu"][k])
+                          / torch.linalg.vector_norm(states["cpu"][k])) for k in states["cpu"]}
+    if not packed:
+        check(all(v <= MAMBA_CROSS_REL_TOL for v in state_rel.values()),
+              f"(d) float: the states after the run differ by {state_rel} relative L2, past {MAMBA_CROSS_REL_TOL}")
+    return dict(steps=steps, state_rel_l2=state_rel)
+
+
+def phase_mamba(torch, card, report: dict) -> dict:
+    """mamba2-130m at full width, the SSM family's serving path: w4a4
+    projections (``in_z``, ``in_xbc``, ``out_proj``; ``in_dt`` float) and
+    the packed (4, 4) head, random weights from seed 0, no K/V pool and no
+    K3; the recurrent state written in place by the captured step and
+    zeroed per slot on (re-)admission, between steps.  (a) K1 at the four
+    shapes at M = 16, bit-exact against its plain version, timed by graph
+    beside its bound and ``_int_mm``.  (b) The serve at C = 16 (16 slots,
+    16 prompts of 512-1536 tokens, MAMBA_NEW new) and at C = 1 (16 prompts
+    of 64-128 tokens): every request ``ok``, one capture, no leaks, launch
+    counters and graph nodes 3 x 24 K1 a lane and the head a step; step
+    p50, one replay's device time, tok/s, TTFT, the step's bytes bound;
+    each traced on a short run.  (c) MAMBA_PREEMPT's requests with forced
+    preemptions against the same requests with none: every sampled row
+    bit-identical; with the reset skipped on re-admission (a planted
+    fault) some row must differ.  (d) The card against the CPU at 2
+    layers (:func:`_mamba_cross`), float and w4a4, and the planted fault
+    on the float run, which must fail."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.serving import Engine, EngineConfig, build_engine
+
+    t_phase = time.monotonic()
+    cfg = get_config(MAMBA_ARCH)
+    s = cfg.ssm_spec()
+    check((cfg.n_layers, cfg.d_model, s.d_inner, s.n_heads, s.head_dim, s.d_state, s.conv_width, cfg.vocab)
+          == (24, 768, 1536, 24, 64, 128, 4, 50432), f"mamba2-130m's config {cfg}")
+    ecfg = EngineConfig(n_slots=MAMBA_SLOTS, page_size=16, max_len=2048, chunk_tokens=CHUNK, admit="on-demand",
+                        packed_head=True, head_bits=(4, 4))
+    ecfg1 = dataclasses.replace(ecfg, chunk_tokens=1)
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist() for n in rng.integers(*MAMBA_PROMPTS, size=MAMBA_SLOTS)]
+    short = [rng.integers(0, cfg.vocab, int(n)).tolist()
+             for n in rng.integers(*MAMBA_SHORT_PROMPTS, size=MAMBA_SLOTS)]
+    out: dict = {}
+
+    # (a) K1 at the step's shapes, the head included, all at M = 16
+    print(f"  (a) K1 at mamba2-130m's shapes, M = {ecfg.n_slots}:", flush=True)
+    t0 = time.monotonic()
+    timer = Timer(torch)
+    out["k1"] = phase_matmul_chunk(torch, card, timer, cfg, ecfg.n_slots, report, key="mamba_matmul",
+                                   head_m=ecfg.n_slots, shapes=mamba_matmul_shapes(cfg, CHUNK))
+    del timer
+    out["k1"]["phase_s"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+
+    # (b) the serves, C = 16 and C = 1
+    t0 = time.monotonic()
+    eng = build_engine(cfg, ecfg, quant="packed", w_bits=4, a_bits=4, seed=0)
+    torch.cuda.synchronize()
+    t_build = time.monotonic() - t0
+    params, head = eng.params, eng._head
+    state_gb = {k: v.numel() * v.element_size() / 1e9 for k, v in eng.state.items()}
+    per_step = {}
+    for label, e, ps, c in (("C=16", ecfg, prompts, CHUNK), ("C=1", ecfg1, short, 1)):
+        per_step[label] = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": 3 * cfg.n_layers * c + 1}
+        if label != "C=16":
+            eng = Engine(cfg, params, e, head=head)
+        bound = mamba_step_bound(eng)
+        t0 = time.monotonic()
+        r = _timed_turn(torch, eng, ps, per_step[label], f"(b) {label}", memset=True, max_new=MAMBA_NEW,
+                        keep=True)
+        check(all(len(t) == MAMBA_NEW for t in r["tokens"].values()), f"(b) {label}: a request ended short")
+        check(r["preemptions"] == 0, f"(b) {label}: {r['preemptions']} preemptions")
+        eng.assert_no_leaks()
+        r.update(bound, prompt_tokens=sum(map(len, ps)), serve_s=time.monotonic() - t0)
+        # the trace: a short run on the same graph
+        prompt_len, new = MAMBA_TRACE[label]
+        r["profile"] = profile_engine(torch, eng, cfg, f"mamba2-130m {label}, captured",
+                                      n_requests=MAMBA_SLOTS, max_new=new, prompt_len=prompt_len)
+        check(eng._program.captures == 1, f"(b) {label}: {eng._program.captures} captures")
+        r["phase_s"] = time.monotonic() - t0
+        out[label] = r
+        print(f"  (b) {label}: {len(ps)} prompts of {min(map(len, ps))}-{max(map(len, ps))} tokens, "
+              f"{MAMBA_NEW} new: {r['steps']} steps, {r['tokens_per_s']:.1f} tok/s, step p50 "
+              f"{r['step_ms_p50']:.2f} ms (min {r['step_ms_min']:.2f}), one replay {r['replay_ms']:.2f} ms, "
+              f"TTFT p50 {r['ttft_ms_p50']:.1f} ms; launches {r['counts']}; graph nodes {r['graph']}; step "
+              f"bound {bound['bound_ms_lanes']:.3f} ms with the state read and written a lane "
+              f"({bound['bytes_lanes'] / 1e9:.2f} GB), {bound['bound_ms_once']:.3f} ms once "
+              f"({bound['bytes_once'] / 1e9:.3f} GB); one capture, no leaks; {r['phase_s']:.1f} s with the "
+              f"trace", flush=True)
+    del eng
+    out["b"] = dict(build_s=t_build, state_gb=state_gb)
+    print(f"  (b) built in {t_build:.1f} s; state {state_gb} GB", flush=True)
+
+    # (c) forced preemption against none, and the skipped reset
+    t0 = time.monotonic()
+    P = MAMBA_PREEMPT
+    rng = np.random.default_rng(16)
+    c_prompts = [rng.integers(0, cfg.vocab, int(n)).tolist() for n in rng.integers(*P["prompts"], size=MAMBA_SLOTS)]
+    ecfg_c = dataclasses.replace(ecfg, page_size=P["page_size"], max_len=P["max_len"])
+    worst = sum(-(-(len(p) + P["new"]) // P["page_size"]) for p in c_prompts)
+    n_pages = int(P["share"] * worst) + 1
+    runs = {"twin": _sampled_serve(torch, Engine(cfg, params, ecfg_c, head=head), c_prompts, P["new"])}
+    # the preempted run and the planted fault, one after the other on one engine (one capture)
+    eng_c = Engine(cfg, params, dataclasses.replace(ecfg_c, n_pages=n_pages), head=head)
+    runs["preempted"] = _sampled_serve(torch, eng_c, c_prompts, P["new"], keep=True)
+    runs["fault"] = _sampled_serve(torch, eng_c, c_prompts, P["new"], skip_readmit_reset=True)
+    del eng_c
+    twin, pre, fault = runs["twin"], runs["preempted"], runs["fault"]
+    check(twin["preemptions"] == 0, f"(c): the twin preempted {twin['preemptions']} times")
+    check(pre["preemptions"] >= P["min_preemptions"],
+          f"(c): {pre['preemptions']} preemptions, fewer than {P['min_preemptions']}")
+    check(all(r["captures"] == 1 for r in runs.values()), "(c): an engine captured more than once")
+    check(pre["resets"] == MAMBA_SLOTS + pre["preemptions"], f"(c): {pre['resets']} resets")
+    differ = _rows_differ(twin["rows"], pre["rows"])
+    check(not differ and pre["tokens"] == twin["tokens"],
+          f"(c): {len(differ)} of {len(twin['rows'])} sampled rows differ from the unpreempted twin's")
+    fault_differ = _rows_differ(twin["rows"], fault["rows"])
+    check(len(fault_differ) > 0, "(c): the run with the reset skipped on re-admission equals the twin")
+    worst_fault = max(float(np.abs(fault["rows"][k] - twin["rows"][k]).max()) for k in fault_differ)
+    out["c"] = dict(pages=n_pages, worst_case_pages=worst, rows=len(twin["rows"]),
+                    fault_rows_differ=len(fault_differ), fault_max_abs=worst_fault,
+                    **{k: {x: r[x] for x in ("steps", "preemptions", "fed_tokens", "resets")} for k, r in runs.items()})
+    print(f"  (c) {MAMBA_SLOTS} prompts of {min(map(len, c_prompts))}-{max(map(len, c_prompts))} tokens, "
+          f"{P['new']} new, C={CHUNK}, pages of {P['page_size']}: {n_pages} pages ({worst} worst case) "
+          f"-> {pre['steps']} steps, {pre['preemptions']} preemptions, {pre['resets']} resets; twin "
+          f"{twin['steps']} steps, none: all {len(twin['rows'])} sampled rows bit-identical; planted fault "
+          f"(no reset on re-admission): {len(fault_differ)} rows differ (max |d| {worst_fault:.4g}), rejected; "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    del runs, twin, pre, fault, params, head
+    torch.cuda.empty_cache()
+
+    # (d) the card against the CPU at 2 layers, float and w4a4; the planted fault
+    t0 = time.monotonic()
+    out["d"] = {}
+    for label, packed in (("float", False), ("w4a4", True)):
+        d = out["d"][label] = _mamba_cross(torch, cfg, packed)
+        for r in d["steps"]:
+            print(f"  (d) {label} step {r['step']} (C={r['chunk']}): {r['clean_rows']}/{CROSS_SLOTS} slots "
+                  f"with identical levels (max|d| {r['clean_max_abs']}), max rel L2 {r['max_rel']:.3g}, rows "
+                  f"flipped by slot {r['rows_flipped']}, {r['first_hand_flips']} of {r['first_hand_rows']} "
+                  f"first-hand rows flipped; tokens agree {r['tokens_agree']}/{CROSS_SLOTS}", flush=True)
+        print(f"  (d) {label}: states after the run, rel L2 {d['state_rel_l2']}", flush=True)
+    try:
+        _mamba_cross(torch, cfg, False, skip_reset=True)
+        planted = None
+    except PhaseError as e:
+        planted = str(e)
+    check(planted is not None and planted.startswith("(d)"),
+          "(d): the card keeping slot 3's state at its re-admission passes the float check")
+    out["d_fault"] = planted
+    out["d_s"] = time.monotonic() - t0
+    print(f"  (d) {out['d_s']:.1f} s; the planted fault was rejected: {planted}", flush=True)
+    out["phase_s"] = time.monotonic() - t_phase
+    print(f"  phase 15 on {card.name} ({card.power_limit}): {out['phase_s']:.1f} s", flush=True)
+    report["mamba"] = out
+    return out
+
+
 # -- main ------------------------------------------------------------------------
 
 
@@ -3070,6 +3467,11 @@ def main(argv=None) -> int:
           f"pools, card vs CPU past the window", flush=True)
     gm = phase_gemma(torch, card, report)
     peak("14")
+    print(f"phase 15: mamba2-130m at full width (the SSM family): K1 at its shapes, the serve at C={CHUNK} "
+          f"(16 slots, 16 x 512-1536-token prompts) and C=1, forced preemption against none with a "
+          f"skipped-reset fault, card vs CPU at 2 layers", flush=True)
+    mb = phase_mamba(torch, card, report)
+    peak("15")
 
     # per-decode-step totals per kernel: the sum over the launches of one step
     def step_sum(rows, key):
@@ -3098,6 +3500,7 @@ def main(argv=None) -> int:
     i8_first = next(t for t in i8s["a"]["turns"] if t["cell"] == "int8 KV")
     chunk_step = mm_chunk["rows"] + head  # a chunked step: the layers at M = 128, the head at M = 8
     gemma_k1 = gm["k1"]["rows"]  # phase 14's chunked step: the layers at M = 128, the head at M = 8
+    mamba_k1 = mb["k1"]["rows"]  # phase 15's C = 16 step: 16 lanes x 24 layers x 3 and the head, M = 16
     chunked_launches = {k: {admit: r["counts"][k] for admit, r in ch.items()}
                         for k in ("packed_dense_fused", "paged_gather")}
 
@@ -3124,7 +3527,7 @@ def main(argv=None) -> int:
         dict(name="packed_dense_fused", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
              replaces="src/repro/kernels/packed_matmul/kernel.py:111",
              launches=fused["counts"]["packed_dense_fused"],
-             max_abs_err=max(mm["max_err"], mm_chunk["max_err"], gm["k1"]["max_err"]),
+             max_abs_err=max(mm["max_err"], mm_chunk["max_err"], gm["k1"]["max_err"], mb["k1"]["max_err"]),
              ms=step_sum(served, "k1_graph_ms"), events_ms=step_sum(served, "k1_ms"),
              plain_ms=step_sum(served, "plain_ms"),
              bound_ms=step_sum(served, "bound_ms"), bound_by=by_t(served, lambda r: r["per_step"]),
@@ -3148,7 +3551,17 @@ def main(argv=None) -> int:
                  plain_ms=step_sum(gemma_k1, "plain_ms"), bound_ms=step_sum(gemma_k1, "bound_ms"),
                  bound_by=by_t(gemma_k1, lambda r: r["per_step"]),
                  library_ms=step_sum(gemma_k1, "int_mm_graph_ms"), library="torch._int_mm, M padded to 32",
-                 gbps=by_gbps(gemma_k1, "k1_graph_ms"), max_abs_err=gm["k1"]["max_err"])),
+                 gbps=by_gbps(gemma_k1, "k1_graph_ms"), max_abs_err=gm["k1"]["max_err"]),
+             launches_mamba=mb["C=16"]["counts"]["packed_dense_fused"], steps_mamba=mb["C=16"]["steps"],
+             launches_mamba_c1=mb["C=1"]["counts"]["packed_dense_fused"], steps_mamba_c1=mb["C=1"]["steps"],
+             mamba=dict(
+                 per="mamba2-130m C = 16 step (phase 15): in_z, in_xbc and out_proj of 24 layers in each of "
+                     "16 lanes and the head, all at M = 16",
+                 ms=step_sum(mamba_k1, "k1_graph_ms"), events_ms=step_sum(mamba_k1, "k1_ms"),
+                 plain_ms=step_sum(mamba_k1, "plain_ms"), bound_ms=step_sum(mamba_k1, "bound_ms"),
+                 bound_by=by_t(mamba_k1, lambda r: r["per_step"]),
+                 library_ms=step_sum(mamba_k1, "int_mm_graph_ms"), library="torch._int_mm, M padded to 32",
+                 gbps=by_gbps(mamba_k1, "k1_graph_ms"), max_abs_err=mb["k1"]["max_err"])),
         dict(name="packed_matmul", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
              replaces="src/repro/kernels/packed_matmul/kernel.py:168",
              launches=blocked["counts"]["packed_matmul"], max_abs_err=mm["max_err"],

@@ -1,8 +1,9 @@
 """Architecture registry (``repro.configs``): ``get_config(arch, smoke=)``.
 
 The same ten architectures as the reference, field for field.  The port
-serves llama3.2-3b and gemma3-1b (its 5:1 sliding windows, geglu and one KV
-head of width 256), each held against the reference; the rest are data.
+serves llama3.2-3b, gemma3-1b (its 5:1 sliding windows, geglu and one KV
+head of width 256) and mamba2-130m (the SSM family's recurrent state),
+each held against the reference; the rest are data.
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@
 Params are a dict with the reference's pytree keys: ``embed`` [V, d],
 ``final_ln``, and ``layers`` — stacked ``[L, ...]`` tensors (the
 reference's scan layout) or a list of per-layer dicts.  The reference
-scans the stacked layers; here a Python loop walks them.  This slice
-serves the attention family; the other families raise.
+scans the stacked layers; here a Python loop walks them.  The dense
+attention family (KV page pools) and the SSM family (mamba2: slot-indexed
+recurrent state) are served; hybrid, encoder-decoder and MoE configs raise.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.packed_matmul.ops import PackedDenseParams
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +80,11 @@ class ModelConfig:
     def mlp_spec(self) -> L.MLPSpec:
         return L.MLPSpec(d_model=self.d_model, d_ff=self.d_ff // self.tp_shards, kind=self.mlp_kind)
 
+    def ssm_spec(self) -> M.MambaSpec:
+        """One device's spec (the reference's ``shard_heads`` waits for the mesh)."""
+        return M.MambaSpec(d_model=self.d_model, d_state=self.ssm_state,
+                           head_dim=self.ssm_head_dim, chunk=self.ssm_chunk)
+
     def windows(self) -> list[int]:
         pat = self.window_pattern
         reps = -(-self.n_layers // len(pat))
@@ -85,10 +92,12 @@ class ModelConfig:
 
 
 def _check_served(cfg: ModelConfig) -> None:
-    if cfg.family != "attn" or cfg.is_moe:
+    if cfg.family not in ("attn", "ssm") or cfg.is_moe:
         raise NotImplementedError(
-            f"the port serves the dense attention family so far, not {cfg.name!r} "
-            f"(family {cfg.family!r}, {cfg.n_experts} experts); see ROADMAP.md, port queue"
+            f"the port serves the dense attention and SSM families so far, not {cfg.name!r} "
+            f"(family {cfg.family!r}, {cfg.n_experts} experts); MoE waits for 'MoE with packed "
+            f"experts', the hybrid and encdec paths for 'Training, QAT and NAS' (ROADMAP.md, "
+            f"port queue)"
         )
 
 
@@ -109,6 +118,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device: str | torch.device =
     def ones(*shape):
         return torch.ones(shape, dtype=torch.float32, device=dev)
 
+    def top(layers: dict) -> dict:  # the embedding is drawn after the layers
+        return {"embed": normal(cfg.vocab, d) * 0.01, "final_ln": {"g": ones(d)}, "layers": layers}
+
+    if cfg.family == "ssm":
+        return top(M.mamba_init(g, cfg.ssm_spec(), Ln))
     attn = {
         "wq": {"w": normal(Ln, d, H * hd, fan_in=d)},
         "wk": {"w": normal(Ln, d, G * hd, fan_in=d)},
@@ -123,11 +137,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device: str | torch.device =
     }
     if cfg.mlp_kind in ("swiglu", "geglu"):
         mlp["w_gate"] = {"w": normal(Ln, d, ff, fan_in=d)}
-    return {
-        "embed": normal(cfg.vocab, d) * 0.01,
-        "final_ln": {"g": ones(d)},
-        "layers": {"attn": attn, "mlp": mlp},
-    }
+    return top({"attn": attn, "mlp": mlp})
 
 
 def map_leaves(tree, fn):
@@ -154,8 +164,13 @@ def unstack_layers(params: dict, n_layers: int) -> dict:
 def init_paged_state(cfg: ModelConfig, n_slots: int, n_pages: int, page_size: int, *,
                      dtype: torch.dtype = torch.bfloat16, kv_dtype=None,
                      device: str | torch.device = "cuda") -> dict:
-    """Paged KV pools ``[L, n_pages, page_size, G*hd]`` (page 0 = null page):
-    ``dtype`` pools, or int8 level pools plus float32 per-row scale pools.
+    """The paged serving state.  Attention: KV pools ``[L, n_pages,
+    page_size, G*hd]`` (page 0 = null page), ``dtype`` pools or int8 level
+    pools plus float32 per-row scale pools.  SSM: the recurrent state is
+    O(1) a sequence, so it stays slot-indexed, a float32 ``ssm`` state
+    ``[L, n_slots, H, N, P]`` and a ``conv`` state ``[L, n_slots,
+    conv_width - 1, d_inner + 2N]`` in ``dtype``, zeroed on admission
+    (:func:`reset_paged_slot`); no pools.
 
     ``kv_dtype`` overrides ``cfg.kv_dtype``: "int8", ``torch.int8``, or a
     float dtype (which then replaces ``dtype``)."""
@@ -165,6 +180,14 @@ def init_paged_state(cfg: ModelConfig, n_slots: int, n_pages: int, page_size: in
     kv_int8 = kv == "int8" or kv == torch.int8
     if not kv_int8 and kv_dtype is not None and not isinstance(kv, str):
         dtype = kv  # an explicit float override (e.g. float32 pools)
+    if cfg.family == "ssm":
+        s = cfg.ssm_spec()
+        return {
+            "ssm": torch.zeros((cfg.n_layers, n_slots, s.n_heads, s.d_state, s.head_dim),
+                               dtype=torch.float32, device=dev),
+            "conv": torch.zeros((cfg.n_layers, n_slots, s.conv_width - 1, s.d_inner + 2 * s.d_state),
+                                dtype=dtype, device=dev),
+        }
     shape = (cfg.n_layers, n_pages, page_size, (cfg.kv_heads // cfg.tp_shards) * cfg.hd)
     if kv_int8:
         return {
@@ -177,6 +200,18 @@ def init_paged_state(cfg: ModelConfig, n_slots: int, n_pages: int, page_size: in
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def reset_paged_slot(cfg: ModelConfig, state: dict, slot: int) -> dict:
+    """Zero one slot's recurrent state in place when the scheduler
+    (re-)admits into it; returns ``state``.  Attention state needs no
+    reset (a fresh sequence starts at position 0, so every stale page row
+    is masked until overwritten), but the SSM and conv states are carried
+    from step to step and must start from zero."""
+    if cfg.family == "ssm":
+        state["ssm"][:, slot].zero_()
+        state["conv"][:, slot].zero_()
+    return state
+
+
 def embed_paged(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Token embedding ``[S, C] -> [S, C, d]`` in ``cfg.dtype`` (rows are
     gathered before the cast, so the table is never converted whole)."""
@@ -187,8 +222,22 @@ def decode_paged_layer(p: dict, cfg: ModelConfig, layer_state: dict, block_table
                        h: torch.Tensor, pos: torch.Tensor, *, window: int = -1,
                        lens: torch.Tensor | None = None, gather: str = "xla") -> torch.Tensor:
     """One layer of the paged decode step; ``layer_state`` (this layer's
-    ``k``/``v`` [+ scales] pools) is updated in place."""
+    ``k``/``v`` [+ scales] pools, or its ``ssm``/``conv`` state) is updated
+    in place.  The SSM family ignores ``block_table``, ``pos``, ``window``
+    and ``gather``; its new states are copied into the given ones, never
+    rebound, so a captured step writes the buffers it was captured on."""
     _check_served(cfg)
+    if cfg.family == "ssm":
+        s = cfg.ssm_spec()
+        st, cv = layer_state["ssm"], layer_state["conv"]
+        if h.shape[1] > 1 or lens is not None:
+            # recurrent over the lane axis; invalid lanes leave the state alone
+            h, ns, nc = M.mamba_decode_chunk(p, s, h, st, cv, lens=lens, quant=cfg.quant)
+        else:
+            h, ns, nc = M.mamba_decode(p, s, h, st, cv, quant=cfg.quant)
+        st.copy_(ns)
+        cv.copy_(nc)
+        return h
     h = L.attention_decode_paged(
         p["attn"], cfg.attn_spec(), h, layer_state["k"], layer_state["v"], block_table, pos,
         window=window, quant=cfg.quant, pool_k_scale=layer_state.get("k_scale"),
@@ -220,8 +269,9 @@ def forward_decode_paged(params: dict, cfg: ModelConfig, state: dict, block_tabl
     ``tokens`` is ``[S, C]``; with ``lens`` given, slot ``i`` feeds its
     first ``lens[i]`` lanes (a prompt chunk while prefilling, 1 while
     decoding, 0 while inactive) and the logits are those of its last valid
-    lane.  Returns ``(logits [S, V] float32, state)``; the pools in
-    ``state`` are updated in place, so the returned state is the same dict."""
+    lane.  Returns ``(logits [S, V] float32, state)``; the pools (SSM: the
+    recurrent states) in ``state`` are updated in place, so the returned
+    state is the same dict.  The SSM family ignores ``block_table``."""
     _check_served(cfg)
     x = embed_paged(params, cfg, tokens)
     layers = params["layers"]

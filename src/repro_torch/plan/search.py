@@ -16,7 +16,7 @@ per-layer bit space.  Each candidate assignment is scored by
 and the search maximizes quality under a cost budget.  The result equals
 the reference's plan for the same inputs, content hash included.  The
 NAS adapter (``plan_from_nas_result``) waits for the convnet NAS
-(ROADMAP.md, port queue 1, item 14).
+(ROADMAP.md, port queue: "Training, QAT and NAS").
 """
 from __future__ import annotations
 
@@ -107,10 +107,16 @@ def layer_matmul_shapes(cfg, n_slots: int = 8) -> list[list[ProjShape]]:
                     projs.append(ProjShape("mlp_gate", m, d, cfg.d_ff))
             out.append(projs)
     elif cfg.family == "ssm":
-        raise NotImplementedError(
-            "plan search for the ssm family needs mamba2 in the port "
-            "(ROADMAP.md, port queue 1, item 7)"
-        )
+        s = cfg.ssm_spec()
+        conv_dim = s.d_inner + 2 * s.d_state
+        for _ in range(cfg.n_layers):
+            out.append(
+                [
+                    ProjShape("ssm_in_z", m, d, s.d_inner),
+                    ProjShape("ssm_in_xbc", m, d, conv_dim),
+                    ProjShape("ssm_out", m, s.d_inner, d),
+                ]
+            )
     else:
         raise NotImplementedError(
             f"plan search covers attn/ssm serving families, not {cfg.family!r}"

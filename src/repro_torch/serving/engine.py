@@ -41,9 +41,19 @@ cancelled or shed request's slot and pages are freed between two steps:
 the next step stages the cleared block-table row, so the slot's lanes
 land on null page 0; the graph is never captured again.
 
-Not ported yet, and refused where asked for: fault injection, retries and
-quarantine (non-finite logits raise), snapshots, tracing and live
-metrics, and mesh parallelism (see ROADMAP.md, port queue).
+**The SSM family** (mamba2) carries a slot-indexed recurrent state in
+place of KV pools: each step updates every slot's state in place (a
+slot's lanes past its ``lens`` leave it alone), and :meth:`Engine._reset_slot`
+zeroes a slot's state between steps whenever the scheduler admits a
+request into it, first admissions and re-admissions after a preemption
+alike, so that a replayed request rebuilds its state from position 0.
+The scheduler still allocates pages for SSM requests (the block table is
+ignored), so admission and preemption follow the reference's.
+
+Not ported yet, and refused where asked for (ROADMAP.md, port queue):
+fault injection, retries and quarantine (non-finite logits raise) and
+snapshots ("Chaos and snapshots"), tracing and live metrics
+("Observability"), and mesh parallelism ("Mesh").
 """
 from __future__ import annotations
 
@@ -281,6 +291,14 @@ class Engine:
                            n_blocks=self.ecfg.blocks_per_slot, vocab=cfg.vocab, device=self.device,
                            capture=capture)
 
+    def _reset_slot(self, slot: int) -> None:
+        """Zero one slot's recurrent (SSM) state on (re-)admission, in place
+        and outside the step's graph: the next step's stream waits for the
+        writes (:meth:`StepProgram._on_stream`), and the graph, captured on
+        the same buffers, is never captured again.  Other families keep no
+        such state: nothing to do."""
+        T.reset_paged_slot(self.cfg, self.state, slot)
+
     def warmup(self) -> None:
         """Prepare the step program (:meth:`StepProgram.prepare`: one eager
         step with every slot inactive, then the capture on the card), so
@@ -486,7 +504,9 @@ class Engine:
             self._police(now())
             while self._pending and self._pending[0].arrival <= now():
                 sched.submit(self._pending.pop(0))
-            sched.admit(now())
+            for req in sched.admit(now()):
+                # a (re-)admitted SSM request rebuilds its state from position 0
+                self._reset_slot(req.slot)
             if not sched.active:
                 if self._pending:
                     # nothing running: wait for (or jump to) the next arrival

@@ -1059,3 +1059,117 @@ def test_captured_gemma_engine_past_the_window_equals_the_eager_engine(cuda):
     assert len(logits_c) == len(logits_e) == m_c["steps"]
     for t, (a, b) in enumerate(zip(logits_c, logits_e)):
         assert a.tobytes() == b.tobytes(), t
+
+
+# -- mamba2-130m: the SSM family's recurrent state ----------------------------------
+
+# (K, N) of mamba2-130m's decode step: in_z, in_xbc, out_proj, the head
+MAMBA_SHAPES = [(768, 1536), (768, 1792), (1536, 768), (768, 50432)]
+
+
+@pytest.mark.parametrize("m", [1, 16])
+@pytest.mark.parametrize("k,n", MAMBA_SHAPES)
+def test_fused_kernel_bit_exact_at_mamba_shapes(cuda, m, k, n):
+    """K1 at w4a4 against its plain version at mamba2-130m's projections and
+    head, at one row and at the 16 slots of the served cell."""
+    cfg = choose_config(4, 4)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(m + k + n)
+    x = torch.rand((m, k), generator=g, device=cuda) * 1.2 - 0.1
+    w_lvl = torch.randint(0, 16, (k, n), generator=g, device=cuda, dtype=torch.int32)
+    wp = pm.pack_weights(w_lvl, cfg.n_seg, cfg.stride)
+    del w_lvl
+    kw = dict(a_bits=4, n_seg=cfg.n_seg, stride=cfg.stride, acc_chunk=cfg.acc_chunk, overlap=cfg.overlap)
+    acc, a_sum = packed_dense_fused_raw(x, wp, **kw)
+    p_acc, p_sum = packed_dense_fused_plain(x, wp, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, p_acc) and torch.equal(a_sum, p_sum)
+
+
+def _sampled_rows(eng) -> dict:
+    rows = {}
+    eng.on_sample = lambda rid, t, row: rows.__setitem__((rid, t), row.copy())
+    return rows
+
+
+@pytest.mark.parametrize("chunk,admit,n_pages", [(1, "reserve", 0), (4, "on-demand", 7)])
+def test_captured_mamba_engine_equals_the_eager_engine(cuda, chunk, admit, n_pages):
+    """mamba2-130m at its smoke size, w4a4 and the packed (4, 4) head, two
+    slots: request 0 is cancelled at its 3rd token and the waiting requests
+    are admitted into its slot and the other, their states zeroed between
+    replays (on demand: preempted and re-admitted too).  The captured step
+    (one capture) against capture=False: every step's logits bit-identical,
+    the same tokens, resets and launch counters, which are the graph's
+    per-step launches (3 K1 a layer and lane, and the head) times the steps."""
+    from repro_torch.serving import Engine
+
+    cfg, packed, head = _packed_smoke(cuda, get_config("mamba2-130m", smoke=True))
+    ecfg = EngineConfig(n_slots=2, page_size=4, max_len=32, n_pages=n_pages, chunk_tokens=chunk,
+                        admit=admit, packed_head=True, head_bits=(4, 4))
+    g = np.random.default_rng(13)
+    prompts = [g.integers(1, cfg.vocab, n).tolist() for n in (9, 6, 11, 5)]
+    runs = []
+    for capture in (False, True):
+        eng = Engine(cfg, packed, ecfg, head=head, device=cuda, capture=capture)
+        logits = _step_logits(eng)
+        resets, reset = [], eng._reset_slot
+        eng._reset_slot = lambda slot, resets=resets, reset=reset: (resets.append(slot), reset(slot))
+        reqs = [eng.submit(p, 6) for p in prompts]
+
+        def on_sample(rid, t, row, eng=eng, reqs=reqs):
+            if rid == 0 and t == 2:
+                eng.cancel(reqs[0])
+
+        eng.on_sample = on_sample
+        build.reset_counts()
+        m = eng.run(realtime=False)
+        assert [r.status for r in reqs] == ["cancelled", "ok", "ok", "ok"]
+        assert len(resets) == len(prompts) + m["preemptions"] and len(set(resets)) == 2
+        eng.assert_no_leaks()
+        counts = build.counts()
+        if capture:
+            prog = eng._program
+            assert prog.captures == 1
+            assert prog.launches == {"packed_dense_fused": 3 * cfg.n_layers * chunk + 1}
+            assert counts == {k: prog.launches.get(k, 0) * m["steps"] for k in build.COUNTS}
+        runs.append((m, counts, logits, {r.rid: r.out_tokens for r in reqs}, resets))
+        eng.close()
+    (m_e, counts_e, logits_e, toks_e, resets_e), (m_c, counts_c, logits_c, toks_c, resets_c) = runs
+    if admit == "on-demand":
+        assert m_c["preemptions"] > 0
+    for key in ("steps", "fed_tokens", "preemptions"):
+        assert m_c[key] == m_e[key], key
+    assert toks_c == toks_e and counts_c == counts_e and resets_c == resets_e
+    assert len(logits_c) == len(logits_e) == m_c["steps"]
+    for t, (a, b) in enumerate(zip(logits_c, logits_e)):
+        assert a.tobytes() == b.tobytes(), t
+
+
+def test_mamba_forced_preemption_equals_its_unpreempted_twin(cuda):
+    """The reference's forced-preemption fixture on the card (mamba2-130m
+    smoke, w4a4, the packed (4, 4) head, C = 4, on demand): 5 usable pages
+    preempt and replay; with pages for every request nothing is preempted.
+    Every sampled row of the two captured runs is bit-identical."""
+    from repro_torch.serving import Engine
+
+    cfg, packed, head = _packed_smoke(cuda, get_config("mamba2-130m", smoke=True))
+    g = np.random.default_rng(7)
+    prompts = [g.integers(1, cfg.vocab, n).tolist() for n in (9, 6, 11)]
+    runs = []
+    for n_pages in (6, 0):
+        ecfg = EngineConfig(n_slots=3, page_size=4, max_len=32, n_pages=n_pages, chunk_tokens=4,
+                            admit="on-demand", packed_head=True, head_bits=(4, 4))
+        eng = Engine(cfg, packed, ecfg, head=head, device=cuda)
+        rows = _sampled_rows(eng)
+        for p in prompts:
+            eng.submit(p, 6)
+        m = eng.run(realtime=False)
+        assert m["statuses"] == {"ok": 3}
+        eng.assert_no_leaks()
+        eng.close()
+        runs.append((m, rows))
+    (m_p, rows_p), (m_u, rows_u) = runs
+    assert m_p["preemptions"] > 0 and m_u["preemptions"] == 0
+    assert rows_p.keys() == rows_u.keys() and len(rows_p) == 18
+    for k, row in rows_u.items():
+        assert row.tobytes() == rows_p[k].tobytes(), k

@@ -49,6 +49,7 @@ from repro_torch.core import packing as PK
 from repro_torch.core.packing import optimizer as opt
 from repro_torch.kernels import common
 from repro_torch.kernels.packed_matmul.ops import PackedDenseParams
+from repro_torch.models import transformer as T
 from repro_torch.models.layers import prepack_lm_head
 from repro_torch.plan import autotune, compile as plan_compile, search
 from repro_torch.serving import EngineConfig, build_engine
@@ -286,21 +287,18 @@ def test_search_refuses_as_the_reference_refuses(case):
 
 
 @pytest.mark.parametrize("arch,smoke", [("qwen3-moe-30b-a3b", True), ("llama4-scout-17b-a16e", False),
-                                        ("gemma3-1b", False)])
+                                        ("gemma3-1b", False), ("mamba2-130m", True),
+                                        ("mamba2-130m", False)])
 def test_layer_shapes_and_costs_equal_reference(arch, smoke):
-    """MoE shapes (top_k routed, every expert stored) and costs, and the
-    plan they give."""
+    """MoE shapes (top_k routed, every expert stored), the SSM family's
+    (``ssm_in_z``, ``ssm_in_xbc``, ``ssm_out``) and costs, and the plan
+    they give."""
     rcfg, cfg = ref_get_config(arch, smoke=smoke), get_config(arch, smoke=smoke)
     ours, theirs = P.layer_matmul_shapes(cfg), RP.layer_matmul_shapes(rcfg)
     assert [[dataclasses.astuple(p) for p in l] for l in ours] == [
         [dataclasses.astuple(p) for p in l] for l in theirs]
     assert (P.search_plan(cfg, arch=arch, smoke=smoke).to_payload()
             == RP.search_plan(rcfg, arch=arch, smoke=smoke).to_payload())
-
-
-def test_ssm_search_names_its_queue_item():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        P.layer_matmul_shapes(get_config("mamba2-130m", smoke=True))
 
 
 # -- apply -----------------------------------------------------------------------
@@ -334,6 +332,32 @@ def test_uniform_plan_apply_equals_global_packed(fix3):
     assert not isinstance(applied["layers"], list)  # the stacked layout stays
     got, exp = dict(_leaves(applied)), dict(_leaves(want))
     assert got.keys() == exp.keys()
+    for k, a in got.items():
+        b = exp[k]
+        if isinstance(a, PackedDenseParams):
+            assert dataclasses.replace(a, w_packed=None) == dataclasses.replace(b, w_packed=None), k
+            assert torch.equal(a.w_packed, b.w_packed), k
+        else:
+            assert a is b, k
+    want_head = prepack_lm_head(tp["embed"], w_bits=4, a_bits=4, device="cpu")
+    assert torch.equal(head.w_packed, want_head.w_packed) and head.cfg == want_head.cfg
+
+
+def test_uniform_plan_apply_equals_global_packed_ssm():
+    """tests/test_plan.py test_uniform_plan_apply_bitexact_vs_global_packed
+    at arch="mamba2-130m": a uniform (4, 4) plan packs the stacked layers
+    byte for byte as ``quantize_params_packed`` does (``in_dt`` and the
+    other SSM leaves stay the same float tensors) and carries the head."""
+    arch = "mamba2-130m"
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
+    tp = T.init_params(cfg, seed=0, device="cpu")
+    applied, head = P.apply_plan(tp, cfg, P.uniform_plan(cfg, arch=arch, w_bits=4, a_bits=4), device="cpu")
+    want = quantize_params_packed(tp, w_bits=4, a_bits=4, device="cpu")
+    assert not isinstance(applied["layers"], list)
+    got, exp = dict(_leaves(applied)), dict(_leaves(want))
+    assert got.keys() == exp.keys()
+    assert sorted(k for k, v in got.items() if isinstance(v, PackedDenseParams)) == [
+        "/layers/in_xbc/w", "/layers/in_z/w", "/layers/out_proj/w"]
     for k, a in got.items():
         b = exp[k]
         if isinstance(a, PackedDenseParams):
