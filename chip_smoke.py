@@ -199,6 +199,28 @@ Phases, all on the card:
    steps, chunked steps and a re-admission, and the planted fault (the
    card keeps a re-admitted slot's state) that the float check must reject.
 
+16. qwen3-moe-30b-a3b at full width (d 2048, 32 heads of 64, 4 KV heads,
+   128 experts, top-8, expert d_ff 768, vocab 151936, capacity 1.25), bf16,
+   random weights from seed 0, 12 of its 48 layers (a cut forced by memory:
+   float32 experts are 2.42 GB a layer at build): MoE with packed experts,
+   K1 over an expert grid axis.  (a) K1 and K2 (block_k 512) over the 128
+   experts in one launch at w_up|w_gate (2048x768) and w_down (768x2048), M
+   = 1 and 12 rows a bucket: bit-exact against their plain versions, one
+   captured call one kernel node, timed by graph beside the bytes bound and
+   a bf16 ``torch.bmm``.  (b) The serve: w4a4 projections and experts, the
+   packed (4, 4) head, the kernel gather, 8 slots, page 16, ``max_len``
+   512, reserve, at C = 16 on 8 prompts of 128-384 tokens and at C = 1 on
+   phase 4's prompt lengths, 32 new each: every request ``ok`` with finite
+   logits, one capture, no leaks, counters and graph nodes 12 x 7 + 1 = 85
+   K1 and 12 K3 a step, memset nodes only where a PyTorch op puts them
+   (named); step p50, one replay's device time, tok/s, TTFT, a one-step
+   trace by kernel group, the step's bytes bound; an eager step reads
+   nothing back to the host, and ``capture=False`` on the same weights
+   samples the captured rows bit for bit and counts the copies the
+   dispatch drops a step.  (c) The card against the CPU at 2 layers,
+   float32, float and w4a4: routing flips and activation-level flips
+   counted, clean rows within 1e-4 relative L2 (float) or equal (w4a4).
+
 Every engine's graph and memory pool is released before the next engine
 is built, and each phase prints its peak device memory.
 
@@ -384,8 +406,8 @@ def decode_matmul_shapes(cfg) -> dict[str, tuple[int, int, int]]:
 
 # kernel symbol -> (template-argument pattern of its mangled name, field names)
 PTXAS_KERNELS = {
-    "packed_ring_kernel": (r"packed_ring_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E",
-                           ("n_seg", "overlap", "fused", "vec")),
+    "packed_ring_kernel": (r"packed_ring_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                           ("n_seg", "overlap", "fused", "vec", "batched")),
     "quant_packed_mma_kernel": (r"quant_packed_mma_kernelILb(\d)ELi(\d+)E", ("overlap", "copy")),
     "quant_mma_kernel": (r"quant_mma_kernelILi(\d+)ELi(\d+)E", ("bm", "copy")),
     "filter_tile_kernel": (r"filter_tile_kernelILi(\d)ELb(\d)ELb(\d)E", ("nseg", "overlap", "v2")),
@@ -3325,6 +3347,448 @@ def phase_mamba(torch, card, report: dict) -> dict:
     return out
 
 
+# -- phase 16 ------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+# 12 of the config's 48 layers, a cut forced by memory: init_params makes
+# float32 experts, 2.42 GB a layer (116 GB at full depth); at 12 layers they
+# are 29.0 GB and the packed words 15.3 GB, so the build peaks near 46 GB
+MOE_LAYERS = 12
+MOE_PROMPTS = (128, 385)
+MOE_NEW = 32
+# bucket rows a step: round(n_recv / 128 * 1.25) at 8 tokens (a decode step,
+# C = 1) and at 128 (8 slots x a chunk of 16)
+MOE_KERNEL_M = (1, 12)
+MOE_BLOCK_K = 512
+MOE_CROSS_STEPS = 3
+MOE_CROSS_REL_TOL = 1e-4
+
+
+def moe_expert_shapes(cfg) -> dict[str, tuple[int, int, int, int]]:
+    """name -> (experts, K, N, launches per step) of the batched expert products."""
+    E, d, f, L = cfg.n_experts, cfg.d_model, cfg.expert_d_ff, cfg.n_layers
+    return {"w_up|w_gate": (E, d, f, 2 * L), "w_down": (E, f, d, L)}
+
+
+def _moe_kernels(torch, card, timer, cfg, report: dict) -> dict:
+    """(a) K1 and K2 (block_k MOE_BLOCK_K) over the experts in one launch at
+    the served expert shapes, M rows a bucket (``MOE_KERNEL_M``), w4a4:
+    bit-exact against their plain versions, one captured call one kernel
+    node and nothing else, timed by graph beside the bytes bound and a bf16
+    ``torch.bmm`` of the same shapes (the library yardstick; not the same
+    rounding)."""
+    from repro_torch.kernels.packed_matmul import ref as pm
+    from repro_torch.kernels.packed_matmul.kernel import (
+        BM, BN, grid_plan, packed_dense_fused_plain, packed_dense_fused_raw, packed_matmul_plain,
+        packed_matmul_raw,
+    )
+    from repro_torch.kernels.packed_matmul.ops import choose_config
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(16)
+    c = choose_config(4, 4)
+    kw = dict(n_seg=c.n_seg, stride=c.stride, acc_chunk=c.acc_chunk, overlap=c.overlap)
+    rows, max_err = [], 0.0
+    for M in MOE_KERNEL_M:
+        for name, (E, K, N, per_step) in moe_expert_shapes(cfg).items():
+            x = torch.rand((E, M, K), generator=g, device="cuda") * 1.2 - 0.1
+            wp = torch.empty((E, K, N // c.n_seg), dtype=torch.int32, device="cuda")
+            for e in range(E):
+                wp[e] = pm.pack_weights(torch.randint(0, 16, (K, N), generator=g, device="cuda",
+                                                      dtype=torch.int32), c.n_seg, c.stride)
+            a_lvl = torch.round(torch.clamp(x, 0, 1) * 15).to(torch.int32)
+            k1 = lambda: packed_dense_fused_raw(x, wp, a_bits=4, **kw)  # noqa: E731
+            k2 = lambda: packed_matmul_raw(a_lvl, wp, block_k=MOE_BLOCK_K, **kw)  # noqa: E731
+            acc, a_sum = k1()
+            acc2 = k2()
+            p_acc, p_sum = packed_dense_fused_plain(x, wp, a_bits=4, **kw)
+            p_acc2 = packed_matmul_plain(a_lvl, wp, block_k=MOE_BLOCK_K, **kw)
+            torch.cuda.synchronize()
+            err = max((acc - p_acc).abs().max().item(), (a_sum - p_sum).abs().max().item(),
+                      (acc2 - p_acc2).abs().max().item())
+            check(torch.equal(acc, p_acc) and torch.equal(a_sum, p_sum) and torch.equal(acc2, p_acc2),
+                  f"(a) batched K1/K2 differ from their plain versions at {name} M={M}: max {err}")
+            max_err = max(max_err, err)
+            del acc, a_sum, acc2, p_acc, p_sum, p_acc2
+            for kernel, fn in (("packed_dense_fused", k1), ("packed_matmul", k2)):
+                census, launched = device_nodes(torch, fn)
+                check(launched == {kernel: 1} and census == only_kernels(launched),
+                      f"(a) a batched {kernel} call at {name} M={M} is not one kernel node: {census}")
+            Np = wp.shape[-1]
+            splits, k_per_split = grid_plan(M, K, Np, card.sms, batch=E)
+            nbytes = E * (M * K * 4 + K * Np * 4 + M * N * 4 + M * 4)
+            b_ms, b_by, t_b, t_o = k1_bound(card, E * M, K, N, nbytes)
+            xb = x.to(torch.bfloat16)
+            wb = torch.randn((E, K, N), generator=g, device="cuda", dtype=torch.bfloat16)
+            row = dict(shape=name, E=E, K=K, N=N, M=M, per_step=per_step, splits=splits,
+                       k_per_split=k_per_split, blocks=E * -(-M // BM) * -(-Np // BN) * splits,
+                       k1_graph_ms=timer.graph(lambda i: k1()), k1_ms=timer(k1, reps=10),
+                       k2_graph_ms=timer.graph(lambda i: k2()), k2_ms=timer(k2, reps=10),
+                       plain_ms=timer(lambda: packed_dense_fused_plain(x, wp, a_bits=4, **kw), reps=1, warmup=0),
+                       k2_plain_ms=timer(lambda: packed_matmul_plain(a_lvl, wp, block_k=MOE_BLOCK_K, **kw),
+                                         reps=1, warmup=0),
+                       bmm_graph_ms=timer.graph(lambda i: torch.bmm(xb, wb)),
+                       bound_ms=b_ms, bound_by=b_by, t_bytes=t_b, t_ops=t_o, bytes=nbytes)
+            row["k1_gbps"] = nbytes / row["k1_graph_ms"] / 1e6
+            rows.append(row)
+            print(f"  (a) {name:12s} {E} x [{M}, {K}] x [{K}, {N}]: {row['blocks']} blocks ({splits} K "
+                  f"splits): K1 {row['k1_graph_ms']:.4f} ms by graph ({row['k1_gbps']:.0f} GB/s; events "
+                  f"{row['k1_ms']:.4f}), K2 (block_k {MOE_BLOCK_K}) {row['k2_graph_ms']:.4f} ms; plain "
+                  f"{row['plain_ms']:.2f} / {row['k2_plain_ms']:.2f} ms; bf16 bmm (not the same rounding) "
+                  f"{row['bmm_graph_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB); "
+                  f"bit-exact, one kernel node a call", flush=True)
+            del x, wp, a_lvl, xb, wb
+            torch.cuda.empty_cache()
+    report["moe_matmul"] = rows
+    return {"max_err": max_err, "rows": rows}
+
+
+def moe_step_bound(eng) -> dict:
+    """The least bytes, and time at HBM_BYTES_PER_S, of one served MoE step
+    as the reference computes it: every weight read once (the layers'
+    packed words, all experts included, since every expert's bucket runs,
+    and their float leaves; the packed head) and the K/V pools once."""
+    from repro_torch.kernels.packed_matmul.ops import PackedDenseParams
+    from repro_torch.models import transformer as T
+
+    def nbytes(t):
+        return t.data.numel() * t.data.element_size() if isinstance(t, PackedDenseParams) else (
+            t.numel() * t.element_size())
+
+    weights = []
+    T.map_leaves(eng.params["layers"], lambda a: weights.append(nbytes(a)))
+    weights = sum(weights) + nbytes(eng._head)
+    pools = sum(nbytes(t) for t in eng.state.values())
+    return dict(weights_bytes=weights, pool_bytes=pools, bytes=weights + pools,
+                bound_ms=(weights + pools) / HBM_BYTES_PER_S * 1e3)
+
+
+def _dispatch_stats(torch, params, s, x, valid) -> tuple:
+    """The copies one ``_local_moe`` call drops, rederived from its routing
+    (one expert group): a copy past the send buffer, or past its expert's
+    capacity among that expert's copies in token order, is dropped; the
+    copy kept in the last expert's last bucket row is overwritten by a
+    later zero row (the reference's collision) when that expert overflows
+    or the send buffer has padding rows.  ``valid`` marks the tokens the
+    step's logits read (a slot's valid lanes).  Returns device scalars
+    (dropped copies, of them of valid tokens, overwritten copies, copies
+    of valid tokens): reading them waits for the step."""
+    from repro_torch.models import moe as X
+    from repro_torch.models.layers import rmsnorm
+
+    t, k, E = x.shape[0], s.top_k, s.n_experts
+    n_copy = t * k
+    c_send = int(max(1, round(n_copy * s.capacity_factor)))
+    c_exp = int(max(1, round(c_send / E * s.capacity_factor)))
+    _, topi = X._route(params, s, rmsnorm(params["ln"], x))
+    # the send buffer's last row is overwritten by a dropped copy when copies overflow it
+    n_sent = min(n_copy, c_send) - (n_copy > c_send)
+    e = topi.reshape(n_copy)[:n_sent]
+    order = torch.argsort(e, stable=True)
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(n_sent, device=e.device) - torch.searchsorted(e[order], e[order])
+    dropped = torch.ones(n_copy, dtype=torch.bool, device=e.device)
+    dropped[:n_sent] = pos >= c_exp
+    count = (e == E - 1).sum()
+    lost = (e == E - 1) & (pos == c_exp - 1) & ((count > c_exp) | (c_send != n_copy))
+    of_valid = valid.repeat_interleave(k)
+    return dropped.sum(), (dropped & of_valid).sum(), lost.sum(), of_valid.sum()
+
+
+def _eager_rows(torch, cfg, params, ecfg, head, prompts) -> dict:
+    """``prompts`` served by an eager engine (``capture=False``) of the same
+    weights: every sampled row and each request's tokens, and the copies the
+    dispatch drops a step (:func:`_dispatch_stats`): of the step's S x C
+    tokens, and of its valid ones (a lane below its slot's ``lens``; at
+    C = 1 an active slot's)."""
+    from repro_torch.models import moe as X
+    from repro_torch.serving import Engine
+
+    eng = Engine(cfg, params, ecfg, head=head, capture=False)
+    eng.warmup()  # its zero batch is no step of the run
+    stats, inner = [], X._local_moe
+    S, C = ecfg.n_slots, ecfg.chunk_tokens
+
+    def valid():
+        lens = eng._program._args[2]
+        if lens is not None:
+            return (torch.arange(C, device=lens.device)[None] < lens[:, None]).reshape(-1)
+        active = torch.zeros(S, dtype=torch.bool)
+        active[list(eng.scheduler.active)] = True
+        return active.to(eng.device)
+
+    def counting(p, s, x, **kw):
+        stats.append(_dispatch_stats(torch, p, s, x, valid()))
+        return inner(p, s, x, **kw)
+
+    X._local_moe = counting
+    try:
+        run = _sampled_serve(torch, eng, prompts, MOE_NEW)
+    finally:
+        X._local_moe = inner
+    steps = run["steps"]
+    check(len(stats) == cfg.n_layers * steps, f"{len(stats)} MoE calls in {steps} steps")
+    sums = [sum(int(v[i]) for v in stats) / steps for i in range(4)]
+    run.update(dropped_per_step=sums[0], dropped_valid_per_step=sums[1], overwritten_per_step=sums[2],
+               copies_valid_per_step=sums[3], copies_per_step=cfg.n_layers * S * C * cfg.top_k)
+    return run
+
+
+def _memset_ops(prof) -> dict:
+    """The PyTorch ops of a trace whose device work includes a memset, by
+    name (which op puts a memset node in a captured step)."""
+    out: dict = {}
+    for ev in prof.events():
+        if any("memset" in k.name.lower() for k in getattr(ev, "kernels", [])):
+            out[ev.name] = out.get(ev.name, 0) + 1
+    return out
+
+
+def _moe_cross(torch, cfg, packed: bool) -> dict:
+    """(c): the card against the CPU at 2 layers of full width, float32, on
+    the same weights (seed 1; ``packed``: w4a4 projections and experts and
+    the packed (4, 4) head, else float and the tied float head), 8 slots of
+    4 pages: MOE_CROSS_STEPS decode steps and a chunked step (lens
+    ``CROSS_CHUNK_LENS``).  Per step, the tokens whose top-8 experts (ids or
+    order) differ in a layer (routing flips) and the rows with a differing
+    activation level (attention projections by row; expert buckets by
+    expert: every token routed there counts).  A slot's logits row is
+    clean when neither touched a row it reads: not its own lanes, an
+    earlier lane of its slot (attention), a lane routed to an expert that a
+    routing flip moved a copy into or out of (capacity), or its slot at an
+    earlier step (its K/V rows).  Clean rows: within MOE_CROSS_REL_TOL
+    relative L2 (float) or equal (packed)."""
+    import numpy as np
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as X
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.api import quantize_params_packed
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    params = T.init_params(cfg2, seed=1, device="cuda")
+    head = None
+    if packed:
+        head = L.prepack_lm_head(params["embed"], w_bits=4, a_bits=4, device="cuda")
+        params = quantize_params_packed(params, w_bits=4, a_bits=4, device="cuda")
+    sides = {"cuda": (params, head),
+             "cpu": (T.map_leaves(params, lambda a: a.to("cpu")), None if head is None else head.to("cpu"))}
+    S, nb, ps, E = CROSS_SLOTS, CROSS_BLOCKS, 16, cfg.n_experts
+    states = {dev: T.init_paged_state(cfg2, S, S * nb + 1, ps, dtype=torch.float32, device=dev) for dev in sides}
+    table = torch.arange(1, S * nb + 1, dtype=torch.int32).reshape(S, nb)
+    plan = [(1, None)] * MOE_CROSS_STEPS + [(CHUNK, CROSS_CHUNK_LENS)]
+    rng = np.random.default_rng(5)
+    rec: list = []
+    inner, inner_top = L.packed_dense, X.top_k  # moe.py calls the same packed_dense
+
+    def levels(x, w, **kw):
+        n = (1 << w.a_bits) - 1
+        rec.append(("lv", torch.round(torch.clamp(x.float(), 0.0, 1.0) * n).to(torch.int16).cpu()))
+        return inner(x, w, **kw)
+
+    def routing(gates, k):
+        v, i = inner_top(gates, k)
+        rec.append(("top", i.cpu()))
+        return v, i
+
+    dirty_prev = torch.zeros(S, dtype=torch.bool)
+    steps = []
+    L.packed_dense, X.packed_dense, X.top_k = levels, levels, routing
+    try:
+        for t, (C, lens) in enumerate(plan):
+            tokens = torch.from_numpy(rng.integers(0, cfg2.vocab, (S, C)).astype(np.int32))
+            pos = torch.full((S,), t, dtype=torch.int32)
+            tlens = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+            n_read = torch.ones(S, dtype=torch.long) if lens is None else torch.clamp(tlens, min=1).long()
+            logs, recs = {}, {}
+            for dev, (p, h) in sides.items():
+                rec.clear()
+                lg, _ = T.forward_decode_paged(p, cfg2, states[dev], table.to(dev), tokens.to(dev),
+                                               pos.to(dev), head=h, lens=None if tlens is None else tlens.to(dev),
+                                               gather="kernel")
+                logs[dev], recs[dev] = lg.cpu(), list(rec)
+            kinds = [k for k, _ in recs["cuda"]]
+            check(kinds == [k for k, _ in recs["cpu"]], "(c): the two sides ran different calls")
+            dirty = torch.zeros((S, C), dtype=torch.bool)
+            route_flips = level_rows = 0
+            head_flip = torch.zeros(S, dtype=torch.bool)
+            tops = [(g, c) for (k, g), (_, c) in zip(recs["cuda"], recs["cpu"]) if k == "top"]
+            lvs = [(g, c) for (k, g), (_, c) in zip(recs["cuda"], recs["cpu"]) if k == "lv"]
+            check(len(tops) == cfg2.n_layers and len(lvs) == (7 * cfg2.n_layers + 1 if packed else 0),
+                  f"(c): {len(tops)} routings, {len(lvs)} packed matmuls")
+            for layer, (g_top, c_top) in enumerate(tops):
+                flip = (g_top != c_top).any(dim=1)  # [S * C] tokens
+                route_flips += int(flip.sum())
+                moved = torch.zeros(E, dtype=torch.bool)
+                moved[g_top[flip].flatten()] = True
+                moved[c_top[flip].flatten()] = True
+                bad = moved.clone()
+                if packed:
+                    for g_lv, c_lv in lvs[7 * layer: 7 * layer + 7]:
+                        diff = (g_lv != c_lv)
+                        if diff.ndim == 3:  # an expert bucket [E, c_exp, K]
+                            bad |= diff.any(dim=2).any(dim=1)
+                            level_rows += int(diff.any(dim=2).sum())
+                        else:  # an attention projection, a row a token
+                            dirty |= diff.any(dim=1).reshape(S, C)
+                            level_rows += int(diff.any(dim=1).sum())
+                dirty |= (flip | bad[c_top].any(dim=1)).reshape(S, C)
+            if packed:
+                head_flip = (lvs[-1][0] != lvs[-1][1]).any(dim=1)
+                level_rows += int(head_flip.sum())
+            # a dirty lane reaches every later lane of its slot (attention);
+            # a slot's logits read its lanes up to its last valid one
+            reach = torch.cumsum(dirty.long(), dim=1) > 0
+            read_dirty = reach[torch.arange(S), n_read - 1]
+            clean = ~(read_dirty | head_flip | dirty_prev)
+            dirty_prev = dirty_prev | reach.any(dim=1) | head_flip
+            g_log, c_log = logs["cuda"], logs["cpu"]
+            check(bool(torch.isfinite(g_log).all()), "(c): non-finite logits on the card")
+            rel = torch.linalg.vector_norm(g_log - c_log, dim=1) / torch.linalg.vector_norm(c_log, dim=1)
+            equal = (g_log == c_log).all(dim=1)
+            r = dict(step=t, chunk=C, lens=lens, routing_flips=route_flips, level_flip_rows=level_rows,
+                     clean_slots=int(clean.sum()), clean_max_rel=float(rel[clean].max()) if clean.any() else None,
+                     clean_equal=int((equal & clean).sum()), max_rel=float(rel.max()),
+                     tokens_agree=int((g_log.argmax(1) == c_log.argmax(1)).sum()))
+            steps.append(r)
+            what = f"(c) {'w4a4' if packed else 'float'} step {t} (C={C})"
+            if packed:
+                check(bool(equal[clean].all()), f"{what}: a clean row is not equal to the CPU's")
+            else:
+                check(bool((rel[clean] <= MOE_CROSS_REL_TOL).all()),
+                      f"{what}: a clean row differs by {float(rel[clean].max()):.3g} relative L2, past "
+                      f"{MOE_CROSS_REL_TOL}")
+    finally:
+        L.packed_dense, X.packed_dense, X.top_k = inner, inner, inner_top
+    check(sum(r["clean_slots"] for r in steps) > 0, "(c): no clean row to hold against the CPU")
+    return dict(steps=steps)
+
+
+def phase_moe(torch, card, report: dict) -> dict:
+    """qwen3-moe-30b-a3b at full width (MOE_LAYERS of its layers): MoE with
+    w4a4 packed experts, K1 over the expert grid axis.  (a)
+    :func:`_moe_kernels`.  (b) The serve, w4a4 projections and experts,
+    the packed (4, 4) head and the kernel gather, 8 slots, page 16,
+    ``max_len`` 512, reserve: at C = 16 on 8 prompts of 128-384 tokens and
+    at C = 1 on phase 4's 8 prompts of 16-64 tokens, MOE_NEW new tokens
+    each; every request ``ok`` with finite logits, one capture, no leaks,
+    launch counters and graph nodes 7 K1 a layer and the head and one K3 a
+    layer a step, memset nodes only where a PyTorch op puts them (named
+    from a trace); step p50, one replay's device time, tok/s, TTFT, a
+    one-step trace by kernel group, the step's bytes bound; an eager step
+    reads nothing back to the host, and an eager engine (``capture=False``)
+    of the same weights samples the captured run's rows bit for bit and
+    counts the copies the dispatch drops a step.  (c) :func:`_moe_cross`,
+    float and w4a4."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.serving import Engine, EngineConfig, build_engine
+
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    check((cfg.d_model, cfg.n_heads, cfg.hd, cfg.kv_heads, cfg.n_experts, cfg.top_k, cfg.expert_d_ff,
+           cfg.vocab, cfg.capacity_factor) == (2048, 32, 64, 4, 128, 8, 768, 151936, 1.25),
+          f"qwen3-moe-30b-a3b's config {cfg}")
+    ecfg = EngineConfig(n_slots=8, page_size=16, max_len=512, chunk_tokens=CHUNK, admit="reserve",
+                        packed_head=True, head_bits=(4, 4), gather_backend="kernel")
+    ecfg1 = dataclasses.replace(ecfg, chunk_tokens=1)
+    rng = np.random.default_rng(16)
+    long_prompts = [rng.integers(0, cfg.vocab, int(n)).tolist() for n in rng.integers(*MOE_PROMPTS, size=8)]
+    rng = np.random.default_rng(0)  # phase 4's prompt lengths
+    short = [rng.integers(0, cfg.vocab, int(rng.integers(16, 65))).tolist() for _ in range(8)]
+    out: dict = {}
+
+    print(f"  (a) K1/K2 over the expert axis at qwen3-moe-30b-a3b's expert shapes:", flush=True)
+    t0 = time.monotonic()
+    timer = Timer(torch)
+    out["k1"] = _moe_kernels(torch, card, timer, cfg, report)
+    del timer
+    out["k1"]["phase_s"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+
+    # (b) the serves
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    eng = build_engine(cfg, ecfg, quant="packed", w_bits=4, a_bits=4, seed=0)
+    torch.cuda.synchronize()
+    out["b"] = dict(build_s=time.monotonic() - t0, build_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    **moe_step_bound(eng))
+    params, head = eng.params, eng._head
+    print(f"  (b) {MOE_LAYERS} of 48 layers built in {out['b']['build_s']:.1f} s, peak "
+          f"{out['b']['build_peak_gb']:.2f} GB; weights {out['b']['weights_bytes'] / 1e9:.2f} GB, KV pools "
+          f"{out['b']['pool_bytes'] / 1e9:.3f} GB: a step's bytes bound {out['b']['bound_ms']:.3f} ms", flush=True)
+    _sync_free_step(torch, Engine(cfg, params, ecfg, head=head, capture=False))
+    per_step = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": 7 * cfg.n_layers + 1,
+                "paged_gather": cfg.n_layers}
+    for label, e, ps, c in (("C=16", ecfg, long_prompts, CHUNK), ("C=1", ecfg1, short, 1)):
+        if label != "C=16":
+            eng = Engine(cfg, params, e, head=head)
+        t0 = time.monotonic()
+        r = _timed_turn(torch, eng, ps, per_step, f"(b) {label}", memset=True, max_new=MOE_NEW, keep=True)
+        check(all(len(t) == MOE_NEW for t in r["tokens"].values()), f"(b) {label}: a request ended short")
+        # a one-step trace of the same graph: one chunk of c prompt tokens a slot, one new token
+        rng, steps0 = np.random.default_rng(2), eng.n_steps
+        for _ in range(e.n_slots):
+            eng.submit(rng.integers(0, cfg.vocab, c).tolist(), 1)
+        eng.warmup()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.monotonic()
+            m = eng.run(realtime=True)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t1
+        check(eng.n_steps - steps0 == 1, f"(b) {label}: the traced run took {eng.n_steps - steps0} steps")
+        r["profile"] = trace_summary(prof, wall, 1, f"qwen3-moe {label}, one captured step")
+        check(eng._program.captures == 1, f"(b) {label}: {eng._program.captures} captures")
+        eng.close()
+        torch.cuda.empty_cache()
+        memsets = r["graph"]["kinds"].get("memset", 0)
+        r["memset_ops"] = _memset_ops(prof) if memsets else {}
+        check(not memsets or r["memset_ops"], f"(b) {label}: {memsets} memset nodes, no op named in the trace")
+        # captured against eager, bit for bit; the dispatch's drops
+        cap = _sampled_serve(torch, Engine(cfg, params, e, head=head), ps, MOE_NEW)
+        eag = _eager_rows(torch, cfg, params, e, head, ps)
+        differ = _rows_differ(cap["rows"], eag["rows"])
+        check(not differ and cap["tokens"] == eag["tokens"] and cap["steps"] == eag["steps"],
+              f"(b) {label}: {len(differ)} of {len(cap['rows'])} captured rows differ from capture=False's")
+        check(all(bool(np.isfinite(v).all()) for v in cap["rows"].values()), f"(b) {label}: non-finite logits")
+        r.update(prompt_tokens=sum(map(len, ps)), rows=len(cap["rows"]), serve_s=time.monotonic() - t0,
+                 **{k: eag[k] for k in ("dropped_per_step", "dropped_valid_per_step", "overwritten_per_step",
+                                        "copies_per_step", "copies_valid_per_step")})
+        out[label] = r
+        print(f"  (b) {label}: {len(ps)} prompts of {min(map(len, ps))}-{max(map(len, ps))} tokens, {MOE_NEW} "
+              f"new: {r['steps']} steps, {r['tokens_per_s']:.1f} tok/s, step p50 {r['step_ms_p50']:.2f} ms "
+              f"(min {r['step_ms_min']:.2f}), one replay {r['replay_ms']:.2f} ms, TTFT p50 "
+              f"{r['ttft_ms_p50']:.1f} ms; launches {r['counts']}; graph nodes {r['graph']}; memset ops "
+              f"{r['memset_ops']}; the dispatch drops {r['dropped_valid_per_step']:.1f} of "
+              f"{r['copies_valid_per_step']:.1f} copies of valid tokens a step ({r['dropped_per_step']:.1f} of "
+              f"{r['copies_per_step']} over every lane), and overwrites the copy in the last bucket row "
+              f"{r['overwritten_per_step']:.2f} times a step; all {r['rows']} sampled rows of the captured "
+              f"run equal capture=False's; {r['serve_s']:.1f} s", flush=True)
+    del eng, params, head
+    torch.cuda.empty_cache()
+
+    # (c) the card against the CPU at 2 layers, float and w4a4
+    t0 = time.monotonic()
+    out["c"] = {}
+    for label, packed in (("float", False), ("w4a4", True)):
+        d = out["c"][label] = _moe_cross(torch, cfg, packed)
+        for r in d["steps"]:
+            print(f"  (c) {label} step {r['step']} (C={r['chunk']}): routing flips {r['routing_flips']}, "
+                  f"activation-level flip rows {r['level_flip_rows']}; {r['clean_slots']}/{CROSS_SLOTS} clean "
+                  f"slots (max rel L2 {r['clean_max_rel']}, {r['clean_equal']} equal); max rel L2 "
+                  f"{r['max_rel']:.3g}; tokens agree {r['tokens_agree']}/{CROSS_SLOTS}", flush=True)
+    out["c_s"] = time.monotonic() - t0
+    out["phase_s"] = time.monotonic() - t_phase
+    print(f"  (c) {out['c_s']:.1f} s; phase 16 on {card.name} ({card.power_limit}): {out['phase_s']:.1f} s",
+          flush=True)
+    report["moe"] = out
+    return out
+
+
 # -- main ------------------------------------------------------------------------
 
 
@@ -3368,7 +3832,7 @@ def main(argv=None) -> int:
             args = ", ".join(f"{k}={r[k]}" for k in PTXAS_KERNELS[kernel][1])
             print(f"  {kernel} {args}: {r['registers']} registers, {r['smem']} B static smem (+ "
                   f"dynamic), spills {r['spill_stores']}/{r['spill_loads']} B", flush=True)
-    for kernel, lib, n in (("packed_ring_kernel", "packed_matmul", 16),
+    for kernel, lib, n in (("packed_ring_kernel", "packed_matmul", 32),
                            ("quant_packed_mma_kernel", "quant_matmul", 6),
                            ("quant_mma_kernel", "quant_matmul", 12),
                            ("filter_tile_kernel", "filter_conv", 12)):
@@ -3472,6 +3936,11 @@ def main(argv=None) -> int:
           f"skipped-reset fault, card vs CPU at 2 layers", flush=True)
     mb = phase_mamba(torch, card, report)
     peak("15")
+    print(f"phase 16: qwen3-moe-30b-a3b at full width ({MOE_LAYERS} of 48 layers), w4a4 packed experts: K1/K2 "
+          f"over the expert grid axis, the serve at C={CHUNK} and C=1 against capture=False, card vs CPU at "
+          f"2 layers", flush=True)
+    mo = phase_moe(torch, card, report)
+    peak("16")
 
     # per-decode-step totals per kernel: the sum over the launches of one step
     def step_sum(rows, key):
@@ -3501,6 +3970,10 @@ def main(argv=None) -> int:
     chunk_step = mm_chunk["rows"] + head  # a chunked step: the layers at M = 128, the head at M = 8
     gemma_k1 = gm["k1"]["rows"]  # phase 14's chunked step: the layers at M = 128, the head at M = 8
     mamba_k1 = mb["k1"]["rows"]  # phase 15's C = 16 step: 16 lanes x 24 layers x 3 and the head, M = 16
+    # phase 16's batched expert products a step (the layers' experts; the
+    # attention projections and head are K1's 2-D launches), M = 12 at C = 16
+    moe_k = [r for r in mo["k1"]["rows"] if r["M"] == max(MOE_KERNEL_M)]
+    moe_k1_decode = [r for r in mo["k1"]["rows"] if r["M"] == min(MOE_KERNEL_M)]
     chunked_launches = {k: {admit: r["counts"][k] for admit, r in ch.items()}
                         for k in ("packed_dense_fused", "paged_gather")}
 
@@ -3527,7 +4000,8 @@ def main(argv=None) -> int:
         dict(name="packed_dense_fused", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
              replaces="src/repro/kernels/packed_matmul/kernel.py:111",
              launches=fused["counts"]["packed_dense_fused"],
-             max_abs_err=max(mm["max_err"], mm_chunk["max_err"], gm["k1"]["max_err"], mb["k1"]["max_err"]),
+             max_abs_err=max(mm["max_err"], mm_chunk["max_err"], gm["k1"]["max_err"], mb["k1"]["max_err"],
+                             mo["k1"]["max_err"]),
              ms=step_sum(served, "k1_graph_ms"), events_ms=step_sum(served, "k1_ms"),
              plain_ms=step_sum(served, "plain_ms"),
              bound_ms=step_sum(served, "bound_ms"), bound_by=by_t(served, lambda r: r["per_step"]),
@@ -3561,17 +4035,40 @@ def main(argv=None) -> int:
                  plain_ms=step_sum(mamba_k1, "plain_ms"), bound_ms=step_sum(mamba_k1, "bound_ms"),
                  bound_by=by_t(mamba_k1, lambda r: r["per_step"]),
                  library_ms=step_sum(mamba_k1, "int_mm_graph_ms"), library="torch._int_mm, M padded to 32",
-                 gbps=by_gbps(mamba_k1, "k1_graph_ms"), max_abs_err=mb["k1"]["max_err"])),
+                 gbps=by_gbps(mamba_k1, "k1_graph_ms"), max_abs_err=mb["k1"]["max_err"]),
+             launches_moe=mo["C=16"]["counts"]["packed_dense_fused"], steps_moe=mo["C=16"]["steps"],
+             launches_moe_c1=mo["C=1"]["counts"]["packed_dense_fused"], steps_moe_c1=mo["C=1"]["steps"],
+             moe=dict(
+                 per=f"qwen3-moe-30b-a3b step (phase 16, {MOE_LAYERS} layers): the batched expert products "
+                     f"(128 experts, w_up|w_gate 2048x768, w_down 768x2048) at M = 12 a bucket (C = 16); "
+                     f"*_decode at M = 1 (C = 1); one launch a projection",
+                 ms=step_sum(moe_k, "k1_graph_ms"), events_ms=step_sum(moe_k, "k1_ms"),
+                 plain_ms=step_sum(moe_k, "plain_ms"), bound_ms=step_sum(moe_k, "bound_ms"),
+                 bound_by=by_t(moe_k, lambda r: r["per_step"]),
+                 library_ms=step_sum(moe_k, "bmm_graph_ms"),
+                 library="torch.bmm in bf16 (not the same rounding)",
+                 gbps=by_gbps(moe_k, "k1_graph_ms"),
+                 ms_decode=step_sum(moe_k1_decode, "k1_graph_ms"),
+                 bound_ms_decode=step_sum(moe_k1_decode, "bound_ms"),
+                 library_ms_decode=step_sum(moe_k1_decode, "bmm_graph_ms"),
+                 max_abs_err=mo["k1"]["max_err"])),
         dict(name="packed_matmul", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
              replaces="src/repro/kernels/packed_matmul/kernel.py:168",
-             launches=blocked["counts"]["packed_matmul"], max_abs_err=mm["max_err"],
+             launches=blocked["counts"]["packed_matmul"], max_abs_err=max(mm["max_err"], mo["k1"]["max_err"]),
              ms=step_sum(layers, "k2_graph_ms"), events_ms=step_sum(layers, "k2_ms"),
              plain_ms=step_sum(layers, "plain_ms"),
              bound_ms=step_sum(layers, "bound_ms"), bound_by=by_t(layers, lambda r: r["per_step"]),
              library_ms=step_sum(layers, "int_mm_graph_ms"), library="torch._int_mm, M padded to 32",
              bf16_ms=step_sum(layers, "bf16_graph_ms"), gbps=by_gbps(layers, "k2_graph_ms"),
              path="block_k=512",
-             path_steps=blocked["steps"], per="decode step", timing=GRAPH_TIMING),
+             path_steps=blocked["steps"], per="decode step", timing=GRAPH_TIMING,
+             moe=dict(
+                 per=f"phase 16's batched expert products at block_k {MOE_BLOCK_K}, a step of {MOE_LAYERS} "
+                     f"layers at M = 12 (checked on the card, not served)",
+                 ms=step_sum(moe_k, "k2_graph_ms"), events_ms=step_sum(moe_k, "k2_ms"),
+                 plain_ms=step_sum(moe_k, "k2_plain_ms"), bound_ms=step_sum(moe_k, "bound_ms"),
+                 library_ms=step_sum(moe_k, "bmm_graph_ms"),
+                 library="torch.bmm in bf16 (not the same rounding)")),
         dict(name="paged_gather", route="cuda", source="src/repro_torch/csrc/paged_gather.cu",
              replaces="src/repro/kernels/paged_gather/kernel.py:121",
              launches=fused["counts"]["paged_gather"], max_abs_err=max(ga["max_err"], gm["c"]["max_err"]),
@@ -3590,6 +4087,7 @@ def main(argv=None) -> int:
              launches_lifecycle=lc["a"]["counts"]["paged_gather"], steps_lifecycle=lc["a"]["steps"],
              launches_gemma=gm["a"]["counts"]["paged_gather"], steps_gemma=gm["a"]["steps"],
              launches_gemma_int8=gm["b"]["counts"]["paged_gather"],
+             launches_moe=mo["C=16"]["counts"]["paged_gather"], steps_moe=mo["C=16"]["steps"],
              gemma=dict(
                  per="launch on phase 14's served pools and block table, every slot decoding",
                  **{k: gm["c"][k] for k in ("live_pages", "positions", "max_err", "window_drops")},

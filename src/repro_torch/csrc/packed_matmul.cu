@@ -13,6 +13,15 @@
 // peel.cuh; the cp.async ring helpers and the split-K arrival are ring.cuh.
 // Plain versions and the grid plan: repro_torch/kernels/packed_matmul/kernel.py.
 //
+// Batched over experts.  The reference vmaps both kernels over a leading
+// expert axis for MoE (repro/models/moe.py:84 _expert_matmul), which Pallas
+// turns into one kernel with an extra grid axis.  Here the same: E matrices
+// [M, K] x [K, Np] in one launch, expert e at blockIdx.y = e, its operands,
+// outputs, split-K slabs and arrival counters offset by e.  The offsets
+// are a template flag (BATCHED), so the 2-D call (E = 1) runs an
+// instantiation whose offsets fold to zero: the code it ran before the
+// expert axis existed (an unconditional offset cost it 8-17 % a launch).
+//
 // What bounds it on this card.  A decode step multiplies M = 8 rows by
 // int32 words that each pack n_seg weights: every word is read once and
 // used for 8 rows.  The step's five shapes (llama3.2-3b, w4a4, n_seg 2)
@@ -116,9 +125,10 @@ struct Args {
   int32_t* ws;          // splits > 1: one slab of partials per block
   int32_t* counters;    // splits > 1: one arrival counter per (row, column) tile, all 0
   int M, K, Np, a_bits, stride, acc_chunk, restart, splits, k_per_split, mtiles, ctiles;
+  int E;                // batched matrices (experts), one per blockIdx.y
 };
 
-template <int NSEG, bool OVERLAP, bool FUSED, bool VEC>
+template <int NSEG, bool OVERLAP, bool FUSED, bool VEC, bool BATCHED>
 __global__ void __launch_bounds__(THREADS, NSEG == 2 ? 2 : 1) packed_ring_kernel(const Args p) {
   // overpacked parity: one word per column for all rows (n_seg 2, stride >= BM,
   // checked on the host) or one word per row and column
@@ -128,6 +138,20 @@ __global__ void __launch_bounds__(THREADS, NSEG == 2 ? 2 : 1) packed_ring_kernel
   int32_t* act = smem + RING_INTS;                     // [KR][ACT]
   __shared__ int32_t rowsum_s[BM];
   __shared__ int last_s;
+  constexpr int TILE = BM * BN * NSEG;  // one block's outputs, row-major in channel order
+  constexpr int SLAB = TILE + BM;       // ints of workspace per block: partials, then row sums
+  static_assert(SLAB % 4 == 0, "slabs are read as int4");
+
+  // expert blockIdx.y: its operands, outputs, slabs and counters (all
+  // unused pointers stay unused: x or a, a_sum, ws and counters may be null)
+  const size_t e = BATCHED ? blockIdx.y : 0;
+  const float* xe = p.x + e * p.M * p.K;
+  const int32_t* ae = p.a + e * p.M * p.K;
+  const int32_t* wpe = p.wp + e * p.K * p.Np;
+  int32_t* oute = p.out + e * p.M * p.Np * NSEG;
+  int32_t* a_sume = p.a_sum + e * p.M;
+  int32_t* wse = p.ws + e * gridDim.x * SLAB;
+  int32_t* counterse = p.counters + e * p.mtiles * p.ctiles;
 
   const int tid = threadIdx.x, lane = tid & 31, kw = tid >> 5;
   // blockIdx.x = (split * ctiles + ct) * mtiles + mt: blocks that run together
@@ -151,7 +175,7 @@ __global__ void __launch_bounds__(THREADS, NSEG == 2 ? 2 : 1) packed_ring_kernel
   constexpr int CW = VEC ? 4 : 1;        // words per copy
   constexpr int CH = THREADS * CW / BN;  // rows apart
   const int col = c0 + (tid % (BN / CW)) * CW;
-  const int32_t* src_col = p.wp + min(col, p.Np - 1);
+  const int32_t* src_col = wpe + min(col, p.Np - 1);
   const uint32_t dst_thread = ring_base + sizeof(uint32_t) * ((tid / (BN / CW)) * BN + col - c0);
   auto fetch = [&](int t) {
     if (t < n_tiles) {
@@ -160,7 +184,7 @@ __global__ void __launch_bounds__(THREADS, NSEG == 2 ? 2 : 1) packed_ring_kernel
       auto copy = [&](int j) {
         const int k = k0 + j * CH;
         const bool ok = k < k_end && col < p.Np;
-        const int32_t* src = ok ? src_col + static_cast<size_t>(k) * p.Np : p.wp;
+        const int32_t* src = ok ? src_col + static_cast<size_t>(k) * p.Np : wpe;
         const uint32_t d = dst + sizeof(uint32_t) * j * CH * BN;
         if (VEC) {
           cp_async16(d, src, ok ? 16 : 0);
@@ -202,10 +226,10 @@ __global__ void __launch_bounds__(THREADS, NSEG == 2 ? 2 : 1) packed_ring_kernel
           const size_t idx = static_cast<size_t>(m0 + r) * p.K + kp + i;
           if (FUSED) {
             // round(clip(x, 0, 1) * (2^a - 1)), round half to even
-            const float v = fminf(fmaxf(p.x[idx], 0.f), 1.f);
+            const float v = fminf(fmaxf(xe[idx], 0.f), 1.f);
             lvl[r] = __float2int_rn(__fmul_rn(v, n_lvl));
           } else {
-            lvl[r] = p.a[idx];
+            lvl[r] = ae[idx];
           }
         }
         rs[r] += lvl[r];
@@ -338,8 +362,7 @@ __global__ void __launch_bounds__(THREADS, NSEG == 2 ? 2 : 1) packed_ring_kernel
   cp_wait<0>();
   __syncthreads();  // the ring is free: it now holds the warps' partial sums
 
-  constexpr int TILE = BM * BN * NSEG;  // one block's outputs, row-major in channel order
-  constexpr int Q = TILE / 4;           // as int4
+  constexpr int Q = TILE / 4;  // one block's outputs as int4
   int32_t* red = smem;                  // [KW][BM][BN * NSEG]
 #pragma unroll
   for (int r = 0; r < BM; ++r) {
@@ -358,7 +381,7 @@ __global__ void __launch_bounds__(THREADS, NSEG == 2 ? 2 : 1) packed_ring_kernel
   auto store4 = [&](int q, int4 v) {
     const int o = 4 * q, r = o / (BN * NSEG), j = o % (BN * NSEG);
     if (m0 + r >= p.M) return;
-    int32_t* dst = p.out + (m0 + r) * ld + c0 * NSEG + j;
+    int32_t* dst = oute + (m0 + r) * ld + c0 * NSEG + j;
     const int32_t e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
@@ -379,24 +402,22 @@ __global__ void __launch_bounds__(THREADS, NSEG == 2 ? 2 : 1) packed_ring_kernel
       for (int w = 1; w < KW; ++w) add4(v, red4[w * Q + q]);
       store4(q, v);
     }
-    if (sums && tid < BM && m0 + tid < p.M) p.a_sum[m0 + tid] = rowsum_s[tid];
+    if (sums && tid < BM && m0 + tid < p.M) a_sume[m0 + tid] = rowsum_s[tid];
     return;
   }
 
-  constexpr int SLAB = TILE + BM;  // ints of workspace per block: partials, then row sums
-  static_assert(SLAB % 4 == 0, "slabs are read as int4");
-  int4* mine = reinterpret_cast<int4*>(p.ws + static_cast<size_t>(blockIdx.x) * SLAB);
+  int4* mine = reinterpret_cast<int4*>(wse + static_cast<size_t>(blockIdx.x) * SLAB);
   for (int q = tid; q < Q; q += THREADS) {
     int4 v = red4[q];
 #pragma unroll
     for (int w = 1; w < KW; ++w) add4(v, red4[w * Q + q]);
     mine[q] = v;
   }
-  if (sums && tid < BM) p.ws[static_cast<size_t>(blockIdx.x) * SLAB + TILE + tid] = rowsum_s[tid];
-  int32_t* counter = p.counters + ct * p.mtiles + mt;
+  if (sums && tid < BM) wse[static_cast<size_t>(blockIdx.x) * SLAB + TILE + tid] = rowsum_s[tid];
+  int32_t* counter = counterse + ct * p.mtiles + mt;
   if (!last_to_arrive(counter, p.splits, &last_s)) return;
   // this tile's slabs: split s at first + s * step
-  const int32_t* first = p.ws + (static_cast<size_t>(ct) * p.mtiles + mt) * SLAB;
+  const int32_t* first = wse + (static_cast<size_t>(ct) * p.mtiles + mt) * SLAB;
   const size_t step = static_cast<size_t>(p.ctiles) * p.mtiles * SLAB;
   for (int q = tid; q < Q; q += THREADS) {
     int4 v = make_int4(0, 0, 0, 0);
@@ -407,25 +428,41 @@ __global__ void __launch_bounds__(THREADS, NSEG == 2 ? 2 : 1) packed_ring_kernel
   if (sums && tid < BM && m0 + tid < p.M) {
     int32_t v = 0;
     for (int s = 0; s < p.splits; ++s) v += __ldcg(first + s * step + TILE + tid);
-    p.a_sum[m0 + tid] = v;
+    a_sume[m0 + tid] = v;
   }
   if (tid == 0) *counter = 0;  // ready for the next launch, or the next replay of a graph
 }
 
-template <int NSEG, bool OVERLAP, bool FUSED, bool VEC>
+template <int NSEG, bool OVERLAP, bool FUSED, bool VEC, bool BATCHED>
 cudaError_t launch(const Args& p, cudaStream_t s) {
-  auto kern = packed_ring_kernel<NSEG, OVERLAP, FUSED, VEC>;
+  auto kern = packed_ring_kernel<NSEG, OVERLAP, FUSED, VEC, BATCHED>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(MAX_SMEM));
   if (attr != cudaSuccess) return attr;
   const size_t smem = sizeof(int32_t) * (RING_INTS + min(KR, p.k_per_split) * ACT);
-  kern<<<p.mtiles * p.ctiles * p.splits, THREADS, smem, s>>>(p);
+  kern<<<dim3(p.mtiles * p.ctiles * p.splits, p.E), THREADS, smem, s>>>(p);
   return cudaGetLastError();
+}
+
+template <bool FUSED, bool BATCHED>
+cudaError_t dispatch_placement(const Args& p, int n_seg, int overlap, int vec, cudaStream_t s) {
+  switch ((n_seg * 2 + (overlap ? 1 : 0)) * 2 + (vec ? 1 : 0)) {
+    case 8: return launch<2, false, FUSED, false, BATCHED>(p, s);
+    case 9: return launch<2, false, FUSED, true, BATCHED>(p, s);
+    case 10: return launch<2, true, FUSED, false, BATCHED>(p, s);
+    case 11: return launch<2, true, FUSED, true, BATCHED>(p, s);
+    case 12: return launch<3, false, FUSED, false, BATCHED>(p, s);
+    case 13: return launch<3, false, FUSED, true, BATCHED>(p, s);
+    case 14: return launch<3, true, FUSED, false, BATCHED>(p, s);
+    case 15: return launch<3, true, FUSED, true, BATCHED>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <bool FUSED>
 cudaError_t dispatch(Args p, int n_seg, int overlap, int vec, cudaStream_t s) {
-  if (p.M <= 0 || p.Np <= 0) return cudaSuccess;
+  if (p.M <= 0 || p.Np <= 0 || p.E == 0) return cudaSuccess;
+  if (p.E < 0 || p.E > 65535) return cudaErrorInvalidValue;  // gridDim.y
   if (p.acc_chunk < 1 || p.stride < 1 || p.stride * n_seg > 32) return cudaErrorInvalidValue;
   // the XOR parity word is exact only while no stride-aligned counter can carry
   if (overlap && p.acc_chunk >= (1 << p.stride)) return cudaErrorInvalidValue;
@@ -441,47 +478,40 @@ cudaError_t dispatch(Args p, int n_seg, int overlap, int vec, cudaStream_t s) {
   if (vec && (p.Np % 4 != 0 || reinterpret_cast<uintptr_t>(p.wp) % 16 != 0)) return cudaErrorInvalidValue;
   p.mtiles = (p.M + BM - 1) / BM;
   p.ctiles = (p.Np + BN - 1) / BN;
-  switch ((n_seg * 2 + (overlap ? 1 : 0)) * 2 + (vec ? 1 : 0)) {
-    case 8: return launch<2, false, FUSED, false>(p, s);
-    case 9: return launch<2, false, FUSED, true>(p, s);
-    case 10: return launch<2, true, FUSED, false>(p, s);
-    case 11: return launch<2, true, FUSED, true>(p, s);
-    case 12: return launch<3, false, FUSED, false>(p, s);
-    case 13: return launch<3, false, FUSED, true>(p, s);
-    case 14: return launch<3, true, FUSED, false>(p, s);
-    case 15: return launch<3, true, FUSED, true>(p, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (p.E > 1) return dispatch_placement<FUSED, true>(p, n_seg, overlap, vec, s);
+  return dispatch_placement<FUSED, false>(p, n_seg, overlap, vec, s);
 }
 
 }  // namespace
 
-// K1: x f32 [M, K], wp i32 [K, Np] -> acc i32 [M, Np * n_seg], a_sum i32 [M].
+// K1: x f32 [E, M, K], wp i32 [E, K, Np] -> acc i32 [E, M, Np * n_seg],
+// a_sum i32 [E, M]; E = 1 is the 2-D call.
 // vec: 16-byte weight copies (Np % 4 == 0, wp 16-byte aligned), else 4-byte.
 // splits, k_per_split: the K split (kernel.py grid_plan); with splits > 1,
-// ws holds mtiles * ctiles * splits slabs of BM * (BN * n_seg + 1) ints and
-// counters mtiles * ctiles zeros, which the kernel leaves at zero.
+// ws holds E * mtiles * ctiles * splits slabs of BM * (BN * n_seg + 1) ints
+// and counters E * mtiles * ctiles zeros, which the kernel leaves at zero.
 extern "C" int packed_dense_fused(const void* x, const void* wp, void* acc, void* a_sum, void* ws,
-                                  void* counters, int M, int K, int Np, int a_bits, int n_seg,
+                                  void* counters, int E, int M, int K, int Np, int a_bits, int n_seg,
                                   int stride, int acc_chunk, int overlap, int vec, int splits,
                                   int k_per_split, void* stream) {
   Args p{static_cast<const float*>(x), nullptr, static_cast<const int32_t*>(wp),
          static_cast<int32_t*>(acc), static_cast<int32_t*>(a_sum), static_cast<int32_t*>(ws),
          static_cast<int32_t*>(counters), M, K, Np, a_bits, stride, acc_chunk, 0, splits,
-         k_per_split, 0, 0};
+         k_per_split, 0, 0, E};
   return static_cast<int>(dispatch<true>(p, n_seg, overlap, vec, static_cast<cudaStream_t>(stream)));
 }
 
-// K2: a i32 [M, K], wp i32 [K, Np] -> acc i32 [M, Np * n_seg]; block_k <= 0
-// or >= K means no chunk restarts; the other arguments as K1's
+// K2: a i32 [E, M, K], wp i32 [E, K, Np] -> acc i32 [E, M, Np * n_seg];
+// block_k <= 0 or >= K means no chunk restarts; the other arguments as K1's
 extern "C" int packed_matmul(const void* a, const void* wp, void* acc, void* ws, void* counters,
-                             int M, int K, int Np, int n_seg, int stride, int acc_chunk, int overlap,
-                             int block_k, int vec, int splits, int k_per_split, void* stream) {
+                             int E, int M, int K, int Np, int n_seg, int stride, int acc_chunk,
+                             int overlap, int block_k, int vec, int splits, int k_per_split,
+                             void* stream) {
   const int restart = (block_k > 0 && block_k < K) ? block_k : 0;
   Args p{nullptr, static_cast<const int32_t*>(a), static_cast<const int32_t*>(wp),
          static_cast<int32_t*>(acc), nullptr, static_cast<int32_t*>(ws),
          static_cast<int32_t*>(counters), M, K, Np, 0, stride, acc_chunk, restart, splits,
-         k_per_split, 0, 0};
+         k_per_split, 0, 0, E};
   return static_cast<int>(dispatch<false>(p, n_seg, overlap, vec, static_cast<cudaStream_t>(stream)));
 }
 

@@ -41,12 +41,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of every entry point, per library
 SIGNATURES = {
     "packed_matmul": {
-        # x, wp, acc, a_sum, ws, counters, M, K, Np, a_bits, n_seg, stride,
+        # x, wp, acc, a_sum, ws, counters, E, M, K, Np, a_bits, n_seg, stride,
         # acc_chunk, overlap, vec, splits, k_per_split, stream
-        "packed_dense_fused": (_P,) * 6 + (_I,) * 11 + (_P,),
-        # a, wp, acc, ws, counters, M, K, Np, n_seg, stride, acc_chunk,
+        "packed_dense_fused": (_P,) * 6 + (_I,) * 12 + (_P,),
+        # a, wp, acc, ws, counters, E, M, K, Np, n_seg, stride, acc_chunk,
         # overlap, block_k, vec, splits, k_per_split, stream
-        "packed_matmul": (_P,) * 5 + (_I,) * 11 + (_P,),
+        "packed_matmul": (_P,) * 5 + (_I,) * 12 + (_P,),
     },
     "paged_gather": {
         # table, pos, window, pool_k, pool_v, k_out, v_out, mask,

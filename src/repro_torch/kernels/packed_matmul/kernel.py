@@ -10,6 +10,11 @@ levels, with chunks restarting at every multiple of ``block_k``.  Both
 are ``csrc/packed_matmul.cu`` (peel in ``csrc/peel.cuh``); see that file
 for what bounds them on the card and how the design answers it.
 
+Both also take a leading expert axis, ``x [E, M, K]`` and ``w_packed [E,
+K, Np]``, in one launch (the expert on a grid axis): the reference vmaps
+its kernels over experts for MoE (``repro/models/moe.py:84
+_expert_matmul``).
+
 The launch geometry lives here, where the CPU tests reach it:
 :func:`grid_plan` splits K across blocks to fill the card, and
 :func:`uses_vector_copy` picks the weight copy path from the packed width
@@ -47,17 +52,19 @@ N_COUNTERS = 1 << 16  # arrival counters per device, one slot of them per stream
 
 @functools.lru_cache(maxsize=4096)
 def grid_plan(m: int, k: int, np_: int, sms: int, *, bm: int = BM, bn: int = BN, align: int = 1,
-              min_k: int = MIN_K_PER_SPLIT, max_splits: int = MAX_SPLITS) -> tuple[int, int]:
-    """``(splits, k_per_split)`` for an ``[m, k] x [k, np_]`` launch on a
-    card of ``sms`` SMs, with blocks of ``bm`` rows x ``bn`` packed columns
-    (K1/K2's tile by default; K4 and K5 pass their own).  One block per (row
-    tile, column tile, K split); when the tiles alone fill fewer than
+              min_k: int = MIN_K_PER_SPLIT, max_splits: int = MAX_SPLITS,
+              batch: int = 1) -> tuple[int, int]:
+    """``(splits, k_per_split)`` for ``batch`` ``[m, k] x [k, np_]``
+    products in one launch on a card of ``sms`` SMs, with blocks of ``bm``
+    rows x ``bn`` packed columns (K1/K2's tile by default; K4 and K5 pass
+    their own).  One block per (matrix, row tile, column tile, K split);
+    when the tiles of all ``batch`` matrices fill fewer than
     ``BLOCKS_PER_SM`` blocks an SM, K is split into at most ``max_splits``
     equal ranges of at least ``min_k`` rows, each a multiple of ``align``,
     choosing the split count whose blocks fill the last wave best (a larger
     count must fill it more than 2 % better), so that every SM moves about
     the same bytes."""
-    tiles = -(-m // bm) * -(-np_ // bn)
+    tiles = batch * -(-m // bm) * -(-np_ // bn)
     cap = BLOCKS_PER_SM * sms
     if k <= 0 or tiles >= cap:
         return 1, max(k, 1)
@@ -105,14 +112,15 @@ _COUNTERS: dict[int, tuple[torch.Tensor, CounterSlots, int]] = {}
 
 
 def _split_scratch(dev: torch.device, m: int, k: int, np_: int, slab: int, *, bm: int = BM,
-                   bn: int = BN, **plan):
-    """``(splits, k_per_split, workspace, counters)`` of one launch with
-    blocks of ``bm`` x ``bn`` that each leave ``slab`` int32 partials when K
-    is split (``plan``: :func:`grid_plan`'s other keywords); the last two
-    are None when K is not split.  ``counters`` is the current stream's
-    slot of the device's arrival counters: ``BLOCKS_PER_SM`` x SMs of them,
-    more than a split launch has output tiles (:func:`grid_plan` splits
-    only below that).  The array is allocated at the device's first split
+                   bn: int = BN, batch: int = 1, **plan):
+    """``(splits, k_per_split, workspace, counters)`` of one launch of
+    ``batch`` products with blocks of ``bm`` x ``bn`` that each leave
+    ``slab`` int32 partials when K is split (``plan``: :func:`grid_plan`'s
+    other keywords); the last two, one slab a block and one counter an
+    output tile of each matrix, are None when K is not split.
+    ``counters`` is the current stream's slot of the device's arrival
+    counters: ``BLOCKS_PER_SM`` x SMs of them, more than a split launch has
+    output tiles (:func:`grid_plan` splits only below that).  The array is allocated at the device's first split
     launch, which must not be inside a graph capture.  A captured graph
     keeps the counters of its capture stream: a replay must not overlap a
     split launch on that stream or another replay of the same graph.  The
@@ -120,7 +128,7 @@ def _split_scratch(dev: torch.device, m: int, k: int, np_: int, slab: int, *, bm
     captures on a stream of its own, so two engines' graphs hold two slots,
     and replays its graph serially: each step waits for its logits."""
     sms = sm_count(dev)
-    splits, kps = grid_plan(m, k, np_, sms, bm=bm, bn=bn, **plan)
+    splits, kps = grid_plan(m, k, np_, sms, bm=bm, bn=bn, batch=batch, **plan)
     if splits == 1:
         return splits, kps, None, None
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
@@ -134,22 +142,23 @@ def _split_scratch(dev: torch.device, m: int, k: int, np_: int, slab: int, *, bm
                                   CounterSlots(N_COUNTERS // size), size)
     counters, slots, size = entry
     slot = slots.slot(torch.cuda.current_stream(dev).cuda_stream)
-    units = -(-m // bm) * -(-np_ // bn) * splits
+    units = batch * -(-m // bm) * -(-np_ // bn) * splits
     ws = torch.empty(units * slab, dtype=torch.int32, device=dev)
     return splits, kps, ws, counters[slot * size:(slot + 1) * size]
 
 
 def packed_dense_fused_plain(x, w_packed, *, a_bits, n_seg, stride, acc_chunk, overlap=0):
-    """Plain version of K1: ``(acc [M, N] int32, a_sum [M] int32)``."""
+    """Plain version of K1: ``(acc [M, N] int32, a_sum [M] int32)``, or
+    ``[E, M, N]`` and ``[E, M]`` batched over experts."""
     n_lvl = (1 << a_bits) - 1
     a = torch.round(torch.clamp(x.to(torch.float32), 0.0, 1.0) * n_lvl).to(torch.int32)
     acc = peel_chunks(a, w_packed, n_seg=n_seg, stride=stride,
                       acc_chunk=acc_chunk, overlap=overlap)
-    return interleave(acc), torch.sum(a, dim=1, dtype=torch.int32)
+    return interleave(acc), torch.sum(a, dim=-1, dtype=torch.int32)
 
 
 def packed_matmul_plain(a_lvl, w_packed, *, n_seg, stride, acc_chunk, overlap=0, block_k=None):
-    """Plain version of K2: ``acc [M, N] int32``."""
+    """Plain version of K2: ``acc [M, N] int32`` (``[E, M, N]`` batched)."""
     acc = peel_chunks(a_lvl, w_packed, n_seg=n_seg, stride=stride,
                       acc_chunk=acc_chunk, overlap=overlap, block_k=block_k)
     return interleave(acc)
@@ -161,7 +170,8 @@ def _check(a, a_dtype, w_packed, n_seg, stride, overlap, acc_chunk):
     if a.dtype != a_dtype or w_packed.dtype != torch.int32:
         raise TypeError(f"expected {a_dtype} activations and int32 packed weights, "
                         f"got {a.dtype} and {w_packed.dtype}")
-    if a.ndim != 2 or w_packed.ndim != 2 or a.shape[1] != w_packed.shape[0]:
+    if (a.ndim not in (2, 3) or w_packed.ndim != a.ndim or a.shape[-1] != w_packed.shape[-2]
+            or a.shape[:-2] != w_packed.shape[:-2]):
         raise ValueError(f"shape mismatch: {tuple(a.shape)} x {tuple(w_packed.shape)}")
     if not (a.is_contiguous() and w_packed.is_contiguous()):
         raise ValueError("packed matmul operands must be contiguous")
@@ -171,15 +181,17 @@ def _check(a, a_dtype, w_packed, n_seg, stride, overlap, acc_chunk):
         raise ValueError(f"acc_chunk={acc_chunk} >= 2**stride: the XOR parity word would not be exact")
     if overlap and n_seg == 2 and stride < BM:
         raise ValueError(f"stride={stride} < {BM}: no room for every row's parity bit in one word")
-    if max(a.shape[0], a.shape[1], w_packed.shape[1] * n_seg) >= 2**31:
+    if max(a.shape[-2], a.shape[-1], w_packed.shape[-1] * n_seg) >= 2**31:
         raise ValueError("dimension exceeds int32 indexing")
-    if uses_vector_copy(w_packed.shape[1]) and w_packed.data_ptr() % 16:
+    if a.ndim == 3 and a.shape[0] > 65535:
+        raise ValueError(f"{a.shape[0]} experts exceed the grid's y extent (65535)")
+    if uses_vector_copy(w_packed.shape[-1]) and w_packed.data_ptr() % 16:
         raise ValueError("packed weights of a width divisible by 4 must start on a 16-byte boundary")
 
 
 def packed_dense_fused_raw(
-    x: torch.Tensor,  # [M, K] float32 activations (clipped to [0, 1] in the kernel)
-    w_packed: torch.Tensor,  # [K, N // n_seg] int32 packed weight levels
+    x: torch.Tensor,  # [M, K] or [E, M, K] float32 activations (clipped to [0, 1] in the kernel)
+    w_packed: torch.Tensor,  # [K, N // n_seg] or [E, K, N // n_seg] int32 packed weight levels
     *,
     a_bits: int,
     n_seg: int,
@@ -187,21 +199,22 @@ def packed_dense_fused_raw(
     acc_chunk: int,
     overlap: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1: quantize + whole-K packed dot + peel + row sums in one launch."""
+    """K1: quantize + whole-K packed dot + peel + row sums in one launch;
+    with a leading expert axis ``E``, all E products in that launch."""
     if not x.is_cuda:
         return packed_dense_fused_plain(x, w_packed, a_bits=a_bits, n_seg=n_seg, stride=stride,
                                         acc_chunk=acc_chunk, overlap=overlap)
     _check(x, torch.float32, w_packed, n_seg, stride, overlap, acc_chunk)
-    m, k = x.shape
-    np_ = w_packed.shape[1]
-    acc = torch.empty((m, np_ * n_seg), dtype=torch.int32, device=x.device)
-    a_sum = torch.empty((m,), dtype=torch.int32, device=x.device)
-    splits, kps, ws, counters = _split_scratch(x.device, m, k, np_, BM * (BN * n_seg + 1))
+    lead, (m, k), np_ = x.shape[:-2], x.shape[-2:], w_packed.shape[-1]
+    e = x.shape[0] if lead else 1
+    acc = torch.empty(lead + (m, np_ * n_seg), dtype=torch.int32, device=x.device)
+    a_sum = torch.empty(lead + (m,), dtype=torch.int32, device=x.device)
+    splits, kps, ws, counters = _split_scratch(x.device, m, k, np_, BM * (BN * n_seg + 1), batch=e)
     lib = build.library("packed_matmul")
     err = lib.packed_dense_fused(
         x.data_ptr(), w_packed.data_ptr(), acc.data_ptr(), a_sum.data_ptr(),
         None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr(),
-        m, k, np_, a_bits, n_seg, stride, acc_chunk, overlap, int(uses_vector_copy(np_)),
+        e, m, k, np_, a_bits, n_seg, stride, acc_chunk, overlap, int(uses_vector_copy(np_)),
         splits, kps, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(lib, err, "packed_dense_fused")
@@ -210,8 +223,8 @@ def packed_dense_fused_raw(
 
 
 def packed_matmul_raw(
-    a_lvl: torch.Tensor,  # [M, K] int32 activation levels
-    w_packed: torch.Tensor,  # [K, N // n_seg] int32 packed weight levels
+    a_lvl: torch.Tensor,  # [M, K] or [E, M, K] int32 activation levels
+    w_packed: torch.Tensor,  # [K, N // n_seg] or [E, K, N // n_seg] int32 packed weight levels
     *,
     n_seg: int,
     stride: int,
@@ -219,22 +232,23 @@ def packed_matmul_raw(
     overlap: int = 0,
     block_k: int | None = None,
 ) -> torch.Tensor:
-    """K2: packed dot of activation levels; chunks restart every ``block_k``."""
+    """K2: packed dot of activation levels; chunks restart every ``block_k``
+    (a leading expert axis as K1's)."""
     if not a_lvl.is_cuda:
         return packed_matmul_plain(a_lvl, w_packed, n_seg=n_seg, stride=stride,
                                    acc_chunk=acc_chunk, overlap=overlap, block_k=block_k)
     _check(a_lvl, torch.int32, w_packed, n_seg, stride, overlap, acc_chunk)
     if block_k is not None and block_k < 1:
         raise ValueError(f"block_k must be >= 1, got {block_k}")
-    m, k = a_lvl.shape
-    np_ = w_packed.shape[1]
-    acc = torch.empty((m, np_ * n_seg), dtype=torch.int32, device=a_lvl.device)
-    splits, kps, ws, counters = _split_scratch(a_lvl.device, m, k, np_, BM * (BN * n_seg + 1))
+    lead, (m, k), np_ = a_lvl.shape[:-2], a_lvl.shape[-2:], w_packed.shape[-1]
+    e = a_lvl.shape[0] if lead else 1
+    acc = torch.empty(lead + (m, np_ * n_seg), dtype=torch.int32, device=a_lvl.device)
+    splits, kps, ws, counters = _split_scratch(a_lvl.device, m, k, np_, BM * (BN * n_seg + 1), batch=e)
     lib = build.library("packed_matmul")
     err = lib.packed_matmul(
         a_lvl.data_ptr(), w_packed.data_ptr(), acc.data_ptr(),
         None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr(),
-        m, k, np_, n_seg, stride, acc_chunk, overlap, block_k or 0, int(uses_vector_copy(np_)),
+        e, m, k, np_, n_seg, stride, acc_chunk, overlap, block_k or 0, int(uses_vector_copy(np_)),
         splits, kps, torch.cuda.current_stream(a_lvl.device).cuda_stream,
     )
     build.check(lib, err, "packed_matmul")

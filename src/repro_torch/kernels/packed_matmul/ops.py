@@ -12,6 +12,11 @@ Dispatch mirrors the reference's ``_prepacked_fn``:
 * a bit pair with no placement (``cfg is None``) -> the plain integer
   matmul :func:`ref.matmul_levels` (float64 on the card, exact), as the
   reference runs a ``jnp.dot`` outside any kernel for such pairs.
+
+MoE experts take the same dispatch with a leading expert axis (``x [E,
+M, K]`` on ``[E, K, Np]`` words): K1 and K2 then run all E products in
+one launch, the counterpart of the reference's ``jax.vmap`` of
+``packed_dense`` over experts (``repro/models/moe.py:84``).
 """
 from __future__ import annotations
 
@@ -83,6 +88,8 @@ class PackedDenseParams:
         return dataclasses.replace(self, w_lvl=data)
 
     def layer(self, i: int) -> "PackedDenseParams":
+        """Index ``i`` of the leading axis (a layer of ``[L, ...]`` words,
+        or of ``[L, E, ...]`` expert words, which keeps the expert axis)."""
         return self._with(self.data[i])
 
     def to(self, device) -> "PackedDenseParams":
@@ -95,11 +102,6 @@ def resolve_block_k(block_k: int | None, k_dim: int) -> int:
     return k_dim if block_k is None else block_k
 
 
-def _stack(parts: list[PackedDenseParams]) -> PackedDenseParams:
-    meta = {dataclasses.replace(p, w_packed=None, w_lvl=None) for p in parts}
-    if len(meta) != 1:
-        raise ValueError("stacked matrices must share their packing metadata")
-    return parts[0]._with(torch.stack([p.data for p in parts]))
 
 
 def prepack_dense(
@@ -115,15 +117,23 @@ def prepack_dense(
 
     ``w`` is [K, N] or stacked [L, K, N] / [E, K, N] / [L, E, K, N];
     levels are normalized per matrix (one leading index at a time, which
-    also bounds the temporaries).  ``t_max`` overrides the normalizer
-    and then carries the leading shape."""
+    also bounds the temporaries: each matrix's words are written into the
+    stacked tensor as they come).  ``t_max`` overrides the normalizer and
+    then carries the leading shape."""
     dev = resolve_device(device)
     if w.ndim in (3, 4):
-        return _stack([
-            prepack_dense(w[i], w_bits=w_bits, a_bits=a_bits, block_k=block_k,
-                          t_max=None if t_max is None else t_max[i], device=dev)
-            for i in range(w.shape[0])
-        ])
+        first, out = None, None
+        for i in range(w.shape[0]):
+            p = prepack_dense(w[i], w_bits=w_bits, a_bits=a_bits, block_k=block_k,
+                              t_max=None if t_max is None else t_max[i], device=dev)
+            if first is None:
+                first = dataclasses.replace(p, w_packed=None, w_lvl=None)
+                out = torch.empty((w.shape[0],) + tuple(p.data.shape), dtype=p.data.dtype, device=dev)
+            elif dataclasses.replace(p, w_packed=None, w_lvl=None) != first:
+                raise ValueError("stacked matrices must share their packing metadata")
+            out[i] = p.data
+            del p
+        return first._with(out)
     w = w.to(dev)
     cfg = choose_config(w_bits, a_bits)
     n = w.shape[1]
@@ -139,15 +149,18 @@ def prepack_dense(
 
 
 def packed_dense(
-    x: torch.Tensor,  # [M, K] float activations
+    x: torch.Tensor,  # [M, K] (or [E, M, K] on [E, K, ...] words) float activations
     w: PackedDenseParams,
     *,
     block_k: int | None = None,
 ) -> torch.Tensor:
-    """Quantized dense layer on prepacked weights -> [M, N] float32."""
+    """Quantized dense layer on prepacked weights -> [M, N] float32 (or
+    [E, M, N], one product per expert)."""
     cfg = w.cfg
     bk = block_k if block_k is not None else w.block_k
-    if cfg is not None and resolve_block_k(bk, x.shape[1]) >= x.shape[1]:
+    if x.ndim != w.data.ndim:
+        raise ValueError(f"activations {tuple(x.shape)} do not match weights {tuple(w.data.shape)}")
+    if cfg is not None and resolve_block_k(bk, x.shape[-1]) >= x.shape[-1]:
         # whole K: one fused kernel quantizes, multiplies and sums the rows
         acc, a_sum = packed_dense_fused_raw(
             x.to(torch.float32), w.w_packed, a_bits=w.a_bits, n_seg=cfg.n_seg,
@@ -163,6 +176,6 @@ def packed_dense(
                 a_lvl, w.w_packed, n_seg=cfg.n_seg, stride=cfg.stride,
                 acc_chunk=cfg.acc_chunk, overlap=cfg.overlap, block_k=bk,
             )
-        a_sum = torch.sum(a_lvl, dim=1, dtype=torch.int32)
+        a_sum = torch.sum(a_lvl, dim=-1, dtype=torch.int32)
     out = ref.dequantize(acc, a_sum, w.w_scale, w.w_zero, a_scale)
-    return out if out.shape[1] == w.n_out else out[:, : w.n_out]
+    return out if out.shape[-1] == w.n_out else out[..., : w.n_out]

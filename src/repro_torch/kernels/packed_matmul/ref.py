@@ -38,4 +38,4 @@ def matmul_levels(a_lvl: torch.Tensor, w_lvl: torch.Tensor) -> torch.Tensor:
 def dequantize(acc: torch.Tensor, a_sum: torch.Tensor, w_scale: float, w_zero: float,
                a_scale: float) -> torch.Tensor:
     """``(s_w (W - z_w))^T (s_a A)``: acc[m, n] = sum_k A W, a_sum[m] = sum_k A."""
-    return (w_scale * a_scale) * (acc.to(torch.float32) - w_zero * a_sum[:, None].to(torch.float32))
+    return (w_scale * a_scale) * (acc.to(torch.float32) - w_zero * a_sum[..., None].to(torch.float32))

@@ -65,8 +65,8 @@ def peel_chunk(part: torch.Tensor, parity: torch.Tensor | None, *, n_seg: int,
 
 
 def peel_chunks(
-    a: torch.Tensor,  # [M, K] activation levels
-    wp: torch.Tensor,  # [K, Np] packed weight words
+    a: torch.Tensor,  # [..., M, K] activation levels
+    wp: torch.Tensor,  # [..., K, Np] packed weight words
     *,
     n_seg: int,
     stride: int,
@@ -74,24 +74,25 @@ def peel_chunks(
     overlap: int,
     block_k: int | None = None,
 ) -> torch.Tensor:
-    """Chunked packed dot + segment peel -> ``[n_seg, M, Np]`` int32.
+    """Chunked packed dot + segment peel -> ``[n_seg, ..., M, Np]`` int32
+    (leading axes, such as experts, batch the products).
 
     Chunks hold at most ``acc_chunk`` products and restart at every
     multiple of ``block_k`` (the reference's K tiles); any such chunking
     gives the same integers."""
-    m, k = a.shape
-    np_ = wp.shape[1]
+    *lead, m, k = a.shape
+    np_ = wp.shape[-1]
     wmask = lsb_mask(n_seg, stride)
-    acc = torch.zeros((n_seg, m, np_), dtype=torch.int32, device=a.device)
+    acc = torch.zeros((n_seg, *lead, m, np_), dtype=torch.int32, device=a.device)
     negative = torch.zeros((), dtype=torch.bool, device=a.device)
     bk = k if block_k is None else block_k
     for kb in range(0, k, bk):
         for c0 in range(kb, min(kb + bk, k), acc_chunk):
             c1 = min(c0 + acc_chunk, kb + bk, k)
-            w = wp[c0:c1]
-            part = chunk_dot(a[:, c0:c1], w)
+            w = wp[..., c0:c1, :]
+            part = chunk_dot(a[..., c0:c1], w)
             negative |= (part < 0).any()
-            parity = chunk_dot(a[:, c0:c1] & 1, w & wmask) if overlap else None
+            parity = chunk_dot(a[..., c0:c1] & 1, w & wmask) if overlap else None
             for d, val in enumerate(peel_chunk(part, parity, n_seg=n_seg, stride=stride)):
                 acc[d] += val
     if bool(negative):
@@ -100,6 +101,6 @@ def peel_chunks(
 
 
 def interleave(acc: torch.Tensor) -> torch.Tensor:
-    """Channel order: ``out[:, j*n_seg + d] = acc[d, :, j]``."""
-    n_seg, m, np_ = acc.shape
-    return acc.permute(1, 2, 0).reshape(m, np_ * n_seg)
+    """Channel order: ``out[..., :, j*n_seg + d] = acc[d, ..., :, j]``."""
+    n_seg, *lead, m, np_ = acc.shape
+    return acc.movedim(0, -1).reshape(*lead, m, np_ * n_seg)

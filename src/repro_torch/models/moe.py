@@ -1,0 +1,235 @@
+"""Mixture-of-Experts layer (``repro.models.moe``) in PyTorch, one device.
+
+Token-choice top-k routing with capacity, a scatter into per-expert
+capacity buckets, one batched matmul pair over the experts, and the
+combine back to the tokens; copies over capacity fall back to the
+residual stream.  Two paths share one parameter layout, as in the
+reference:
+
+* :func:`moe_reference`: every expert sees every token, outputs masked
+  (the dense oracle the tests use);
+* :func:`moe_apply`: the serving path, :func:`_local_moe` with one
+  expert group.  The reference's all_to_all exchange and its
+  expert-sharded decode path (``_local_moe_expert_sharded``) wait for the
+  mesh (ROADMAP.md, port queue, "Mesh").
+
+The dispatch reproduces the reference's, including two behaviours that
+the port must match bit for bit:
+
+* **Top-k order.** ``jax.lax.top_k`` puts the lower index first among
+  equal gates, and that order decides which copy an over-capacity expert
+  keeps; ``torch.topk`` breaks ties otherwise, so :func:`top_k` takes a
+  stable descending sort.
+* **Colliding bucket rows.** The reference clips every bucket slot into
+  range, so copies over an expert's capacity and the padding rows of the
+  send buffer all land on the last expert's last row, after the copy kept
+  there; on its CPU backend the scatter runs serially and the last of
+  them (a zero row) wins, so the kept copy reads ``ffn(0)``.  Here every
+  scatter with possible collisions keeps, for each target row, the writer
+  with the highest position in sorted order (:func:`_scatter_last`), with
+  a deterministic ``scatter_reduce(amax)`` and a gather; no
+  ``index_put_`` or ``index_add_`` with duplicate indices, which on the
+  card would be neither ordered nor deterministic.
+
+Shapes stay static (no ``.item()``, ``nonzero`` or boolean-mask
+indexing), so the engine's step stays one captured CUDA graph.  Packed
+experts (:class:`PackedDenseParams` with a leading expert axis) run K1
+(K2 at ``block_k < K``) over all experts in one launch a projection.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.packed_matmul.ops import PackedDenseParams, packed_dense
+from repro_torch.models.layers import rmsnorm
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    d_model: int
+    d_ff: int  # per-expert hidden
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    kind: str = "swiglu"
+
+
+def moe_init(g: torch.Generator, s: MoESpec, lead: tuple[int, ...] = ()) -> dict:
+    """Random float32 params in the reference's layout and scales, made
+    on the generator's device; ``lead`` stacks them (``(L,)`` for a
+    layer stack).  Each tensor is drawn and scaled in place."""
+    E, d, f = s.n_experts, s.d_model, s.d_ff
+
+    def normal(*shape, fan_in):
+        return torch.randn(lead + shape, generator=g, device=g.device).div_(math.sqrt(fan_in))
+
+    p = {
+        "router": {"w": normal(d, E, fan_in=d)},
+        "w_up": normal(E, d, f, fan_in=d),
+        "w_down": normal(E, f, d, fan_in=f),
+        "ln": {"g": torch.ones(lead + (d,), device=g.device)},
+    }
+    if s.kind in ("swiglu", "geglu"):
+        p["w_gate"] = normal(E, d, f, fan_in=d)
+    return p
+
+
+def _weight(w, dtype: torch.dtype) -> torch.Tensor:
+    """Dequantize a float / int8-dict expert weight tensor."""
+    if isinstance(w, dict):
+        return w["levels"].to(dtype) * w["scale"].to(dtype)
+    return w.to(dtype)
+
+
+def _n_local_experts(w) -> int:
+    """Leading (expert) dim of a float / int8-dict / packed expert weight."""
+    if isinstance(w, PackedDenseParams):
+        return w.data.shape[0]
+    if isinstance(w, dict):
+        return w["levels"].shape[0]
+    return w.shape[0]
+
+
+def _expert_matmul(x: torch.Tensor, w, dtype: torch.dtype) -> torch.Tensor:
+    """Batched per-expert matmul [E, C, K] x [E, K, N] -> [E, C, N].
+
+    Float and int8-dict weights use one einsum; packed weights take the
+    sigmoid proxy of ``layers.dense``'s packed path and run one batched
+    packed product (K1, K2 at ``block_k < K``, or the batched plain
+    integer matmul for pairs with no placement)."""
+    if not isinstance(w, PackedDenseParams):
+        return torch.einsum("ecd,edf->ecf", x, _weight(w, dtype))
+    xq = torch.sigmoid(x).to(torch.float32)
+    return packed_dense(xq, w).to(dtype)
+
+
+def _expert_ffn(p: dict, s: MoESpec, x: torch.Tensor) -> torch.Tensor:
+    """x: [E, C, d] -> [E, C, d] batched over local experts."""
+    up = _expert_matmul(x, p["w_up"], x.dtype)
+    if s.kind in ("swiglu", "geglu"):
+        gate = _expert_matmul(x, p["w_gate"], x.dtype)
+        # jax.nn.gelu defaults to the tanh approximation
+        act = (F.silu(gate) if s.kind == "swiglu" else F.gelu(gate, approximate="tanh")) * up
+    elif s.kind == "squared_relu":
+        r = F.relu(up)
+        act = r * r
+    else:
+        act = F.gelu(up, approximate="tanh")
+    return _expert_matmul(act, p["w_down"], x.dtype)
+
+
+def top_k(gates: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the ``k`` largest along the last axis, the lower
+    index first among equal values (a stable descending sort)."""
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(params: dict, s: MoESpec, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Router of normed tokens ``h`` [T, d]: the top-k softmax gates
+    [T, k] float32 (the caller renormalises them) and their expert ids."""
+    logits = h @ params["router"]["w"].to(h.dtype)
+    gates = torch.softmax(logits.to(torch.float32), dim=-1)
+    return top_k(gates, s.top_k)
+
+
+def _scatter_last(n_rows: int, slot: torch.Tensor, values: torch.Tensor, fill) -> torch.Tensor:
+    """``out[slot[i]] = values[i]`` into ``n_rows`` rows of ``fill``, the
+    highest ``i`` winning where several target one row (the reference's
+    serial scatter on its CPU backend), deterministically: each row's
+    writer is found with ``scatter_reduce(amax)`` and gathered."""
+    pos = torch.arange(slot.shape[0], device=slot.device)
+    writer = torch.full((n_rows,), -1, dtype=torch.long, device=slot.device)
+    writer = writer.scatter_reduce(0, slot, pos, "amax", include_self=True)
+    taken = values[writer.clamp(min=0)]
+    has = (writer >= 0).reshape((n_rows,) + (1,) * (values.ndim - 1))
+    return torch.where(has, taken, fill)
+
+
+def moe_reference(params: dict, s: MoESpec, x: torch.Tensor) -> torch.Tensor:
+    """Dense oracle: every expert sees every token, outputs are masked."""
+    B, S, d = x.shape
+    h = rmsnorm(params["ln"], x).reshape(B * S, d)
+    topv, topi = _route(params, s, h)
+    topv = topv / torch.sum(topv, dim=-1, keepdim=True)
+    weights = torch.zeros((B * S, s.n_experts), dtype=topv.dtype, device=x.device).scatter(1, topi, topv)
+    all_out = _expert_ffn(params, s, h.expand((s.n_experts,) + h.shape))  # [E, T, d]
+    out = torch.einsum("te,etd->td", weights.to(h.dtype), all_out)
+    return x + out.reshape(B, S, d)
+
+
+def _local_moe(params: dict, s: MoESpec, x: torch.Tensor, *, axis_name: str | None = None) -> torch.Tensor:
+    """The reference's ``_local_moe`` on one device: x [t, d] tokens ->
+    [t, d] expert outputs (no residual).
+
+    With one expert group every copy's destination rank is 0, so the
+    reference's stable sort by rank keeps the copies in token order (copy
+    ``c`` of token ``t`` at ``t * k + c``) and its all_to_all is the
+    identity; the send buffer, the per-expert buckets and the combine
+    follow it step by step, capacities from Python's ``round`` as there."""
+    if axis_name is not None:
+        raise NotImplementedError("expert parallelism over a mesh axis waits for the mesh "
+                                  "(ROADMAP.md, port queue, 'Mesh')")
+    t, d = x.shape
+    e_loc = _n_local_experts(params["w_up"])
+    k = s.top_k
+    dev = x.device
+
+    h = rmsnorm(params["ln"], x)
+    topv, topi = _route(params, s, h)
+    topv = topv / (torch.sum(topv, dim=-1, keepdim=True) + 1e-9)
+
+    # flatten token copies: copy c of token t goes to expert topi[t, c]
+    n_copy = t * k
+    expert_of_copy = topi.reshape(n_copy)
+    gate_of_copy = topv.reshape(n_copy)
+    token_of_copy = torch.div(torch.arange(n_copy, device=dev), k, rounding_mode="floor")
+
+    # the send buffer: copies in order, c_send rows; copies past it are
+    # clipped onto its last row, which the last of them (a zero row) wins
+    c_send = int(max(1, round(n_copy * s.capacity_factor)))
+    pos_in_rank = torch.arange(n_copy, device=dev)
+    keep = pos_in_rank < c_send
+    slot = torch.clamp(pos_in_rank, 0, c_send - 1)
+    send_x = _scatter_last(c_send, slot, torch.where(keep[:, None], h[token_of_copy], 0.0), 0.0)
+    send_e = _scatter_last(c_send, slot, torch.where(keep, expert_of_copy, -1), -1)
+
+    # group the copies into per-expert capacity buckets (invalid -> overflow)
+    n_recv = c_send
+    local_expert = torch.where(send_e >= 0, send_e, e_loc)
+    c_exp = int(max(1, round(n_recv / e_loc * s.capacity_factor)))
+    order2 = torch.argsort(local_expert, stable=True)
+    le_sorted = local_expert[order2]
+    pos_in_exp = torch.arange(n_recv, device=dev) - torch.searchsorted(le_sorted, le_sorted)
+    keep2 = (pos_in_exp < c_exp) & (le_sorted < e_loc)
+    slot2 = torch.clamp(le_sorted * c_exp + pos_in_exp, 0, e_loc * c_exp - 1)
+    buckets = _scatter_last(e_loc * c_exp, slot2, torch.where(keep2[:, None], send_x[order2], 0.0), 0.0)
+    y = _expert_ffn(params, s, buckets.reshape(e_loc, c_exp, d)).reshape(e_loc * c_exp, d)
+
+    # route results back to their send rows: order2 is a permutation, so
+    # each row has one writer, and the inverse permutation gathers them
+    inv = torch.empty_like(order2).scatter_(0, order2, torch.arange(n_recv, device=dev))
+    back = torch.where(keep2[:, None], y[slot2], 0.0)[inv]
+
+    # combine: token t's k copies, weighted by their gates, added in copy
+    # order as the reference's serial scatter-add does (dropped copies add
+    # nothing to their token)
+    gate_w = torch.where(keep, gate_of_copy, 0.0).to(h.dtype)
+    contrib = torch.where(keep[:, None], back[slot] * gate_w[:, None], 0.0).reshape(t, k, d)
+    out = contrib[:, 0]
+    for c in range(1, k):
+        out = out + contrib[:, c]
+    return out
+
+
+def moe_apply(params: dict, s: MoESpec, x: torch.Tensor, *, axis_name: str | None = None) -> torch.Tensor:
+    """Production MoE block: x [B, S, d] -> x + MoE(x).  Packed experts
+    carry their own bits, so it takes no ``quant`` (the reference's is
+    unused)."""
+    B, S, d = x.shape
+    out = _local_moe(params, s, x.reshape(B * S, d), axis_name=axis_name)
+    return x + out.reshape(B, S, d)

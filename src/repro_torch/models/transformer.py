@@ -4,8 +4,10 @@ Params are a dict with the reference's pytree keys: ``embed`` [V, d],
 ``final_ln``, and ``layers`` — stacked ``[L, ...]`` tensors (the
 reference's scan layout) or a list of per-layer dicts.  The reference
 scans the stacked layers; here a Python loop walks them.  The dense
-attention family (KV page pools) and the SSM family (mamba2: slot-indexed
-recurrent state) are served; hybrid, encoder-decoder and MoE configs raise.
+attention family (KV page pools), with an MLP or with experts (a layer's
+``moe`` block in place of its ``mlp``: :mod:`repro_torch.models.moe`, one
+device), and the SSM family (mamba2: slot-indexed recurrent state) are
+served; hybrid and encoder-decoder configs raise.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.packed_matmul.ops import PackedDenseParams
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import moe as X
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +83,10 @@ class ModelConfig:
     def mlp_spec(self) -> L.MLPSpec:
         return L.MLPSpec(d_model=self.d_model, d_ff=self.d_ff // self.tp_shards, kind=self.mlp_kind)
 
+    def moe_spec(self) -> X.MoESpec:
+        return X.MoESpec(d_model=self.d_model, d_ff=self.expert_d_ff, n_experts=self.n_experts,
+                         top_k=self.top_k, capacity_factor=self.capacity_factor, kind=self.mlp_kind)
+
     def ssm_spec(self) -> M.MambaSpec:
         """One device's spec (the reference's ``shard_heads`` waits for the mesh)."""
         return M.MambaSpec(d_model=self.d_model, d_state=self.ssm_state,
@@ -92,12 +99,11 @@ class ModelConfig:
 
 
 def _check_served(cfg: ModelConfig) -> None:
-    if cfg.family not in ("attn", "ssm") or cfg.is_moe:
+    if cfg.family not in ("attn", "ssm"):
         raise NotImplementedError(
-            f"the port serves the dense attention and SSM families so far, not {cfg.name!r} "
-            f"(family {cfg.family!r}, {cfg.n_experts} experts); MoE waits for 'MoE with packed "
-            f"experts', the hybrid and encdec paths for 'Training, QAT and NAS' (ROADMAP.md, "
-            f"port queue)"
+            f"the port serves the attention family (with an MLP or with experts) and the SSM "
+            f"family so far, not {cfg.name!r} (family {cfg.family!r}); the hybrid and encdec paths "
+            f"wait for 'Training, QAT and NAS' (ROADMAP.md, port queue)"
         )
 
 
@@ -130,6 +136,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device: str | torch.device =
         "wo": {"w": normal(Ln, H * hd, d, fan_in=H * hd)},
         "ln": {"g": ones(Ln, d)},
     }
+    if cfg.is_moe:  # the experts replace the MLP: router/w, w_up, w_gate, w_down, ln
+        return top({"attn": attn, "moe": X.moe_init(g, cfg.moe_spec(), lead=(Ln,))})
     mlp = {
         "w_up": {"w": normal(Ln, d, ff, fan_in=d)},
         "w_down": {"w": normal(Ln, ff, d, fan_in=ff)},
@@ -225,7 +233,9 @@ def decode_paged_layer(p: dict, cfg: ModelConfig, layer_state: dict, block_table
     ``k``/``v`` [+ scales] pools, or its ``ssm``/``conv`` state) is updated
     in place.  The SSM family ignores ``block_table``, ``pos``, ``window``
     and ``gather``; its new states are copied into the given ones, never
-    rebound, so a captured step writes the buffers it was captured on."""
+    rebound, so a captured step writes the buffers it was captured on.
+    With experts the MLP is the MoE block on the step's ``S * C`` tokens
+    (the reference's ``_moe_block`` outside a mesh)."""
     _check_served(cfg)
     if cfg.family == "ssm":
         s = cfg.ssm_spec()
@@ -243,6 +253,8 @@ def decode_paged_layer(p: dict, cfg: ModelConfig, layer_state: dict, block_table
         window=window, quant=cfg.quant, pool_k_scale=layer_state.get("k_scale"),
         pool_v_scale=layer_state.get("v_scale"), lens=lens, gather=gather,
     )
+    if cfg.is_moe:
+        return X.moe_apply(p["moe"], cfg.moe_spec(), h)
     return L.mlp(p["mlp"], cfg.mlp_spec(), h, quant=cfg.quant)
 
 

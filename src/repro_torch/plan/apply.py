@@ -7,7 +7,7 @@ stacked ``[L, ...]`` layout: byte for byte the params of the global
 path.  Heterogeneous plans unstack ``params["layers"]`` into the
 per-layer list that ``transformer.forward_decode_paged`` walks (each
 layer's packed metadata differs).  Tensor-parallel shards (``tp=``) wait
-for the mesh (ROADMAP.md, port queue 1, item 12).
+for the mesh (ROADMAP.md, port queue, "Mesh").
 """
 from __future__ import annotations
 
@@ -97,7 +97,7 @@ def apply_plan(params: dict, cfg, plan: DeployPlan, *, verbose: bool = True, tp=
     layout, heterogeneous ones become a per-layer list."""
     if tp is not None:
         raise NotImplementedError("tensor-parallel plan shards need the mesh (ROADMAP.md, port "
-                                  "queue 1, item 12)")
+                                  "queue, 'Mesh')")
     plan.validate()
     if plan.family != cfg.family:
         raise ValueError(

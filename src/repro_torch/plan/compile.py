@@ -8,9 +8,10 @@ deployment plan.
 The artifact (``artifacts/plans/*.json`` unless ``--out``) is what
 ``serving.build_engine(..., plan=DeployPlan.load(path))`` serves.
 ``--autotune`` times ``block_k`` candidates on the card.  ``--from-nas``
-waits for the convnet NAS (ROADMAP.md, port queue 1, item 14) and
-``--trace-cost`` for a step-cost tracer of the port (the reference traces
-a jaxpr with ``repro/launch/cost.py``; ROADMAP.md, port queue 1, item 13).
+waits for the convnet NAS (ROADMAP.md, port queue, "Training, QAT and
+NAS") and ``--trace-cost`` for a step-cost tracer of the port (the
+reference traces a jaxpr with ``repro/launch/cost.py``; ROADMAP.md, port
+queue, "CLIs and benches").
 """
 from __future__ import annotations
 
@@ -22,9 +23,10 @@ from repro_torch.plan import plan as plan_mod
 from repro_torch.plan import search as plan_search
 
 NOT_PORTED = {
-    "from_nas": "--from-nas needs the convnet NAS, not ported yet (ROADMAP.md, port queue 1, item 14)",
+    "from_nas": "--from-nas needs the convnet NAS, not ported yet (ROADMAP.md, port queue, "
+                "'Training, QAT and NAS')",
     "trace_cost": "--trace-cost needs a step-cost tracer, not ported yet (the reference's "
-                  "repro/launch/cost.py; ROADMAP.md, port queue 1, item 13)",
+                  "repro/launch/cost.py; ROADMAP.md, port queue, 'CLIs and benches')",
 }
 
 

@@ -1173,3 +1173,106 @@ def test_mamba_forced_preemption_equals_its_unpreempted_twin(cuda):
     assert rows_p.keys() == rows_u.keys() and len(rows_p) == 18
     for k, row in rows_u.items():
         assert row.tobytes() == rows_p[k].tobytes(), k
+
+
+# -- MoE: K1/K2 over an expert grid axis, the MoE engine ----------------------------------
+
+# (E, K, N): qwen3-moe-30b-a3b's served experts (w_up|w_gate 2048x768,
+# w_down 768x2048, 128 of each), whose 128 x tiles fill the card unsplit;
+# and 16 experts (llama4-scout-17b-a16e's count) at K = 5120 (its d_model)
+# and narrow N, whose few tiles split K
+MOE_SHAPES = [(128, 2048, 768), (128, 768, 2048), (16, 5120, 512), (16, 5120, 136)]
+
+
+@pytest.mark.parametrize("m", [1, 12])
+@pytest.mark.parametrize("e,k,n", MOE_SHAPES)
+def test_batched_kernels_bit_exact_at_moe_shapes(cuda, e, k, n, m):
+    """K1 and K2 (block_k 512) over E experts in one launch, w4a4: bit-exact
+    against their plain versions, each expert's slice equal to the 2-D call
+    on that expert alone, and one captured call a single kernel node (read
+    from the graph's nodes)."""
+    from repro_torch.kernels.packed_matmul.kernel import grid_plan
+
+    cfg = choose_config(4, 4)
+    kw = dict(n_seg=cfg.n_seg, stride=cfg.stride, acc_chunk=cfg.acc_chunk, overlap=cfg.overlap)
+    g = torch.Generator(device=cuda).manual_seed(e + k + n + m)
+    x = torch.rand((e, m, k), generator=g, device=cuda) * 1.2 - 0.1
+    wp = torch.stack([pm.pack_weights(torch.randint(0, 16, (k, n), generator=g, device=cuda,
+                                                    dtype=torch.int32), cfg.n_seg, cfg.stride)
+                      for _ in range(e)])
+    a_lvl = torch.round(torch.clamp(x, 0, 1) * 15).to(torch.int32)
+    splits, _ = grid_plan(m, k, wp.shape[-1], torch.cuda.get_device_properties(0).multi_processor_count,
+                          batch=e)
+    assert (splits > 1) == (e == 16)
+    acc, a_sum = packed_dense_fused_raw(x, wp, a_bits=4, **kw)
+    acc2 = packed_matmul_raw(a_lvl, wp, block_k=512, **kw)
+    p_acc, p_sum = packed_dense_fused_plain(x, wp, a_bits=4, **kw)
+    torch.cuda.synchronize()
+    assert acc.shape == (e, m, n) and a_sum.shape == (e, m)
+    assert torch.equal(acc, p_acc) and torch.equal(a_sum, p_sum)
+    assert torch.equal(acc2, packed_matmul_plain(a_lvl, wp, block_k=512, **kw))
+    one, one_sum = packed_dense_fused_raw(x[e // 2].contiguous(), wp[e // 2], a_bits=4, **kw)
+    assert torch.equal(one, acc[e // 2]) and torch.equal(one_sum, a_sum[e // 2])
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        packed_dense_fused_raw(x, wp, a_bits=4, **kw)
+    census = build.graph_census(graph)
+    assert census["kinds"] == {"kernel": 1} and census["kernels"] == {"packed_dense_fused": 1}, census
+
+
+def _moe_smoke(cuda, packed: bool, seed=3):
+    """qwen3-moe-30b-a3b at its smoke size on the card: w4a4 projections and
+    experts with the packed (4, 4) head, or float weights."""
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("qwen3-moe-30b-a3b", smoke=True)
+    if packed:
+        return _packed_smoke(cuda, cfg, seed)
+    return cfg, T.init_params(cfg, seed=seed, device=cuda), None
+
+
+@pytest.mark.parametrize("weights", ["packed", "float"])
+def test_captured_moe_engine_equals_the_eager_engine(cuda, weights):
+    """qwen3-moe at its smoke size, 3 slots, C = 4, on demand in 6 pages:
+    the engine preempts and replays.  The captured step (one capture)
+    against capture=False: every step's logits bit-identical, the same
+    tokens, steps, tokens fed and preemptions; the counters are the graph's
+    per-step launches (7 K1 a layer and the head, packed; one K3 a layer)
+    times the steps."""
+    from repro_torch.serving import Engine
+
+    cfg, params, head = _moe_smoke(cuda, weights == "packed")
+    ecfg = EngineConfig(n_slots=3, page_size=4, max_len=32, n_pages=6, chunk_tokens=4, admit="on-demand",
+                        packed_head=head is not None, head_bits=(4, 4), gather_backend="kernel")
+    g = np.random.default_rng(7)
+    prompts = [g.integers(1, cfg.vocab, n).tolist() for n in (9, 6, 11)]
+    runs = []
+    for capture in (False, True):
+        eng = Engine(cfg, params, ecfg, head=head, device=cuda, capture=capture)
+        logits = _step_logits(eng)
+        for p in prompts:
+            eng.submit(p, 6)
+        build.reset_counts()
+        m = eng.run(realtime=False)
+        assert m["statuses"] == {"ok": 3}
+        eng.assert_no_leaks()
+        counts = build.counts()
+        if capture:
+            prog = eng._program
+            want = {"paged_gather": cfg.n_layers}
+            if head is not None:
+                want["packed_dense_fused"] = 7 * cfg.n_layers + 1
+            assert prog.captures == 1 and prog.launches == want
+            assert build.graph_census(prog.graph)["kernels"].get("packed_dense_fused", 0) == want.get(
+                "packed_dense_fused", 0)
+            assert counts == {k: want.get(k, 0) * m["steps"] for k in build.COUNTS}
+        runs.append((m, counts, logits, {r.rid: r.out_tokens for r in eng.finished}))
+        eng.close()
+    (m_e, counts_e, logits_e, toks_e), (m_c, counts_c, logits_c, toks_c) = runs
+    assert m_c["preemptions"] > 0
+    for key in ("steps", "fed_tokens", "preemptions"):
+        assert m_c[key] == m_e[key], key
+    assert toks_c == toks_e and counts_c == counts_e
+    assert len(logits_c) == len(logits_e) == m_c["steps"]
+    for t, (a, b) in enumerate(zip(logits_c, logits_e)):
+        assert a.tobytes() == b.tobytes(), t
