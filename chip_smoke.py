@@ -221,6 +221,29 @@ Phases, all on the card:
    float32, float and w4a4: routing flips and activation-level flips
    counted, clean rows within 1e-4 relative L2 (float) or equal (w4a4).
 
+17. Chaos and snapshots: the engine's fault layer at full width, each
+   engine's step one captured graph.  Every fault family (step, allocation,
+   NaN) at rate 0.2 (seed 3), 64 strikes a request, and hard faults planted
+   by wrapping the step program's run, before a step or after its replay
+   has written the state, each restored from a snapshot, written into the
+   state's tensors in place.  (a) Phase 9's on-demand cell (phase 4's
+   weights and prompts, C = 16, 0.60 of the worst case), fault-free, with
+   snapshots every 4 steps only, and under chaos with two hard faults
+   (steps 6 and 20); the step p50 of each.  (b) mamba2-130m at full width,
+   C = 1, 16 slots, phase 15 (c)'s 16 prompts of 2-8 tokens, 16 new,
+   fault-free and under chaos with one hard fault (snapshots every 16
+   steps).  Every run: every request ``ok``, the launch counters the
+   per-step counts times the replays, the graph's kernel nodes those
+   counts, one capture, the state's ``data_ptr``s unchanged, no leaks.
+   Under chaos: every sampled row bit-identical to the fault-free run's,
+   every fault family, quarantines and retries seen, the hard recoveries
+   restored from snapshots, and the decisions (counters, statuses, each
+   request's strikes, preemptions and tokens) equal to the same runs'
+   on the CPU at the smoke size, which the phase makes itself.  A planted
+   fault, a restore that rebinds the state, must fail: in (a) on the
+   state's addresses, in (b) on its rows (the step keeps the stale
+   recurrent state).
+
 Every engine's graph and memory pool is released before the next engine
 is built, and each phase prints its peak device memory.
 
@@ -772,6 +795,16 @@ def phase_gather(torch, card, timer, cfg, ecfg, report: dict) -> dict:
 # -- phase 4 -------------------------------------------------------------------
 
 
+def check_clean(eng, what: str) -> None:
+    """An engine run without chaos struck nothing: no quarantine, no
+    retried step, no hard recovery.  The engine never samples a non-finite
+    row (it strikes the request and replays it), so a kernel that emits a
+    NaN now and then shows here, not in the sampled rows."""
+    n = (eng.scheduler.n_quarantines, eng.step_retries, eng.hard_recoveries)
+    check(n == (0, 0, 0), f"{what}: a run without chaos struck requests ({n[0]} quarantines, {n[1]} step "
+                          f"retries, {n[2]} hard recoveries; fault log {eng.fault_log})")
+
+
 def _serve(torch, eng, prompts, max_new: int) -> tuple[dict, dict, float]:
     from repro_torch.kernels import build
 
@@ -784,6 +817,7 @@ def _serve(torch, eng, prompts, max_new: int) -> tuple[dict, dict, float]:
     metrics = eng.run(realtime=True)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    check_clean(eng, "the served run")
     return metrics, build.counts(), wall
 
 
@@ -901,6 +935,7 @@ def _sampled_run(torch, eng, prompts, max_new: int) -> tuple[dict, dict]:
     for p in prompts:
         eng.submit(p, max_new)
     eng.run(realtime=False)
+    check_clean(eng, "the sampled run")
     eng.close()
     torch.cuda.empty_cache()
     return rows, {r.rid: list(r.out_tokens) for r in eng.finished}
@@ -927,6 +962,7 @@ def profile_engine(torch, eng, cfg, label: str, n_requests: int = 8, max_new: in
         m = eng.run(realtime=True)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
+    check_clean(eng, f"the traced run ({label})")
     eng.close()
     torch.cuda.empty_cache()
     return trace_summary(prof, wall, m["steps"] - steps0, label)
@@ -2490,7 +2526,9 @@ def serve_schedule(eng, reqs: list[dict], *, unit: float = 1.0, realtime: bool =
                 eng.cancel(h)
 
     eng.on_sample = on_sample
-    return eng.run(realtime=realtime), handles
+    m = eng.run(realtime=realtime)
+    check_clean(eng, "the scheduled run")
+    return m, handles
 
 
 def decisions(m: dict, reqs) -> dict:
@@ -2706,6 +2744,7 @@ def _recorded_run(torch, eng, prompts, trace: int = 0):
         check(all((b[1] == 1).all() for b in batches[first:]), "a traced step was not all decode")
         summary = trace_summary(prof, wall, trace, f"gemma3-1b decode steps {first}-{first + trace - 1}")
     eng.run(realtime=False)
+    check_clean(eng, "the recorded run")
     eng.close()
     torch.cuda.empty_cache()
     return rows, {r.rid: list(r.out_tokens) for r in eng.finished}, batches, summary
@@ -2915,7 +2954,6 @@ def phase_gemma(torch, card, report: dict) -> dict:
     eng_a = Engine(cfg, params, ecfg, head=head)
     rows_a, toks_a, batches, a["profile"] = _recorded_run(torch, eng_a, prompts, trace=GEMMA_TRACE_STEPS)
     check(toks_a == a["tokens"], "(a): the sampled (untimed) run gave other tokens than the timed run")
-    check(all(bool(np.isfinite(r).all()) for r in rows_a.values()), "(a): non-finite logits")
     out["a"] = a
 
     # (b) int8 KV pools
@@ -3072,6 +3110,7 @@ def _sampled_serve(torch, eng, prompts, max_new: int, skip_readmit_reset: bool =
     eng.run(realtime=False)
     eng._reset_slot = reset
     check(all(r.status == "ok" for r in reqs), f"statuses {[r.status for r in reqs]}")
+    check_clean(eng, "the sampled run")
     eng.assert_no_leaks()
     captures = eng._program.captures
     if not keep:
@@ -3741,6 +3780,7 @@ def phase_moe(torch, card, report: dict) -> dict:
             torch.cuda.synchronize()
             wall = time.monotonic() - t1
         check(eng.n_steps - steps0 == 1, f"(b) {label}: the traced run took {eng.n_steps - steps0} steps")
+        check_clean(eng, f"(b) {label}: the traced run")
         r["profile"] = trace_summary(prof, wall, 1, f"qwen3-moe {label}, one captured step")
         check(eng._program.captures == 1, f"(b) {label}: {eng._program.captures} captures")
         eng.close()
@@ -3754,7 +3794,6 @@ def phase_moe(torch, card, report: dict) -> dict:
         differ = _rows_differ(cap["rows"], eag["rows"])
         check(not differ and cap["tokens"] == eag["tokens"] and cap["steps"] == eag["steps"],
               f"(b) {label}: {len(differ)} of {len(cap['rows'])} captured rows differ from capture=False's")
-        check(all(bool(np.isfinite(v).all()) for v in cap["rows"].values()), f"(b) {label}: non-finite logits")
         r.update(prompt_tokens=sum(map(len, ps)), rows=len(cap["rows"]), serve_s=time.monotonic() - t0,
                  **{k: eag[k] for k in ("dropped_per_step", "dropped_valid_per_step", "overwritten_per_step",
                                         "copies_per_step", "copies_valid_per_step")})
@@ -3790,6 +3829,343 @@ def phase_moe(torch, card, report: dict) -> dict:
 
 
 # -- main ------------------------------------------------------------------------
+
+
+# -- phase 17 ------------------------------------------------------------------
+
+# phase 17's faults: tests/test_chaos.py's combined scenario (every family at
+# rate 0.2, seed 3), a request struck any number of times (64 strikes), and
+# hard faults planted by wrapping the step program's run, each (engine step,
+# after): before that step runs, or after its replay has written the state
+# (its logits then discarded).  (a) snapshots every 4 steps; (b) every 16,
+# since its state is 80 MB a snapshot against a 7 ms step.
+CHAOS = dict(seed=3, step_fault_rate=0.2, alloc_fault_rate=0.2, nan_rate=0.2)
+CHAOS_RETRIES = 64
+CHAOS_FAULTS = {"a": ((6, False), (20, True)), "b": ((24, True),)}
+CHAOS_SNAPSHOT_EVERY = {"a": 4, "b": 16}
+# (b)'s requests: phase 15 (c)'s 16 prompts of 2-8 tokens (seed 16), not its
+# C = 1 prompts of 64-128: a state left from before a restore decays by
+# about exp(-0.8) a token in the slowest head (phase 15), so only a short
+# replay shows a stale state in its rows
+CHAOS_MAMBA_NEW = 16
+SNAPSHOT_ROOT = ROOT / "build" / "chaos_snapshots"
+# what the fault layer decides from the schedule alone (never a token's value)
+CHAOS_DECISIONS = ("statuses", "steps", "preemptions", "quarantines", "step_retries", "hard_recoveries",
+                   "injected")
+
+
+def chaos_decisions(m: dict, reqs) -> dict:
+    """The fault layer's decisions of a run: its counters and, per request,
+    its status, strikes, preemptions and token count."""
+    return dict(**{k: m[k] for k in CHAOS_DECISIONS},
+                requests=[(r.rid, r.status, r.n_faults, r.n_preempted, len(r.out_tokens)) for r in reqs])
+
+
+def plant_hard_faults(eng, faults) -> list:
+    """Wrap ``eng``'s step program so that it raises once at each (engine
+    step, after) of ``faults``; returns the list of the faults that fired."""
+    run, fired = eng._program.run, []
+
+    def dying(*args):
+        for step, after in faults:
+            if eng.n_steps == step and (step, after) not in fired:
+                fired.append((step, after))
+                if after:
+                    run(*args)
+                raise ValueError(f"planted hard fault at step {step}" + (" after the step" if after else ""))
+        return run(*args)
+
+    eng._program.run = dying
+    return fired
+
+
+def rebinding_engine():
+    """Phase 17's planted fault: an engine whose restore rebinds the state,
+    as the reference's does (``self.state = restored``), where the port's
+    writes into it in place."""
+    import torch
+
+    from repro_torch.serving import Engine
+
+    class RebindingEngine(Engine):
+        def _restore_state(self):
+            if self._ckpt is not None:
+                self._ckpt.wait()
+                if self._ckpt.latest_step() is not None:
+                    _, self.state = self._ckpt.restore(self.state)
+                    return
+            self.state = {k: torch.zeros_like(t) for k, t in self.state.items()}
+
+    return RebindingEngine
+
+
+def chaos_ecfg(ecfg, label: str, chaos: bool, snapshots: bool):
+    """``ecfg`` with the fault layer of phase 17's run ``label``: chaos,
+    snapshots into a fresh directory under build/, or neither."""
+    import shutil
+
+    from repro_torch.serving import ChaosConfig
+
+    kw = dict(max_request_retries=CHAOS_RETRIES, chaos=ChaosConfig(**CHAOS) if chaos else ChaosConfig())
+    if snapshots:
+        d = SNAPSHOT_ROOT / label
+        shutil.rmtree(d, ignore_errors=True)
+        kw.update(snapshot_every=CHAOS_SNAPSHOT_EVERY[label[0]], snapshot_dir=str(d))
+    return dataclasses.replace(ecfg, **kw)
+
+
+def chaos_serve(torch, eng, prompts, max_new: int, faults=(), *, realtime: bool = True, max_steps=None) -> dict:
+    """Serve ``prompts`` on ``eng`` (fresh; warmed up first), with hard
+    faults planted at ``faults``: its metrics and requests, every sampled
+    row by (request, token), the launch counters of the run, the steps
+    its restores found a snapshot at (None: zeros), whether the state's
+    tensors kept their addresses, and the step times."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+
+    rows, restored = {}, []
+    eng.on_sample = lambda rid, t, row: rows.__setitem__((rid, t), row.copy())
+    ptrs = {k: t.data_ptr() for k, t in eng.state.items()}
+    restore = eng._restore_state
+
+    def spied():
+        if eng._ckpt is not None:
+            eng._ckpt.wait()  # the step the restore reads, once the writer is done
+        restored.append(eng._ckpt.latest_step() if eng._ckpt is not None else None)
+        restore()
+
+    eng._restore_state = spied
+    snap_ms, snapshot = [], eng._snapshot
+
+    def timed():
+        t0 = time.monotonic()
+        snapshot()
+        snap_ms.append(1e3 * (time.monotonic() - t0))
+
+    eng._snapshot = timed
+    fired = plant_hard_faults(eng, faults)
+    reqs = [eng.submit(p, max_new) for p in prompts]
+    eng.warmup()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    build.reset_counts()
+    m = eng.run(realtime=realtime, max_steps=max_steps)
+    counts = build.counts()
+    step_ms = [1e3 * s for s in eng.step_seconds]
+    return dict(m=m, reqs=reqs, rows=rows, counts=counts, restored=restored, fired=list(fired),
+                in_place={k: t.data_ptr() for k, t in eng.state.items()} == ptrs,
+                step_ms_p50=float(np.median(step_ms)) if step_ms else None, snapshot_ms=snap_ms,
+                state_bytes=sum(t.numel() * t.element_size() for t in eng.state.values()),
+                decisions=chaos_decisions(m, reqs))
+
+
+def check_in_place(r: dict, what: str) -> None:
+    """The state's tensors kept their addresses over the run: a restore
+    wrote into them, and the step's graph reads what the engine wrote."""
+    check(r["in_place"], f"{what}: the state's tensors were rebound (a data_ptr changed)")
+
+
+def check_chaos_run(torch, r: dict, eng, per_step: dict, what: str, memset: bool = False) -> dict:
+    """A fault layer's run at full width: every request ``ok`` (and with
+    no chaos and no planted fault, nothing struck), the launch counters the per-step counts times the steps (and the replays of
+    faults after the step), the graph's kernel nodes those counts, one
+    capture, the state written in place, no leaks; the engine is released."""
+    m = r["m"]
+    check(m["statuses"] == {"ok": len(r["reqs"])}, f"{what}: statuses {m['statuses']}")
+    if eng._chaos is None and not r["fired"]:
+        check_clean(eng, what)
+    replays = m["steps"] + sum(after for _, after in r["fired"])
+    check(r["counts"] == {k: v * replays for k, v in per_step.items()},
+          f"{what}: launch counters {r['counts']} != {per_step} x {replays} replays")
+    census = check_graph(eng, per_step, what, memset=memset)
+    check(eng._program.captures == 1, f"{what}: the engine captured {eng._program.captures} graphs, not 1")
+    check_in_place(r, what)
+    eng.assert_no_leaks()
+    eng.close()
+    torch.cuda.empty_cache()
+    return census
+
+
+def phase_chaos(torch, card, cfg, ecfg, prompts4: list, report: dict) -> dict:
+    """Chaos and snapshots at full width, each engine's step one captured
+    graph: injected step, allocation and NaN faults (CHAOS), retries, slot
+    quarantine and hard faults (CHAOS_FAULTS) restored from snapshots in
+    place.  (a) Phase 9's on-demand cell (llama3.2-3b, C = 16, phase 4's
+    prompts and weights, built again from seed 0) fault-free, with
+    snapshots only, and under chaos:
+    every run's checks (:func:`check_chaos_run`); under chaos every sampled
+    row bit-identical to the fault-free run's, every fault family,
+    quarantines and retries seen, two hard recoveries, one from a snapshot
+    at least, and the decisions equal to the CPU's at the smoke size; the
+    planted rebinding restore must fail the address check.  (b)
+    mamba2-130m at full width, C = 1, 16 slots, fault-free and under chaos
+    with one hard fault: the same checks; the planted rebinding restore
+    leaves the step on a stale recurrent state, and its rows must differ."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.serving import Engine, build_engine
+
+    t_phase = time.monotonic()
+    cells = chaos_configs(ecfg, prompts4)
+    t0 = time.monotonic()
+    cpu = chaos_cpu(torch, cells)
+    print(f"  the CPU's runs at the smoke size ({time.monotonic() - t0:.1f} s): (a) {cpu['a']['steps']} steps, "
+          f"injected {cpu['a']['injected']}; (b) {cpu['b']['steps']} steps, injected {cpu['b']['injected']}",
+          flush=True)
+    out: dict = {"cpu": cpu}
+
+    # (a) phase 9's on-demand cell: fault-free, snapshots only, chaos
+    ecfg_a, prompts, new = cells["a"]
+    base = build_engine(cfg, ecfg, quant="packed", w_bits=4, a_bits=4, seed=0)
+    params, head = base.params, base._head
+    del base
+    per_step = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": cfg.n_layers * 7 + 1,
+                "paged_gather": cfg.n_layers}
+    runs = {}
+    for label, chaos, snapshots in (("fault-free", False, False), ("snapshots", False, True), ("chaos", True, True)):
+        eng = Engine(cfg, params, chaos_ecfg(ecfg_a, f"a-{label}", chaos, snapshots), head=head)
+        r = chaos_serve(torch, eng, prompts, new, CHAOS_FAULTS["a"] if chaos else ())
+        r["graph"] = check_chaos_run(torch, r, eng, per_step, f"(a) {label}")
+        del eng
+        runs[label] = r
+    free, snap, ch = runs["fault-free"], runs["snapshots"], runs["chaos"]
+    m = ch["m"]
+    check(not _rows_differ(free["rows"], snap["rows"]), "(a): the snapshots-only run sampled other rows")
+    differ = _rows_differ(free["rows"], ch["rows"])
+    check(not differ, f"(a): {len(differ)} of {len(free['rows'])} sampled rows under chaos differ from the "
+                      f"fault-free run's")
+    check(min(m["injected"].values()) > 0, f"(a): injected {m['injected']}: a fault family never fired")
+    check(m["quarantines"] > 0 and m["step_retries"] > 0,
+          f"(a): {m['quarantines']} quarantines, {m['step_retries']} step retries")
+    check(m["hard_recoveries"] == 2 and len(ch["fired"]) == 2, f"(a): {m['hard_recoveries']} hard recoveries")
+    check(any(s is not None for s in ch["restored"]), f"(a): no restore found a snapshot: {ch['restored']}")
+    check(ch["decisions"] == cpu["a"], f"(a): decisions differ from the CPU's: {ch['decisions']} against {cpu['a']}")
+    snap_cost = snap["step_ms_p50"] - free["step_ms_p50"]
+    out["a"] = {k: dict(steps=r["m"]["steps"], preemptions=r["m"]["preemptions"], step_ms_p50=r["step_ms_p50"],
+                        tokens_per_s=r["m"]["tokens_per_s"], counts=r["counts"], graph=r["graph"],
+                        snapshots=len(r["snapshot_ms"]), snapshot_ms=r["snapshot_ms"], restored=r["restored"],
+                        decisions=r["decisions"]) for k, r in runs.items()}
+    state_mb = out["a"]["state_mib"] = free["state_bytes"] / 2**20
+    print(f"  (a) llama3.2-3b C={CHUNK} on demand, {ecfg_a.pool_pages() - 1} usable pages, state {state_mb:.1f} "
+          f"MiB: fault-free {free['m']['steps']} steps, step p50 {free['step_ms_p50']:.2f} ms; snapshots every "
+          f"{CHAOS_SNAPSHOT_EVERY['a']} steps {snap['m']['steps']} steps, step p50 {snap['step_ms_p50']:.2f} ms "
+          f"({snap_cost:+.2f}), a snapshot p50 {float(np.median(snap['snapshot_ms'])):.2f} ms (max "
+          f"{max(snap['snapshot_ms']):.2f}) on the host; chaos {m['steps']} steps, step p50 {ch['step_ms_p50']:.2f} "
+          f"ms, {m['tokens_per_s']:.1f} tok/s", flush=True)
+    print(f"  (a) chaos: injected {m['injected']}, {m['step_retries']} step retries, {m['quarantines']} "
+          f"quarantines, {m['preemptions']} preemptions, hard faults {ch['fired']} restored from snapshot steps "
+          f"{ch['restored']}; all {len(free['rows'])} sampled rows bit-identical to the fault-free run's; decisions "
+          f"equal the CPU's; launches {ch['counts']}; one capture, state in place, no leaks", flush=True)
+
+    # the planted rebinding restore, stopped two steps past its first hard fault
+    eng = rebinding_engine()(cfg, params, chaos_ecfg(ecfg_a, "a-planted", True, True), head=head)
+    r = chaos_serve(torch, eng, prompts, new, CHAOS_FAULTS["a"], max_steps=CHAOS_FAULTS["a"][0][0] + 2)
+    eng.close()
+    del eng, params, head
+    torch.cuda.empty_cache()
+    check(r["m"]["hard_recoveries"] == 1, f"(a) planted: {r['m']['hard_recoveries']} hard recoveries")
+    try:
+        check_in_place(r, "(a) planted")
+        planted_a = None
+    except PhaseError as e:
+        planted_a = str(e)
+    check(planted_a is not None, "(a): the checks pass a restore that rebinds the state")
+    out["a"]["planted"] = planted_a
+    print(f"  (a) planted fault (the restore rebinds the state): rejected: {planted_a}", flush=True)
+
+    # (b) mamba2-130m at C = 1: fault-free, chaos, and the planted rebinding restore
+    mcfg = get_config(MAMBA_ARCH)
+    ecfg_b, prompts_b, new_b = cells["b"]
+    per_step_b = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": 3 * mcfg.n_layers + 1}
+    base = build_engine(mcfg, ecfg_b, quant="packed", w_bits=4, a_bits=4, seed=0)
+    params_b, head_b = base.params, base._head
+    runs_b = {}
+    for label, cls in (("fault-free", None), ("chaos", Engine), ("planted", rebinding_engine())):
+        eng = base if cls is None else cls(mcfg, params_b, chaos_ecfg(ecfg_b, f"b-{label}", True, True),
+                                           head=head_b)
+        r = runs_b[label] = chaos_serve(torch, eng, prompts_b, new_b, () if cls is None else CHAOS_FAULTS["b"])
+        if label == "planted":
+            eng.close()
+            torch.cuda.empty_cache()
+        else:
+            r["graph"] = check_chaos_run(torch, r, eng, per_step_b, f"(b) {label}", memset=True)
+        del eng
+    del base
+    free_b, ch_b, pl_b = runs_b["fault-free"], runs_b["chaos"], runs_b["planted"]
+    mb = ch_b["m"]
+    differ = _rows_differ(free_b["rows"], ch_b["rows"])
+    check(not differ, f"(b): {len(differ)} of {len(free_b['rows'])} sampled rows under chaos differ from the "
+                      f"fault-free run's")
+    check(min(mb["injected"].values()) > 0 and mb["quarantines"] > 0 and mb["step_retries"] > 0,
+          f"(b): injected {mb['injected']}, {mb['quarantines']} quarantines, {mb['step_retries']} retries")
+    check(mb["hard_recoveries"] == 1 and ch_b["restored"][:1] != [None] and len(ch_b["restored"]) == 1,
+          f"(b): {mb['hard_recoveries']} hard recoveries, restored from {ch_b['restored']}")
+    check(ch_b["decisions"] == cpu["b"], f"(b): decisions differ from the CPU's: {ch_b['decisions']} against "
+                                         f"{cpu['b']}")
+    planted_b = _rows_differ(free_b["rows"], pl_b["rows"])
+    check(len(planted_b) > 0 and not pl_b["in_place"],
+          "(b): the run whose restore rebinds the state samples the fault-free rows")
+    worst = max(float(np.abs(pl_b["rows"][k] - free_b["rows"][k]).max()) for k in planted_b)
+    out["b"] = {k: dict(steps=r["m"]["steps"], preemptions=r["m"]["preemptions"], step_ms_p50=r["step_ms_p50"],
+                        tokens_per_s=r["m"]["tokens_per_s"], counts=r["counts"], graph=r.get("graph"),
+                        snapshots=len(r["snapshot_ms"]), snapshot_ms=r["snapshot_ms"], restored=r["restored"],
+                        decisions=r["decisions"]) for k, r in runs_b.items()}
+    out["b"]["state_mib"] = free_b["state_bytes"] / 2**20
+    out["b"]["planted_rows_differ"] = len(planted_b)
+    out["b"]["planted_max_abs"] = worst
+    print(f"  (b) mamba2-130m C=1, {MAMBA_SLOTS} prompts of {min(map(len, prompts_b))}-{max(map(len, prompts_b))} "
+          f"tokens, {new_b} new, state {out['b']['state_mib']:.1f} MiB: fault-free {free_b['m']['steps']} steps, step p50 {free_b['step_ms_p50']:.2f} ms; "
+          f"chaos {mb['steps']} steps, step p50 {ch_b['step_ms_p50']:.2f} ms, snapshots every "
+          f"{CHAOS_SNAPSHOT_EVERY['b']} steps p50 {float(np.median(ch_b['snapshot_ms'])):.2f} ms; injected "
+          f"{mb['injected']}, {mb['step_retries']} retries, {mb['quarantines']} quarantines, {mb['preemptions']} "
+          f"preemptions, hard fault restored from snapshot step {ch_b['restored']}; all {len(free_b['rows'])} rows "
+          f"bit-identical to the fault-free run's; decisions equal the CPU's", flush=True)
+    print(f"  (b) planted fault (the restore rebinds the state): {len(planted_b)} of {len(free_b['rows'])} rows "
+          f"differ (max |d| {worst:.4g}), state rebound: rejected", flush=True)
+    out["phase_s"] = time.monotonic() - t_phase
+    print(f"  phase 17 on {card.name} ({card.power_limit}): {out['phase_s']:.1f} s", flush=True)
+    report["chaos"] = out
+    return out
+
+
+def chaos_configs(ecfg, prompts4: list) -> dict:
+    """(engine config, prompts, new tokens) of (a) and (b) at full width:
+    (a) phase 9's on-demand cell on phase 4's prompts, (b) mamba2-130m at
+    C = 1 on 16 prompts of 2-8 tokens."""
+    import numpy as np
+
+    from repro_torch.serving import EngineConfig
+
+    worst = sum(-(-(len(p) + 32) // ecfg.page_size) for p in prompts4)
+    ecfg_a = dataclasses.replace(ecfg, chunk_tokens=CHUNK, admit="on-demand",
+                                 n_pages=round(ON_DEMAND_POOL_SHARE * worst) + 1)
+    ecfg_b = EngineConfig(n_slots=MAMBA_SLOTS, page_size=16, max_len=2048, chunk_tokens=1, admit="on-demand",
+                          packed_head=True, head_bits=(4, 4))
+    rng = np.random.default_rng(16)
+    short = [rng.integers(0, 50432, int(n)).tolist() for n in rng.integers(*MAMBA_PREEMPT["prompts"], size=MAMBA_SLOTS)]
+    return {"a": (ecfg_a, prompts4, 32), "b": (ecfg_b, short, CHAOS_MAMBA_NEW)}
+
+
+def chaos_cpu(torch, cells: dict) -> dict:
+    """(a) and (b) on the CPU at the smoke size (the port's plain versions,
+    the same engine configs, faults and prompt lengths, the prompts folded
+    into the smoke vocabulary), on the virtual clock: their decisions."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import build_engine
+
+    out = {}
+    for label, arch in (("a", "llama3.2-3b"), ("b", MAMBA_ARCH)):
+        e, prompts, new = cells[label]
+        cfg = get_config(arch, smoke=True)
+        eng = build_engine(cfg, chaos_ecfg(e, f"{label}-cpu", chaos=True, snapshots=True), quant="packed",
+                           w_bits=4, a_bits=4, device="cpu")
+        r = chaos_serve(torch, eng, [[t % cfg.vocab for t in p] for p in prompts], new, CHAOS_FAULTS[label],
+                        realtime=False)
+        out[label] = r["decisions"]
+    return out
 
 
 def main(argv=None) -> int:
@@ -3924,6 +4300,7 @@ def main(argv=None) -> int:
           "cancels and a bounded queue on the virtual clock against the CPU, static against continuous "
           "admission, the same schedule on the wall clock", flush=True)
     lc = phase_lifecycle(torch, card, cfg, ecfg, c1, en["fused"], report)
+    prompts4 = c1["prompts"]
     del c1
     peak("13")
     print(f"phase 14: gemma3-1b at full width past its 1024-token window: K1 at its shapes, the serve "
@@ -3941,6 +4318,11 @@ def main(argv=None) -> int:
           f"2 layers", flush=True)
     mo = phase_moe(torch, card, report)
     peak("16")
+    print(f"phase 17: chaos and snapshots at full width: injected step, allocation and NaN faults, retries, "
+          f"quarantine and hard faults restored from snapshots in place, on phase 9's on-demand cell (C={CHUNK}) "
+          f"and mamba2-130m (C=1), against the fault-free runs and the CPU's decisions", flush=True)
+    cs = phase_chaos(torch, card, cfg, ecfg, prompts4, report)
+    peak("17")
 
     # per-decode-step totals per kernel: the sum over the launches of one step
     def step_sum(rows, key):
@@ -4018,6 +4400,9 @@ def main(argv=None) -> int:
              launches_chunked=chunked_launches["packed_dense_fused"],
              steps_chunked={admit: r["steps"] for admit, r in ch.items()},
              launches_lifecycle=lc["a"]["counts"]["packed_dense_fused"], steps_lifecycle=lc["a"]["steps"],
+             launches_chaos=cs["a"]["chaos"]["counts"]["packed_dense_fused"], steps_chaos=cs["a"]["chaos"]["steps"],
+             launches_chaos_mamba=cs["b"]["chaos"]["counts"]["packed_dense_fused"],
+             steps_chaos_mamba=cs["b"]["chaos"]["steps"],
              launches_gemma=gm["a"]["counts"]["packed_dense_fused"], steps_gemma=gm["a"]["steps"],
              gemma=dict(
                  per="gemma3-1b chunked step (phase 14): the layers at M = 128, the head at M = 8",
@@ -4085,6 +4470,7 @@ def main(argv=None) -> int:
              chunk_step=f"chunked step: chunk = {CHUNK}",
              launches_chunked=chunked_launches["paged_gather"],
              launches_lifecycle=lc["a"]["counts"]["paged_gather"], steps_lifecycle=lc["a"]["steps"],
+             launches_chaos=cs["a"]["chaos"]["counts"]["paged_gather"], steps_chaos=cs["a"]["chaos"]["steps"],
              launches_gemma=gm["a"]["counts"]["paged_gather"], steps_gemma=gm["a"]["steps"],
              launches_gemma_int8=gm["b"]["counts"]["paged_gather"],
              launches_moe=mo["C=16"]["counts"]["paged_gather"], steps_moe=mo["C=16"]["steps"],

@@ -8,7 +8,9 @@ library is never loaded.  Missing libraries are built at first use, all
 sources at once with one ``nvcc`` process each.
 
 Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises on anything but 0.
+``cudaGetLastError()``; :func:`check` raises on anything but 0.  A
+kernel that fails to build, load or launch raises :class:`KernelError`,
+which the serving engine's fault layer never recovers.
 
 Launch counters: each kernel wrapper calls :func:`launched` once per
 kernel launch, and nowhere else, so a run can show which kernels its
@@ -38,6 +40,13 @@ NVCC_FLAGS = (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+class KernelError(RuntimeError):
+    """A kernel library failed to build or load, or a kernel reported a
+    CUDA error."""
+
+
 # C signature of every entry point, per library
 SIGNATURES = {
     "packed_matmul": {
@@ -196,7 +205,7 @@ def library_path(name: str) -> Path:
 def _nvcc() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+        raise KernelError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
     return found
 
 
@@ -228,24 +237,28 @@ def build_all(names=SOURCES) -> dict[str, str]:
         else:
             os.replace(tmp, library_path(n))
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise KernelError("nvcc failed for " + "\n".join(failed))
     return reports
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` (built first if missing)."""
+    """The loaded library ``name`` (built first if missing); a library
+    that does not load, or lacks an entry point, raises :class:`KernelError`."""
     lib = _LIBS.get(name)
     if lib is None:
         path = library_path(name)
         if not path.exists():
             build_all((name,))
-        lib = ctypes.CDLL(str(path))
-        for fn, argtypes in SIGNATURES[name].items():
-            f = getattr(lib, fn)
-            f.argtypes = list(argtypes)
-            f.restype = ctypes.c_int
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
+        try:
+            lib = ctypes.CDLL(str(path))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+            lib.cuda_error_string.argtypes = [ctypes.c_int]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+        except (OSError, AttributeError) as err:  # not loadable, or an entry point missing
+            raise KernelError(f"{name}: {path} does not load as the kernel library: {err}") from err
         _LIBS[name] = lib
     return lib
 
@@ -254,4 +267,4 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         msg = lib.cuda_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
+        raise KernelError(f"{what}: CUDA error {err}: {msg}")

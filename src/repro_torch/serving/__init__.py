@@ -1,4 +1,5 @@
 """Continuous-batching serving (``repro.serving``), one replica."""
+from repro_torch.serving.chaos import ChaosConfig, InjectedFault
 from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.lifecycle import SLO, TERMINAL_STATUSES, Request
 from repro_torch.serving.paged_kv import BlockTable, PageAllocator
@@ -9,8 +10,10 @@ from repro_torch.serving.api import build_engine
 
 __all__ = [
     "BlockTable",
+    "ChaosConfig",
     "Engine",
     "EngineConfig",
+    "InjectedFault",
     "PageAllocator",
     "Request",
     "SLO",

@@ -28,13 +28,13 @@ per-row scale pools; the step writes both in place (captured in the graph
 like every other write), and a replayed request rewrites both.
 
 **Request lifecycle** (the reference's).  Every request ends in exactly
-one terminal status, ``ok``, ``cancelled`` or ``shed`` (see
+one terminal status, ``ok``, ``cancelled``, ``shed`` or ``failed`` (see
 :mod:`repro_torch.serving.lifecycle`).  Between steps, on the host, the
 engine polices cooperative cancellation (:meth:`Engine.cancel`), TTFT and
 total deadlines (shedding requests that expired or provably cannot meet
 their deadline) and a bounded waiting queue (``max_waiting``) that sheds
 the request with the least deadline slack.  A stall watchdog sheds the
-head of the waiting queue after ``WATCHDOG_TICKS`` idle loop iterations,
+head of the waiting queue after ``watchdog_ticks`` idle loop iterations,
 so ``run()`` never raises on a stall.  ``policy="static"`` admits only
 when every slot is free (gang admission, the fixed-batch baseline).  A
 cancelled or shed request's slot and pages are freed between two steps:
@@ -50,15 +50,38 @@ alike, so that a replayed request rebuilds its state from position 0.
 The scheduler still allocates pages for SSM requests (the block table is
 ignored), so admission and preemption follow the reference's.
 
+**Faults** (the reference's fault layer).  A step that raises an
+:class:`~repro_torch.serving.chaos.InjectedFault` (``ecfg.chaos``, fired
+before the batch is staged, so nothing was touched) is retried up to
+``max_step_retries`` times, then the lowest-progress request is struck.
+A sampled row that is not finite (a NaN-poisoned one under chaos, or a
+real one) is never sampled: its request is struck.  A strike preempts the
+request for a token-identical replay and quarantines its slot for
+``quarantine_ticks`` ticks; past ``max_request_retries`` strikes the
+request ends ``failed``.  Any other exception out of the step is a hard
+fault: every resident request is struck and the state is restored from
+the latest snapshot (``snapshot_every``: the state is saved through a
+:class:`~repro_torch.checkpoint.CheckpointManager` every N steps) or
+zeroed, and the replays rebuild every resident row.
+
+Two rules are the port's own.  A restore writes into the state tensors
+in place (``copy_``/``zero_``): the captured graph (and the eager step's
+closure) hold those tensors, so a restore that rebinds ``self.state``
+would leave the step reading the old ones while the engine resets the
+new.  And an error of the device is never recovered: a
+:class:`~repro_torch.kernels.build.KernelError`, or any fault after which
+``torch.cuda.synchronize`` fails (a sticky CUDA error), propagates out of
+``run()``, where the reference would replay it until every request ends
+``failed``.
+
 Not ported yet, and refused where asked for (ROADMAP.md, port queue):
-fault injection, retries and quarantine (non-finite logits raise) and
-snapshots ("Chaos and snapshots"), tracing and live metrics
-("Observability"), and mesh parallelism ("Mesh").
+tracing and live metrics ("Observability") and mesh parallelism ("Mesh").
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import tempfile
 import time
 from collections import Counter
 
@@ -70,14 +93,15 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_gather.ops import check_gather_backend
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import prepack_lm_head
+from repro_torch.serving.chaos import ChaosConfig, ChaosInjector, InjectedFault
 from repro_torch.serving.lifecycle import SLO, TERMINAL_STATUSES, Request
 from repro_torch.serving.paged_kv import BlockTable, PageAllocator
 from repro_torch.serving.scheduler import Scheduler
 
 
 # idle run()-loop iterations with waiting but unplaceable work before the
-# stall watchdog sheds the head of the waiting queue (the reference's
-# default ``watchdog_ticks``)
+# stall watchdog sheds the head of the waiting queue: the default of
+# ``EngineConfig.watchdog_ticks``, the reference's
 WATCHDOG_TICKS = 64
 
 
@@ -101,7 +125,19 @@ class EngineConfig:
     # waiting-queue bound; 0 = unbounded.  Overflow sheds the request with
     # the least deadline slack.
     max_waiting: int = 0
+    watchdog_ticks: int = WATCHDOG_TICKS
+    # ticks a slot sits out of admission after hosting a fault
+    quarantine_ticks: int = 8
+    # injected step faults retried before a victim is struck, and strikes a
+    # request survives before it ends "failed"
+    max_step_retries: int = 4
+    max_request_retries: int = 3
+    # > 0: snapshot the state every N steps (restored on a hard fault) into
+    # snapshot_dir (None: a new temporary directory)
+    snapshot_every: int = 0
+    snapshot_dir: str | None = None
     gather_backend: str = "xla"  # "xla": pool[block_table]; "kernel": CUDA gather
+    chaos: ChaosConfig = ChaosConfig()  # fault injection; off by default
 
     @property
     def blocks_per_slot(self) -> int:
@@ -239,11 +275,16 @@ class Engine:
         CUDA device); False runs it eagerly, True on the CPU raises."""
         if ecfg.chunk_tokens < 1:
             raise ValueError("chunk_tokens must be >= 1")
+        if ecfg.max_step_retries < 0 or ecfg.max_request_retries < 0:
+            raise ValueError("retry budgets must be >= 0")
         check_gather_backend(ecfg.gather_backend)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = ecfg
+        self._chaos = ChaosInjector(ecfg.chaos) if ecfg.chaos.enabled else None
         self.allocator = PageAllocator(ecfg.pool_pages())
+        if self._chaos is not None:
+            self.allocator = self._chaos.wrap_allocator(self.allocator)
         self.block_table = BlockTable(ecfg.n_slots, ecfg.blocks_per_slot)
         self.scheduler = Scheduler(ecfg.n_slots, self.allocator, self.block_table, ecfg.page_size,
                                    policy=ecfg.policy, admit=ecfg.admit)
@@ -255,6 +296,12 @@ class Engine:
         self.params = T.unstack_layers(params, cfg.n_layers)
         self.state = T.init_paged_state(cfg, ecfg.n_slots, ecfg.pool_pages(), ecfg.page_size,
                                         dtype=cfg.dtype, device=self.device)
+        self._ckpt = None
+        if ecfg.snapshot_every > 0:
+            from repro_torch.checkpoint import CheckpointManager
+
+            snap_dir = ecfg.snapshot_dir or tempfile.mkdtemp(prefix="engine-snap-")
+            self._ckpt = CheckpointManager(snap_dir, keep=2)
         self._program = self._build_step(self.device.type == "cuda" if capture is None else capture)
         self._pending: list[Request] = []  # sorted by arrival
         self._next_rid = 0
@@ -263,10 +310,14 @@ class Engine:
         self.slot_token_steps = 0
         self.fed_tokens = 0  # valid token lanes summed over steps
         self.finished: list[Request] = []  # in the order they became terminal
+        self.step_retries = 0  # step attempts lost to injected faults
+        self.hard_recoveries = 0  # state restores after hard step faults
+        self.fault_log: list[str] = []  # one line per recovered hard fault
         self.step_seconds: list[float] = []
         self._step_time_ewma: float | None = None  # realtime deadline estimator
         # called as on_sample(rid, t, row) with every logits row sampled for
-        # request rid's token t; row is a view into the step's host logits
+        # request rid's token t (a finite row); row is a view into the step's
+        # host logits
         self.on_sample = None
         self._realtime = True
         self._vclock = 0.0
@@ -420,6 +471,72 @@ class Engine:
                 sched.remove_waiting(victim)
                 self._finalize(victim, "shed", now, reason="queue-overflow")
 
+    # -- faults: host bookkeeping, and the state restored in place ------------
+
+    def _strike(self, req: Request, now: float) -> None:
+        """One fault strike against a resident request: preempt it for a
+        token-identical replay and quarantine its slot; past
+        ``max_request_retries`` strikes it ends ``failed`` instead."""
+        sched = self.scheduler
+        slot = req.slot
+        req.n_faults += 1
+        sched.preempt(req, now)
+        sched.quarantine_slot(slot, self.ticks + self.ecfg.quarantine_ticks)
+        if req.n_faults > self.ecfg.max_request_retries:
+            sched.remove_waiting(req)
+            self._finalize(req, "failed", now)
+
+    def _device_failed(self, exc: Exception) -> bool:
+        """Whether a step's exception is the device's: a kernel library's
+        own error, or any fault after which the device no longer
+        synchronises (a sticky CUDA error).  Those are never recovered."""
+        if isinstance(exc, build.KernelError):
+            return True
+        if self.device.type != "cuda":
+            return False
+        try:
+            torch.cuda.synchronize(self.device)
+        except RuntimeError as err:
+            exc.add_note(f"the device probe after the fault failed: {err}")
+            return True
+        return False
+
+    def _recover_hard_fault(self, exc: Exception, now: float) -> None:
+        """A hard fault escaped the step, whose state writes can no longer
+        be trusted: strike every resident request and restore the state.
+        The replays rewrite every resident row, so the result does not
+        depend on the snapshot's age."""
+        self.hard_recoveries += 1
+        self.fault_log.append(f"step {self.n_steps}: {type(exc).__name__}: {exc}")
+        for req in list(self.scheduler.active.values()):
+            self._strike(req, now)
+        self._restore_state()
+
+    def _restore_state(self) -> None:
+        """Write the latest snapshot (after the writer is done), or zeros,
+        into the state tensors in place: the step's graph and closure hold
+        these tensors, so they must never be rebound."""
+        snap = None
+        if self._ckpt is not None:
+            self._ckpt.wait()
+            if self._ckpt.latest_step() is not None:
+                _, snap = self._ckpt.restore(self.state)
+        for key, t in self.state.items():
+            if snap is None:
+                t.zero_()
+                continue
+            src = snap[key]
+            if src.shape != t.shape or src.dtype != t.dtype:
+                raise ValueError(f"snapshot leaf {key!r} is {src.dtype}{tuple(src.shape)}, the state's "
+                                 f"{t.dtype}{tuple(t.shape)}")
+            t.copy_(src)
+
+    def _snapshot(self) -> None:
+        """Save the state (copied to the host now, on the step's stream,
+        whose step has ended; written to disk in the background)."""
+        with self._program._on_stream():
+            self._ckpt.save_async(self.n_steps, self.state)
+
     def _fund_pages(self) -> None:
         """On-demand admission: before the step, grow every active slot's
         page list to cover its chunk.  Slots are funded in descending
@@ -441,8 +558,9 @@ class Engine:
                     break
 
     def _step_once(self, now_fn) -> bool:
-        """Fund (on-demand), step and sample once; False when the step was
-        skipped because funding preempted every slot."""
+        """Fund (on-demand), step and sample once; False when no step
+        completed: funding preempted every slot, injected faults used up
+        the retries, or a hard fault was recovered."""
         S, C = self.ecfg.n_slots, self.ecfg.chunk_tokens
         if self.ecfg.admit == "on-demand":
             self._fund_pages()
@@ -456,18 +574,45 @@ class Engine:
             tokens[slot, : len(chunk)] = chunk
             pos[slot] = start
             lens[slot] = len(chunk)
-        logits_np = self._program.run(tokens, pos, lens, self.block_table.as_array())
+        table = self.block_table.as_array()
+        for attempt in range(self.ecfg.max_step_retries + 1):
+            try:
+                if self._chaos is not None:
+                    self._chaos.before_step()  # raises before anything is staged
+                logits_np = self._program.run(tokens, pos, lens, table)
+                break
+            except InjectedFault:
+                self.step_retries += 1
+                if attempt == self.ecfg.max_step_retries:
+                    # the fault outlasted the retries: strike the lowest-progress
+                    # request (the reference's _pick_victim on one replica)
+                    self._strike(self.scheduler.pick_victim(), now_fn())
+                    return False
+            except Exception as exc:  # a hard fault: the state writes are suspect
+                if self._device_failed(exc):
+                    raise
+                self._recover_hard_fault(exc, now_fn())
+                return False
         self.n_steps += 1
         self.slot_token_steps += len(self.scheduler.active)
         self.fed_tokens += int(lens.sum())
+        if self._chaos is not None:
+            logits_np = logits_np.copy()  # the program's host buffer stays clean
+            sampling = [s for s, r in self.scheduler.active.items() if r.n_fed + int(lens[s]) >= len(r.seq)]
+            self._chaos.poison_logits(logits_np, sampling)
         t = now_fn()
+        if self._ckpt is not None and self.n_steps % self.ecfg.snapshot_every == 0:
+            self._snapshot()
         for slot, req in list(self.scheduler.active.items()):
             req.n_fed += int(lens[slot])
             if req.n_fed < len(req.seq):
                 continue  # mid-prompt / mid-replay: logits not sampled
             row = logits_np[slot]
             if not np.isfinite(row).all():
-                raise FloatingPointError(f"non-finite logits for request {req.rid} at step {self.n_steps}")
+                # never sample a non-finite row: strike the request, whose
+                # replay samples this token again
+                self._strike(req, t)
+                continue
             if self.on_sample is not None:
                 self.on_sample(req.rid, len(req.out_tokens), row)
             if not req.out_tokens:
@@ -501,6 +646,7 @@ class Engine:
             if max_steps is not None and self.n_steps >= max_steps:
                 break
             self.ticks += 1
+            sched.release_quarantined(self.ticks)
             self._police(now())
             while self._pending and self._pending[0].arrival <= now():
                 sched.submit(self._pending.pop(0))
@@ -519,15 +665,16 @@ class Engine:
                     continue
                 if sched.all_done():
                     continue  # the loop condition exits
-                # waiting work but nothing placeable: after WATCHDOG_TICKS
-                # idle ticks the watchdog sheds the head, so run() neither
-                # raises nor spins forever
+                # waiting work but nothing placeable (quarantined slots, a
+                # flaky allocator, or a stall): after watchdog_ticks idle
+                # ticks the watchdog sheds the head, so run() neither raises
+                # nor spins forever
                 idle += 1
                 if realtime:
                     time.sleep(0.001)
                 else:
                     self._vclock += 1.0
-                if idle > WATCHDOG_TICKS:
+                if idle > self.ecfg.watchdog_ticks:
                     victim = sched.waiting[0]
                     sched.remove_waiting(victim)
                     self._finalize(victim, "shed", now(), reason="watchdog")
@@ -545,6 +692,9 @@ class Engine:
             else:
                 self._vclock += 1.0
         if not self._pending and sched.all_done():
+            sched.release_quarantined(None)
+            if self._ckpt is not None:
+                self._ckpt.wait()
             self.assert_no_leaks()
         self._t_run_end = time.monotonic() - t_wall0
         return self.metrics()
@@ -588,6 +738,11 @@ class Engine:
             "prompt_tokens": sum(len(r.prompt) for r in done),
             "fed_tokens": self.fed_tokens,
             "preemptions": self.scheduler.n_preemptions,
+            "quarantines": self.scheduler.n_quarantines,
+            "step_retries": self.step_retries,
+            "hard_recoveries": self.hard_recoveries,
+            "injected": (self._chaos.counters() if self._chaos is not None
+                         else {"step": 0, "alloc": 0, "nan": 0}),
             "steps": self.n_steps,
             "wall": wall,
             "tokens_per_s": gen / wall if wall > 0 else None,

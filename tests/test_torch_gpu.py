@@ -1276,3 +1276,114 @@ def test_captured_moe_engine_equals_the_eager_engine(cuda, weights):
     assert len(logits_c) == len(logits_e) == m_c["steps"]
     for t, (a, b) in enumerate(zip(logits_c, logits_e)):
         assert a.tobytes() == b.tobytes(), t
+
+
+# -- chaos and snapshots -------------------------------------------------------------
+
+CHAOS_DECISIONS = ("statuses", "steps", "fed_tokens", "preemptions", "quarantines", "step_retries",
+                   "hard_recoveries", "injected")
+
+
+def _plant_after_write(eng, at_step: int) -> None:
+    """A hard fault: the step program raises once at engine step
+    ``at_step``, after its replay has written the state."""
+    run, tripped = eng._program.run, []
+
+    def dying(*args):
+        out = run(*args)
+        if eng.n_steps == at_step and not tripped:
+            tripped.append(1)
+            raise ValueError("planted hard fault after the step")
+        return out
+
+    eng._program.run = dying
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-130m"])
+def test_captured_chaos_engine_equals_the_eager_engine(cuda, tmp_path, arch):
+    """Every fault family at rate 0.2 (seed 3) on demand in a tight pool,
+    and a hard fault after step 5 has written the state, restored from a
+    snapshot (``snapshot_every=2``) in place: the captured engine (one
+    capture) against capture=False, the same decisions and every sampled
+    row bit-identical; the state's tensors are never rebound."""
+    from repro_torch.serving import ChaosConfig, Engine
+
+    cfg, packed, head = _packed_smoke(cuda, get_config(arch, smoke=True))
+    ecfg = EngineConfig(n_slots=3, page_size=4, max_len=32, n_pages=7, chunk_tokens=4, admit="on-demand",
+                        packed_head=True, head_bits=(4, 4), max_request_retries=64, snapshot_every=2,
+                        gather_backend="kernel" if cfg.family == "attn" else "xla",
+                        chaos=ChaosConfig(seed=3, step_fault_rate=0.2, alloc_fault_rate=0.2, nan_rate=0.2))
+    g = np.random.default_rng(17)
+    prompts = [g.integers(1, cfg.vocab, n).tolist() for n in (9, 6, 11, 5)]
+    runs = []
+    for capture in (False, True):
+        e = dataclasses.replace(ecfg, snapshot_dir=str(tmp_path / f"capture-{capture}"))
+        eng = Engine(cfg, packed, e, head=head, device=cuda, capture=capture)
+        rows = _sampled_rows(eng)
+        ptrs = {k: t.data_ptr() for k, t in eng.state.items()}
+        restored, restore = [], eng._restore_state
+        eng._restore_state = lambda restored=restored, restore=restore, eng=eng: (
+            restored.append(eng._ckpt.latest_step()), restore())
+        _plant_after_write(eng, 5)
+        reqs = [eng.submit(p, 6) for p in prompts]
+        m = eng.run(realtime=False)
+        assert m["statuses"] == {"ok": 4} and m["hard_recoveries"] == 1
+        assert min(m["injected"].values()) > 0 and m["quarantines"] > 0 and m["step_retries"] > 0
+        assert len(restored) == 1 and restored[0] is not None  # from a snapshot
+        assert {k: t.data_ptr() for k, t in eng.state.items()} == ptrs
+        assert (eng._program.graph is not None) == capture
+        if capture:
+            assert eng._program.captures == 1
+        eng.assert_no_leaks()
+        runs.append(({k: m[k] for k in CHAOS_DECISIONS},
+                     [(r.n_faults, r.n_preempted, r.out_tokens) for r in reqs], rows))
+        eng.close()
+    (d_e, r_e, rows_e), (d_c, r_c, rows_c) = runs
+    assert d_c == d_e and r_c == r_e
+    assert rows_c.keys() == rows_e.keys()
+    for k, row in rows_c.items():
+        assert row.tobytes() == rows_e[k].tobytes(), k
+
+
+def test_chaos_engine_does_not_recover_a_failed_device(cuda, monkeypatch):
+    """A fault after which the device no longer synchronises (a sticky
+    CUDA error, simulated by the probe raising) leaves run() with the
+    fault, unrecovered; so does a kernel's own error."""
+    from repro_torch.serving import Engine
+
+    cfg, packed, head = _packed_smoke(cuda)
+    ecfg = EngineConfig(n_slots=2, page_size=4, max_len=32, packed_head=True, head_bits=(4, 4),
+                        gather_backend="kernel")
+    g = np.random.default_rng(19)
+    prompts = [g.integers(1, cfg.vocab, n).tolist() for n in (9, 6)]
+    eng = Engine(cfg, packed, ecfg, head=head, device=cuda)
+    _plant_after_write(eng, 2)
+    for p in prompts:
+        eng.submit(p, 6)
+    eng.warmup()
+
+    def lost(device=None):
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lost)
+    with pytest.raises(ValueError, match="planted") as info:
+        eng.run(realtime=False)
+    assert eng.hard_recoveries == 0 and any("device probe" in n for n in info.value.__notes__)
+    monkeypatch.undo()
+    eng.close()
+
+    eng = Engine(cfg, packed, ecfg, head=head, device=cuda)
+    run = eng._program.run
+
+    def failing(*args):
+        if eng.n_steps == 1:
+            raise build.KernelError("paged_gather: CUDA error 700: an illegal memory access")
+        return run(*args)
+
+    eng._program.run = failing
+    for p in prompts:
+        eng.submit(p, 6)
+    with pytest.raises(build.KernelError):
+        eng.run(realtime=False)
+    assert eng.hard_recoveries == 0 and eng.n_steps == 1
+    eng.close()
