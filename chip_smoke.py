@@ -243,6 +243,28 @@ Phases, all on the card:
    fault, a restore that rebinds the state, must fail: in (a) on the
    state's addresses, in (b) on its rows (the step keeps the stale
    recurrent state).
+18. Observability at full width, on phase 4's weights (built again from
+   seed 0).  (a) Phase 4's cell (C = 1, 8 requests, 32 new tokens each),
+   traced, with ``ObsConfig(attrib_every=8)``: the sampled rows
+   bit-identical to an untraced, unattributed run's; the step's graph
+   captured once and the launch counters its kernel nodes times the
+   steps (the attribution's segment graphs count apart); the reference's
+   trace gate (``benchmarks/check_invariants.py``, stdlib only, loaded
+   by path) returns no error; one ``dispatch``, ``device_wait`` and
+   ``step`` span a step; a sample every 8 steps, each with 28 layer rows
+   whose shares sum to 1 and whose segments' summed device time (embed,
+   layers, head) lies within ``ATTRIB_GRAPH_TOL`` of one replay of the
+   step's graph at that step; at the first sample, the head segment's
+   rows equal the step's logits bit for bit (the segments ran on the
+   attributor's copy of that step's pre-step state); the exposition
+   conforms.  Each layer's mean device time and share and the per-pair
+   totals are printed.  (b) Phase 17 (a)'s chaos run (phase 9's
+   on-demand cell, every family at 0.2, seed 3, the two hard faults),
+   traced with ``attrib_every=16``: the gate reconciles one ``inject_*``
+   instant with each counted fault and finds one terminal span a request,
+   phase 17's run checks hold, and the decisions equal phase 17's.  (c)
+   (a)'s cell in ``run(max_steps=k)`` slices: between slices the live
+   windows and gauges move and the exposition conforms.
 
 Every engine's graph and memory pool is released before the next engine
 is built, and each phase prints its peak device memory.
@@ -3914,7 +3936,8 @@ def chaos_ecfg(ecfg, label: str, chaos: bool, snapshots: bool):
     return dataclasses.replace(ecfg, **kw)
 
 
-def chaos_serve(torch, eng, prompts, max_new: int, faults=(), *, realtime: bool = True, max_steps=None) -> dict:
+def chaos_serve(torch, eng, prompts, max_new: int, faults=(), *, realtime: bool = True, max_steps=None,
+                trace=None) -> dict:
     """Serve ``prompts`` on ``eng`` (fresh; warmed up first), with hard
     faults planted at ``faults``: its metrics and requests, every sampled
     row by (request, token), the launch counters of the run, the steps
@@ -3950,7 +3973,7 @@ def chaos_serve(torch, eng, prompts, max_new: int, faults=(), *, realtime: bool 
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
     build.reset_counts()
-    m = eng.run(realtime=realtime, max_steps=max_steps)
+    m = eng.run(realtime=realtime, max_steps=max_steps, trace=trace)
     counts = build.counts()
     step_ms = [1e3 * s for s in eng.step_seconds]
     return dict(m=m, reqs=reqs, rows=rows, counts=counts, restored=restored, fired=list(fired),
@@ -4168,6 +4191,229 @@ def chaos_cpu(torch, cells: dict) -> dict:
     return out
 
 
+# -- phase 18 ------------------------------------------------------------------
+
+# phase 18: attribution periods of (a) and (b), (c)'s slice length, and how
+# far a sample's summed segment device time may lie from one replay of the
+# step's graph at that step (each segment graph adds its launch to the sum)
+ATTRIB_EVERY = {"a": 8, "b": 16}
+OBS_SLICE_STEPS = 20
+ATTRIB_GRAPH_TOL = 0.25
+
+
+def trace_gate():
+    """``benchmarks/check_invariants.py`` (stdlib only), loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("check_invariants", ROOT / "benchmarks" / "check_invariants.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _step_spans(d: dict, steps: int) -> None:
+    """One ``dispatch``, ``device_wait`` and ``step`` span a step."""
+    for name in ("dispatch", "device_wait", "step"):
+        got = sorted(e["args"]["step"] for e in d["traceEvents"] if e.get("ph") == "X" and e["name"] == name)
+        check(got == list(range(1, steps + 1)), f"{name} spans at steps {got[:5]}..., not one a step of {steps}")
+
+
+def phase_obs(torch, card, cfg, ecfg, prompts4: list, chaos: dict, report: dict) -> dict:
+    """Observability at full width: (a) phase 4's cell traced and
+    attributed every 8 steps against an untraced run, (b) phase 17 (a)'s
+    chaos run traced and attributed every 16 steps against phase 17's
+    decisions, (c) live readings between ``run(max_steps=)`` slices."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.obs.promcheck import check_exposition
+    from repro_torch.obs.trace import TraceRecorder
+    from repro_torch.serving import Engine, ObsConfig, build_engine
+
+    t_phase = time.monotonic()
+    ci = trace_gate()
+    base = build_engine(cfg, ecfg, quant="packed", w_bits=4, a_bits=4, seed=0)
+    params, head = base.params, base._head
+    per_step = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": cfg.n_layers * 7 + 1,
+                "paged_gather": cfg.n_layers}
+    new = 32
+    plain_rows, plain_tokens = _sampled_run(torch, base, prompts4, new)
+    del base
+    out: dict = {}
+
+    # (a) phase 4's cell, traced, attributed every 8 steps
+    every = ATTRIB_EVERY["a"]
+    eng = Engine(cfg, params, dataclasses.replace(ecfg, obs=ObsConfig(attrib_every=every)), head=head)
+    at, prog = eng._attrib, eng._program
+    rows, checks = {}, []
+    eng.on_sample = lambda rid, t, row: rows.__setitem__((rid, t), row.copy())
+    inner = at.sample
+
+    def sample(*args, **kw):
+        # one replay of the step's graph at this step (it rewrites the
+        # step's pool rows with the same values), then the sample
+        with torch.cuda.stream(prog.stream):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            prog.graph.replay()
+            e1.record()
+        e1.synchronize()
+        s = inner(*args, **kw)
+        seg_ms = 1e3 * (s["embed_seconds"] + s["total_layer_seconds"] + s["head_seconds"])
+        same = None
+        if not checks:  # the first sample: the head segment's rows against the step's logits
+            same = bool(np.array_equal(at.logits.float().cpu().numpy(), prog._host_np))
+        checks.append(dict(step=s["step"], replay_ms=e0.elapsed_time(e1), segments_ms=seg_ms, head_rows_equal=same))
+        return s
+
+    at.sample = sample
+    for p in prompts4:
+        eng.submit(p, new)
+    eng.warmup()
+    torch.cuda.synchronize()
+    build.reset_counts()
+    tr = TraceRecorder()
+    t0 = time.monotonic()
+    m = eng.run(realtime=True, trace=tr)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = build.counts()
+    steps = m["steps"]
+    check_clean(eng, "(a) traced")
+    check(m["statuses"] == {"ok": len(prompts4)}, f"(a): statuses {m['statuses']}")
+    differ = _rows_differ(plain_rows, rows)
+    check(not differ, f"(a): {len(differ)} of {len(rows)} sampled rows differ from the untraced run's")
+    check({r.rid: list(r.out_tokens) for r in eng.finished} == plain_tokens, "(a): other tokens than untraced")
+    check(counts == {k: v * steps for k, v in per_step.items()},
+          f"(a): launch counters {counts} != {per_step} x {steps} steps")
+    census = check_graph(eng, per_step, "(a) traced")
+    check(prog.captures == 1, f"(a): the step was captured {prog.captures} times")
+    d = tr.to_chrome()
+    errs = ci.check_trace(d)
+    check(errs == [], f"(a): the trace gate: {errs}")
+    _step_spans(d, steps)
+    n_samples = len(at.samples)
+    check([s["step"] for s in at.samples] == list(range(every, steps + 1, every)),
+          f"(a): samples at steps {[s['step'] for s in at.samples]}, not every {every}")
+    for s in at.samples:
+        check(len(s["layers"]) == cfg.n_layers and abs(sum(r["share"] for r in s["layers"]) - 1.0) < 1e-9,
+              f"(a): sample at step {s['step']}: {len(s['layers'])} layer rows, shares sum "
+              f"{sum(r['share'] or 0 for r in s['layers'])}")
+    check(at.captures == 1 and at.launches == {k: v * n_samples for k, v in per_step.items() if v},
+          f"(a): the segment graphs were captured {at.captures} times and launched {at.launches}")
+    ratios = [c["segments_ms"] / c["replay_ms"] for c in checks]
+    check(all(abs(r - 1.0) <= ATTRIB_GRAPH_TOL for r in ratios),
+          f"(a): summed segment device time / one step replay {[round(r, 3) for r in ratios]} outside "
+          f"1 +- {ATTRIB_GRAPH_TOL}")
+    check(checks[0]["head_rows_equal"] is True, "(a): the head segment's rows differ from the step's logits")
+    text = eng.prometheus_text()
+    errs = check_exposition(text)
+    check(errs == [], f"(a): the exposition: {errs}")
+    summ = at.summary()
+    embed_us = float(np.mean([s["embed_seconds"] for s in at.samples])) * 1e6
+    head_us = float(np.mean([s["head_seconds"] for s in at.samples])) * 1e6
+    step_ms = [1e3 * x for x in eng.step_seconds]
+    out["a"] = dict(steps=steps, wall_s=wall, tokens_per_s=m["tokens_per_s"],
+                    step_ms_p50=float(np.median(step_ms)), counts=counts, graph=census, n_samples=n_samples,
+                    attrib_launches=at.launches, samples=checks, summary=summ, embed_us=embed_us,
+                    head_us=head_us, n_events=len(tr), state_copy_mib=sum(
+                        t.numel() * t.element_size() for t in at._pre.values()) / 2**20)
+    eng.close()
+    del eng, at, prog
+    torch.cuda.empty_cache()
+    print(f"  (a) C=1 traced, attributed every {every} steps: {steps} steps, {m['tokens_per_s']:.1f} tok/s, step "
+          f"p50 {out['a']['step_ms_p50']:.2f} ms (sampled steps included), {n_samples} samples; rows and tokens "
+          f"bit-identical to the untraced run; launches {counts}; one capture; gate clean; {len(tr)} events; "
+          f"summed segments / one step replay: min {min(ratios):.3f}, max {max(ratios):.3f}; head rows equal "
+          f"the step's logits; state copy {out['a']['state_copy_mib']:.0f} MiB", flush=True)
+    print(f"  (a) per layer (mean of {n_samples} samples, {card.name}, {card.power_limit}): embed "
+          f"{embed_us:.1f} us, head {head_us:.1f} us", flush=True)
+    for r in summ["layers"]:
+        print(f"    layer{r['index']:02d} {r['pair']}: {1e6 * r['mean_seconds']:8.1f} us, share "
+              f"{r['mean_share']:.4f}", flush=True)
+    for r in summ["pairs"]:
+        print(f"    pair {r['pair']}: {r['n_layers']} layers, {1e6 * r['mean_seconds']:.1f} us, share "
+              f"{r['mean_share']:.4f}", flush=True)
+
+    # (b) phase 17 (a)'s chaos run, traced, attributed every 16 steps
+    every_b = ATTRIB_EVERY["b"]
+    ecfg_a, prompts, new_a = chaos_configs(ecfg, prompts4)["a"]
+    ecfg_b = dataclasses.replace(chaos_ecfg(ecfg_a, "a-traced", True, True), obs=ObsConfig(attrib_every=every_b))
+    eng = Engine(cfg, params, ecfg_b, head=head)
+    tr_b = TraceRecorder()
+    r = chaos_serve(torch, eng, prompts, new_a, CHAOS_FAULTS["a"], trace=tr_b)
+    n_b = len(eng._attrib.samples)
+    summ_b = eng._attrib.summary()
+    head_b_us = float(np.mean([s["head_seconds"] for s in eng._attrib.samples])) * 1e6 if n_b else None
+    r["graph"] = check_chaos_run(torch, r, eng, per_step, "(b) traced chaos")
+    del eng
+    d_b = tr_b.to_chrome()
+    errs = ci.check_trace(d_b)
+    check(errs == [], f"(b): the trace gate: {errs}")
+    injected = {f: sum(1 for e in d_b["traceEvents"] if e["name"] == f"inject_{f}") for f in r["m"]["injected"]}
+    check(injected == r["m"]["injected"], f"(b): inject_* instants {injected} != injected {r['m']['injected']}")
+    terminal = [e["id"] for e in d_b["traceEvents"] if e.get("ph") == "e" and e["name"] == "request"]
+    check(sorted(terminal) == sorted(q.rid for q in r["reqs"]), f"(b): terminal spans {sorted(terminal)}")
+    want = chaos["a"]["chaos"]["decisions"]
+    check(r["decisions"] == want, f"(b): decisions {r['decisions']} differ from phase 17's {want}")
+    check(n_b >= 1, "(b): no attribution sample")
+    layer_b_us = [1e6 * x["mean_seconds"] for x in summ_b["layers"]]
+    out["b"] = dict(steps=r["m"]["steps"], injected=r["m"]["injected"], n_samples=n_b, n_events=len(tr_b),
+                    step_ms_p50=r["step_ms_p50"], counts=r["counts"], decisions=r["decisions"], summary=summ_b,
+                    head_us=head_b_us)
+    print(f"  (b) C={CHUNK} on demand under chaos, traced, attributed every {every_b} steps: {r['m']['steps']} steps, "
+          f"injected {r['m']['injected']} with as many inject_* instants, one terminal span for each of "
+          f"{len(terminal)} requests, {n_b} samples, {len(tr_b)} events; decisions equal phase 17's", flush=True)
+    print(f"  (b) per layer at C={CHUNK} (mean of {n_b} samples, prefill and decode steps): {min(layer_b_us):.1f}-"
+          f"{max(layer_b_us):.1f} us, {sum(layer_b_us):.1f} us in all; head {head_b_us:.1f} us", flush=True)
+
+    # (c) (a)'s cell in run(max_steps=k) slices, read between them
+    eng = Engine(cfg, params, ecfg, head=head)
+    for p in prompts4:
+        eng.submit(p, new)
+    eng.warmup()
+    readings = []
+    while eng._pending or not eng.scheduler.all_done():
+        eng.run(realtime=True, max_steps=eng.n_steps + OBS_SLICE_STEPS)
+        live, text = eng.live_metrics(), eng.prometheus_text()
+        errs = check_exposition(text)
+        check(errs == [], f"(c): the exposition after {eng.n_steps} steps: {errs}")
+        readings.append(dict(steps=live["steps"], tokens_per_s_window=live["tokens_per_s_window"],
+                             steps_per_s_window=live["steps_per_s_window"], active_slots=live["active_slots"],
+                             queue_depth=live["queue_depth"], free_pages=live["free_pages"],
+                             steps_total=eng.registry.counter("repro_steps_total").value(),
+                             tokens_total=eng.registry.counter("repro_generated_tokens_total").value()))
+    eng.close()
+    del eng, params, head
+    torch.cuda.empty_cache()
+    check(len(readings) >= 3, f"(c): {len(readings)} slices")
+    mid = readings[:-1]
+    check([x["steps"] for x in readings] == sorted({x["steps"] for x in readings}),
+          "(c): the step count did not grow between slices")
+    # C = 1 prefills the 16-64-token prompts a token a step, so the first
+    # slice may sample no token: the token window moves in later slices
+    check(all(x["steps_per_s_window"] > 0 and x["active_slots"] > 0 for x in mid)
+          and any(x["tokens_per_s_window"] for x in mid)
+          and len({x["tokens_per_s_window"] for x in readings}) > 1
+          and len({x["free_pages"] for x in readings}) > 1, f"(c): a mid-run window or gauge did not move: {mid}")
+    tokens = [x["tokens_total"] for x in readings]
+    check(tokens == sorted(tokens) and tokens[-1] == len(prompts4) * new,
+          f"(c): repro_generated_tokens_total {tokens}, not rising to {len(prompts4) * new}")
+    check(readings[-1]["active_slots"] == 0 and readings[-1]["free_pages"] > min(x["free_pages"] for x in mid),
+          "(c): the gauges did not return when the run drained")
+    check(all(x["steps_total"] == x["steps"] for x in readings), "(c): repro_steps_total lags the steps")
+    out["c"] = readings
+    out["phase_s"] = time.monotonic() - t_phase
+    print(f"  (c) {len(readings)} slices of {OBS_SLICE_STEPS} steps: steps "
+          f"{[x['steps'] for x in readings]}, tok/s in the window "
+          f"{[round(x['tokens_per_s_window'] or 0, 1) for x in readings]}, active slots "
+          f"{[x['active_slots'] for x in readings]}, free pages {[x['free_pages'] for x in readings]}; every "
+          f"exposition conforms", flush=True)
+    print(f"  phase 18 on {card.name} ({card.power_limit}): {out['phase_s']:.1f} s", flush=True)
+    report["obs"] = out
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -4323,6 +4569,12 @@ def main(argv=None) -> int:
           f"and mamba2-130m (C=1), against the fault-free runs and the CPU's decisions", flush=True)
     cs = phase_chaos(torch, card, cfg, ecfg, prompts4, report)
     peak("17")
+    print(f"phase 18: observability at full width: phase 4's cell traced and attributed every "
+          f"{ATTRIB_EVERY['a']} steps against an untraced run, phase 17's chaos run traced and attributed "
+          f"every {ATTRIB_EVERY['b']} steps against phase 17's decisions, live readings between run(max_steps=) "
+          f"slices", flush=True)
+    ob = phase_obs(torch, card, cfg, ecfg, prompts4, cs, report)
+    peak("18")
 
     # per-decode-step totals per kernel: the sum over the launches of one step
     def step_sum(rows, key):
@@ -4401,6 +4653,9 @@ def main(argv=None) -> int:
              steps_chunked={admit: r["steps"] for admit, r in ch.items()},
              launches_lifecycle=lc["a"]["counts"]["packed_dense_fused"], steps_lifecycle=lc["a"]["steps"],
              launches_chaos=cs["a"]["chaos"]["counts"]["packed_dense_fused"], steps_chaos=cs["a"]["chaos"]["steps"],
+             launches_obs=ob["a"]["counts"]["packed_dense_fused"], steps_obs=ob["a"]["steps"],
+             launches_obs_attrib=ob["a"]["attrib_launches"]["packed_dense_fused"],
+             samples_obs=ob["a"]["n_samples"],
              launches_chaos_mamba=cs["b"]["chaos"]["counts"]["packed_dense_fused"],
              steps_chaos_mamba=cs["b"]["chaos"]["steps"],
              launches_gemma=gm["a"]["counts"]["packed_dense_fused"], steps_gemma=gm["a"]["steps"],
@@ -4471,6 +4726,8 @@ def main(argv=None) -> int:
              launches_chunked=chunked_launches["paged_gather"],
              launches_lifecycle=lc["a"]["counts"]["paged_gather"], steps_lifecycle=lc["a"]["steps"],
              launches_chaos=cs["a"]["chaos"]["counts"]["paged_gather"], steps_chaos=cs["a"]["chaos"]["steps"],
+             launches_obs=ob["a"]["counts"]["paged_gather"], steps_obs=ob["a"]["steps"],
+             launches_obs_attrib=ob["a"]["attrib_launches"]["paged_gather"], samples_obs=ob["a"]["n_samples"],
              launches_gemma=gm["a"]["counts"]["paged_gather"], steps_gemma=gm["a"]["steps"],
              launches_gemma_int8=gm["b"]["counts"]["paged_gather"],
              launches_moe=mo["C=16"]["counts"]["paged_gather"], steps_moe=mo["C=16"]["steps"],

@@ -11,9 +11,14 @@ back from one to the other:
 :func:`repeat` turns ``reps`` calls into one timed unit: one CUDA graph
 of them on the card (so a call of a few microseconds is not measured as
 the host's enqueue), a Python loop on the CPU.
+
+:class:`KernelTimer` collects labelled :func:`timed` calls while it is
+installed by :func:`kernel_timing` (``obs/drift.py`` times each
+projection of a plan through it, as the reference's does).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -21,9 +26,43 @@ import torch
 from repro_torch.device import resolve_device
 
 
-def timed(fn, *args, device: str | torch.device):
+_ACTIVE_TIMER: "KernelTimer | None" = None
+
+
+class KernelTimer:
+    """Collects labelled kernel timings while installed via
+    :func:`kernel_timing`: ``records[label]`` holds seconds per call."""
+
+    def __init__(self):
+        self.records: dict[str, list[float]] = {}
+
+    def record(self, label: str, seconds: float) -> None:
+        self.records.setdefault(label, []).append(seconds)
+
+    def best(self, label: str) -> float:
+        """Minimum over the label's calls (beats the mean against the
+        noise floor of a shared machine)."""
+        return min(self.records[label])
+
+    def total_best(self) -> float:
+        return sum(min(v) for v in self.records.values())
+
+
+@contextlib.contextmanager
+def kernel_timing(timer: KernelTimer):
+    """Install ``timer`` as the sink of :func:`timed`'s labels."""
+    global _ACTIVE_TIMER
+    prev, _ACTIVE_TIMER = _ACTIVE_TIMER, timer
+    try:
+        yield timer
+    finally:
+        _ACTIVE_TIMER = prev
+
+
+def timed(fn, *args, device: str | torch.device, label: str | None = None):
     """Run ``fn(*args)`` to completion on ``device``; returns ``(result,
-    seconds)``."""
+    seconds)``.  With a :class:`KernelTimer` installed and ``label`` given,
+    the seconds are also recorded there."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         stream = torch.cuda.current_stream(dev)
@@ -32,12 +71,16 @@ def timed(fn, *args, device: str | torch.device):
         out = fn(*args)
         end.record(stream)
         end.synchronize()
-        return out, start.elapsed_time(end) / 1e3
-    if dev.type == "cpu":
+        dt = start.elapsed_time(end) / 1e3
+    elif dev.type == "cpu":
         t0 = time.perf_counter()
         out = fn(*args)
-        return out, time.perf_counter() - t0
-    raise ValueError(f"no timer for device {dev}")
+        dt = time.perf_counter() - t0
+    else:
+        raise ValueError(f"no timer for device {dev}")
+    if label is not None and _ACTIVE_TIMER is not None:
+        _ACTIVE_TIMER.record(label, dt)
+    return out, dt
 
 
 def best_time(fn, *args, device: str | torch.device, reps: int) -> float:

@@ -1,6 +1,6 @@
 """Continuous-batching serving (``repro.serving``), one replica."""
 from repro_torch.serving.chaos import ChaosConfig, InjectedFault
-from repro_torch.serving.engine import Engine, EngineConfig
+from repro_torch.serving.engine import Engine, EngineConfig, ObsConfig
 from repro_torch.serving.lifecycle import SLO, TERMINAL_STATUSES, Request
 from repro_torch.serving.paged_kv import BlockTable, PageAllocator
 from repro_torch.serving.scheduler import Scheduler
@@ -14,6 +14,7 @@ __all__ = [
     "Engine",
     "EngineConfig",
     "InjectedFault",
+    "ObsConfig",
     "PageAllocator",
     "Request",
     "SLO",

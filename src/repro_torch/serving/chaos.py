@@ -32,8 +32,9 @@ verifies: under rate >= 0.2 of all three families, every non-shed
 request must finish token-identical to the fault-free reference with
 zero leaked pages or slots.
 
-``ChaosInjector.trace`` stays None here: the port has no trace
-recorder yet (ROADMAP.md, "Observability").
+A traced run (``Engine.run(trace=...)``) sets ``ChaosInjector.trace``:
+every counted injection then leaves one ``inject_<family>`` instant in
+the trace, which the trace gate reconciles with :meth:`counters`.
 """
 from __future__ import annotations
 

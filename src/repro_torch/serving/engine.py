@@ -74,8 +74,23 @@ new.  And an error of the device is never recovered: a
 ``run()``, where the reference would replay it until every request ends
 ``failed``.
 
+**Observability** (the reference's, :mod:`repro_torch.obs`).  The engine
+keeps a :class:`~repro_torch.obs.metrics.MetricsRegistry` (``registry``;
+``prometheus_text()``) and windowed series behind ``live_metrics()``,
+both readable between ``run(max_steps=)`` slices.  ``run(trace=...)``
+records every request's phases and events and every step's ``dispatch``,
+``device_wait`` and ``step`` spans in a
+:class:`~repro_torch.obs.trace.TraceRecorder`; with
+``ObsConfig(attrib_every=N)`` every N-th step is re-run segment by segment
+(:class:`~repro_torch.obs.attrib.LayerAttributor`) on a copy of its
+pre-step state, which attributes the step's device time to each layer and
+bit pair.  Off, each hook is one ``is not None`` test, and the step adds
+no synchronisation and no timestamp.
+
 Not ported yet, and refused where asked for (ROADMAP.md, port queue):
-tracing and live metrics ("Observability") and mesh parallelism ("Mesh").
+mesh parallelism ("Mesh"), the reference's flat observability keywords
+(``EngineConfig(attrib_every=...)``; use ``obs=ObsConfig(...)``) and
+``ObsConfig.telemetry_port``, which only the serve CLI reads.
 """
 from __future__ import annotations
 
@@ -93,6 +108,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_gather.ops import check_gather_backend
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import prepack_lm_head
+from repro_torch.obs.attrib import LayerAttributor
+from repro_torch.obs.metrics import MetricsRegistry, WindowedSeries, percentile
+from repro_torch.obs.trace import ATTRIB_TID, TraceRecorder
 from repro_torch.serving.chaos import ChaosConfig, ChaosInjector, InjectedFault
 from repro_torch.serving.lifecycle import SLO, TERMINAL_STATUSES, Request
 from repro_torch.serving.paged_kv import BlockTable, PageAllocator
@@ -105,10 +123,19 @@ from repro_torch.serving.scheduler import Scheduler
 WATCHDOG_TICKS = 64
 
 
-def percentile(xs, q: float) -> float | None:
-    """``float(np.percentile(xs, q))``, or None for an empty sample."""
-    xs = list(xs)
-    return float(np.percentile(xs, q)) if xs else None
+@dataclasses.dataclass(frozen=True)
+class ObsConfig:
+    """Observability knobs (the reference's, without ``telemetry_port``)."""
+
+    # > 0: every N steps, re-run the step segment by segment on a copy of
+    # its pre-step state and attribute device time to each layer and bit
+    # pair (repro_torch.obs.attrib).  0 (off) costs one test per step.
+    attrib_every: int = 0
+    # timed replays of each attribution segment (the least counts)
+    attrib_reps: int = 1
+    # > 0 with run(trace=<path>): rewrite the partial trace to disk every
+    # N steps, so a crashed run still leaves a loadable trace behind
+    trace_checkpoint_every: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +165,7 @@ class EngineConfig:
     snapshot_dir: str | None = None
     gather_backend: str = "xla"  # "xla": pool[block_table]; "kernel": CUDA gather
     chaos: ChaosConfig = ChaosConfig()  # fault injection; off by default
+    obs: ObsConfig = ObsConfig()  # tracing and attribution knobs; off by default
 
     @property
     def blocks_per_slot(self) -> int:
@@ -234,11 +262,24 @@ class StepProgram:
             self.stream.synchronize()
         self._ready = True
 
+    @property
+    def inputs(self) -> tuple:
+        """The device views the step reads: ``(tokens [S, C], pos [S], lens
+        [S] or None, table [S, n_blocks])``; they hold the last step's batch
+        until the next step stages its own."""
+        return self._args
+
     @torch.inference_mode()
     def run(self, tokens: np.ndarray, pos: np.ndarray, lens: np.ndarray,
-            table: np.ndarray) -> np.ndarray:
-        """One step; returns the logits ``[S, V]`` as a view of the host
-        buffer, valid until the next step.  A failed replay raises."""
+            table: np.ndarray, launched=None) -> np.ndarray:
+        """One step in two stages: the launch (the batch staged and copied,
+        the graph replayed or the step called, the logits' host copy, all
+        enqueued on the program's stream), then the wait for the stream.
+        ``launched`` (tracing's split of the host's dispatch from the
+        device's wait) is called with no argument between the two; None
+        adds nothing to the step.  Returns the logits ``[S, V]`` as a view
+        of the host buffer, valid until the next step.  A failed replay
+        raises."""
         self.prepare()
         for sl, a in zip(self._slices, (table, tokens, pos, lens)):
             if sl.stop > sl.start:
@@ -251,6 +292,8 @@ class StepProgram:
             else:
                 self._forward()
             self._host.copy_(self.logits, non_blocking=True)
+        if launched is not None:
+            launched()
         if self.stream is not None:
             self.stream.synchronize()
         return self._host_np
@@ -277,6 +320,10 @@ class Engine:
             raise ValueError("chunk_tokens must be >= 1")
         if ecfg.max_step_retries < 0 or ecfg.max_request_retries < 0:
             raise ValueError("retry budgets must be >= 0")
+        if ecfg.obs.attrib_every < 0 or ecfg.obs.trace_checkpoint_every < 0:
+            raise ValueError("attrib_every/trace_checkpoint_every must be >= 0")
+        if ecfg.obs.attrib_reps < 1:
+            raise ValueError("attrib_reps must be >= 1")
         check_gather_backend(ecfg.gather_backend)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -323,6 +370,19 @@ class Engine:
         self._vclock = 0.0
         self._t_wall0: float | None = None  # run() start (monotonic)
         self._t_run_end: float | None = None  # elapsed, frozen when run() returns
+        # -- observability: every hook is one `is not None` test while off
+        self._trace: TraceRecorder | None = None  # armed by run(trace=...)
+        self._trace_path = None
+        self.registry = MetricsRegistry()
+        self._win_tokens = WindowedSeries()
+        self._win_steps = WindowedSeries()
+        self._win_sheds = WindowedSeries()
+        self._win_preempts = WindowedSeries()
+        self._attrib: LayerAttributor | None = None
+        if ecfg.obs.attrib_every > 0:
+            self._attrib = LayerAttributor(cfg, self.params, head=self._head, reps=ecfg.obs.attrib_reps,
+                                           registry=self.registry, gather=ecfg.gather_backend,
+                                           device=self.device)
 
     def _build_step(self, capture: bool) -> StepProgram:
         """The step program: :func:`forward_decode_paged` over static
@@ -387,6 +447,8 @@ class Engine:
         self._next_rid += 1
         self._pending.append(req)
         self._pending.sort(key=lambda r: r.arrival)
+        if self._trace is not None:
+            self._trace_attach(req)
         return req
 
     def cancel(self, req: Request) -> bool:
@@ -398,6 +460,75 @@ class Engine:
             return False
         req.cancel()
         return True
+
+    # -- tracing --------------------------------------------------------------
+
+    def _trace_attach(self, req: Request) -> None:
+        """Open the request's envelope and ``queued`` phase spans (idempotent,
+        so arming a recorder after submissions begins nothing twice)."""
+        self._trace.req_begin(req.rid, prompt_tokens=len(req.prompt), max_new_tokens=req.max_new_tokens,
+                              arrival=req.arrival, slo=req.slo)
+        if self._trace.phase(req.rid) is None:
+            self._trace.req_phase(req.rid, "queued")
+
+    def _arm_trace(self, trace) -> None:
+        """``trace`` is a :class:`TraceRecorder`, or a path to save a fresh
+        one to at the end of ``run()``.  Requests already submitted
+        (pending, waiting, or resident from an earlier run) are attached."""
+        if isinstance(trace, TraceRecorder):
+            self._trace, self._trace_path = trace, None
+        else:
+            self._trace, self._trace_path = TraceRecorder(), trace
+        for req in self._pending:
+            self._trace_attach(req)
+        for req in self.scheduler.waiting:
+            self._trace_attach(req)
+        for req in self.scheduler.active.values():
+            self._trace_attach(req)
+            self._trace.req_phase(req.rid, "prefill", slot=req.slot)
+        if self._chaos is not None:
+            self._chaos.trace = self._trace
+
+    def _seal_trace(self) -> None:
+        """Stamp the run's metadata into the recorder (the block the trace
+        gate reconciles the events with), and save it when run() owns the
+        file."""
+        tr = self._trace
+        m = self.metrics()
+        tr.metadata.update(
+            arch=self.cfg.name, family=self.cfg.family, policy=self.ecfg.policy, admit=self.ecfg.admit,
+            chunk_tokens=self.ecfg.chunk_tokens, realtime=self._realtime, steps=self.n_steps,
+            n_requests=len(self.finished), statuses=m["statuses"], injected=m["injected"],
+            preemptions=m["preemptions"], step_retries=self.step_retries,
+            chaos_seed=self._chaos.cfg.seed if self._chaos is not None else None, dp=1, mp=1,
+        )
+        if self._trace_path is not None:
+            tr.save(self._trace_path)
+
+    def _emit_attrib_spans(self, sample: dict, t0: float, t1: float) -> None:
+        """Child spans under ``device_wait`` on the attribution track: the
+        step's device interval cut in proportion to the measured shares."""
+        tr = self._trace
+        span = max(t1 - t0, 0.0)
+        acc = t0
+        for row in sample["layers"]:
+            frac = row["share"] or 0.0
+            dt = span * frac
+            tr.complete(f"layer{row['index']:02d} {row['pair']}", acc, acc + dt, tid=ATTRIB_TID,
+                        step=sample["step"], share=frac, seconds=row["seconds"])
+            acc += dt
+
+    def _emit_counter_tracks(self, tr: TraceRecorder) -> None:
+        """One sample a step on each counter track: pool pressure, slot
+        occupancy, windowed throughput and the monotone fault counters."""
+        window = 5.0 if self._realtime else 32.0
+        tps = self._win_tokens.rate(self._elapsed(), window)
+        sched = self.scheduler
+        tr.counter("pages", free=self.allocator.n_free)
+        tr.counter("slots", active=len(sched.active), waiting=len(sched.waiting) + len(self._pending))
+        tr.counter("tokens_per_s_window", tokens_per_s=tps or 0.0)
+        tr.counter("preemptions_total", preemptions=sched.n_preemptions)
+        tr.counter("shed_total", shed=self.registry.counter("repro_requests_total").value(status="shed"))
 
     # -- lifecycle policing: host bookkeeping only, no device work ------------
 
@@ -414,6 +545,11 @@ class Engine:
         if reason is not None:
             req.shed_reason = reason
         self.finished.append(req)
+        self.registry.counter("repro_requests_total", "requests by terminal status").inc(status=status)
+        if status == "shed":
+            self._win_sheds.add(now)
+        if self._trace is not None:
+            self._trace.req_end(req.rid, status, reason=reason, out_tokens=len(req.out_tokens))
 
     def _est_service_time(self, req: Request) -> float | None:
         """Optimistic remaining service time on the engine clock, or None
@@ -482,6 +618,12 @@ class Engine:
         req.n_faults += 1
         sched.preempt(req, now)
         sched.quarantine_slot(slot, self.ticks + self.ecfg.quarantine_ticks)
+        self._win_preempts.add(now)
+        if self._trace is not None:
+            self._trace.req_event(req.rid, "fault_strike", n_faults=req.n_faults)
+            self._trace.req_event(req.rid, "quarantine", slot=slot,
+                                  until_tick=self.ticks + self.ecfg.quarantine_ticks)
+            self._trace.req_phase(req.rid, "queued", reason="fault")
         if req.n_faults > self.ecfg.max_request_retries:
             sched.remove_waiting(req)
             self._finalize(req, "failed", now)
@@ -537,7 +679,7 @@ class Engine:
         with self._program._on_stream():
             self._ckpt.save_async(self.n_steps, self.state)
 
-    def _fund_pages(self) -> None:
+    def _fund_pages(self, now: float) -> None:
         """On-demand admission: before the step, grow every active slot's
         page list to cover its chunk.  Slots are funded in descending
         progress; when the pool runs dry the lowest-progress slot is
@@ -554,6 +696,10 @@ class Engine:
             while not sched.ensure_pages(req, last_pos):
                 victim = sched.pick_victim()
                 sched.preempt(victim)
+                self._win_preempts.add(now)
+                if self._trace is not None:
+                    self._trace.req_event(victim.rid, "preempt", reason="pages")
+                    self._trace.req_phase(victim.rid, "queued", reason="preempt")
                 if victim is req:
                     break
 
@@ -563,7 +709,7 @@ class Engine:
         the retries, or a hard fault was recovered."""
         S, C = self.ecfg.n_slots, self.ecfg.chunk_tokens
         if self.ecfg.admit == "on-demand":
-            self._fund_pages()
+            self._fund_pages(now_fn())
             if not self.scheduler.active:
                 return False  # everything preempted; admission retries next loop
         tokens = np.zeros((S, C), np.int32)
@@ -575,14 +721,33 @@ class Engine:
             pos[slot] = start
             lens[slot] = len(chunk)
         table = self.block_table.as_array()
+        tr = self._trace
+        if tr is not None:
+            for slot, req in self.scheduler.active.items():
+                if lens[slot] and tr.phase(req.rid) == "prefill":
+                    tr.req_event(req.rid, "prefill_chunk", start=int(pos[slot]), n=int(lens[slot]))
+        attrib = self._attrib is not None and (self.n_steps + 1) % self.ecfg.obs.attrib_every == 0
+        if attrib:
+            # the pre-step state, copied before the step writes it; injected
+            # faults raise before anything is staged, so the copy outlives
+            # the retries, and a hard fault drops it
+            self._attrib.stage(self.state, self._program.stream)
+        t_span = [0.0, 0.0]  # the step's dispatch start and end (tracing only)
         for attempt in range(self.ecfg.max_step_retries + 1):
             try:
                 if self._chaos is not None:
                     self._chaos.before_step()  # raises before anything is staged
-                logits_np = self._program.run(tokens, pos, lens, table)
+                if tr is None:
+                    logits_np = self._program.run(tokens, pos, lens, table)
+                else:
+                    t_span[0] = tr.now()
+                    logits_np = self._program.run(tokens, pos, lens, table,
+                                                  lambda: t_span.__setitem__(1, tr.now()))
                 break
             except InjectedFault:
                 self.step_retries += 1
+                if tr is not None:
+                    tr.instant("step_retry", attempt=attempt)
                 if attempt == self.ecfg.max_step_retries:
                     # the fault outlasted the retries: strike the lowest-progress
                     # request (the reference's _pick_victim on one replica)
@@ -591,11 +756,29 @@ class Engine:
             except Exception as exc:  # a hard fault: the state writes are suspect
                 if self._device_failed(exc):
                     raise
+                if tr is not None:
+                    tr.instant("hard_fault", exc=type(exc).__name__)
                 self._recover_hard_fault(exc, now_fn())
                 return False
         self.n_steps += 1
-        self.slot_token_steps += len(self.scheduler.active)
+        n_active = len(self.scheduler.active)
+        self.slot_token_steps += n_active
         self.fed_tokens += int(lens.sum())
+        if tr is not None:
+            t_wait = tr.now()  # run() returned after the stream's wait
+            tr.complete("dispatch", t_span[0], t_span[1], step=self.n_steps)
+            tr.complete("device_wait", t_span[1], t_wait, step=self.n_steps)
+            tr.complete("step", t_span[0], t_wait, step=self.n_steps, active=n_active, fed=int(lens.sum()))
+        if attrib:
+            sample = self._attrib.sample(*self._program.inputs, stream=self._program.stream,
+                                         step=self.n_steps)
+            if tr is not None:
+                self._emit_attrib_spans(sample, t_span[1], t_wait)
+        if tr is not None:
+            self._emit_counter_tracks(tr)
+            if (self._trace_path is not None and self.ecfg.obs.trace_checkpoint_every > 0
+                    and self.n_steps % self.ecfg.obs.trace_checkpoint_every == 0):
+                tr.save(self._trace_path)  # a partial trace a crash leaves behind
         if self._chaos is not None:
             logits_np = logits_np.copy()  # the program's host buffer stays clean
             sampling = [s for s, r in self.scheduler.active.items() if r.n_fed + int(lens[s]) >= len(r.seq)]
@@ -603,10 +786,13 @@ class Engine:
         t = now_fn()
         if self._ckpt is not None and self.n_steps % self.ecfg.snapshot_every == 0:
             self._snapshot()
+        n_new = 0
         for slot, req in list(self.scheduler.active.items()):
             req.n_fed += int(lens[slot])
             if req.n_fed < len(req.seq):
                 continue  # mid-prompt / mid-replay: logits not sampled
+            if tr is not None:
+                tr.req_phase(req.rid, "decode", slot=slot)
             row = logits_np[slot]
             if not np.isfinite(row).all():
                 # never sample a non-finite row: strike the request, whose
@@ -618,11 +804,19 @@ class Engine:
             if not req.out_tokens:
                 req.t_first_token = t
             req.out_tokens.append(int(np.argmax(row)))
+            n_new += 1
             if req.done:
                 self._finalize(req, "ok", t)
+        self._win_steps.add(t)
+        if n_new:
+            self._win_tokens.add(t, n_new)
+        reg = self.registry
+        reg.counter("repro_steps_total", "fused engine steps").inc()
+        reg.counter("repro_generated_tokens_total", "sampled tokens").inc(n_new)
+        reg.counter("repro_fed_tokens_total", "valid token lanes fed").inc(float(lens.sum()))
         return True
 
-    def run(self, *, realtime: bool = True, max_steps: int | None = None) -> dict:
+    def run(self, *, realtime: bool = True, max_steps: int | None = None, trace=None) -> dict:
         """Drive the engine until every submitted request reaches a terminal
         status, or until ``max_steps`` steps in all (a later call resumes).
 
@@ -631,8 +825,15 @@ class Engine:
         Each loop iteration polices, then admits, then steps.  The step
         program is prepared (on the card: captured) before the clock
         starts, so neither the capture nor first-call costs enter the
-        step-time estimate that realtime deadlines use."""
+        step-time estimate that realtime deadlines use.
+
+        ``trace`` arms span recording: a :class:`TraceRecorder` to read in
+        process, or a path the run writes Perfetto-loadable Chrome trace
+        JSON to when it returns.  An armed recorder stays armed for later
+        runs.  None (the default) leaves every tracing hook one test."""
         self._realtime = realtime
+        if trace is not None:
+            self._arm_trace(trace)
         self._program.prepare()
         t_wall0 = self._t_wall0 = time.monotonic()
         self._t_run_end = None
@@ -653,6 +854,8 @@ class Engine:
             for req in sched.admit(now()):
                 # a (re-)admitted SSM request rebuilds its state from position 0
                 self._reset_slot(req.slot)
+                if self._trace is not None:
+                    self._trace.req_phase(req.rid, "prefill", slot=req.slot, replayed=req.n_preempted > 0)
             if not sched.active:
                 if self._pending:
                     # nothing running: wait for (or jump to) the next arrival
@@ -687,6 +890,7 @@ class Engine:
                 dt = time.monotonic() - t0
                 if stepped:
                     self.step_seconds.append(dt)
+                self.registry.histogram("repro_step_seconds", "fused step wall time").observe(dt)
                 ewma = self._step_time_ewma
                 self._step_time_ewma = dt if ewma is None else 0.8 * ewma + 0.2 * dt
             else:
@@ -697,7 +901,10 @@ class Engine:
                 self._ckpt.wait()
             self.assert_no_leaks()
         self._t_run_end = time.monotonic() - t_wall0
-        return self.metrics()
+        out = self.metrics()
+        if self._trace is not None:
+            self._seal_trace()
+        return out
 
     def assert_no_leaks(self) -> None:
         """Every page back on the free list, every slot free, the block
@@ -754,3 +961,38 @@ class Engine:
             "slot_occupancy": (self.slot_token_steps / (self.n_steps * self.ecfg.n_slots)
                                if self.n_steps else 0.0),
         }
+
+    def live_metrics(self, window: float | None = None) -> dict:
+        """A trailing-window snapshot, callable mid-run (between ``run(max_steps=k)``
+        slices): unlike :meth:`metrics`, the rates cover only the last
+        ``window`` engine-clock units (default 5 s wall, 32 virtual steps)."""
+        if window is None:
+            window = 5.0 if self._realtime else 32.0
+        now = self._elapsed()
+        sched = self.scheduler
+        n_active = len(sched.active)
+        return {
+            "now": now,
+            "window": window,
+            "tokens_per_s_window": self._win_tokens.rate(now, window),
+            "steps_per_s_window": self._win_steps.rate(now, window),
+            "shed_rate_window": self._win_sheds.rate(now, window),
+            "preemption_rate_window": self._win_preempts.rate(now, window),
+            "queue_depth": len(self._pending) + len(sched.waiting),
+            "active_slots": n_active,
+            "slot_occupancy": n_active / self.ecfg.n_slots,
+            "free_pages": self.allocator.n_free,
+            "steps": self.n_steps,
+            "statuses": dict(Counter(r.status for r in self.finished)),
+        }
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition of :attr:`registry`, its point-in-time
+        gauges refreshed at the scrape."""
+        reg = self.registry
+        sched = self.scheduler
+        reg.gauge("repro_queue_depth", "pending + waiting requests").set(len(self._pending) + len(sched.waiting))
+        reg.gauge("repro_active_slots", "slots decoding/prefilling").set(len(sched.active))
+        reg.gauge("repro_free_pages", "page-pool headroom").set(self.allocator.n_free)
+        reg.gauge("repro_preemptions", "scheduler preemptions so far").set(sched.n_preemptions)
+        return reg.prometheus_text()

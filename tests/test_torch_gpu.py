@@ -1387,3 +1387,94 @@ def test_chaos_engine_does_not_recover_a_failed_device(cuda, monkeypatch):
         eng.run(realtime=False)
     assert eng.hard_recoveries == 0 and eng.n_steps == 1
     eng.close()
+
+
+def _attributed(eng) -> list:
+    """Spy on an engine's attributor: after each sample, whether the head
+    segment's rows equal the step's logits bit for bit."""
+    equal, inner = [], eng._attrib.sample
+
+    def sample(*args, **kw):
+        out = inner(*args, **kw)
+        equal.append(eng._attrib.logits.cpu().numpy().tobytes() == eng._program._host_np.tobytes())
+        return out
+
+    eng._attrib.sample = sample
+    return equal
+
+
+@pytest.mark.parametrize("chunk,admit,n_pages", [(1, "reserve", 0), (4, "on-demand", 7)])
+def test_obs_attributed_engine_equals_the_untraced_engine(cuda, chunk, admit, n_pages):
+    """chip_smoke.py phase 18's checks at the llama3.2-3b smoke size, w4a4,
+    the packed (4, 4) head, the kernel gather: a traced run attributed every
+    2 steps against an untraced one on the same weights.  Every sample's
+    segment graphs (captured once) give the step's logits bit for bit and
+    launch the step's kernels; the step is captured once and its counters
+    are its graph's launches times the steps; the sampled rows, tokens and
+    steps equal the untraced run's; the trace has a dispatch, device_wait
+    and step span a step."""
+    from repro_torch.obs.trace import TraceRecorder
+    from repro_torch.serving import Engine, ObsConfig
+
+    cfg, packed, head = _packed_smoke(cuda)
+    ecfg = EngineConfig(n_slots=3, page_size=4, max_len=32, n_pages=n_pages, chunk_tokens=chunk,
+                        admit=admit, packed_head=True, head_bits=(4, 4), gather_backend="kernel")
+    g = np.random.default_rng(7)
+    prompts = [g.integers(1, cfg.vocab, n).tolist() for n in (9, 6, 11, 5)]
+    runs = []
+    for obs in (ObsConfig(), ObsConfig(attrib_every=2)):
+        eng = Engine(cfg, packed, dataclasses.replace(ecfg, obs=obs), head=head, device=cuda)
+        rows = _sampled_rows(eng)
+        equal = _attributed(eng) if obs.attrib_every else None
+        for p in prompts:
+            eng.submit(p, 6)
+        tr = TraceRecorder() if obs.attrib_every else None
+        build.reset_counts()
+        m = eng.run(realtime=False, trace=tr)
+        counts, prog = build.counts(), eng._program
+        assert m["statuses"] == {"ok": 4} and prog.captures == 1
+        assert counts == {k: prog.launches.get(k, 0) * m["steps"] for k in build.COUNTS}
+        if obs.attrib_every:
+            at = eng._attrib
+            assert len(equal) == m["steps"] // 2 == len(at.samples) and all(equal)
+            assert at.captures == 1 and at.launches == {k: v * len(at.samples) for k, v in prog.launches.items()}
+            spans = [e["name"] for e in tr.events if e["ph"] == "X" and e["tid"] == 0]
+            assert all(spans.count(n) == m["steps"] for n in ("dispatch", "device_wait", "step"))
+        runs.append((m, rows, {r.rid: r.out_tokens for r in eng.finished}))
+        eng.close()
+    (m0, rows0, toks0), (m1, rows1, toks1) = runs
+    assert m0["steps"] == m1["steps"] and toks0 == toks1 and rows0.keys() == rows1.keys()
+    assert all(rows0[k].tobytes() == rows1[k].tobytes() for k in rows0)
+
+
+@pytest.mark.parametrize("planted", [False, True], ids=["restored", "planted-skipped-restore"])
+def test_obs_mamba_attribution_restores_each_rep(cuda, monkeypatch, planted):
+    """mamba2-130m at its smoke size at attrib_reps=2 on the card: each SSM
+    slice is restored before each replay of its segment graph, so the head
+    rows equal the step's logits bit for bit; with the restore skipped
+    before the second replay the recurrence advances twice and they differ."""
+    from repro_torch.obs.attrib import LayerAttributor
+    from repro_torch.serving import Engine, ObsConfig
+
+    if planted:
+        real, done = LayerAttributor._restore, set()
+
+        def once(self, i):  # restore before a layer's first run of each sample only
+            key = (len(self.samples), self.captures, i)
+            if key not in done:
+                done.add(key)
+                real(self, i)
+
+        monkeypatch.setattr(LayerAttributor, "_restore", once)
+    cfg, packed, head = _packed_smoke(cuda, get_config("mamba2-130m", smoke=True))
+    ecfg = EngineConfig(n_slots=2, page_size=4, max_len=32, chunk_tokens=4, packed_head=True, head_bits=(4, 4),
+                        obs=ObsConfig(attrib_every=1, attrib_reps=2))
+    eng = Engine(cfg, packed, ecfg, head=head, device=cuda)
+    equal = _attributed(eng)
+    g = np.random.default_rng(13)
+    for n in (9, 6, 11):
+        eng.submit(g.integers(1, cfg.vocab, n).tolist(), 6)
+    m = eng.run(realtime=False)
+    eng.close()
+    assert m["statuses"] == {"ok": 3} and len(equal) == m["steps"]
+    assert not any(equal) if planted else all(equal)
