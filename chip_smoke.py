@@ -265,6 +265,24 @@ Phases, all on the card:
    phase 17's run checks hold, and the decisions equal phase 17's.  (c)
    (a)'s cell in ``run(max_steps=k)`` slices: between slices the live
    windows and gauges move and the exposition conforms.
+19. qwen2-vl-7b at full width (28 layers, d 3584, 28 heads, 4 KV heads of
+   128, d_ff 18944, vocab 152064, M-RoPE), bf16, random weights from seed
+   0, nothing cut, served through the serve CLI in-process:
+   ``repro_torch.launch.serve.main(QWEN_ARGV)`` (w4a4 projections, the
+   packed (4, 4) head, 8 slots, 8 requests of 32 prompt and 32 new tokens,
+   the CLI's defaults otherwise: page 16, C = 1, reserve, the xla gather).
+   First K1 at the step's shapes (M = 8, the head included) against its
+   plain version, timed by graph beside its bound and ``torch._int_mm``.
+   (a) The CLI's run: every request ``ok``, one capture, no strike, the
+   counters (zeroed just before ``main``) and the graph's K1 nodes 28 x 7
+   + 1 a step; step p50, tok/s, one replay's device time, peak memory.
+   (d) The card against the CPU at 2 layers from position 1500 with
+   phase 5's rules (float MLP projections, as phase 14 (d)), M-RoPE's h
+   and w streams offset from t on both sides so that each band's stream
+   shows, and a planted fault the rules must reject: the card rotating by
+   ``rope`` while the CPU runs ``mrope``; beside it, not a gate, the w_down
+   input levels that differ between the card and the CPU when the MLP is
+   packed.
 
 Every engine's graph and memory pool is released before the next engine
 is built, and each phase prints its peak device memory.
@@ -285,7 +303,9 @@ go to ``chip_smoke.json`` in ``OUT_DIR``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import subprocess
@@ -1204,7 +1224,7 @@ def phase_crosscheck(torch, cfg, steps: int = 3, *, kv_int8: bool = False, gathe
     cpu_cfg = (None if cpu_window_pattern is None
                else dataclasses.replace(cfg2, window_pattern=cpu_window_pattern))
     chunk_lens = CROSS_CHUNK_LENS if chunk_step else None
-    for t, (g_log, c_log, flipped, read, row_flip, head_flip, _) in enumerate(_cross_steps(
+    for t, (g_log, c_log, flipped, read, row_flip, head_flip, calls) in enumerate(_cross_steps(
             torch, cfg2, packed, head, steps, seed=5, gather=gather,
             chunk_lens=chunk_lens, states=states, pos0=pos0, blocks=blocks,
             cpu_cfg=cpu_cfg, per_layer=7 if packed_mlp else 4)):
@@ -1215,7 +1235,7 @@ def phase_crosscheck(torch, cfg, steps: int = 3, *, kv_int8: bool = False, gathe
                  rows_flipped=row_flip.sum(dim=1).tolist(),
                  flipped_lanes=[row_flip[s].nonzero().flatten().tolist() for s in range(S)],
                  first_hand_rows=first_hand, first_hand_flips=fresh, suffix_slots=suffix,
-                 **st["summary"])
+                 flips_by_matmul=[int(c.sum()) for c in calls], **st["summary"])
         kv_note = ""
         if kv_int8:
             kv = _kv_level_flips(torch, states)
@@ -1233,7 +1253,8 @@ def phase_crosscheck(torch, cfg, steps: int = 3, *, kv_int8: bool = False, gathe
               f"{r['flipped_max_rel']}; rows with a flip / rows read this step, by slot "
               f"{list(zip(r['rows_flipped'], r['rows_read']))}, flipped lanes {r['flipped_lanes']}; "
               f"{fresh} of {first_hand} first-hand rows flipped, {suffix} slots flipped from their "
-              f"first flip on; greedy tokens agree {r['tokens_agree']}/{S}{kv_note}", flush=True)
+              f"first flip on; greedy tokens agree {r['tokens_agree']}/{S}{kv_note}; rows with a flip by "
+              f"packed matmul, in call order {r['flips_by_matmul']}", flush=True)
         clean = st["clean"]
         check(bool((st["row_max"][clean] <= CROSS_CLEAN_ABS_TOL).all()),
               f"cross-check {what}: a row without level flips differs by more than "
@@ -2730,7 +2751,7 @@ GEMMA_NEW = 32
 GEMMA_TRACE_STEPS = 10  # traced steps, every slot decoding
 # (d): the card against the CPU at 2 layers of full width (both windowed),
 # decode steps from position GEMMA_CROSS["pos0"] in pools of 96 blocks; the
-# MLP projections float (see _geglu_flips: packed, every row flips levels)
+# MLP projections float (see _gated_mlp_flips: packed, every row flips levels)
 GEMMA_CROSS = dict(steps=2, pos0=1500, blocks=96, packed_mlp=False)
 
 
@@ -2866,13 +2887,15 @@ def _gemma_gather(torch, card, timer, win: int, pools: dict, batches) -> dict:
                 positions=(rows[0]["min_pos"], rows[0]["max_pos"]))
 
 
-def _geglu_flips(torch, cfg) -> dict:
-    """Not a gate: why (d) keeps the MLP projections float.  Layer 0's
-    packed geglu MLP at full width, float32, from the same 8 input rows and
-    packed words on the card and on the CPU: up and gate (integer products
-    dequantized) must be bit-identical; then the 4-bit levels of w_down's
-    input, ``sigmoid(gelu(gate) * up)``, that differ in each row, with
-    gelu in float32 on each device (the port's) and in float64 on both."""
+def _gated_mlp_flips(torch, cfg) -> dict:
+    """Not a gate: why phases 14 (d) and 19 (d) keep the MLP projections
+    float.  Layer 0's packed gated MLP (geglu or swiglu, ``cfg.mlp_kind``)
+    at full width, float32, from the same 8 input rows and packed words on
+    the card and on the CPU: up and gate (integer products dequantized)
+    must be bit-identical; then the 4-bit levels of w_down's input,
+    ``sigmoid(act(gate) * up)``, that differ in each row, with the gate's
+    activation in float32 on each device (the port's) and in float64 on
+    both."""
     import torch.nn.functional as F
 
     from repro_torch.models import layers as L
@@ -2884,12 +2907,12 @@ def _geglu_flips(torch, cfg) -> dict:
     mlp = {"cuda": T.layer_params(packed["layers"], 0)["mlp"]}
     mlp["cpu"] = T.map_leaves(mlp["cuda"], lambda a: a.to("cpu"))
     x = torch.randn((8, 1, cfg.d_model), generator=torch.Generator().manual_seed(3))
+    act = {"geglu": lambda g: F.gelu(g, approximate="tanh"), "swiglu": F.silu}[cfg.mlp_kind]
     side = {}
     for dev, p in mlp.items():
         h = L.rmsnorm(p["ln"], x.to(dev))
         up, gate = L.dense(p["w_up"], h), L.dense(p["w_gate"], h)
-        side[dev] = dict(up=up, gate=gate, act32=F.gelu(gate, approximate="tanh") * up,
-                         act64=F.gelu(gate.double(), approximate="tanh").float() * up)
+        side[dev] = dict(up=up, gate=gate, act32=act(gate) * up, act64=act(gate.double()).float() * up)
     check(all(torch.equal(side["cuda"][k].cpu(), side["cpu"][k]) for k in ("up", "gate")),
           "(d) reading: up or gate differ between the card and the CPU")
     out = {}
@@ -2924,7 +2947,7 @@ def phase_gemma(torch, card, report: dict) -> dict:
     served; the MLP projections float, not packed (packed, the gelu's last
     float32 bit, which differs between the card and the CPU, flips w_down
     input levels in every row, past phase 5's flip budget:
-    :func:`_geglu_flips` prints it), so the packed ones are the attention
+    :func:`_gated_mlp_flips` prints it), so the packed ones are the attention
     projections and the head."""
     import numpy as np
 
@@ -3031,7 +3054,7 @@ def phase_gemma(torch, card, report: dict) -> dict:
           "(d): phase 5's rules pass the CPU side run without the window")
     print(f"  (d) {t_d:.1f} s; the planted fault was rejected: {fault}", flush=True)
     out["d_fault"] = fault
-    out["geglu_flips"] = _geglu_flips(torch, cfg)
+    out["geglu_flips"] = _gated_mlp_flips(torch, cfg)
     print(f"  (d) reading, not a gate: layer 0's packed geglu MLP on the card and the CPU from the same rows: "
           f"up and gate bit-identical; w_down input levels that differ by row, gelu in float32 "
           f"{out['geglu_flips']['act32']}, gelu in float64 {out['geglu_flips']['act64']}", flush=True)
@@ -4414,6 +4437,181 @@ def phase_obs(torch, card, cfg, ecfg, prompts4: list, chaos: dict, report: dict)
     return out
 
 
+# -- phase 19 ------------------------------------------------------------------
+
+# phase 19's cell: qwen2-vl-7b at full width ([hf:Qwen/Qwen2-VL-7B-Instruct]:
+# 28 layers, d 3584, 28 heads, 4 KV heads of 128, d_ff 18944, vocab 152064,
+# M-RoPE sections (2, 1, 1)), nothing cut, served through the serve CLI as
+# an operator runs it: w4a4 projections, the packed (4, 4) head, 8 slots, 8
+# requests of 32 prompt and 32 new tokens (the CLI's prompts, seed 2), its
+# EngineConfig.from_cli defaults (page 16, C = 1, reserve, the xla gather)
+QWEN_ARCH = "qwen2-vl-7b"
+QWEN_ARGV = ["--arch", QWEN_ARCH, "--full", "--packed", "--wbits", "4", "--abits", "4", "--packed-head",
+             "--batch", "8", "--max-len", "256", "--prompt-len", "32", "--tokens", "32", "--requests", "8"]
+# (d): 2 layers from position 1500 on pools of 96 blocks, phase 5's rules,
+# the MLP projections float (packed, w_down's 18944 input levels a row
+# flip in most rows between the card and the CPU, the quantizer's float32
+# sigmoid differing in the last bit: _gated_mlp_flips reads it), the
+# attention projections and the head packed; the h and w streams run this
+# far behind t (positions ~500 and ~100, as a
+# vision token's grid coordinates lie far below its temporal position), on
+# both sides, so that each frequency band's stream shows
+QWEN_CROSS = dict(steps=2, pos0=1500, blocks=96, packed_mlp=False)
+QWEN_STREAM_OFFSETS = (0, -1000, -1400)
+
+
+@contextlib.contextmanager
+def mrope_streams(torch, offsets, card_rope: bool = False):
+    """Run ``models.layers.mrope`` on distinct (t, h, w) streams: the
+    decode's one position per token plus ``offsets``.  ``card_rope`` plants
+    a fault: the card rotates every band by the t stream (``rope``) while
+    the CPU runs ``mrope``."""
+    from repro_torch.models import layers as L
+
+    inner = L.mrope
+
+    def streams(x, positions3, *, theta, sections=(2, 1, 1)):
+        p3 = positions3 + torch.tensor(offsets, dtype=positions3.dtype, device=positions3.device)
+        if card_rope and x.is_cuda:
+            return L.rope(x, p3[..., 0], theta=theta)
+        return inner(x, p3, theta=theta, sections=sections)
+
+    L.mrope = streams
+    try:
+        yield
+    finally:
+        L.mrope = inner
+
+
+def phase_qwen(torch, card, report: dict) -> dict:
+    """qwen2-vl-7b at full width served through
+    ``repro_torch.launch.serve.main(QWEN_ARGV)`` in-process (the kernels
+    phase 1 built serve it).  First K1 at the step's shapes (the layers and
+    the head at M = 8) against its plain version, timed by graph beside its
+    bound and ``torch._int_mm``.  (a) The CLI's run: every request ``ok``
+    with 32 tokens, one capture, no strike, the counters (zeroed just
+    before ``main``) and the graph's K1 nodes 28 x 7 + 1 a step; the step
+    p50, tokens/s, one replay's device time, the peak memory of the build.
+    (d) The card against the CPU at 2 layers of full width, float32, from
+    position 1500 (phase 5's rules; w4a4 attention projections and head),
+    with the h and w streams of M-RoPE offset from t (:func:`mrope_streams`),
+    so that a wrong band split or stream shows; and a planted fault those
+    rules must reject: the card's rotation done by ``rope`` while the CPU
+    runs ``mrope``.  Cuts in (d) only: 2 of 28 layers; the earlier rows
+    random rather than served; the MLP projections float, not packed
+    (packed, w_down's 18944 input levels a row flip in most rows, past
+    phase 5's flip budget: :func:`_gated_mlp_flips` reads it)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.packed_matmul.ops import PackedDenseParams
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    t_phase = time.monotonic()
+    cfg = get_config(QWEN_ARCH)
+    check(cfg.use_mrope and (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab) == (28, 3584, 18944, 152064),
+          f"qwen2-vl-7b config {cfg}")
+    n_slots = 8
+    out: dict = {}
+    print(f"  K1 at the step's shapes (M = {n_slots}, the head included):", flush=True)
+    timer = Timer(torch)
+    out["k1"] = phase_matmul_chunk(torch, card, timer, cfg, n_slots, report, key="qwen_matmul", head_m=n_slots)
+    del timer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the CLI's run, its engine caught as build_engine returns it
+    inner, caught = serve.build_engine, []
+
+    def catching(*a, **kw):
+        caught.append(inner(*a, **kw))
+        return caught[-1]
+
+    serve.build_engine = catching
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    try:
+        torch.cuda.synchronize()
+        build.reset_counts()  # the main path's run starts here
+        t0 = time.monotonic()
+        m = serve.main(list(QWEN_ARGV))
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = build.counts()
+    finally:
+        serve.build_engine = inner
+    (eng,) = caught
+    per_step = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": cfg.n_layers * 7 + 1}
+    check(m["statuses"] == {"ok": 8}, f"(a): statuses {m['statuses']}")
+    check(all(len(r.out_tokens) == 32 for r in eng.finished), "(a): a request ended short")
+    check_clean(eng, "(a)")
+    check(eng._program.captures == 1, f"(a): {eng._program.captures} captures")
+    check(counts == {k: v * m["steps"] for k, v in per_step.items()},
+          f"(a): launch counters {counts} != {per_step} x {m['steps']} steps")
+    census = check_graph(eng, per_step, "(a)", memset=True)
+    replay = graph_replay_ms(torch, eng)
+    eng.assert_no_leaks()
+    step_ms = [1e3 * x for x in eng.step_seconds]
+    pool_gb = sum(x.numel() * x.element_size() for x in eng.state.values()) / 1e9
+    leaves = []
+    T.map_leaves(eng.params["layers"], leaves.append)
+    words_gb = sum(x.numel() * x.element_size() for x in (
+        a.data if isinstance(a, PackedDenseParams) else a for a in leaves)) / 1e9
+    k1 = out["k1"]["rows"]
+    a = dict(steps=m["steps"], wall_s=wall, tokens=m["generated_tokens"], tokens_per_s=m["tokens_per_s"],
+             step_ms_p50=float(np.median(step_ms)), step_ms_min=min(step_ms),
+             ttft_ms_p50=1e3 * m["ttft_p50"], latency_ms_per_step=m["latency_ms_per_step"], replay_ms=replay,
+             counts=counts, per_step=per_step, graph=census, kv_pool_gb=pool_gb, layer_weights_gb=words_gb,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, allocated_before_gb=base_gb,
+             k1_ms=sum(r["k1_graph_ms"] * r["per_step"] for r in k1),
+             k1_bound_ms=sum(r["bound_ms"] * r["per_step"] for r in k1),
+             k1_int_mm_ms=sum(r["int_mm_graph_ms"] * r["per_step"] for r in k1))
+    eng.close()
+    del eng, caught, leaves
+    torch.cuda.empty_cache()
+    out["a"] = a
+    print(f"  (a) serve CLI, {QWEN_ARCH} full width: {a['steps']} steps, {a['tokens']} tokens in "
+          f"{wall:.2f} s (build included), {a['tokens_per_s']:.1f} tok/s, step p50 {a['step_ms_p50']:.2f} ms "
+          f"(min {a['step_ms_min']:.2f}), one replay {replay:.2f} ms of device time, TTFT p50 "
+          f"{a['ttft_ms_p50']:.1f} ms; K1 {a['k1_ms']:.3f} ms a step by graph against its bound "
+          f"{a['k1_bound_ms']:.3f} ms and _int_mm {a['k1_int_mm_ms']:.3f}; launches {counts}; graph nodes "
+          f"{census}; one capture, no strike, no leaks; layer weights {words_gb:.2f} GB, KV pools "
+          f"{pool_gb:.3f} GB, peak memory {a['peak_mem_gb']:.1f} GB ({base_gb:.1f} GB allocated before main)",
+          flush=True)
+
+    # (d) the card against the CPU past position 1500, M-RoPE on distinct streams
+    print(f"  (d) card vs CPU, 2 layers of {QWEN_ARCH} at full width, positions from {QWEN_CROSS['pos0']}, "
+          f"M-RoPE streams offset {QWEN_STREAM_OFFSETS}", flush=True)
+    t0 = time.monotonic()
+    with mrope_streams(torch, QWEN_STREAM_OFFSETS):
+        out["d"] = phase_crosscheck(torch, cfg, **QWEN_CROSS)
+    t_d = time.monotonic() - t0
+    inner_mrope, inner_dense = L.mrope, L.packed_dense
+    print("  (d) planted fault: the card rotates by rope (the t stream), the CPU by mrope", flush=True)
+    try:
+        with mrope_streams(torch, QWEN_STREAM_OFFSETS, card_rope=True):
+            phase_crosscheck(torch, cfg, **dict(QWEN_CROSS, steps=1), chunk_step=False)
+        fault = None
+    except PhaseError as e:
+        fault = str(e)
+    check(L.mrope is inner_mrope and L.packed_dense is inner_dense, "(d): the planted fault left a layer patched")
+    check(fault is not None and fault.startswith("cross-check"), "(d): phase 5's rules pass rope for mrope")
+    print(f"  (d) {t_d:.1f} s; the planted fault was rejected: {fault}", flush=True)
+    out["d_fault"] = fault
+    out["swiglu_flips"] = _gated_mlp_flips(torch, cfg)
+    print(f"  (d) reading, not a gate: layer 0's packed swiglu MLP on the card and the CPU from the same rows: "
+          f"up and gate bit-identical; w_down input levels that differ by row, silu in float32 "
+          f"{out['swiglu_flips']['act32']}, silu in float64 {out['swiglu_flips']['act64']}", flush=True)
+    out["phase_s"] = time.monotonic() - t_phase
+    print(f"  phase 19 on {card.name} ({card.power_limit}): step p50 {a['step_ms_p50']:.2f} ms, "
+          f"{a['tokens_per_s']:.1f} tok/s, K1 {a['k1_ms']:.3f} ms a step (bound {a['k1_bound_ms']:.3f} ms, "
+          f"bytes), {out['phase_s']:.1f} s", flush=True)
+    report["qwen"] = out
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -4486,11 +4684,17 @@ def main(argv=None) -> int:
     timer = Timer(torch)
 
     def peak(phase: str) -> None:
-        """Print and keep the phase's peak device memory, then start the next."""
+        """Print and keep the phase's peak device memory, then start the
+        next with what the phase left allocated: engines whose methods a
+        phase wrapped in closures over them sit in reference cycles, and
+        only a collection frees their pools and weights."""
         gb = torch.cuda.max_memory_allocated() / 1e9
         report.setdefault("peak_mem_gb", {})[phase] = gb
-        print(f"  phase {phase} peak device memory {gb:.2f} GB", flush=True)
+        gc.collect()
         torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() / 1e9
+        report.setdefault("left_mem_gb", {})[phase] = left
+        print(f"  phase {phase} peak device memory {gb:.2f} GB, {left:.2f} GB left allocated after it", flush=True)
         torch.cuda.reset_peak_memory_stats()
 
     torch.cuda.reset_peak_memory_stats()
@@ -4575,6 +4779,11 @@ def main(argv=None) -> int:
           f"slices", flush=True)
     ob = phase_obs(torch, card, cfg, ecfg, prompts4, cs, report)
     peak("18")
+    print(f"phase 19: {QWEN_ARCH} at full width (M-RoPE) through the serve CLI, "
+          f"repro_torch.launch.serve.main({' '.join(QWEN_ARGV)}); K1 at its shapes; card vs CPU at 2 layers from "
+          f"position {QWEN_CROSS['pos0']} with a rope-for-mrope planted fault", flush=True)
+    qw = phase_qwen(torch, card, report)
+    peak("19")
 
     # per-decode-step totals per kernel: the sum over the launches of one step
     def step_sum(rows, key):
@@ -4608,6 +4817,7 @@ def main(argv=None) -> int:
     # attention projections and head are K1's 2-D launches), M = 12 at C = 16
     moe_k = [r for r in mo["k1"]["rows"] if r["M"] == max(MOE_KERNEL_M)]
     moe_k1_decode = [r for r in mo["k1"]["rows"] if r["M"] == min(MOE_KERNEL_M)]
+    qwen_k1 = qw["k1"]["rows"]  # phase 19's C = 1 step: 28 layers x 7 and the head, M = 8
     chunked_launches = {k: {admit: r["counts"][k] for admit, r in ch.items()}
                         for k in ("packed_dense_fused", "paged_gather")}
 
@@ -4635,7 +4845,7 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/packed_matmul/kernel.py:111",
              launches=fused["counts"]["packed_dense_fused"],
              max_abs_err=max(mm["max_err"], mm_chunk["max_err"], gm["k1"]["max_err"], mb["k1"]["max_err"],
-                             mo["k1"]["max_err"]),
+                             mo["k1"]["max_err"], qw["k1"]["max_err"]),
              ms=step_sum(served, "k1_graph_ms"), events_ms=step_sum(served, "k1_ms"),
              plain_ms=step_sum(served, "plain_ms"),
              bound_ms=step_sum(served, "bound_ms"), bound_by=by_t(served, lambda r: r["per_step"]),
@@ -4691,7 +4901,17 @@ def main(argv=None) -> int:
                  ms_decode=step_sum(moe_k1_decode, "k1_graph_ms"),
                  bound_ms_decode=step_sum(moe_k1_decode, "bound_ms"),
                  library_ms_decode=step_sum(moe_k1_decode, "bmm_graph_ms"),
-                 max_abs_err=mo["k1"]["max_err"])),
+                 max_abs_err=mo["k1"]["max_err"]),
+             launches_qwen=qw["a"]["counts"]["packed_dense_fused"], steps_qwen=qw["a"]["steps"],
+             qwen=dict(
+                 per="qwen2-vl-7b C = 1 step (phase 19, through the serve CLI): wq|wo 3584x3584, wk|wv "
+                     "3584x512, w_up|w_gate 3584x18944, w_down 18944x3584 of 28 layers and the head "
+                     "3584x152064, all at M = 8",
+                 ms=step_sum(qwen_k1, "k1_graph_ms"), events_ms=step_sum(qwen_k1, "k1_ms"),
+                 plain_ms=step_sum(qwen_k1, "plain_ms"), bound_ms=step_sum(qwen_k1, "bound_ms"),
+                 bound_by=by_t(qwen_k1, lambda r: r["per_step"]),
+                 library_ms=step_sum(qwen_k1, "int_mm_graph_ms"), library="torch._int_mm, M padded to 32",
+                 gbps=by_gbps(qwen_k1, "k1_graph_ms"), max_abs_err=qw["k1"]["max_err"])),
         dict(name="packed_matmul", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
              replaces="src/repro/kernels/packed_matmul/kernel.py:168",
              launches=blocked["counts"]["packed_matmul"], max_abs_err=max(mm["max_err"], mo["k1"]["max_err"]),

@@ -2,7 +2,8 @@
 
 The same ten architectures as the reference, field for field.  The port
 serves llama3.2-3b, gemma3-1b (its 5:1 sliding windows, geglu and one KV
-head of width 256), mamba2-130m (the SSM family's recurrent state) and
+head of width 256), qwen2-vl-7b (M-RoPE, its decode feeding one position
+to all three streams), mamba2-130m (the SSM family's recurrent state) and
 the two MoE configs (qwen3-moe-30b-a3b and llama4-scout-17b-a16e: routed
 experts in place of the MLP), each held against the reference; the rest
 are data.

@@ -72,16 +72,48 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * params["g"].to(x.dtype)
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10_000.0) -> torch.Tensor:
-    """Standard RoPE.  x: [..., S, H, hd]; positions broadcastable to [..., S]."""
-    hd = x.shape[-1]
-    half = hd // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
-    ang = positions[..., None].to(torch.float32) * freqs
-    cos = torch.cos(ang)[..., None, :].to(x.dtype)
+@functools.lru_cache(maxsize=None)
+def rope_freqs(half: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The ``half`` float32 rotary frequencies ``theta ** (-i / half)``,
+    computed once on the host (as the CPU computes them) and cached on
+    ``device``: every device rotates by the same table, where a device's
+    own ``pow`` one ulp off would move the angle at position p by p ulps.
+    The first call for a device runs outside any graph capture (the
+    engine's step runs eagerly once before it is captured)."""
+    return (theta ** (-torch.arange(0, half, dtype=torch.float32) / half)).to(device)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate the two halves of ``x [..., S, H, hd]`` by ``ang [..., S, hd/2]``
+    (float32), cos and sin cast to ``x.dtype`` first, as the reference."""
+    half = x.shape[-1] // 2
+    cos = torch.cos(ang)[..., None, :].to(x.dtype)  # broadcast over heads
     sin = torch.sin(ang)[..., None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10_000.0) -> torch.Tensor:
+    """Standard RoPE.  x: [..., S, H, hd]; positions broadcastable to [..., S]."""
+    freqs = rope_freqs(x.shape[-1] // 2, theta, x.device)
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)
+
+
+def mrope(x: torch.Tensor, positions3: torch.Tensor, *, theta: float = 10_000.0,
+          sections: tuple[int, int, int] = (2, 1, 1)) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: the half-dim frequency bands split by ``sections``
+    (relative sizes, the last band taking the remainder) across the
+    (temporal, height, width) position streams.  x: [..., S, H, hd];
+    positions3: [..., S, 3].  With three equal streams it is :func:`rope`
+    bit for bit."""
+    half = x.shape[-1] // 2
+    total = sum(sections)
+    bounds = [half * s // total for s in sections]
+    bounds[-1] = half - sum(bounds[:-1])
+    # which of (t, h, w) drives each frequency band
+    sel = torch.cat([torch.full((b,), i, dtype=torch.long, device=x.device) for i, b in enumerate(bounds)])
+    pos = positions3.to(torch.float32)[..., sel]  # [..., S, half]
+    return _rotate(x, pos * rope_freqs(half, theta, x.device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,8 +177,6 @@ def attention_decode_paged(
     position ``pos + j`` (the chunk's own rows included, just written), and
     invalid lanes scatter onto null page 0.  ``lens=None``: every lane is
     valid."""
-    if s.use_mrope:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md, port queue)")
     S, C, d = x.shape
     H, G, hd = s.n_heads, s.kv_heads, s.head_dim
     page_size = pool_k.shape[1]
@@ -158,8 +188,13 @@ def attention_decode_paged(
     k = dense(params["wk"], h, name="attn_k", quant=quant).reshape(S, C, G, hd)
     v = dense(params["wv"], h, name="attn_v", quant=quant).reshape(S, C, G, hd)
     posc = pos[:, None] + torch.arange(C, dtype=torch.int32, device=x.device)[None]  # [S, C]
-    q = rope(q, posc, theta=s.rope_theta)
-    k = rope(k, posc, theta=s.rope_theta)
+    if s.use_mrope:  # the decode feeds one position to all three streams
+        pos3 = posc[..., None].expand(S, C, 3)
+        q = mrope(q, pos3, theta=s.rope_theta)
+        k = mrope(k, pos3, theta=s.rope_theta)
+    else:
+        q = rope(q, posc, theta=s.rope_theta)
+        k = rope(k, posc, theta=s.rope_theta)
     k_rows = k.reshape(S, C, G * hd)
     v_rows = v.reshape(S, C, G * hd)
     if lens is None:

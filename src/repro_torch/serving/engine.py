@@ -87,10 +87,15 @@ pre-step state, which attributes the step's device time to each layer and
 bit pair.  Off, each hook is one ``is not None`` test, and the step adds
 no synchronisation and no timestamp.
 
+``ObsConfig.telemetry_port`` is read by the serve CLI alone
+(:mod:`repro_torch.launch.serve`), which runs a
+:class:`~repro_torch.obs.server.TelemetryServer` around ``run()``; the
+engine never opens a socket.
+
 Not ported yet, and refused where asked for (ROADMAP.md, port queue):
-mesh parallelism ("Mesh"), the reference's flat observability keywords
-(``EngineConfig(attrib_every=...)``; use ``obs=ObsConfig(...)``) and
-``ObsConfig.telemetry_port``, which only the serve CLI reads.
+mesh parallelism ("Mesh"; ``EngineConfig.from_cli`` refuses ``--mesh``)
+and the reference's flat observability keywords
+(``EngineConfig(attrib_every=...)``; use ``obs=ObsConfig(...)``).
 """
 from __future__ import annotations
 
@@ -125,7 +130,7 @@ WATCHDOG_TICKS = 64
 
 @dataclasses.dataclass(frozen=True)
 class ObsConfig:
-    """Observability knobs (the reference's, without ``telemetry_port``)."""
+    """Observability knobs (the reference's)."""
 
     # > 0: every N steps, re-run the step segment by segment on a copy of
     # its pre-step state and attribute device time to each layer and bit
@@ -136,6 +141,16 @@ class ObsConfig:
     # > 0 with run(trace=<path>): rewrite the partial trace to disk every
     # N steps, so a crashed run still leaves a loadable trace behind
     trace_checkpoint_every: int = 0
+    # the serve CLI's /metrics, /livez and /trace port (0: an ephemeral
+    # one) for the duration of its run; None: no server.  The engine
+    # itself never reads it.
+    telemetry_port: int | None = None
+
+
+# EngineConfig.from_cli's answer to a mesh: one replica only, until the
+# ROADMAP.md port queue item it names
+MESH_REFUSAL = ("--mesh: mesh parallelism is not ported yet; it waits for ROADMAP.md port queue "
+                "item 5 (Mesh)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,6 +188,41 @@ class EngineConfig:
 
     def pool_pages(self) -> int:
         return self.n_pages or self.n_slots * self.blocks_per_slot + 1
+
+    @classmethod
+    def from_cli(cls, args) -> "EngineConfig":
+        """An EngineConfig from an argparse namespace (the serve CLI's flag
+        set), field for field the reference's: missing attributes take the
+        field defaults, so partial namespaces work.  A ``mesh`` spec is
+        refused (``SystemExit``): one replica only."""
+        g = lambda name, default: getattr(args, name, default)  # noqa: E731
+        if g("mesh", None) is not None:
+            raise SystemExit(MESH_REFUSAL)
+        packed = bool(g("packed", False))
+        return cls(
+            n_slots=g("batch", 8),
+            page_size=g("page_size", 16),
+            max_len=g("max_len", 128),
+            n_pages=g("pages", 0),
+            chunk_tokens=g("chunk_tokens", 1),
+            admit=g("admit", "reserve"),
+            packed_head=bool(g("packed_head", False)),
+            head_bits=(g("wbits", 8), g("abits", 8)) if packed else (8, 8),
+            max_waiting=g("max_waiting", 0),
+            gather_backend=g("gather_backend", "xla"),
+            obs=ObsConfig(
+                attrib_every=g("attrib_every", 0),
+                attrib_reps=g("attrib_reps", 1),
+                trace_checkpoint_every=g("trace_checkpoint_every", 0),
+                telemetry_port=g("telemetry_port", None),
+            ),
+            chaos=ChaosConfig(
+                seed=g("chaos_seed", 0),
+                step_fault_rate=g("chaos_step_rate", 0.0),
+                alloc_fault_rate=g("chaos_alloc_rate", 0.0),
+                nan_rate=g("chaos_nan_rate", 0.0),
+            ),
+        )
 
 
 class StepProgram:

@@ -30,6 +30,16 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serving import EngineConfig, build_engine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU engine on one intra-op thread (at the smoke size
+    thread hand-offs cost more than the arithmetic); the count is restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 C = 4
 # slot geometry for the layer test (page size 8, 4 blocks, so T = 32):
 # slot 0 inactive (lens 0, all-null row); slot 1 decodes at position 30,

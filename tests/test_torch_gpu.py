@@ -1478,3 +1478,78 @@ def test_obs_mamba_attribution_restores_each_rep(cuda, monkeypatch, planted):
     eng.close()
     assert m["statuses"] == {"ok": 3} and len(equal) == m["steps"]
     assert not any(equal) if planted else all(equal)
+
+
+# -- qwen2-vl-7b's M-RoPE and the serve CLI ------------------------------------------------
+
+MROPE_ATOL = 1e-4  # float32 pow/cos/sin of the card against the CPU's (see tests/test_torch_mrope.py)
+
+
+@pytest.mark.parametrize("sections", [(2, 1, 1), (3, 2, 2)], ids=["2x1x1", "3x2x2"])
+@pytest.mark.parametrize("hd", [16, 128])
+def test_mrope_on_the_card_matches_the_cpu(cuda, hd, sections):
+    """M-RoPE at distinct (t, h, w) streams (t up to 4095, h and w under 64),
+    float32 and bfloat16, on the card against the CPU; ``rope`` on the
+    temporal stream (a planted fault) misses by far more."""
+    from repro_torch.models import layers as L
+
+    g = np.random.default_rng(hd)
+    x = torch.from_numpy(g.normal(size=(8, 16, 4, hd)).astype(np.float32))
+    pos3 = torch.from_numpy(np.stack([g.integers(0, 4096, (8, 16)), g.integers(0, 64, (8, 16)),
+                                      g.integers(0, 64, (8, 16))], axis=-1).astype(np.int32))
+    want = L.mrope(x, pos3, theta=1e6, sections=sections)
+    got = L.mrope(x.to(cuda), pos3.to(cuda), theta=1e6, sections=sections).cpu()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=MROPE_ATOL)
+    planted = L.rope(x.to(cuda), pos3[..., 0].to(cuda), theta=1e6).cpu()
+    assert (planted - want).abs().max() > 100 * MROPE_ATOL
+    xb = x.to(torch.bfloat16)
+    got_b = L.mrope(xb.to(cuda), pos3.to(cuda), theta=1e6, sections=sections).cpu().float()
+    want_b = L.mrope(xb, pos3, theta=1e6, sections=sections).float()
+    np.testing.assert_allclose(got_b.numpy(), want_b.numpy(), rtol=0, atol=2 ** -7 * 8)
+
+
+def test_serve_cli_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """``repro_torch.launch.serve.main`` on qwen2-vl-7b at its smoke size,
+    float32, w4a4 projections and the float head, on the card and with
+    ``--device cpu`` on the same weights and prompts: on the card one
+    capture, K1 counted (its graph's launches times the steps), and the
+    tokens equal the CPU's up to a tie (a top-2 gap under TIE_BOUND: an
+    activation-level flip moves a logit by about 0.1 at most)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    tie_bound = 0.25
+    monkeypatch.setattr(serve, "get_config", lambda *a, **k: dataclasses.replace(
+        get_config(*a, **k), dtype=torch.float32))
+    monkeypatch.setattr(serve, "init_params", lambda cfg, seed, device: T.map_leaves(
+        T.init_params(cfg, seed=seed, device="cpu"), lambda a: a.to(device)))
+    inner, runs = serve.build_engine, {}
+
+    def catching(*a, **kw):
+        eng = inner(*a, **kw)
+        rows = {}
+        eng.on_sample = lambda rid, t, row, rows=rows: rows.__setitem__((rid, t), row.copy())
+        runs[str(kw["device"])] = (eng, rows)
+        return eng
+
+    monkeypatch.setattr(serve, "build_engine", catching)
+    argv = ["--arch", "qwen2-vl-7b", "--packed", "--batch", "3", "--tokens", "6", "--max-len", "32",
+            "--prompt-len", "7", "--requests", "5"]
+    out_c = serve.main(argv + ["--device", "cpu"])
+    build.reset_counts()
+    out_g = serve.main(argv)
+    counts = build.counts()
+    (eng_c, rows_c), (eng_g, rows_g) = runs["cpu"], runs["cuda"]
+    assert out_g["statuses"] == out_c["statuses"] == {"ok": 5} and out_g["steps"] == out_c["steps"]
+    prog = eng_g._program
+    assert prog.captures == 1 and prog.graph is not None
+    assert prog.launches == {"packed_dense_fused": eng_g.cfg.n_layers * 7}
+    assert counts == {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": prog.launches[
+        "packed_dense_fused"] * out_g["steps"]}
+    toks_c = {r.rid: r.out_tokens for r in eng_c.finished}
+    for r in eng_g.finished:
+        theirs = toks_c[r.rid]
+        div = next((t for t in range(len(theirs)) if r.out_tokens[t] != theirs[t]), None)
+        if div is not None:
+            top2 = np.sort(rows_c[(r.rid, div)])[-2:]
+            assert top2[1] - top2[0] < tie_bound, (r.rid, div, top2)

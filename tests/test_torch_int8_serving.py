@@ -42,6 +42,16 @@ from repro_torch.plan import uniform_plan
 from repro_torch.serving import EngineConfig, build_engine
 from repro_torch.serving.api import quantize_params_int8
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU engine on one intra-op thread (at the smoke size
+    thread hand-offs cost more than the arithmetic); the count is restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 KV_FLIP_SHARE = 1e-3
 SCALE_RTOL = 1e-5
 

@@ -55,6 +55,16 @@ from repro_torch.plan import autotune, compile as plan_compile, search
 from repro_torch.serving import EngineConfig, build_engine
 from repro_torch.serving.api import quantize_params_packed
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU engine on one intra-op thread (at the smoke size
+    thread hand-offs cost more than the arithmetic); the count is restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCH = "llama3.2-3b"
 FIXTURE_BITS = [(8, 8), (5, 4), (3, 2)]

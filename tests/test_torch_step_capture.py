@@ -22,6 +22,16 @@ from test_torch_model import _recording, shared  # noqa: F401 (shared: fixture)
 from repro_torch.models import transformer as T
 from repro_torch.serving import Engine, EngineConfig, build_engine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU engine on one intra-op thread (at the smoke size
+    thread hand-offs cost more than the arithmetic); the count is restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 # the forced-preemption fixture of tests/test_torch_chunked.py (5 usable
 # pages of 4 tokens for 3 requests of worst case 4-5 pages each)
 PREEMPT_KW = dict(n_slots=3, page_size=4, max_len=32, n_pages=6, chunk_tokens=4, admit="on-demand")
