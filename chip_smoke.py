@@ -283,6 +283,26 @@ Phases, all on the card:
    ``rope`` while the CPU runs ``mrope``; beside it, not a gate, the w_down
    input levels that differ between the card and the CPU when the MLP is
    packed.
+20. The fixed-batch decode loop (``--engine static``) through the serve
+   CLI in-process, at full width, nothing cut: ``main(["--arch", arch,
+   *STATIC_FLAGS])`` (w4a4, the packed (4, 4) head, 8 sequences, a
+   256-token cache, 32 greedy tokens) for whisper-tiny (encdec: its
+   encoder once over 16 random frames a sequence, then cross-attention in
+   every decoder layer) and zamba2-1.2b (hybrid: 38 mamba2 layers, the
+   shared attention block after every 6 on one KV cache), both static by
+   default.  K1 at each step's shapes (M = 8, the head included; whisper's
+   encoder at M = 128) against its plain version, timed by graph beside its
+   bound and ``torch._int_mm``.  (a)/(b) the serve: the counters (zeroed
+   just before ``main``) K1 a step times 32 (plus whisper's 32 encoder
+   launches), one capture whose K1 nodes equal its launches, every row
+   finite; tok/s and ms a step as the CLI prints them, one replay's device
+   time.  (e) every step's logits bit-identical to a ``capture=False`` run
+   on the same weights.  (d) the card against the CPU at float32 on
+   ``STATIC_CROSS``'s cut (whisper 2 + 2 layers; zamba2 3 layers at k = 2,
+   two applications a step) over 6 steps, and two planted faults those
+   checks must reject: the shared block on a KV cache per application, the
+   encdec step without cross-attention.  (c) llama3.2-3b ``--engine
+   static`` beside phase 4's continuous cell.
 
 Every engine's graph and memory pool is released before the next engine
 is built, and each phase prints its peak device memory.
@@ -863,13 +883,13 @@ def _serve(torch, eng, prompts, max_new: int) -> tuple[dict, dict, float]:
     return metrics, build.counts(), wall
 
 
-def graph_replay_ms(torch, eng, reps: int = 20) -> float:
-    """Device time of one replay of an engine's captured step after its
-    run (median of ``reps`` event pairs on the engine's stream): the step's
-    device time with no host between its kernels.  The replays repeat the
-    last step on pages the finished run no longer holds, and are not
-    counted."""
-    prog = eng._program
+def replay_ms(torch, prog, reps: int = 20) -> float:
+    """Device time of one replay of a captured step (an engine's
+    ``StepProgram`` or the static loop's ``StaticStep``) after its run:
+    the median of ``reps`` event pairs on its stream, the step's device
+    time with no host between its kernels.  The replays repeat the last
+    step (the engine's on pages the finished run no longer holds) and are
+    not counted."""
     pairs = []
     with torch.cuda.stream(prog.stream):
         for _ in range(reps):
@@ -881,6 +901,11 @@ def graph_replay_ms(torch, eng, reps: int = 20) -> float:
     torch.cuda.synchronize()
     vals = sorted(a.elapsed_time(b) for a, b in pairs)
     return vals[len(vals) // 2]
+
+
+def graph_replay_ms(torch, eng, reps: int = 20) -> float:
+    """:func:`replay_ms` of an engine's captured step."""
+    return replay_ms(torch, eng._program, reps)
 
 
 def phase_engine(torch, cfg, ecfg, report: dict) -> dict:
@@ -4612,6 +4637,307 @@ def phase_qwen(torch, card, report: dict) -> dict:
     return out
 
 
+# -- phase 20 ------------------------------------------------------------------
+
+# phase 20's cells: the fixed-batch decode loop (--engine static) through the
+# serve CLI in-process, as an operator runs it: w4a4 projections, the packed
+# (4, 4) head, 8 sequences, a 256-token cache, 32 greedy tokens from one
+# random token a sequence (seed 2; whisper-tiny's 16 encoder frames a
+# sequence from seed 1), nothing cut.  whisper-tiny ([arXiv:2212.04356]:
+# 4 + 4 layers, d 384, 6 heads, d_ff 1536, vocab 51968, gelu) and
+# zamba2-1.2b ([arXiv:2411.15242]: 38 mamba2 layers, d 2048, state 64, one
+# shared attention + MLP block after every 6, 32 heads, d_ff 8192, vocab
+# 32000) default to the static engine; llama3.2-3b runs it beside phase 4's
+# continuous cell
+STATIC_ARCHS = ("whisper-tiny", "zamba2-1.2b")
+STATIC_FLAGS = ["--full", "--packed", "--wbits", "4", "--abits", "4", "--packed-head", "--batch", "8",
+                "--max-len", "256", "--tokens", "32"]
+STATIC_BATCH, STATIC_TOKENS = 8, 32
+# (d): the card against the CPU at float32, at full width and cut depth:
+# whisper-tiny 2 + 2 layers; zamba2 3 mamba layers at k = 2 (segments of 2
+# and 1, so the shared block runs twice a step on its one KV cache); 6
+# steps fed the CPU's greedy tokens, float32 caches; each row within
+# STATIC_CROSS_REL_TOL relative L2 (float32 sum orders of cuBLAS and the
+# CPU), greedy tokens equal where the CPU's top-2 gap exceeds twice the
+# row's largest difference
+STATIC_CROSS = {"whisper-tiny": dict(n_layers=2, enc_layers=2), "zamba2-1.2b": dict(n_layers=3, hybrid_attn_every=2)}
+STATIC_CROSS_STEPS = 6
+STATIC_CROSS_REL_TOL = 1e-4
+
+
+def static_matmul_shapes(cfg) -> dict[str, dict[str, tuple[int, int, int]]]:
+    """name -> (K, N, launches) of every packed matmul of a static step at
+    M = batch rows ("step", launches a step), and of whisper's encoder at
+    M = batch x 16 frames ("encoder", launches a serve: each encoder
+    layer's four attention projections and MLP, each decoder layer's cross
+    K/V).  zamba2's in_dt stays float (``PROJ_WEIGHT_RE`` packs no
+    in_dt): its row holds K1 at that shape at 0 launches."""
+    d, hd = cfg.d_model, cfg.hd
+    if cfg.family == "encdec":
+        L_, E = cfg.n_layers, cfg.enc_layers
+        return {"step": {"wq|wk|wv|wo|xq|xo": (d, cfg.n_heads * hd, 6 * L_), "w_up": (d, cfg.d_ff, L_),
+                         "w_down": (cfg.d_ff, d, L_), "head": (d, cfg.vocab, 1)},
+                "encoder": {"wq|wk|wv|wo|xk|xv": (d, cfg.n_heads * hd, 4 * E + 2 * L_), "w_up": (d, cfg.d_ff, E),
+                            "w_down": (cfg.d_ff, d, E)}}
+    s, apps = cfg.ssm_spec(), -(-cfg.n_layers // cfg.hybrid_attn_every)
+    return {"step": {"in_z": (d, s.d_inner, cfg.n_layers), "in_xbc": (d, s.d_inner + 2 * s.d_state, cfg.n_layers),
+                     "in_dt (float)": (d, s.n_heads, 0), "out_proj": (s.d_inner, d, cfg.n_layers),
+                     "wq|wk|wv|wo": (d, cfg.n_heads * hd, 4 * apps), "w_up|w_gate": (d, cfg.d_ff, 2 * apps),
+                     "w_down": (cfg.d_ff, d, apps), "head": (d, cfg.vocab, 1)}}
+
+
+@contextlib.contextmanager
+def caught_static_steps(torch, serve, record: bool = True):
+    """Every ``StaticStep`` the serve CLI makes while the block runs, kept
+    in the yielded list with its graph (``close`` deferred to the block's
+    end), each step's logits cloned on the step's stream into its ``rows``
+    (``record``)."""
+    inner, caught = serve.StaticStep, []
+
+    class Caught(inner):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.rows = []
+            if record:
+                self.on_step = lambda t, logits: self.rows.append(logits.clone())
+            caught.append(self)
+
+        def close(self):  # the phase times a replay first
+            pass
+
+    serve.StaticStep = Caught
+    try:
+        yield caught
+    finally:
+        serve.StaticStep = inner
+        for step in caught:
+            inner.close(step)
+
+
+def _static_cli(torch, serve, argv: list, per_step: int, per_serve: int, what: str) -> dict:
+    """One static serve through ``serve.main(argv)``: the counters zeroed
+    just before and read just after (K1 ``per_step`` a step times the
+    steps, plus ``per_serve`` once: whisper's encoder), one capture whose
+    graph's K1 nodes equal its launches, every row finite; tok/s and ms a
+    step as the CLI prints them, one replay's device time, peak memory."""
+    from repro_torch.kernels import build
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with caught_static_steps(torch, serve) as caught:
+        torch.cuda.synchronize()
+        build.reset_counts()  # the main path's run starts here
+        t0 = time.monotonic()
+        m = serve.main(list(argv))
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = build.counts()
+        (step,) = caught
+        want = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": per_step * STATIC_TOKENS + per_serve}
+        check(counts == want, f"{what}: launch counters {counts} != {want}")
+        check(step.captures == 1 and step.launches == {"packed_dense_fused": per_step},
+              f"{what}: {step.captures} captures launching {step.launches} a replay, not {per_step} K1")
+        census = build.graph_census(step.graph)
+        ours = {k: v for k, v in census["kernels"].items() if k != "other"}
+        check(ours == {"packed_dense_fused": per_step}, f"{what}: the graph's port kernel nodes {ours}")
+        rows = torch.stack(step.rows).cpu()
+        check(tuple(rows.shape) == (STATIC_TOKENS, STATIC_BATCH, step.cfg.vocab) and bool(torch.isfinite(rows).all()),
+              f"{what}: logits {tuple(rows.shape)}, finite {bool(torch.isfinite(rows).all())}")
+        replay = replay_ms(torch, step)
+        out = dict(wall_s=wall, tokens_per_s=m["tokens_per_s"], latency_ms_per_step=m["latency_ms_per_step"],
+                   replay_ms=replay, counts=counts, per_step=per_step, per_serve=per_serve,
+                   graph={k: v for k, v in census.items() if k != "families"},
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, rows=rows, params=step.params,
+                   head=step.head, cfg=step.cfg)
+    return out
+
+
+def _static_eager_rows(torch, serve, cfg, params, head):
+    """The same serve with ``capture=False`` on the same weights (every step
+    eager on the step's buffers): its logits, step by step."""
+    import argparse
+
+    args = argparse.Namespace(device="cuda", batch=STATIC_BATCH, max_len=256, tokens=STATIC_TOKENS)
+    with caught_static_steps(torch, serve) as caught:
+        serve._serve_static(args, cfg, params, head, capture=False)
+        torch.cuda.synchronize()
+        (step,) = caught
+        check(step.graph is None and step.captures == 0, "capture=False captured")
+        return torch.stack(step.rows).cpu()
+
+
+@contextlib.contextmanager
+def static_plant(torch, kind: str | None, apps: int = 1):
+    """A planted fault on the card's side only (CUDA tensors): ``"shared"``
+    gives each of the ``apps`` applications of the hybrid's shared block a
+    KV cache of its own; ``"xattn"`` skips the encdec layers'
+    cross-attention."""
+    from repro_torch.models import layers as L
+
+    inner_attn, inner_x, own, calls = L.attention_decode, L.cross_attention, {}, [0]
+
+    def per_application(params, s, x, cache_k, cache_v, pos, **kw):
+        if not x.is_cuda:
+            return inner_attn(params, s, x, cache_k, cache_v, pos, **kw)
+        j = calls[0] % apps
+        calls[0] += 1
+        if j not in own:
+            own[j] = (torch.zeros_like(cache_k), torch.zeros_like(cache_v))
+        return inner_attn(params, s, x, *own[j], pos, **kw)
+
+    def skipped(params, s, x, enc_kv, **kw):
+        return x if x.is_cuda else inner_x(params, s, x, enc_kv, **kw)
+
+    if kind == "shared":
+        L.attention_decode = per_application
+    elif kind == "xattn":
+        L.cross_attention = skipped
+    try:
+        yield
+    finally:
+        L.attention_decode, L.cross_attention = inner_attn, inner_x
+
+
+def static_crosscheck(torch, arch: str, plant: str | None = None) -> dict:
+    """The card against the CPU at float32 on :data:`STATIC_CROSS`'s cut of
+    ``arch`` (same params from seed 1, made on the CPU and copied; float32
+    caches of 64 rows; whisper: the CLI's 16 encoder frames a sequence
+    encoded on each side): ``STATIC_CROSS_STEPS`` steps, both fed the CPU's
+    greedy tokens.  Every row within STATIC_CROSS_REL_TOL relative L2 and
+    the greedy token equal where the CPU's top-2 gap exceeds twice the
+    row's largest difference; the caches at the end too.  ``plant``: see
+    :func:`static_plant`."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32, **STATIC_CROSS[arch])
+    cpu = T.init_params(cfg, seed=1, device="cpu")
+    params = {"cpu": cpu, "cuda": T.map_leaves(cpu, lambda a: a.to("cuda"))}
+    caches = {dev: T.init_cache(cfg, STATIC_BATCH, 64, dtype=torch.float32, enc_len=16, device=dev)
+              for dev in params}
+    enc, tok = serve._static_inputs(cfg, STATIC_BATCH, 16)
+    if cfg.family == "encdec":
+        for dev in params:
+            caches[dev].update(T.encode_for_decode(params[dev], cfg, enc.to(dev)))
+    rel, flips = [], 0
+    with static_plant(torch, plant, apps=len(T._hybrid_segments(cfg)) if cfg.family == "hybrid" else 1):
+        for t in range(STATIC_CROSS_STEPS):
+            g, _ = T.forward_decode(params["cuda"], cfg, caches["cuda"], tok.cuda(), t)
+            c, _ = T.forward_decode(params["cpu"], cfg, caches["cpu"], tok, t)
+            g = g.cpu()
+            check(bool(torch.isfinite(g).all()), f"cross-check ({arch}): non-finite logits at step {t}")
+            r = (torch.linalg.vector_norm(g - c, dim=-1) / torch.linalg.vector_norm(c, dim=-1)).max().item()
+            rel.append(r)
+            check(r <= STATIC_CROSS_REL_TOL, f"cross-check ({arch}): step {t} rows differ by {r:.3g} relative L2")
+            top2 = torch.topk(c, 2, dim=-1).values
+            decided = (top2[:, 0] - top2[:, 1]) > 2 * (g - c).abs().max(dim=-1).values
+            flips += int(((g.argmax(-1) != c.argmax(-1)) & decided).sum())
+            check(flips == 0, f"cross-check ({arch}): greedy tokens differ where decided at step {t}")
+            tok = c.argmax(-1, keepdim=True).to(torch.int32)
+    cache_rel = {k: ((caches["cuda"][k].cpu() - v).norm() / v.norm().clamp_min(1e-30)).item()
+                 for k, v in caches["cpu"].items()}
+    check(max(cache_rel.values()) <= STATIC_CROSS_REL_TOL, f"cross-check ({arch}): caches differ {cache_rel}")
+    return dict(cfg=STATIC_CROSS[arch], steps=STATIC_CROSS_STEPS, rel_l2_max=max(rel), rel_l2=rel,
+                cache_rel_l2=cache_rel)
+
+
+def phase_static(torch, card, fused: dict, report: dict) -> dict:
+    """The fixed-batch loop (``--engine static``) through
+    ``repro_torch.launch.serve.main`` in-process, at full width, nothing
+    cut.  For whisper-tiny and zamba2-1.2b: K1 at the step's shapes (M =
+    8; whisper's encoder at M = 128) against its plain version, timed by
+    graph beside its bound and ``torch._int_mm``; (a)/(b) the CLI's serve
+    (the counters zeroed just before ``main``, one capture whose K1 nodes
+    equal its launches, every row finite, tok/s and ms a step as the CLI
+    prints them, one replay's device time); (e) the captured run's logits
+    against a ``capture=False`` run's on the same weights, bit for bit.
+    (c) llama3.2-3b ``--engine static`` beside phase 4's continuous cell
+    (8 sequences, 32 new tokens; phase 4 also prefills 16-64 prompt
+    tokens a request).  (d) the card against the CPU at float32, cut in
+    depth (:data:`STATIC_CROSS`), and two planted faults those checks must
+    reject: the hybrid's shared block on a KV cache per application, and
+    the encdec step without its cross-attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    t_phase = time.monotonic()
+    out: dict = {}
+    for arch, label, plant in (("whisper-tiny", "a", "xattn"), ("zamba2-1.2b", "b", "shared")):
+        t0 = time.monotonic()
+        cfg = get_config(arch)
+        shapes = static_matmul_shapes(cfg)
+        per_step = sum(n for _, _, n in shapes["step"].values())
+        per_serve = sum(n for _, _, n in shapes.get("encoder", {}).values())
+        timer = Timer(torch)
+        print(f"  K1 at {arch}'s static step shapes (M = {STATIC_BATCH}, the head included):", flush=True)
+        k1 = phase_matmul_chunk(torch, card, timer, cfg, STATIC_BATCH, report, key=f"static_matmul_{arch}",
+                                head_m=STATIC_BATCH, shapes=shapes["step"])
+        if "encoder" in shapes:
+            print(f"  K1 at {arch}'s encoder shapes (M = {STATIC_BATCH} x 16 frames, once a serve):", flush=True)
+            enc = phase_matmul_chunk(torch, card, timer, cfg, STATIC_BATCH * 16, report,
+                                     key=f"static_encoder_{arch}", shapes=shapes["encoder"])
+            k1["encoder_rows"] = enc["rows"]
+            k1["max_err"] = max(k1["max_err"], enc["max_err"])
+        del timer
+        argv = ["--arch", arch, *STATIC_FLAGS]
+        r = _static_cli(torch, serve, argv, per_step, per_serve, f"({label}) {arch}")
+        rows = k1["rows"]
+        r.update(k1_ms=sum(x["k1_graph_ms"] * x["per_step"] for x in rows),
+                 k1_bound_ms=sum(x["bound_ms"] * x["per_step"] for x in rows),
+                 k1_int_mm_ms=sum(x["int_mm_graph_ms"] * x["per_step"] for x in rows))
+        print(f"  ({label}) serve CLI, {arch} full width, --engine static (its default): {STATIC_TOKENS} steps "
+              f"of {STATIC_BATCH}: {r['tokens_per_s']:.1f} tok/s, {r['latency_ms_per_step']:.3f} ms a step as the "
+              f"CLI prints them; one replay {r['replay_ms']:.3f} ms of device time; K1 {r['k1_ms']:.3f} ms a step by "
+              f"graph against its bound {r['k1_bound_ms']:.3f} ms and _int_mm {r['k1_int_mm_ms']:.3f}; launches "
+              f"{r['counts']} ({per_step} a step x {STATIC_TOKENS} + {per_serve} once); graph nodes {r['graph']}; "
+              f"one capture; peak memory {r['peak_mem_gb']:.2f} GB; {r['wall_s']:.1f} s with the build", flush=True)
+        # (e) captured against capture=False, bit for bit
+        eager = _static_eager_rows(torch, serve, r.pop("cfg"), r.pop("params"), r.pop("head"))
+        captured = r.pop("rows")
+        n_diff = int((eager != captured).any(dim=-1).sum())
+        check(n_diff == 0, f"(e) {arch}: {n_diff} of {STATIC_TOKENS * STATIC_BATCH} rows of the captured run differ "
+                           f"from capture=False's")
+        print(f"  (e) {arch}: captured rows bit-identical to capture=False's ({STATIC_TOKENS} steps x "
+              f"{STATIC_BATCH})", flush=True)
+        del eager, captured
+        torch.cuda.empty_cache()
+        # (d) the card against the CPU, and the planted fault
+        d = static_crosscheck(torch, arch)
+        try:
+            static_crosscheck(torch, arch, plant=plant)
+            fault = None
+        except PhaseError as e:
+            fault = str(e)
+        check(fault is not None and fault.startswith("cross-check"),
+              f"(d) {arch}: the checks pass the planted fault {plant!r}")
+        d["fault"] = fault
+        print(f"  (d) {arch} card vs CPU at {STATIC_CROSS[arch]}: rows within {d['rel_l2_max']:.3g} relative L2 "
+              f"(tolerance {STATIC_CROSS_REL_TOL}), caches {max(d['cache_rel_l2'].values()):.3g}; planted "
+              f"{'per-application KV cache' if plant == 'shared' else 'skipped cross-attention'} rejected: {fault}",
+              flush=True)
+        r["d"], r["k1"], r["phase_s"] = d, k1, time.monotonic() - t0
+        out[arch] = r
+    # (c) llama3.2-3b static beside phase 4's continuous cell
+    t0 = time.monotonic()
+    cfg = get_config("llama3.2-3b")
+    c = _static_cli(torch, serve, ["--arch", "llama3.2-3b", "--engine", "static", *STATIC_FLAGS],
+                    cfg.n_layers * 7 + 1, 0, "(c) llama3.2-3b")
+    for k in ("rows", "params", "head", "cfg"):
+        c.pop(k)
+    c["continuous"] = {k: fused[k] for k in ("step_ms_p50", "tokens_per_s", "replay_ms")}
+    c["phase_s"] = time.monotonic() - t0
+    out["llama3.2-3b"] = c
+    print(f"  (c) llama3.2-3b full width --engine static: {c['tokens_per_s']:.1f} tok/s, "
+          f"{c['latency_ms_per_step']:.3f} ms a step, one replay {c['replay_ms']:.3f} ms; phase 4's continuous "
+          f"cell: step p50 {fused['step_ms_p50']:.3f} ms, {fused['tokens_per_s']:.1f} tok/s (prefill included), one "
+          f"replay {fused['replay_ms']:.3f} ms; {c['phase_s']:.1f} s", flush=True)
+    out["phase_s"] = time.monotonic() - t_phase
+    print(f"  phase 20 on {card.name} ({card.power_limit}): {out['phase_s']:.1f} s", flush=True)
+    report["static"] = out
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -4784,6 +5110,12 @@ def main(argv=None) -> int:
           f"position {QWEN_CROSS['pos0']} with a rope-for-mrope planted fault", flush=True)
     qw = phase_qwen(torch, card, report)
     peak("19")
+    print(f"phase 20: the fixed-batch loop (--engine static) through the serve CLI at full width: "
+          f"{', '.join(STATIC_ARCHS)} (their default engine; {' '.join(STATIC_FLAGS)}) with K1 at their shapes, "
+          f"captured against capture=False, card vs CPU with two planted faults; llama3.2-3b --engine static beside "
+          f"phase 4's continuous cell", flush=True)
+    st = phase_static(torch, card, en["fused"], report)
+    peak("20")
 
     # per-decode-step totals per kernel: the sum over the launches of one step
     def step_sum(rows, key):
@@ -4818,6 +5150,7 @@ def main(argv=None) -> int:
     moe_k = [r for r in mo["k1"]["rows"] if r["M"] == max(MOE_KERNEL_M)]
     moe_k1_decode = [r for r in mo["k1"]["rows"] if r["M"] == min(MOE_KERNEL_M)]
     qwen_k1 = qw["k1"]["rows"]  # phase 19's C = 1 step: 28 layers x 7 and the head, M = 8
+    whisper, zamba = st["whisper-tiny"], st["zamba2-1.2b"]  # phase 20's static steps, M = 8
     chunked_launches = {k: {admit: r["counts"][k] for admit, r in ch.items()}
                         for k in ("packed_dense_fused", "paged_gather")}
 
@@ -4845,7 +5178,8 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/packed_matmul/kernel.py:111",
              launches=fused["counts"]["packed_dense_fused"],
              max_abs_err=max(mm["max_err"], mm_chunk["max_err"], gm["k1"]["max_err"], mb["k1"]["max_err"],
-                             mo["k1"]["max_err"], qw["k1"]["max_err"]),
+                             mo["k1"]["max_err"], qw["k1"]["max_err"], whisper["k1"]["max_err"],
+                             zamba["k1"]["max_err"]),
              ms=step_sum(served, "k1_graph_ms"), events_ms=step_sum(served, "k1_ms"),
              plain_ms=step_sum(served, "plain_ms"),
              bound_ms=step_sum(served, "bound_ms"), bound_by=by_t(served, lambda r: r["per_step"]),
@@ -4911,7 +5245,27 @@ def main(argv=None) -> int:
                  plain_ms=step_sum(qwen_k1, "plain_ms"), bound_ms=step_sum(qwen_k1, "bound_ms"),
                  bound_by=by_t(qwen_k1, lambda r: r["per_step"]),
                  library_ms=step_sum(qwen_k1, "int_mm_graph_ms"), library="torch._int_mm, M padded to 32",
-                 gbps=by_gbps(qwen_k1, "k1_graph_ms"), max_abs_err=qw["k1"]["max_err"])),
+                 gbps=by_gbps(qwen_k1, "k1_graph_ms"), max_abs_err=qw["k1"]["max_err"]),
+             **{f"launches_static_{key}": st[arch]["counts"]["packed_dense_fused"]
+                for key, arch in (("whisper", "whisper-tiny"), ("zamba2", "zamba2-1.2b"), ("llama", "llama3.2-3b"))},
+             steps_static=STATIC_TOKENS,
+             **{key: dict(
+                 per=per, ms=step_sum(r["k1"]["rows"], "k1_graph_ms"), events_ms=step_sum(r["k1"]["rows"], "k1_ms"),
+                 plain_ms=step_sum(r["k1"]["rows"], "plain_ms"), bound_ms=step_sum(r["k1"]["rows"], "bound_ms"),
+                 bound_by=by_t(r["k1"]["rows"], lambda x: x["per_step"]),
+                 library_ms=step_sum(r["k1"]["rows"], "int_mm_graph_ms"), library="torch._int_mm, M padded to 32",
+                 gbps=by_gbps(r["k1"]["rows"], "k1_graph_ms"), max_abs_err=r["k1"]["max_err"],
+                 **({"encoder_ms": step_sum(r["k1"]["encoder_rows"], "k1_graph_ms"),
+                     "encoder_bound_ms": step_sum(r["k1"]["encoder_rows"], "bound_ms"),
+                     "encoder_library_ms": step_sum(r["k1"]["encoder_rows"], "int_mm_graph_ms")}
+                    if "encoder_rows" in r["k1"] else {}))
+                for key, r, per in (
+                    ("whisper", whisper, "whisper-tiny static step (phase 20, through the serve CLI): q, k, v, o, "
+                     "cross q, o 384x384, w_up 384x1536, w_down 1536x384 of 4 layers and the head 384x51968, M = 8; "
+                     "encoder_*: once a serve, the encoder's projections and cross K/V at M = 128"),
+                    ("zamba2", zamba, "zamba2-1.2b static step (phase 20, through the serve CLI): in_z 2048x4096, "
+                     "in_xbc 2048x4224, out_proj 4096x2048 of 38 layers; the shared block's wq|wk|wv|wo 2048x2048, "
+                     "w_up|w_gate 2048x8192, w_down 8192x2048, 7 applications; the head 2048x32000; M = 8"))}),
         dict(name="packed_matmul", route="cuda", source="src/repro_torch/csrc/packed_matmul.cu",
              replaces="src/repro/kernels/packed_matmul/kernel.py:168",
              launches=blocked["counts"]["packed_matmul"], max_abs_err=max(mm["max_err"], mo["k1"]["max_err"]),

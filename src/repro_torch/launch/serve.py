@@ -1,15 +1,25 @@
-"""Serving CLI (``repro.launch.serve``) on one device: the continuous-batching engine.
+"""Serving CLI (``repro.launch.serve``) on one device: the continuous-batching
+engine (default for the attn and ssm families) or the fixed-batch decode
+loop (``--engine static``, default for the encdec and hybrid families).
 
-Requests, synthesized here from ``--batch``/``--prompt-len``/``--tokens``
-(``--requests`` of them, by default twice the batch), flow through the
-admission scheduler of :class:`repro_torch.serving.Engine` into a paged
-KV (or SSM) state, and one captured step advances every active slot per
-iteration, refilling slots as sequences finish.  ``--chunk-tokens N``
-prefills prompts N tokens a step, and ``--admit on-demand`` grows pages
-just in time, preempting the lowest-progress request when the pool runs
-dry.  Engine construction goes through
-:func:`repro_torch.serving.build_engine`; weights are random, from
+Continuous: requests, synthesized here from
+``--batch``/``--prompt-len``/``--tokens`` (``--requests`` of them, by
+default twice the batch), flow through the admission scheduler of
+:class:`repro_torch.serving.Engine` into a paged KV (or SSM) state, and
+one captured step advances every active slot per iteration, refilling
+slots as sequences finish.  ``--chunk-tokens N`` prefills prompts N tokens
+a step, and ``--admit on-demand`` grows pages just in time, preempting the
+lowest-progress request when the pool runs dry.  Engine construction goes
+through :func:`repro_torch.serving.build_engine`; weights are random, from
 :func:`~repro_torch.models.transformer.init_params` with seed 0.
+
+Static: ``--batch`` sequences decode in lockstep on a flat ``[L, B, T,
+...]`` cache (:func:`~repro_torch.models.transformer.init_cache`, the
+encoder's cross K/V filled once for encdec from random frame embeddings),
+greedy, ``--tokens`` steps from one random token a sequence; the first
+step is a warm-up outside the timed loop.  On the card the step is one
+captured CUDA graph over static token and position buffers, the cache
+updated in place (the reference's jitted step donating its cache).
 
 Weight options: ``--int8`` stores every projection as int8 levels and
 scales; ``--packed`` quantizes and bit-packs every projection once at
@@ -19,7 +29,7 @@ kernels; ``--packed-head`` packs the tied LM head too (w8a8 unless
 plan (``python -m repro_torch.plan.compile``) instead: per-layer bit
 pairs, tuned block shapes and the plan's LM head.
 
-Lifecycle and fault flags: ``--deadline``/``--ttft-deadline`` shed
+Lifecycle and fault flags (continuous engine only): ``--deadline``/``--ttft-deadline`` shed
 requests that blow their budget, ``--max-waiting`` bounds the queue, and
 ``--chaos-step-rate``/``--chaos-alloc-rate``/``--chaos-nan-rate`` (with
 ``--chaos-seed``) arm the deterministic fault injector; the run ends with
@@ -35,29 +45,36 @@ captured graph) or ``cpu`` (the plain PyTorch versions).  A kernel that
 fails to build or launch ends the run with its error; nothing falls back
 to the plain versions on the card.
 
-Refused, each naming its ROADMAP.md port queue item: ``--mesh`` (item 5)
-and ``--engine static``, the fixed-batch decode loop the encdec and
-hybrid families default to (item 6).
+Refused: ``--mesh`` (one device only; ROADMAP.md port queue item 5).  The
+continuous engine refuses the encdec and hybrid families, as the
+reference's does: they decode through ``--engine static``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --tokens 64
   PYTHONPATH=src python -m repro_torch.launch.serve --packed --wbits 4 --abits 4 --packed-head
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch whisper-tiny --tokens 8
 """
 from __future__ import annotations
 
 import argparse
 import pathlib
+import time
 
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.registry import ARCHS
 from repro_torch.device import resolve_device
+from repro_torch.kernels import build
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import prepack_lm_head
 from repro_torch.models.transformer import init_params
 from repro_torch.serving import EngineConfig, build_engine
+from repro_torch.serving.api import quantize_params_int8, quantize_params_packed
+from repro_torch.serving.engine import on_stream
 
-STATIC_REFUSAL = ("the fixed-batch decode loop (--engine static), which is not ported yet; it waits for "
-                  "the non-paged decode, ROADMAP.md port queue item 6")
+# encoder frames of the static loop's encdec input (the reference's enc_len=16)
+ENC_LEN = 16
 
 
 def _synth_prompts(cfg, n: int, prompt_len: int) -> list[list[int]]:
@@ -65,6 +82,154 @@ def _synth_prompts(cfg, n: int, prompt_len: int) -> list[list[int]]:
     seeded 2 (the reference draws its own from ``PRNGKey(2)``)."""
     g = torch.Generator().manual_seed(2)
     return torch.randint(0, cfg.vocab, (n, prompt_len), generator=g).tolist()
+
+
+def _static_inputs(cfg, batch: int, enc_len: int) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """The static loop's random inputs, on the host: encdec's frame
+    embeddings ``[batch, enc_len, d]`` float32 from a generator seeded 1
+    (None for other families), and the first tokens ``[batch, 1]`` int32
+    from one seeded 2 (the reference draws its own from ``PRNGKey(1)`` and
+    ``PRNGKey(2)``)."""
+    enc = None
+    if cfg.family == "encdec":
+        enc = torch.randn((batch, enc_len, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    tokens = torch.randint(0, cfg.vocab, (batch, 1), generator=torch.Generator().manual_seed(2),
+                           dtype=torch.int32)
+    return enc, tokens
+
+
+class StaticStep:
+    """The fixed-batch loop's step: :func:`~repro_torch.models.transformer.forward_decode`
+    over static buffers.
+
+    The tokens ``[B, 1]`` and the position ``[]`` (int32) live in device
+    buffers that the step reads; it updates the cache in place and writes
+    its logits ``[B, V]`` float32 into a static output.  On a CUDA device
+    everything runs on the step's own stream, and with ``capture`` the
+    step that follows the first (eager) one is captured as one CUDA graph
+    and every later step replays it: the counterpart of the reference's
+    ``jax.jit(..., donate_argnums=(1,))``.  The capture stream holds its
+    own split-K counter slot (``kernels/packed_matmul/kernel.py
+    _split_scratch``), and replays are serial.  Otherwise (the CPU, or
+    ``capture=False``) every step runs eagerly on the same buffers."""
+
+    def __init__(self, params: dict, cfg, cache: dict, head=None, *, batch: int,
+                 device: torch.device, capture: bool):
+        cuda = device.type == "cuda"
+        if capture and not cuda:
+            raise ValueError("capture=True needs a CUDA device; the CPU runs the step eagerly")
+        self.params, self.cfg, self.cache, self.head = params, cfg, cache, head
+        self.capture = capture
+        self.tokens = torch.zeros((batch, 1), dtype=torch.int32, device=device)
+        self.pos = torch.zeros((), dtype=torch.int32, device=device)
+        self.logits = torch.zeros((batch, cfg.vocab), dtype=torch.float32, device=device)
+        self.stream = torch.cuda.Stream(device) if cuda else None
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.launches: dict[str, int] = {}  # kernel launches of one replay
+        self.captures = 0
+        # called as on_step(t, logits) after each step's launch, with the
+        # logits buffer (valid until the next step; None adds nothing)
+        self.on_step = None
+
+    def _forward(self) -> None:
+        logits, self.cache = T.forward_decode(self.params, self.cfg, self.cache, self.tokens, self.pos,
+                                              head=self.head)
+        self.logits.copy_(logits)
+
+    def _capture(self) -> None:
+        """Capture the step (not run: a capture records its launches) and
+        count its launches a replay; the cache's tensors must be the ones
+        the graph writes."""
+        before_cache = dict(self.cache)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with build.uncounted(), torch.cuda.graph(graph, stream=self.stream):
+            before = build.counts()
+            self._forward()
+            self.launches = {k: v - before[k] for k, v in build.counts().items() if v != before[k]}
+        if any(self.cache[k] is not v for k, v in before_cache.items()):
+            raise RuntimeError("the captured step rebound a cache tensor")
+        graph.instantiate()
+        self.graph = graph
+        self.captures += 1
+
+    @torch.inference_mode()
+    def step(self, t: int, tokens: torch.Tensor | None = None) -> None:
+        """Decode position ``t``, fed ``tokens [B, 1]`` or, by default, the
+        greedy argmax of the last step's logits, enqueued on the step's
+        stream (nothing waits for it: :meth:`synchronize`).  With
+        ``capture`` the first call runs eagerly, which builds the kernels
+        and every one-time object, then captures the graph."""
+        with on_stream(self.stream):
+            if tokens is None:
+                self.tokens.copy_(torch.argmax(self.logits, dim=-1, keepdim=True))
+            else:
+                self.tokens.copy_(tokens)
+            self.pos.fill_(t)
+            if self.graph is not None:
+                self.graph.replay()
+                build.replayed(self.launches)
+            else:
+                self._forward()
+                if self.capture:
+                    self._capture()
+            if self.on_step is not None:
+                self.on_step(t, self.logits)
+
+    def synchronize(self) -> None:
+        if self.stream is not None:
+            self.stream.synchronize()
+
+    def close(self) -> None:
+        """Release the graph and its memory pool."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = None
+
+
+def _static_weights(args, cfg, plan, device: torch.device):
+    """The static loop's weights from ``init_params`` (seed 0), prepared as
+    the reference's ``main`` prepares them: the plan, or ``--packed``, or
+    ``--int8``; then ``--packed-head`` at the packed bits or (8, 8)."""
+    params, head = init_params(cfg, seed=0, device=device), None
+    if plan is not None:
+        from repro_torch.plan import apply_plan
+
+        params, head = apply_plan(params, cfg, plan, device=device)
+    elif args.packed:
+        params = quantize_params_packed(params, w_bits=args.wbits, a_bits=args.abits, device=device)
+    elif args.int8:
+        params = quantize_params_int8(params)
+    if head is None and args.packed_head:
+        wb, ab = (args.wbits, args.abits) if args.packed else (8, 8)
+        head = prepack_lm_head(params["embed"], w_bits=wb, a_bits=ab, device=device)
+    return params, head
+
+
+def _serve_static(args, cfg, params, head, *, capture: bool | None = None) -> dict:
+    """The fixed-batch decode loop on a flat ``[L, B, T, ...]`` cache:
+    one warm-up step (kernel builds and, on the card, the capture) outside
+    the timed loop, then greedy feedback for ``--tokens - 1`` steps.
+    ``capture`` defaults to the device being CUDA."""
+    dev = resolve_device(args.device)
+    B = args.batch
+    cache = T.init_cache(cfg, B, args.max_len, enc_len=ENC_LEN, device=dev)
+    enc, tokens = _static_inputs(cfg, B, ENC_LEN)
+    if cfg.family == "encdec":
+        with torch.inference_mode():
+            cache.update(T.encode_for_decode(params, cfg, enc.to(dev)))
+    step = StaticStep(params, cfg, cache, head, batch=B, device=dev,
+                      capture=dev.type == "cuda" if capture is None else capture)
+    try:
+        step.step(0, tokens.to(dev))
+        step.synchronize()
+        t0 = time.time()
+        for t in range(1, args.tokens):
+            step.step(t)
+        step.synchronize()
+        dt = time.time() - t0
+    finally:
+        step.close()
+    return {"tokens_per_s": (args.tokens - 1) * B / dt, "latency_ms_per_step": dt / (args.tokens - 1) * 1e3}
 
 
 def _serve_continuous(args, cfg, plan=None) -> dict:
@@ -119,8 +284,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", choices=ARCHS, default=None,
                     help="architecture (default llama3.2-3b, or the plan's arch)")
     ap.add_argument("--engine", choices=("continuous", "static"), default=None,
-                    help="continuous-batching engine (default for attn/ssm archs); static, the "
-                    "fixed-batch loop (default for encdec/hybrid), is refused")
+                    help="continuous-batching engine (default for attn/ssm archs) or the "
+                    "fixed-batch decode loop (default for encdec/hybrid)")
     ap.add_argument("--batch", type=int, default=8, help="decode slots (batch size)")
     ap.add_argument("--tokens", type=int, default=32, help="generated tokens per request")
     ap.add_argument("--max-len", type=int, default=128)
@@ -243,12 +408,11 @@ def main(argv=None) -> dict:
             "--trace-checkpoint-every rewrites the --trace file mid-run; "
             "add --trace PATH or drop it"
         )
-    # the port's own refusals: one replica, the continuous engine only
-    if cfg.family not in ("attn", "ssm"):
-        raise SystemExit(f"{cfg.name} (family {cfg.family!r}) decodes only through {STATIC_REFUSAL}")
-    if engine != "continuous":
-        raise SystemExit(STATIC_REFUSAL)
-    out = _serve_continuous(args, cfg, plan=plan)
+    if engine == "continuous":
+        out = _serve_continuous(args, cfg, plan=plan)
+    else:
+        dev = resolve_device(args.device)
+        out = _serve_static(args, cfg, *_static_weights(args, cfg, plan, dev))
 
     if plan is not None:
         mode = f"plan[{plan.n_distinct_bit_pairs} bit pairs]"
@@ -262,11 +426,12 @@ def main(argv=None) -> dict:
         f"arch={cfg.name} engine={engine} weights={mode} batch={args.batch} tokens/s={tps_str} "
         f"latency={out['latency_ms_per_step']:.1f} ms/step"
     )
-    parts = " ".join(f"{k}={v}" for k, v in sorted(out["statuses"].items()))
-    print(
-        f"statuses: {parts or 'none'}  (retries={out.get('step_retries', 0)} "
-        f"quarantines={out.get('quarantines', 0)} injected={out.get('injected', {})})"
-    )
+    if "statuses" in out:
+        parts = " ".join(f"{k}={v}" for k, v in sorted(out["statuses"].items()))
+        print(
+            f"statuses: {parts or 'none'}  (retries={out.get('step_retries', 0)} "
+            f"quarantines={out.get('quarantines', 0)} injected={out.get('injected', {})})"
+        )
     return out
 
 

@@ -3,8 +3,9 @@
 Params are plain dicts of tensors with the reference's keys and layouts
 (``x @ W`` with W ``[d_in, d_out]``).  Every projection goes through
 :func:`dense`; prepacked weights (:class:`PackedDenseParams`) run the
-packed matmul kernels.  The paged KV pools are updated in place (the
-reference returns new pools; its jitted step donates the old ones).
+packed matmul kernels.  The paged KV pools and the flat KV caches are
+updated in place (the reference returns new ones; its jitted steps donate
+the old).
 """
 from __future__ import annotations
 
@@ -142,11 +143,151 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor, *, scale: float) -> torch.Tens
     return torch.einsum("bqghd,bkgd->bghqk", qg, k) * scale
 
 
+def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """[B, S, G, hd] -> [B, S, H, hd], each kv head repeated H/G times."""
+    G = k.shape[2]
+    return k if G == n_heads else torch.repeat_interleave(k, n_heads // G, dim=2)
+
+
+def attention_train(
+    params: dict,
+    s: AttnSpec,
+    x: torch.Tensor,  # [B, S, d]
+    positions: torch.Tensor,  # [B, S] ([B, S, 3] with M-RoPE)
+    *,
+    window: int = 0,
+    quant: QuantConfig = NO_QUANT,
+) -> torch.Tensor:
+    """Full-sequence attention, ``x + attn(x)``: ``window`` -1 is
+    bidirectional (the encoder), 0 full causal, > 0 a causal sliding
+    window.  Queries go in ``q_chunk`` blocks (``max(1, S // min(q_chunk,
+    S))`` of them), each against every key, as the reference's scan."""
+    B, S, d = x.shape
+    H, G, hd = s.n_heads, s.kv_heads, s.head_dim
+    h = rmsnorm(params["ln"], x)
+    q = dense(params["wq"], h, name="attn_q", quant=quant).reshape(B, S, H, hd)
+    k = dense(params["wk"], h, name="attn_k", quant=quant).reshape(B, S, G, hd)
+    v = dense(params["wv"], h, name="attn_v", quant=quant).reshape(B, S, G, hd)
+    if s.use_mrope:
+        q = mrope(q, positions, theta=s.rope_theta)
+        k = mrope(k, positions, theta=s.rope_theta)
+        pos1d = positions[..., 0]
+    else:
+        q = rope(q, positions, theta=s.rope_theta)
+        k = rope(k, positions, theta=s.rope_theta)
+        pos1d = positions
+    k, v = _repeat_kv(k, H), _repeat_kv(v, H)
+    scale = _attn_scale(hd, x.dtype)
+    n_chunks = max(1, S // min(s.q_chunk, S))
+    cq = S // n_chunks
+    outs = []
+    for c in range(n_chunks):
+        q_blk = q[:, c * cq:(c + 1) * cq]
+        qpos = pos1d[:, c * cq:(c + 1) * cq]
+        scores = torch.einsum("bqhd,bkhd->bhqk", q_blk, k) * scale  # [B, H, cq, S]
+        if window < 0:
+            allow = torch.ones((B, cq, S), dtype=torch.bool, device=x.device)
+        else:
+            allow = pos1d[:, None, :] <= qpos[:, :, None]  # causal [B, cq, S]
+            if window > 0:
+                allow = allow & ((qpos[:, :, None] - pos1d[:, None, :]) < window)
+        scores = torch.where(allow[:, None], scores, torch.finfo(scores.dtype).min)
+        p = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", p, v))
+    o = torch.cat(outs, dim=1).reshape(B, S, H * hd)
+    return x + dense(params["wo"], o, name="attn_o", quant=quant)
+
+
 def quantize_kv_row(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 quantization of KV rows [..., D]."""
     scale = torch.amax(torch.abs(x), dim=-1, keepdim=True).to(torch.float32) / 127.0 + 1e-12
     levels = torch.clamp(torch.round(x.to(torch.float32) / scale), -127, 127).to(torch.int8)
     return levels, scale
+
+
+def attention_decode(
+    params: dict,
+    s: AttnSpec,
+    x: torch.Tensor,  # [B, 1, d] the new token
+    cache_k: torch.Tensor,  # [B, T, G*hd] flat KV cache (updated in place)
+    cache_v: torch.Tensor,
+    pos: torch.Tensor,  # [] int32 current position
+    *,
+    window: int = 0,
+    quant: QuantConfig = NO_QUANT,
+    cache_k_scale: torch.Tensor | None = None,  # [B, T, 1] float32 for int8 caches
+    cache_v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One new token against a flat KV cache; returns ``x + attn(x)``.
+
+    The token's K/V row is written into the cache in place at row ``pos``
+    clamped to ``T - 1``, as ``jax.lax.dynamic_update_slice_in_dim``
+    clamps: past the cache's end the last row is overwritten and, every key
+    being at or before ``pos``, nothing is masked but the window.  An int8
+    cache (``cache_k.dtype == int8``) takes quantized rows and per-row
+    scales and is dequantized whole in ``x.dtype``.  ``pos`` is a device
+    tensor, so a captured step reads it from its buffer."""
+    B = x.shape[0]
+    H, G, hd = s.n_heads, s.kv_heads, s.head_dim
+    T = cache_k.shape[1]
+    kv_int8 = cache_k.dtype == torch.int8
+    h = rmsnorm(params["ln"], x)
+    q = dense(params["wq"], h, name="attn_q", quant=quant).reshape(B, 1, H, hd)
+    k = dense(params["wk"], h, name="attn_k", quant=quant).reshape(B, 1, G, hd)
+    v = dense(params["wv"], h, name="attn_v", quant=quant).reshape(B, 1, G, hd)
+    if s.use_mrope:
+        pos3 = pos.reshape(1, 1, 1).expand(B, 1, 3)
+        q = mrope(q, pos3, theta=s.rope_theta)
+        k = mrope(k, pos3, theta=s.rope_theta)
+    else:
+        posb = pos.reshape(1, 1).expand(B, 1)
+        q = rope(q, posb, theta=s.rope_theta)
+        k = rope(k, posb, theta=s.rope_theta)
+    row = torch.clamp(pos, 0, T - 1).reshape(1).long()
+    k_row = k.reshape(B, 1, G * hd)
+    v_row = v.reshape(B, 1, G * hd)
+    if kv_int8:
+        k_lvl, k_sc = quantize_kv_row(k_row)
+        v_lvl, v_sc = quantize_kv_row(v_row)
+        for cache, new in ((cache_k, k_lvl), (cache_v, v_lvl), (cache_k_scale, k_sc), (cache_v_scale, v_sc)):
+            cache.index_copy_(1, row, new)
+        k_view = (cache_k.to(x.dtype) * cache_k_scale.to(x.dtype)).reshape(B, T, G, hd)
+        v_view = (cache_v.to(x.dtype) * cache_v_scale.to(x.dtype)).reshape(B, T, G, hd)
+    else:
+        cache_k.index_copy_(1, row, k_row.to(cache_k.dtype))
+        cache_v.index_copy_(1, row, v_row.to(cache_v.dtype))
+        k_view = cache_k.reshape(B, T, G, hd)
+        v_view = cache_v.reshape(B, T, G, hd)
+    scores = _gqa_scores(q, k_view.to(x.dtype), scale=_attn_scale(hd, x.dtype))  # [B,G,H/G,1,T]
+    kpos = torch.arange(T, dtype=torch.int32, device=x.device)
+    mask = kpos <= pos
+    if window > 0:
+        mask = mask & ((pos - kpos) < window)
+    scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
+    p = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
+    o = torch.einsum("bghqk,bkgd->bqghd", p, v_view.to(x.dtype))
+    return x + dense(params["wo"], o.reshape(B, 1, H * hd), name="attn_o", quant=quant)
+
+
+def cross_attention(
+    params: dict,
+    s: AttnSpec,
+    x: torch.Tensor,  # [B, Sq, d]
+    enc_kv: tuple[torch.Tensor, torch.Tensor],  # ([B, Se, G, hd], [B, Se, G, hd])
+    *,
+    quant: QuantConfig = NO_QUANT,
+) -> torch.Tensor:
+    """Queries of ``x`` against the encoder's precomputed K/V, unmasked;
+    returns ``x + attn(x)`` (the whisper decoder's cross-attention)."""
+    B, Sq, d = x.shape
+    H, G, hd = s.n_heads, s.kv_heads, s.head_dim
+    h = rmsnorm(params["ln"], x)
+    q = dense(params["wq"], h, name="xattn_q", quant=quant).reshape(B, Sq, H, hd)
+    k, v = enc_kv
+    scores = _gqa_scores(q, k.to(x.dtype), scale=_attn_scale(hd, x.dtype))
+    p = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
+    o = torch.einsum("bghqk,bkgd->bqghd", p, v.to(x.dtype))
+    return x + dense(params["wo"], o.reshape(B, Sq, H * hd), name="xattn_o", quant=quant)
 
 
 def attention_decode_paged(

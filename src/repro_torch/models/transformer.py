@@ -1,13 +1,21 @@
-"""The paged decode path of ``repro.models.transformer`` in PyTorch.
+"""The decode paths of ``repro.models.transformer`` in PyTorch.
 
 Params are a dict with the reference's pytree keys: ``embed`` [V, d],
 ``final_ln``, and ``layers`` — stacked ``[L, ...]`` tensors (the
-reference's scan layout) or a list of per-layer dicts.  The reference
-scans the stacked layers; here a Python loop walks them.  The dense
-attention family (KV page pools), with an MLP or with experts (a layer's
-``moe`` block in place of its ``mlp``: :mod:`repro_torch.models.moe`, one
-device), and the SSM family (mamba2: slot-indexed recurrent state) are
-served; hybrid and encoder-decoder configs raise.
+reference's scan layout) or a list of per-layer dicts; the encoder-decoder
+family adds ``enc_layers`` and ``xattn_layers`` (stacked), the hybrid
+family one unstacked ``shared_attn``.  The reference scans the stacked
+layers; here a Python loop walks them.
+
+Two decode paths.  The paged one (:func:`forward_decode_paged`, the
+continuous-batching engine's step) serves the dense attention family
+(KV page pools), with an MLP or with experts (a layer's ``moe`` block in
+place of its ``mlp``: :mod:`repro_torch.models.moe`, one device), and the
+SSM family (mamba2: slot-indexed recurrent state).  The fixed-batch one
+(:func:`init_cache`, :func:`forward_decode`, :func:`encode_for_decode`:
+the serve CLI's ``--engine static``) serves every family on a flat
+``[L, B, T, ...]`` cache, the encoder-decoder (whisper) and hybrid
+(zamba2) families included; its caches are updated in place.
 """
 from __future__ import annotations
 
@@ -98,20 +106,22 @@ class ModelConfig:
         return list((pat * reps)[: self.n_layers])
 
 
-def _check_served(cfg: ModelConfig) -> None:
+def _check_paged(cfg: ModelConfig) -> None:
+    """The reference's engine refuses these families at construction."""
     if cfg.family not in ("attn", "ssm"):
         raise NotImplementedError(
-            f"the port serves the attention family (with an MLP or with experts) and the SSM "
-            f"family so far, not {cfg.name!r} (family {cfg.family!r}); the hybrid and encdec paths "
-            f"wait for 'Training, QAT and NAS' (ROADMAP.md, port queue)"
+            f"continuous batching supports attn/ssm families, not {cfg.family!r}; "
+            f"{cfg.name} decodes through the fixed-batch loop (--engine static: init_cache, forward_decode)"
         )
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device: str | torch.device = "cuda") -> dict:
     """Random float32 params in the reference's layout, made on ``device``
     from a seeded ``torch.Generator`` (the reference's ``jax.random``
-    draws differ; tests share weights through :mod:`repro_torch.bridge`)."""
-    _check_served(cfg)
+    draws differ; tests share weights through :mod:`repro_torch.bridge`).
+    Every family: attn (an MLP or experts a layer), ssm, encdec (plus
+    ``enc_layers`` {attn, mlp} and ``xattn_layers`` {xattn}) and hybrid
+    (mamba ``layers`` plus one unstacked ``shared_attn`` {attn, mlp})."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -124,28 +134,39 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device: str | torch.device =
     def ones(*shape):
         return torch.ones(shape, dtype=torch.float32, device=dev)
 
-    def top(layers: dict) -> dict:  # the embedding is drawn after the layers
-        return {"embed": normal(cfg.vocab, d) * 0.01, "final_ln": {"g": ones(d)}, "layers": layers}
+    def attn(*lead):
+        return {
+            "wq": {"w": normal(*lead, d, H * hd, fan_in=d)},
+            "wk": {"w": normal(*lead, d, G * hd, fan_in=d)},
+            "wv": {"w": normal(*lead, d, G * hd, fan_in=d)},
+            "wo": {"w": normal(*lead, H * hd, d, fan_in=H * hd)},
+            "ln": {"g": ones(*lead, d)},
+        }
 
-    if cfg.family == "ssm":
-        return top(M.mamba_init(g, cfg.ssm_spec(), Ln))
-    attn = {
-        "wq": {"w": normal(Ln, d, H * hd, fan_in=d)},
-        "wk": {"w": normal(Ln, d, G * hd, fan_in=d)},
-        "wv": {"w": normal(Ln, d, G * hd, fan_in=d)},
-        "wo": {"w": normal(Ln, H * hd, d, fan_in=H * hd)},
-        "ln": {"g": ones(Ln, d)},
-    }
-    if cfg.is_moe:  # the experts replace the MLP: router/w, w_up, w_gate, w_down, ln
-        return top({"attn": attn, "moe": X.moe_init(g, cfg.moe_spec(), lead=(Ln,))})
-    mlp = {
-        "w_up": {"w": normal(Ln, d, ff, fan_in=d)},
-        "w_down": {"w": normal(Ln, ff, d, fan_in=ff)},
-        "ln": {"g": ones(Ln, d)},
-    }
-    if cfg.mlp_kind in ("swiglu", "geglu"):
-        mlp["w_gate"] = {"w": normal(Ln, d, ff, fan_in=d)}
-    return top({"attn": attn, "mlp": mlp})
+    def mlp(*lead):
+        p = {
+            "w_up": {"w": normal(*lead, d, ff, fan_in=d)},
+            "w_down": {"w": normal(*lead, ff, d, fan_in=ff)},
+            "ln": {"g": ones(*lead, d)},
+        }
+        if cfg.mlp_kind in ("swiglu", "geglu"):
+            p["w_gate"] = {"w": normal(*lead, d, ff, fan_in=d)}
+        return p
+
+    if cfg.family in ("ssm", "hybrid"):
+        layers = M.mamba_init(g, cfg.ssm_spec(), Ln)
+    elif cfg.is_moe:  # the experts replace the MLP: router/w, w_up, w_gate, w_down, ln
+        layers = {"attn": attn(Ln), "moe": X.moe_init(g, cfg.moe_spec(), lead=(Ln,))}
+    else:
+        layers = {"attn": attn(Ln), "mlp": mlp(Ln)}
+    extra = {}
+    if cfg.family == "encdec":
+        extra = {"enc_layers": {"attn": attn(cfg.enc_layers), "mlp": mlp(cfg.enc_layers)},
+                 "xattn_layers": {"xattn": attn(Ln)}}
+    elif cfg.family == "hybrid":
+        extra = {"shared_attn": {"attn": attn(), "mlp": mlp()}}
+    # the embedding is drawn after the layers
+    return {"embed": normal(cfg.vocab, d) * 0.01, "final_ln": {"g": ones(d)}, "layers": layers, **extra}
 
 
 def map_leaves(tree, fn):
@@ -182,7 +203,7 @@ def init_paged_state(cfg: ModelConfig, n_slots: int, n_pages: int, page_size: in
 
     ``kv_dtype`` overrides ``cfg.kv_dtype``: "int8", ``torch.int8``, or a
     float dtype (which then replaces ``dtype``)."""
-    _check_served(cfg)
+    _check_paged(cfg)
     dev = resolve_device(device)
     kv = cfg.kv_dtype if kv_dtype is None else kv_dtype
     kv_int8 = kv == "int8" or kv == torch.int8
@@ -236,7 +257,7 @@ def decode_paged_layer(p: dict, cfg: ModelConfig, layer_state: dict, block_table
     rebound, so a captured step writes the buffers it was captured on.
     With experts the MLP is the MoE block on the step's ``S * C`` tokens
     (the reference's ``_moe_block`` outside a mesh)."""
-    _check_served(cfg)
+    _check_paged(cfg)
     if cfg.family == "ssm":
         s = cfg.ssm_spec()
         st, cv = layer_state["ssm"], layer_state["conv"]
@@ -284,7 +305,7 @@ def forward_decode_paged(params: dict, cfg: ModelConfig, state: dict, block_tabl
     lane.  Returns ``(logits [S, V] float32, state)``; the pools (SSM: the
     recurrent states) in ``state`` are updated in place, so the returned
     state is the same dict.  The SSM family ignores ``block_table``."""
-    _check_served(cfg)
+    _check_paged(cfg)
     x = embed_paged(params, cfg, tokens)
     layers = params["layers"]
     windows = cfg.windows()
@@ -294,3 +315,158 @@ def forward_decode_paged(params: dict, cfg: ModelConfig, state: dict, block_tabl
         x = decode_paged_layer(p, cfg, layer_state, block_table, x, pos, window=windows[i],
                                lens=lens, gather=gather)
     return head_paged(params, cfg, x, lens=lens, head=head), state
+
+
+# -- the fixed-batch decode (the serve CLI's --engine static) ---------------------
+
+
+def _hybrid_segments(cfg: ModelConfig) -> list[int]:
+    """Segment sizes between shared-attention applications (zamba2):
+    ``hybrid_attn_every`` layers each, the remainder last."""
+    k, n = cfg.hybrid_attn_every, cfg.n_layers
+    return [k] * (n // k) + ([n % k] if n % k else [])
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype: torch.dtype = torch.bfloat16,
+               enc_len: int | None = None, device: str | torch.device = "cuda") -> dict:
+    """The fixed-batch cache, zeroed, in the reference's layout and dtypes.
+
+    attn / encdec: flat KV ``k``/``v`` ``[L, B, T, G*hd]`` in ``dtype``, or
+    (attn with ``cfg.kv_dtype == "int8"``) int8 levels with float32
+    ``[L, B, T, 1]`` scales; encdec adds ``enc_k``/``enc_v`` ``[L, B, Se,
+    G*hd]`` with ``Se = enc_len or max(1, max_len // 2)`` (filled by
+    :func:`encode_for_decode`).  ssm / hybrid: the float32 ``ssm`` state
+    ``[L, B, H, N, P]`` and the ``conv`` state ``[L, B, K-1, conv_dim]``
+    in ``dtype``; hybrid adds **one** ``k``/``v`` ``[1, B, T, G*hd]``, which
+    every application of the shared block reads and writes."""
+    dev = resolve_device(device)
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    D = cfg.kv_heads * cfg.hd
+    if cfg.family in ("attn", "encdec"):
+        shape = (cfg.n_layers, batch, max_len, D)
+        if cfg.kv_dtype == "int8" and cfg.family == "attn":
+            return {"k": zeros(*shape, dt=torch.int8), "v": zeros(*shape, dt=torch.int8),
+                    "k_scale": zeros(*shape[:-1], 1, dt=torch.float32),
+                    "v_scale": zeros(*shape[:-1], 1, dt=torch.float32)}
+        cache = {"k": zeros(*shape), "v": zeros(*shape)}
+        if cfg.family == "encdec":
+            se = enc_len or max(1, max_len // 2)
+            cache["enc_k"] = zeros(cfg.n_layers, batch, se, D)
+            cache["enc_v"] = zeros(cfg.n_layers, batch, se, D)
+        return cache
+    s = cfg.ssm_spec()
+    cache = {"ssm": zeros(cfg.n_layers, batch, s.n_heads, s.d_state, s.head_dim, dt=torch.float32),
+             "conv": zeros(cfg.n_layers, batch, s.conv_width - 1, s.d_inner + 2 * s.d_state)}
+    if cfg.family == "hybrid":
+        cache["k"] = zeros(1, batch, max_len, D)
+        cache["v"] = zeros(1, batch, max_len, D)
+    return cache
+
+
+def _ssm_layers(layers, cfg: ModelConfig, cache: dict, x: torch.Tensor, start: int, n: int,
+                convs: list) -> torch.Tensor:
+    """Mamba layers ``start .. start + n - 1`` of one decode step.  The
+    float32 ``ssm`` state is written in place; each new ``conv`` state too,
+    unless the step promotes its dtype (a float32 step on a bfloat16 cache,
+    as the reference's ``concatenate`` promotes): then ``convs`` collects
+    it, for :func:`forward_decode` to rebind."""
+    s = cfg.ssm_spec()
+    for i in range(start, start + n):
+        p = layers[i] if isinstance(layers, (list, tuple)) else layer_params(layers, i)
+        x, ns, nc = M.mamba_decode(p, s, x, cache["ssm"][i], cache["conv"][i], quant=cfg.quant)
+        cache["ssm"][i].copy_(ns)
+        if nc.dtype == cache["conv"].dtype:
+            cache["conv"][i].copy_(nc)
+        convs.append(nc)
+    return x
+
+
+def forward_decode(params: dict, cfg: ModelConfig, cache: dict, tokens: torch.Tensor, pos,
+                   head: PackedDenseParams | None = None) -> tuple[torch.Tensor, dict]:
+    """One fixed-batch decode step: ``tokens [B, 1]`` at position ``pos``
+    (a 0-d int32 tensor or an int) -> ``(logits [B, V] float32, cache)``.
+
+    ``cache`` (:func:`init_cache`) is updated in place and returned; the
+    one exception is a ``conv`` state whose dtype the step promotes, which
+    is rebound in ``cache`` as the reference's new cache carries it (after
+    one step the dtypes are stable, so a captured step writes in place).
+    attn: each layer's attention (flat cache, its window; int8 cache with
+    ``cfg.kv_dtype == "int8"``) then its MLP or experts, stacked layers or
+    a plan's per-layer list.  encdec: cross-attention against ``enc_k`` /
+    ``enc_v`` after each self-attention.  ssm: :func:`mamba_decode` a
+    layer, stacked or per-layer.  hybrid: :func:`_hybrid_segments` of
+    mamba layers, each followed by the shared attention and MLP, every
+    application on the one ``k``/``v`` cache (each overwrites row ``pos``,
+    so the cache keeps the last application's rows).  ``head``: a
+    prepacked LM head, else the tied embedding."""
+    x = embed_paged(params, cfg, tokens)  # [B, 1, d]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    aspec = cfg.attn_spec()
+    layers = params["layers"]
+    per_layer = isinstance(layers, (list, tuple))
+    if per_layer and cfg.family not in ("attn", "ssm"):
+        raise NotImplementedError(f"per-layer (list) params support attn/ssm families, not {cfg.family!r}")
+    if cfg.family in ("attn", "encdec"):
+        windows = cfg.windows()
+        kv_int8 = cfg.kv_dtype == "int8" and cfg.family == "attn"
+        for i in range(cfg.n_layers):
+            p = layers[i] if per_layer else layer_params(layers, i)
+            x = L.attention_decode(
+                p["attn"], aspec, x, cache["k"][i], cache["v"][i], pos, window=windows[i], quant=cfg.quant,
+                cache_k_scale=cache["k_scale"][i] if kv_int8 else None,
+                cache_v_scale=cache["v_scale"][i] if kv_int8 else None,
+            )
+            if cfg.family == "encdec":
+                px = layer_params(params["xattn_layers"], i)
+                B, se = cache["enc_k"].shape[1:3]
+                ekv = (cache["enc_k"][i].reshape(B, se, cfg.kv_heads, cfg.hd),
+                       cache["enc_v"][i].reshape(B, se, cfg.kv_heads, cfg.hd))
+                x = L.cross_attention(px["xattn"], aspec, x, ekv, quant=cfg.quant)
+            if cfg.is_moe:
+                x = X.moe_apply(p["moe"], cfg.moe_spec(), x)
+            else:
+                x = L.mlp(p["mlp"], cfg.mlp_spec(), x, quant=cfg.quant)
+    else:
+        convs: list[torch.Tensor] = []
+        if cfg.family == "ssm":
+            x = _ssm_layers(layers, cfg, cache, x, 0, cfg.n_layers, convs)
+        else:  # hybrid
+            shared, start = params["shared_attn"], 0
+            for seg in _hybrid_segments(cfg):
+                x = _ssm_layers(layers, cfg, cache, x, start, seg, convs)
+                start += seg
+                x = L.attention_decode(shared["attn"], aspec, x, cache["k"][0], cache["v"][0], pos,
+                                       quant=cfg.quant)
+                x = L.mlp(shared["mlp"], cfg.mlp_spec(), x, quant=cfg.quant)
+        if convs[0].dtype != cache["conv"].dtype:
+            cache["conv"] = torch.stack(convs)
+    return head_paged(params, cfg, x, head=head), cache
+
+
+def encode_for_decode(params: dict, cfg: ModelConfig, enc_embeds: torch.Tensor) -> dict:
+    """The encoder stack over ``enc_embeds [B, Se, d]`` (bidirectional
+    attention, then the MLP, a layer), then each decoder layer's cross K/V
+    through ``dense``: ``{"enc_k", "enc_v"}`` ``[L, B, Se, G*hd]`` in
+    ``cfg.dtype``, for :func:`init_cache`'s entries (whisper's serve path;
+    its audio frontend is the reference's stub: the frame embeddings are
+    given).  As the reference's, the cross K/V projections are called with
+    no QAT config."""
+    if cfg.family != "encdec":
+        raise ValueError(f"encode_for_decode needs an encdec config, not {cfg.family!r}")
+    B, Se, _ = enc_embeds.shape
+    enc = enc_embeds.to(cfg.dtype)
+    enc_pos = torch.arange(Se, dtype=torch.int32, device=enc.device)[None].expand(B, Se)
+    for i in range(cfg.enc_layers):
+        p = layer_params(params["enc_layers"], i)
+        h = L.attention_train(p["attn"], cfg.attn_spec(), enc, enc_pos, window=-1)
+        enc = L.mlp(p["mlp"], cfg.mlp_spec(), h, quant=cfg.quant)
+    D = cfg.kv_heads * cfg.hd
+    eks, evs = [], []
+    for i in range(cfg.n_layers):
+        px = layer_params(params["xattn_layers"], i)["xattn"]
+        eks.append(L.dense(px["wk"], enc).reshape(B, Se, D))
+        evs.append(L.dense(px["wv"], enc).reshape(B, Se, D))
+    return {"enc_k": torch.stack(eks), "enc_v": torch.stack(evs)}

@@ -225,6 +225,19 @@ class EngineConfig:
         )
 
 
+@contextlib.contextmanager
+def on_stream(stream: torch.cuda.Stream | None):
+    """Run the block on ``stream``, after the work already queued on the
+    caller's stream (which wrote the pools, caches and params it reads);
+    None (the CPU) runs it as it is."""
+    if stream is None:
+        yield
+        return
+    stream.wait_stream(torch.cuda.current_stream(stream.device))
+    with torch.cuda.stream(stream):
+        yield
+
+
 class StepProgram:
     """One engine's fused step over static buffers.
 
@@ -273,15 +286,8 @@ class StepProgram:
         self.captures = 0  # graphs captured by this program
         self._ready = False
 
-    @contextlib.contextmanager
     def _on_stream(self):
-        if self.stream is None:
-            yield
-            return
-        # the pools and params were written on the caller's stream
-        self.stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self.stream):
-            yield
+        return on_stream(self.stream)
 
     def _forward(self) -> None:
         self.logits.copy_(self._step(*self._args))
@@ -365,7 +371,10 @@ class Engine:
         ``ecfg.packed_head`` prepacks the tied embedding at
         ``ecfg.head_bits`` here.  ``params`` must already lie on ``device``.
         ``capture``: run the step as one captured CUDA graph (None: on a
-        CUDA device); False runs it eagerly, True on the CPU raises."""
+        CUDA device); False runs it eagerly, True on the CPU raises.  The
+        encdec and hybrid families raise, as the reference's engine does:
+        they decode through the fixed-batch loop."""
+        T._check_paged(cfg)
         if ecfg.chunk_tokens < 1:
             raise ValueError("chunk_tokens must be >= 1")
         if ecfg.max_step_retries < 0 or ecfg.max_request_retries < 0:

@@ -13,6 +13,7 @@ CUDA tensors (their chunk dots in float64, which is exact).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 
 import numpy as np
@@ -1553,3 +1554,62 @@ def test_serve_cli_on_the_card_matches_the_cpu(cuda, monkeypatch):
         if div is not None:
             top2 = np.sort(rows_c[(r.rid, div)])[-2:]
             assert top2[1] - top2[0] < tie_bound, (r.rid, div, top2)
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "zamba2-1.2b"])
+def test_static_serve_cli_on_the_card_matches_the_cpu(cuda, monkeypatch, arch):
+    """``repro_torch.launch.serve.main`` with the fixed-batch loop (the
+    default engine of the encdec and hybrid families) at the smoke size,
+    float32, w4a4 projections, on the card and with ``--device cpu`` on the
+    same weights: on the card one capture, K1 counted (a replay's launches
+    times the steps, plus whisper's encoder once), every step's logits
+    bit-identical to a ``capture=False`` run on the same weights, and the
+    greedy tokens equal the CPU's up to a tie (a top-2 gap under
+    TIE_BOUND: an activation-level flip moves a logit by about 0.1 at
+    most)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    tie_bound, n_tokens = 0.25, 6
+    monkeypatch.setattr(serve, "get_config", lambda *a, **k: dataclasses.replace(
+        get_config(*a, **k), dtype=torch.float32))
+    monkeypatch.setattr(serve, "init_params", lambda cfg, seed, device: T.map_leaves(
+        T.init_params(cfg, seed=seed, device="cpu"), lambda a: a.to(device)))
+    steps = []
+
+    class Recording(serve.StaticStep):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.rows = []
+            self.on_step = lambda t, logits: self.rows.append(logits.clone())
+            steps.append(self)
+
+    monkeypatch.setattr(serve, "StaticStep", Recording)
+    argv = ["--arch", arch, "--packed", "--batch", "3", "--tokens", str(n_tokens), "--max-len", "32"]
+    serve.main(argv + ["--device", "cpu"])
+    build.reset_counts()
+    serve.main(argv)
+    torch.cuda.synchronize()
+    counts = build.counts()
+    cpu, card = steps
+    cfg = card.cfg
+    if cfg.family == "encdec":  # q, k, v, o, cross q, o, w_up, w_down a layer; the encoder once
+        per_step, per_serve = 8 * cfg.n_layers, 6 * cfg.enc_layers + 2 * cfg.n_layers
+    else:  # in_z, in_xbc, out_proj a layer; 4 + 3 an application of the shared block
+        per_step, per_serve = 3 * cfg.n_layers + 7 * len(T._hybrid_segments(cfg)), 0
+    assert card.captures == 1 and cpu.captures == 0 and card.launches == {"packed_dense_fused": per_step}
+    assert counts == {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": per_step * n_tokens + per_serve}
+    args = argparse.Namespace(device="cuda", batch=3, max_len=32, tokens=n_tokens)
+    serve._serve_static(args, cfg, card.params, card.head, capture=False)
+    torch.cuda.synchronize()
+    eager = steps[2]
+    assert eager.captures == 0 and len(eager.rows) == len(card.rows) == n_tokens
+    for t, (a, b) in enumerate(zip(card.rows, eager.rows)):
+        assert torch.equal(a, b), t
+    for t in range(n_tokens):
+        c = cpu.rows[t]
+        differ = card.rows[t].cpu().argmax(-1) != c.argmax(-1)
+        if differ.any():
+            top2 = torch.topk(c[differ], 2, dim=-1).values
+            assert bool(((top2[:, 0] - top2[:, 1]) < tie_bound).all()), (t, top2)
+            break

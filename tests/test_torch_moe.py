@@ -135,8 +135,8 @@ def test_params_have_the_reference_layout(moe_models, arch):
     for key, fan_in in (("w_up", s.d_model), ("w_gate", s.d_model), ("w_down", s.d_ff)):
         assert abs(float(moe[key].std()) * fan_in ** 0.5 - 1) < 0.05, key
     assert abs(float(moe["router"]["w"].std()) * s.d_model ** 0.5 - 1) < 0.1
-    with pytest.raises(NotImplementedError, match="Training, QAT and NAS"):
-        T.init_params(get_config("zamba2-1.2b", smoke=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="continuous batching supports attn/ssm families"):
+        T.init_paged_state(get_config("zamba2-1.2b", smoke=True), 2, 4, 4, device="cpu")
 
 
 # -- routing ----------------------------------------------------------------------------

@@ -29,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import re
 import urllib.request
 
 import jax
@@ -46,6 +47,7 @@ from repro.models import transformer as RT
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
+from repro_torch.models import transformer as T
 from repro_torch.obs.promcheck import check_exposition
 from repro_torch.serving import EngineConfig
 
@@ -337,19 +339,118 @@ def test_cli_conflicts_exit_as_the_reference(case):
     assert isinstance(ours.value.code, str) and ours.value.code == want
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--mesh", "2x2"], "item 5"), (["--mesh", "1"], "item 5"), (["--engine", "static"], "item 6"),
-    (["--arch", "whisper-tiny"], "item 6"), (["--arch", "zamba2-1.2b"], "item 6"),
-    (["--arch", "whisper-tiny", "--engine", "static", "--int8"], "item 6"),
-    (["--arch", "zamba2-1.2b", "--engine", "continuous"], "item 6")],
-    ids=["mesh-2x2", "mesh-1", "static", "encdec", "hybrid", "encdec-static-int8", "hybrid-continuous"])
+@pytest.mark.parametrize("argv,item", [(["--mesh", "2x2"], "item 5"), (["--mesh", "1"], "item 5")],
+                         ids=["mesh-2x2", "mesh-1"])
 def test_cli_refuses_what_the_port_lacks(monkeypatch, argv, item):
-    """``--mesh``, ``--engine static`` and the families that default to it
-    exit naming their ROADMAP.md port queue item, before any weight is made."""
+    """``--mesh`` exits naming its ROADMAP.md port queue item, before any
+    weight is made."""
     monkeypatch.setattr(serve, "init_params", lambda *a, **k: pytest.fail("weights were made"))
     with pytest.raises(SystemExit) as info:
         serve.main(argv + ["--device", "cpu"])
     assert isinstance(info.value.code, str) and f"ROADMAP.md port queue {item}" in info.value.code
+
+
+def _ref_static_inputs(cfg, batch: int, enc_len: int):
+    """The reference's static loop inputs (``_serve_static``'s draws), as
+    the port's ``_static_inputs`` returns them."""
+    enc = None
+    if cfg.family == "encdec":
+        enc = torch.from_numpy(np.array(jax.random.normal(jax.random.PRNGKey(1), (batch, enc_len, cfg.d_model))))
+    tokens = np.asarray(jax.random.randint(jax.random.PRNGKey(2), (batch, 1), 0, cfg.vocab))
+    return enc, torch.from_numpy(tokens.astype(np.int32))
+
+
+def _fed_steps(monkeypatch, side: str) -> list:
+    """Record every ``forward_decode`` call of one side's static loop: the
+    tokens it was fed, its position and its logits (the reference's jitted
+    step reports them through ``jax.debug.callback``)."""
+    rec = []
+    if side == "ref":
+        inner = RT.forward_decode
+
+        def wrapped(params, cfg, cache, tokens, pos, head=None):
+            logits, cache = inner(params, cfg, cache, tokens, pos, head=head)
+            jax.debug.callback(lambda t, p, lg: rec.append((np.asarray(t).copy(), int(p), np.asarray(lg).copy())),
+                               tokens, pos, logits, ordered=True)
+            return logits, cache
+
+        monkeypatch.setattr(RT, "forward_decode", wrapped)
+    else:
+        inner = T.forward_decode
+
+        def wrapped(params, cfg, cache, tokens, pos, head=None):
+            logits, cache = inner(params, cfg, cache, tokens, pos, head=head)
+            rec.append((tokens.numpy().copy(), int(pos), logits.numpy().copy()))
+            return logits, cache
+
+        monkeypatch.setattr(T, "forward_decode", wrapped)
+    return rec
+
+
+def _arch_line(text: str) -> str:
+    """The CLI's ``arch=...`` line without its wall-clock readings."""
+    (line,) = [ln for ln in text.splitlines() if ln.startswith("arch=")]
+    return re.sub(r"tokens/s=\S+ latency=\S+ ms/step", "tokens/s=_ latency=_ ms/step", line)
+
+
+STATIC_CASES = {
+    "static": ["--engine", "static", "--plan", str(PLAN), *SMALL],
+    "encdec": ["--arch", "whisper-tiny", *SMALL],
+    "encdec-packed": ["--arch", "whisper-tiny", *SMALL, "--packed", "--packed-head"],
+    "encdec-static-int8": ["--arch", "whisper-tiny", "--engine", "static", "--int8", *SMALL],
+    "hybrid": ["--arch", "zamba2-1.2b", *SMALL],
+}
+
+
+@pytest.mark.parametrize("case", list(STATIC_CASES))
+def test_cli_static_matches_reference(monkeypatch, capsys, case):
+    """``--engine static`` (the default for encdec and hybrid) against the
+    reference's CLI at float32 on shared weights, encoder frames and first
+    tokens: the tokens each step feeds are equal (the greedy stream up to a
+    tie, as :func:`_check` rules), the rows before any tie agree to
+    ``ATOL``, and the ``arch=`` line is the reference's but for its times.
+    ``static`` serves the gemma3-1b plan (per-layer list, w_down at block_k
+    64 < K: K2's plain version) through the static loop."""
+    argv = STATIC_CASES[case]
+    monkeypatch.setattr(ref_serve, "get_config", lambda *a, **k: dataclasses.replace(
+        ref_get_config(*a, **k), dtype=jnp.float32))
+    monkeypatch.setattr(serve, "get_config", lambda *a, **k: dataclasses.replace(
+        get_config(*a, **k), dtype=torch.float32))
+
+    def port_params(cfg, *, seed, device):
+        assert seed == 0 and str(device) == "cpu"
+        rcfg = ref_get_config(cfg.name.removesuffix("-smoke"), smoke=cfg.name.endswith("-smoke"))
+        return params_from_jax(jax.tree.map(np.asarray, RT.init_params(jax.random.PRNGKey(0), rcfg)))
+
+    monkeypatch.setattr(serve, "init_params", port_params)
+    monkeypatch.setattr(serve, "_static_inputs", _ref_static_inputs)
+    theirs, ours = _fed_steps(monkeypatch, "ref"), _fed_steps(monkeypatch, "port")
+    ref_serve.main(list(argv))
+    ref_text = capsys.readouterr().out
+    out = serve.main(list(argv) + ["--device", "cpu"])
+    assert _arch_line(capsys.readouterr().out) == _arch_line(ref_text) and "engine=static" in _arch_line(ref_text)
+    assert out["tokens_per_s"] > 0 and out["latency_ms_per_step"] > 0
+    n = int(argv[argv.index("--tokens") + 1])
+    assert [p for _, p, _ in ours] == [p for _, p, _ in theirs] == list(range(n))
+    for t, ((tok, _, row), (rtok, _, rrow)) in enumerate(zip(ours, theirs)):
+        if not np.array_equal(tok, rtok):  # a tie in the previous step decided it
+            top2 = np.sort(theirs[t - 1][2], axis=-1)[:, -2:]
+            lanes = np.flatnonzero(tok[:, 0] != rtok[:, 0])
+            assert t > 0 and np.all(top2[lanes, 1] - top2[lanes, 0] < TIE_BOUND), (t, top2[lanes])
+            break
+        np.testing.assert_allclose(row, rrow, rtol=0, atol=ATOL, err_msg=f"step {t}")
+
+
+def test_cli_hybrid_continuous_fails_as_the_reference():
+    """``--engine continuous`` on zamba2-1.2b: both engines refuse the
+    hybrid family at construction with the same words (the port adds that
+    it decodes through ``--engine static``)."""
+    argv = ["--arch", "zamba2-1.2b", "--engine", "continuous", *SMALL]
+    with pytest.raises(NotImplementedError) as theirs:
+        ref_serve.main(list(argv))
+    with pytest.raises(NotImplementedError) as ours:
+        serve.main(list(argv) + ["--device", "cpu"])
+    assert str(ours.value).startswith(str(theirs.value)) and "--engine static" in str(ours.value)
 
 
 def _namespace(argv):
