@@ -93,7 +93,7 @@ Phases, all on the card:
    phase 9's reserve cell, each served eagerly and captured by an untimed
    recording run, must give bit-identical sampled rows and equal tokens;
    then each cell is served in alternating timed turns (eager, captured,
-   captured, eager, ...; 4 pairs), every turn with the recorded tokens,
+   captured, eager, ...; 2 pairs), every turn with the recorded tokens,
    printing step p50, tok/s and TTFT of every turn and the device time
    of one replay of each captured turn's graph.  Traces of the eager C = 1
    run and of both C = 16 runs give each one's device busy share and time
@@ -113,7 +113,7 @@ Phases, all on the card:
    equal to the plan's prediction, the launch counters and the graph's
    port kernel nodes equal to the per-step counts the plan implies (times
    the steps); then timed in alternating turns with phase 4's w4a4 cell
-   (plan, w4a4, w4a4, plan, ...; 3 pairs), each turn giving the tokens of
+   (plan, w4a4, w4a4, plan, ...; 2 pairs), each turn giving the tokens of
    its cell's first run, and traced once.  The same pairs at 3 layers
    (w8a8, w5a4, w3a2 at their tuned ``block_k``, the (8, 8) head) on the
    card and the CPU from the same packed words, within phase 5's and
@@ -304,6 +304,39 @@ Phases, all on the card:
    encdec step without cross-attention.  (c) llama3.2-3b ``--engine
    static`` beside phase 4's continuous cell.
 
+21. Training, on no CUDA kernel of the port (the reference computes every
+   train product in XLA outside any Pallas kernel): (a) llama3.2-3b at
+   full width (28 layers, d 3072, vocab 128256, nothing cut) through
+   ``repro_torch.launch.steps.make_train_step``, the step the training CLI
+   runs: bf16 compute over float32 masters and moments, each layer
+   recomputed in the backward, ``TokenStream`` batches of 8 x 512 tokens
+   in 2 micro-batches, lr 1e-3, clip 1.0; 10 steps float, then 10 with QAT
+   at w4a4 on every projection, each from ``init_params(seed 0)``: every
+   loss finite and the last below the first; step p50 after one warm-up,
+   AdamW's device time, tok/s, model-FLOPs utilisation against 989 TFLOP/s
+   bf16 dense (6 x params x tokens plus attention's 12 x L x S x H x hd a
+   token, remat's recompute not counted) and peak memory.  (b) The
+   training CLI in-process on mamba2-130m at full width
+   (``TRAIN_CLI_FLAGS``): 40 steps checkpointed every 20, then a second
+   call to 60 on the same directory, which must resume at step 20 with
+   params and moments bit-identical to the checkpoint's files and to the
+   state the first call saved; every loss finite, the second call's last
+   below the first call's first; tok/s and a checkpoint's host time.  (c)
+   The card against the CPU at float32 (llama3.2-3b and mamba2-130m, full
+   width, 2 layers), one ``make_train_step`` step from the same weights
+   and batch, float and QAT w4a4 (the card quantizing the CPU's values, its
+   own level flips counted within a budget): the loss, every gradient leaf
+   and the card's AdamW step on the CPU's gradients within the stated
+   tolerances (each side's own step printed beside them); a planted
+   ``ste_round`` without its straight-through term must be rejected.  (d)
+   Layer 0's ``w_up`` after (a)'s QAT run: ``dense`` with QAT at (4, 4)
+   against ``dense`` on its prepacked words (one K1 launch) within the
+   reference's 0.05 relative L2.  The phase runs (b), (a) QAT, (d), (a)
+   float and one more float step traced (device busy share, time by
+   kernel), then (c); in a process of its own (``--train-only``): its
+   steps are host-bound eager code, which a profiler session can leave
+   slower in its process (``perf/profiler_residue.py``).
+
 Every engine's graph and memory pool is released before the next engine
 is built, and each phase prints its peak device memory.
 
@@ -328,6 +361,8 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
+import shutil
 import subprocess
 import sys
 import time
@@ -1822,7 +1857,8 @@ def phase_chunked(torch, card, cfg, ecfg, c1: dict, fused: dict, report: dict) -
 # -- phase 10 ------------------------------------------------------------------
 
 # timed turns of each cell in phase 10: eager, captured, captured, eager, ...
-CAPTURE_PAIRS = 4
+# pairs of timed turns (2, to keep the whole script inside its time limit)
+CAPTURE_PAIRS = 2
 
 
 def _sync_free_step(torch, eng) -> None:
@@ -1920,8 +1956,9 @@ def phase_capture(torch, card, cfg, ecfg, c1: dict, report: dict) -> dict:
 
 # -- phase 11 ------------------------------------------------------------------
 
-# phase 11's timed turns, alternating: plan, w4a4, w4a4, plan, ... (PLAN_PAIRS pairs)
-PLAN_PAIRS = 3
+# phase 11's timed turns, alternating: plan, w4a4, w4a4, plan, ... (PLAN_PAIRS
+# pairs; 2, to keep the whole script inside its time limit)
+PLAN_PAIRS = 2
 # phase 11's card-vs-CPU fixture: one layer of each pair of the searched plan
 PLAN_CROSS_BITS = ((8, 8), (5, 4), (3, 2))
 
@@ -4938,8 +4975,555 @@ def phase_static(torch, card, fused: dict, report: dict) -> dict:
     return out
 
 
+# -- phase 21 ------------------------------------------------------------------
+
+# phase 21's cells: the training path, no CUDA kernel of the port on it (the
+# reference computes every train product in XLA outside any Pallas kernel).
+# (a) llama3.2-3b ([hf:meta-llama/Llama-3.2-3B]: 28 layers, d 3072, vocab
+# 128256, nothing cut) through repro_torch.launch.steps.make_train_step, the
+# step the CLI runs: bf16 compute over float32 masters and moments, remat on,
+# TokenStream batches of 8 x 512 in 2 micro-batches, lr 1e-3, clip 1.0; 10
+# steps float, then 10 with QAT at w4a4 on every projection, each from
+# init_params(seed 0)
+TRAIN_ARCH = "llama3.2-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_LR, TRAIN_STEPS = 8, 512, 2, 1e-3, 10
+TRAIN_QAT_PROJ = ("attn_q", "attn_k", "attn_v", "attn_o", "mlp_up", "mlp_gate", "mlp_down")
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
+# (b) the CLI end to end on mamba2-130m ([arXiv:2405.21060], 24 layers, d 768,
+# vocab 50432, nothing cut): 40 steps checkpointed every 20, then a second
+# call to 60 on the same directory, which resumes at step 20
+TRAIN_CLI_FLAGS = ["--arch", "mamba2-130m", "--full", "--batch", "8", "--seq", "256", "--ckpt-every", "20"]
+TRAIN_CLI_STEPS = (40, 60)
+TRAIN_CLI_RESUME = 20
+TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
+# (c) the card against the CPU at float32, full width cut to 2 layers, one
+# make_train_step step (n_micro 1) from the same weights (seed 1) and batch
+# (2 x 32 tokens), float and QAT at w4a4 on every projection: the loss within
+# TRAIN_LOSS_RTOL relative and each gradient leaf within TRAIN_GRAD_RTOL
+# relative L2; the card's AdamW step on the CPU's gradients within
+# TRAIN_PARAM_RTOL of the CPU's params after it.  Each side's own step is
+# printed beside it, not gated: the first update is g / (|g| + eps), so an
+# element whose clipped gradient is near eps (1e-8) turns its gradient's
+# rounding into a share of its update (2.4e-3 relative L2 of mamba2's ln/g
+# update on an H100, from gradients within 2.2e-5).  QAT: the card quantizes
+# the CPU's values (each fake_quant_act input and fake_quant_weight output,
+# at the same call, the card's own gradient), so that a level flip does not
+# cascade; the card's own activation inputs must lie within TRAIN_ACT_ATOL
+# of the CPU's (a level is 1/15 wide; float32 rounding at full width, where
+# DoReFa's weights in [-1, 1] grow the residual stream, reached 7.3e-5), at
+# most TRAIN_ACT_FLIP_SHARE of them choosing another level, and at most
+# TRAIN_WEIGHT_FLIP_SHARE of the weight elements another level (a flip: the
+# values apart by more than half a level step, 1/15; the card's division by
+# 15 is a multiplication by its reciprocal, one ulp off the CPU's value at
+# the same level)
+TRAIN_CROSS = {"llama3.2-3b": dict(n_layers=2), "mamba2-130m": dict(n_layers=2)}
+TRAIN_CROSS_BATCH, TRAIN_CROSS_SEQ = 2, 32
+TRAIN_CROSS_PROJ = TRAIN_QAT_PROJ + ("ssm_in", "ssm_dt", "ssm_out")
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_PARAM_RTOL = 1e-5, 1e-4, 1e-5
+TRAIN_ACT_ATOL, TRAIN_ACT_FLIP_SHARE = 1e-3, 1e-4
+TRAIN_WEIGHT_FLIP_SHARE = 1e-5
+# (d) layer 0's w_up after (a)'s QAT run: the QAT dense against dense on its
+# prepacked words (K1), the reference's bound
+# (tests/test_models.py::test_serve_packed_params_close_to_fp)
+QAT_PACKED_REL_TOL = 0.05
+
+
+@contextlib.contextmanager
+def _timed_optimizer(torch, events: list):
+    """Each ``AdamW.update`` between a CUDA-event pair appended to ``events``."""
+    from repro_torch.optim import AdamW
+
+    inner = AdamW.update
+
+    def timed(self, grads, state, params):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = inner(self, grads, state, params)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    AdamW.update = timed
+    try:
+        yield
+    finally:
+        AdamW.update = inner
+
+
+def _train_run(torch, card, cfg, label: str, keep_w_up: bool = False, traced: bool = False) -> dict:
+    """(a): ``TRAIN_STEPS`` steps of ``make_train_step`` at full width from
+    ``init_params(seed 0)``; step wall times (``float(loss)`` waits for the
+    device), the optimizer's device time by events, losses, peak memory."""
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import tree_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = T.init_params(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    step = S.make_train_step(cfg, None, S.TrainStepConfig(n_micro=TRAIN_MICRO, lr=TRAIN_LR))
+    state = step.optimizer.init(params)
+    stream = TokenStream(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    state_gb = 4 * n_params * 4 / 1e9  # float32 masters, gradients and two moments
+    losses, wall, opt_events = [], [], []
+    with _timed_optimizer(torch, opt_events):
+        for i in range(TRAIN_STEPS):
+            batch = {k: torch.from_numpy(v).cuda() for k, v in stream.batch(i).items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, params, state = step(params, state, batch)
+            losses.append(float(loss))
+            wall.append(time.perf_counter() - t)
+        trace = None
+        if traced:  # one more step, traced
+            batch = {k: torch.from_numpy(v).cuda() for k, v in stream.batch(TRAIN_STEPS).items()}
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                loss, params, state = step(params, state, batch)
+                float(loss)
+                traced_s = time.perf_counter() - t
+            trace = trace_summary(prof, traced_s, 1, f"phase 21 (a) {label}, one step traced")
+            del prof
+    torch.cuda.synchronize()
+    opt_ms = [a.elapsed_time(b) for a, b in opt_events[:TRAIN_STEPS]]
+    check(all(math.isfinite(x) for x in losses), f"(a) {label}: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"(a) {label}: the loss did not fall: {losses}")
+    timed = sorted(wall[1:])  # after one warm-up step
+    p50 = timed[len(timed) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_params * tokens + 12 * cfg.n_layers * TRAIN_SEQ * cfg.n_heads * cfg.hd * tokens
+    out = dict(label=label, n_params=n_params, losses=losses, step_s=wall, step_s_p50=p50,
+               tokens_per_s=tokens / p50, flops_per_step=flops, mfu=flops / p50 / BF16_FLOPS_PER_S,
+               optimizer_ms=opt_ms, optimizer_ms_p50=sorted(opt_ms[1:])[len(opt_ms[1:]) // 2],
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, train_state_gb=state_gb,
+               trace=trace, wall_s=time.monotonic() - t0)
+    if keep_w_up:
+        out["w_up0"] = params["layers"]["mlp"]["w_up"]["w"][0].detach().clone()
+    print(f"  (a) {label}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens ({TRAIN_MICRO} micro-batches), "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; step p50 {p50 * 1e3:.1f} ms after one warm-up "
+          f"(the first {wall[0] * 1e3:.1f} ms), AdamW {out['optimizer_ms_p50']:.1f} ms of it on the device; "
+          f"{out['tokens_per_s']:.0f} tok/s, {flops / 1e12:.1f} TFLOP a step (6 x {n_params / 1e9:.3f} G params x "
+          f"tokens + attention), MFU {out['mfu'] * 100:.1f} % of {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16 dense "
+          f"on {card.name} ({card.power_limit}); peak memory {out['peak_mem_gb']:.2f} GB (train state "
+          f"{state_gb:.2f} GB); {out['wall_s']:.1f} s", flush=True)
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_cli(torch, card) -> dict:
+    """(b): ``repro_torch.launch.train.main`` twice on one checkpoint
+    directory; the second call must resume at ``TRAIN_CLI_RESUME`` with
+    params and moments bit-identical to the files and to the state the
+    first call saved there."""
+    import numpy as np
+
+    from repro_torch.checkpoint.manager import _flatten, _load
+    from repro_torch.launch import train
+
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    rec: dict = {"losses": [], "step_s": [], "save_s": [], "write_s": [], "saved": None, "resume": []}
+    inner = train.FaultTolerantRunner
+
+    class Recording(inner):
+        def __init__(self, step, ckpt, *a, **k):
+            def recorded(state, batch):
+                t = time.perf_counter()
+                loss, state = step(state, batch)
+                rec["losses"][-1].append(float(loss))
+                rec["step_s"][-1].append(time.perf_counter() - t)
+                return loss, state
+
+            save, write = ckpt.save_async, ckpt._write
+
+            def timed_save(step_no, tree):
+                t = time.perf_counter()
+                save(step_no, tree)  # the host copy; the files are written in a thread
+                rec["save_s"].append(time.perf_counter() - t)
+                if step_no == TRAIN_CLI_RESUME and rec["saved"] is None:
+                    rec["saved"] = {k: v.detach().cpu().clone() for k, v in _flatten(tree).items()}
+
+            def timed_write(*args):
+                t = time.perf_counter()
+                out = write(*args)
+                rec["write_s"].append(time.perf_counter() - t)
+                return out
+
+            ckpt.save_async, ckpt._write = timed_save, timed_write
+            super().__init__(recorded, ckpt, *a, **k)
+
+        def resume_or_init(self, init_state, shardings=None):
+            start, state = super().resume_or_init(init_state, shardings)
+            if start:
+                path = TRAIN_CKPT_DIR / f"step_{start:08d}"
+                manifest = json.loads((path / "manifest.json").read_text())["leaves"]
+                flat = _flatten(state)
+                files_equal = all(torch.equal(v.cpu(), _load(path / manifest[k]["file"], manifest[k]["dtype"]))
+                                  for k, v in flat.items())
+                saved_equal = rec["saved"] is not None and all(torch.equal(v.cpu(), rec["saved"][k])
+                                                               for k, v in flat.items())
+                rec["resume"].append(dict(step=start, leaves=len(flat), files_equal=files_equal,
+                                          saved_equal=saved_equal,
+                                          on_card=all(v.is_cuda for v in flat.values()),
+                                          gb=sum(v.numel() * v.element_size() for v in flat.values()) / 1e9))
+            return start, state
+
+    outs = []
+    train.FaultTolerantRunner = Recording
+    try:
+        for n in TRAIN_CLI_STEPS:
+            rec["losses"].append([])
+            rec["step_s"].append([])
+            outs.append(train.main(TRAIN_CLI_FLAGS + ["--steps", str(n), "--ckpt-dir", str(TRAIN_CKPT_DIR)]))
+    finally:
+        train.FaultTolerantRunner = inner
+    first, second = rec["losses"]
+    check(len(first) == TRAIN_CLI_STEPS[0] and outs[0]["steps"] == TRAIN_CLI_STEPS[0],
+          f"(b) the first call ran {len(first)} steps")
+    check(len(rec["resume"]) == 1 and rec["resume"][0]["step"] == TRAIN_CLI_RESUME,
+          f"(b) the second call resumed at {rec['resume']}, not step {TRAIN_CLI_RESUME}")
+    r = rec["resume"][0]
+    check(r["files_equal"] and r["saved_equal"] and r["on_card"],
+          f"(b) the restored params and moments are not bit-identical to the checkpoint: {r}")
+    check(len(second) == TRAIN_CLI_STEPS[1] - TRAIN_CLI_RESUME, f"(b) the second call ran {len(second)} steps")
+    check(all(math.isfinite(x) for x in first + second), "(b) a loss is not finite")
+    check(second[-1] < first[0], f"(b) the second call's last loss {second[-1]:.4f} is not below the first "
+                                 f"call's first {first[0]:.4f}")
+    tokens = 8 * 256
+    step_p50 = sorted(rec["step_s"][0][1:])[len(rec["step_s"][0][1:]) // 2]
+    out = dict(losses=rec["losses"], step_s=rec["step_s"], step_s_p50=step_p50, tokens_per_s=tokens / step_p50,
+               save_host_s=rec["save_s"], write_s=rec["write_s"], resume=r, cli=outs)
+    print(f"  (b) the CLI, mamba2-130m full width ({' '.join(TRAIN_CLI_FLAGS)}): {TRAIN_CLI_STEPS[0]} steps, loss "
+          f"{first[0]:.4f} -> {first[-1]:.4f}; the second call resumed at step {r['step']} ({r['leaves']} leaves, "
+          f"{r['gb']:.2f} GB, bit-identical to the files and to the state saved) and ran to "
+          f"{TRAIN_CLI_STEPS[1]}: loss {second[0]:.4f} -> {second[-1]:.4f}; step p50 {step_p50 * 1e3:.1f} ms, "
+          f"{out['tokens_per_s']:.0f} tok/s on {card.name} ({card.power_limit}); a checkpoint's host copy "
+          f"{min(rec['save_s']) * 1e3:.0f}-{max(rec['save_s']) * 1e3:.0f} ms, its files written in "
+          f"{min(rec['write_s']):.2f}-{max(rec['write_s']):.2f} s in the writer thread", flush=True)
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    return out
+
+
+@contextlib.contextmanager
+def _quantizer_tape(torch, mode: str, tape: dict):
+    """Record (``mode="record"``, the CPU) each ``fake_quant_act`` input and
+    ``fake_quant_weight`` output in call order into ``tape``, or
+    (``"replay"``, the card) quantize the recorded values at the same call
+    (value the CPU's, gradient the card's own) and keep the card's own
+    values beside them."""
+    from repro_torch.models import layers as L
+
+    act, weight = L.fake_quant_act, L.fake_quant_weight
+    calls = {"act": 0, "weight": 0}
+
+    def act_hook(x, bits):
+        i = calls["act"]
+        calls["act"] += 1
+        if mode == "record":
+            tape.setdefault("act", []).append(x.detach().clone())
+            return act(x, bits)
+        r = tape["act"][i].to(x.device)
+        tape.setdefault("act_own", []).append(x.detach().cpu())
+        return act(x + (r - x).detach(), bits)
+
+    def weight_hook(w, bits):
+        i = calls["weight"]
+        calls["weight"] += 1
+        out = weight(w, bits)
+        if mode == "record":
+            tape.setdefault("weight", []).append(out.detach().clone())
+            return out
+        r = tape["weight"][i].to(out.device)
+        flips = int(((out.detach() - r).abs() > 1 / 15).sum())  # levels 2/15 apart
+        tape.setdefault("weight_flips", []).append((flips, out.numel()))
+        return out + (r - out).detach()
+
+    L.fake_quant_act, L.fake_quant_weight = act_hook, weight_hook
+    try:
+        yield
+    finally:
+        L.fake_quant_act, L.fake_quant_weight = act, weight
+
+
+@contextlib.contextmanager
+def _captured_grads(torch, grads: dict):
+    """The gradients ``make_train_step`` hands to ``AdamW.update``, copied."""
+    from repro_torch.optim import AdamW
+
+    inner = AdamW.update
+
+    def capture(self, g, state, params):
+        from repro_torch.checkpoint.manager import _flatten
+
+        grads.update({k: v.detach().clone() for k, v in _flatten(g).items()})
+        return inner(self, g, state, params)
+
+    AdamW.update = capture
+    try:
+        yield
+    finally:
+        AdamW.update = inner
+
+
+@contextlib.contextmanager
+def _dropped_ste(torch):
+    """The planted fault: ``ste_round`` on the card without its
+    straight-through term (``round`` alone: a zero gradient)."""
+    from repro_torch.core.quant import fake_quant as FQ
+
+    inner = FQ.ste_round
+    FQ.ste_round = lambda x: torch.round(x) if x.is_cuda else inner(x)
+    try:
+        yield
+    finally:
+        FQ.ste_round = inner
+
+
+def _cross_side(torch, step, init, host_batch, dev: str, tape: dict | None, mode: str = "record",
+                plant: bool = False) -> dict:
+    """One ``make_train_step`` step on ``dev`` from ``init``: the loss, the
+    gradients it hands AdamW and the params after it, on ``dev``.  With
+    ``tape``: the CPU records its quantizer values, the card replays them
+    (:func:`_quantizer_tape`); ``plant`` drops the card's straight-through
+    term."""
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.models import transformer as T
+
+    params = T.map_leaves(init, lambda a: a.clone().to(dev))
+    state = step.optimizer.init(params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host_batch.items()}
+    grads: dict = {}
+    tape_ctx = _quantizer_tape(torch, mode, tape) if tape is not None else contextlib.nullcontext()
+    fault = _dropped_ste(torch) if plant else contextlib.nullcontext()
+    with tape_ctx, fault, _captured_grads(torch, grads):
+        loss, params, state = step(params, state, batch)
+    return dict(loss=float(loss), grads=grads, params={k: v.detach() for k, v in _flatten(params).items()})
+
+
+def _train_cross(torch, arch: str, qat: bool, init: dict) -> dict:
+    """(c): one ``make_train_step`` step on the CPU and on the card from
+    the same weights (``init``, on the host) and batch, at float32, full
+    width cut to 2 layers; for QAT on ``TRAIN_ARCH`` the card's step again
+    with the planted fault, on the same CPU step, which the checks must
+    reject."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import steps as S
+    from repro_torch.models import layers as L
+
+    t0 = time.monotonic()
+    # remat off: the recompute changes no bit (tests/test_torch_train.py), and
+    # (a) and (b) run it on the card; here it would only double the CPU's work
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32, remat=False, **TRAIN_CROSS[arch])
+    if cfg.family in ("ssm", "hybrid"):
+        cfg = dataclasses.replace(cfg, ssm_chunk=min(cfg.ssm_chunk, TRAIN_CROSS_SEQ))
+    if qat:
+        cfg = dataclasses.replace(cfg, quant=L.QuantConfig(bits={p: (4, 4) for p in TRAIN_CROSS_PROJ}))
+    step = S.make_train_step(cfg, None, S.TrainStepConfig(n_micro=1, lr=TRAIN_LR))
+    host_batch = TokenStream(vocab=cfg.vocab, seq_len=TRAIN_CROSS_SEQ, global_batch=TRAIN_CROSS_BATCH).batch(0)
+    tape = {} if qat else None
+    cpu = _cross_side(torch, step, init, host_batch, "cpu", tape)
+    card = _cross_side(torch, step, init, host_batch, "cuda", tape, "replay")
+    out = _cross_compare(torch, arch, qat, step, init, cpu, card, tape)
+    if qat and arch == TRAIN_ARCH:
+        replay = {"act": tape["act"], "weight": tape["weight"]}
+        try:
+            card = _cross_side(torch, step, init, host_batch, "cuda", replay, "replay", plant=True)
+            _cross_compare(torch, arch, qat, step, init, cpu, card, replay, plant=True)
+            fault = None
+        except PhaseError as e:
+            fault = str(e)
+        check(fault is not None and "gradient" in fault, f"(c) the checks pass a dropped straight-through term: {fault}")
+        out["fault"] = fault
+        print(f"  (c) planted ste_round without its straight-through term rejected: {fault}", flush=True)
+    out["phase_s"] = time.monotonic() - t0
+    return out
+
+
+def _cross_compare(torch, arch: str, qat: bool, step, init, c: dict, g: dict, tape: dict | None,
+                   plant: bool = False) -> dict:
+    """(c)'s checks of the card's step ``g`` against the CPU's ``c``, on the
+    card (the planted run's stop at its gradients)."""
+    from repro_torch.checkpoint.manager import _flatten, _unflatten
+    from repro_torch.models import transformer as T
+
+    out = dict(arch=arch, qat=qat, loss_cpu=c["loss"], loss_card=g["loss"],
+               loss_rel=abs(g["loss"] - c["loss"]) / abs(c["loss"]))
+
+    def rel(a, b):
+        b = b.to(a.device)
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+    out["grad_rel"] = {k: rel(g["grads"][k], v) for k, v in c["grads"].items()}
+    if not plant:
+        # the card's AdamW step on the CPU's gradients
+        params = T.map_leaves(init, lambda a: a.clone().to("cuda"))
+        grads = _unflatten(params, {k: v.to("cuda", copy=True) for k, v in c["grads"].items()})
+        with torch.no_grad():
+            params, _ = step.optimizer.update(grads, step.optimizer.init(params), params)
+        p0 = {k: v.to("cuda") for k, v in _flatten(init).items()}
+        out["param_rel_shared"] = {k: rel(v, c["params"][k]) for k, v in _flatten(params).items()}
+        del params, grads
+        out["param_rel"] = {k: rel(g["params"][k], v) for k, v in c["params"].items()}
+        out["update_rel"] = {k: rel(g["params"][k] - p0[k], v.to("cuda") - p0[k]) for k, v in c["params"].items()}
+        del p0
+    fails = []
+    if qat:
+        own, ref = tape["act_own"], tape["act"]
+        if len(own) != len(ref) or not ref:
+            fails.append(f"(c) {arch}: {len(own)} quantizer calls on the card, {len(ref)} on the CPU")
+        act_err, act_flips, act_n = 0.0, 0, 0
+        for r, o in zip(ref, own):
+            act_err = max(act_err, float((r - o).abs().max()))
+            act_flips += int((torch.round(r.clamp(0, 1) * 15) != torch.round(o.clamp(0, 1) * 15)).sum())
+            act_n += r.numel()
+        flips = sum(f for f, _ in tape["weight_flips"])
+        total = sum(n for _, n in tape["weight_flips"])
+        out.update(act_max_abs=act_err, act_flips=act_flips, act_elements=act_n,
+                   weight_flips=flips, weight_elements=total, weight_flip_share=flips / total)
+        if act_err > TRAIN_ACT_ATOL:
+            fails.append(f"(c) {arch}: the card's quantizer inputs differ from the CPU's by {act_err:.3g}")
+        if act_flips > TRAIN_ACT_FLIP_SHARE * act_n:
+            fails.append(f"(c) {arch}: {act_flips} of {act_n} activation levels flip between the card and the CPU")
+        if flips / total > TRAIN_WEIGHT_FLIP_SHARE:
+            fails.append(f"(c) {arch}: {flips} of {total} weight levels flip between the card and the CPU")
+    worst = max(out["grad_rel"], key=out["grad_rel"].get)
+    out["grad_rel_max"] = out["grad_rel"][worst]
+    if out["loss_rel"] > TRAIN_LOSS_RTOL:
+        fails.append(f"(c) {arch}: the loss differs by {out['loss_rel']:.3g} relative")
+    if out["grad_rel"][worst] > TRAIN_GRAD_RTOL:
+        fails.append(f"(c) {arch}: gradient {worst} differs by {out['grad_rel'][worst]:.3g} relative L2")
+    steps = ""
+    if not plant:
+        worst_s = max(out["param_rel_shared"], key=out["param_rel_shared"].get)
+        out["param_rel_shared_max"] = out["param_rel_shared"][worst_s]
+        out["update_rel_max"], out["param_rel_max"] = max(out["update_rel"].values()), max(out["param_rel"].values())
+        if out["param_rel_shared"][worst_s] > TRAIN_PARAM_RTOL:
+            fails.append(f"(c) {arch}: the card's AdamW step on the CPU's gradients leaves {worst_s} "
+                         f"{out['param_rel_shared'][worst_s]:.3g} relative L2 from the CPU's")
+        steps = (f", the card's AdamW step on the CPU's gradients within {out['param_rel_shared_max']:.2g} "
+                 f"relative L2; each side's own step: updates within {out['update_rel_max']:.2g}, params within "
+                 f"{out['param_rel_max']:.2g}")
+    flips = (f"; activation flips {out['act_flips']} of {out['act_elements']} (inputs within "
+             f"{out['act_max_abs']:.2g}), weight level flips {out['weight_flips']} of {out['weight_elements']}"
+             if qat else "")
+    print(f"  (c){' planted:' if plant else ''} {arch} at {TRAIN_CROSS[arch]} {'QAT w4a4' if qat else 'float'}, card vs "
+          f"CPU at float32: loss {out['loss_rel']:.2g} relative, gradients within {out['grad_rel_max']:.2g} "
+          f"({worst}){steps}{flips}", flush=True)
+    check(not fails, "; ".join(fails))
+    return out
+
+
+def _qat_against_packed(torch, card, w) -> dict:
+    """(d): ``dense`` with QAT at (4, 4) against ``dense`` on the same
+    weight's prepacked words (K1), 8 rows of random activations."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.packed_matmul.ops import prepack_dense
+    from repro_torch.models import layers as L
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    x = torch.randn((8, w.shape[0]), generator=g, device="cuda")
+    with torch.no_grad():
+        want = L.dense({"w": w}, x, name="mlp_up", quant=L.QuantConfig(bits={"mlp_up": (4, 4)}))
+        packed = prepack_dense(w, w_bits=4, a_bits=4, device="cuda")
+        build.reset_counts()
+        got = L.dense({"w": packed}, x)
+        torch.cuda.synchronize()
+        launches = build.counts()["packed_dense_fused"]
+    rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    check(launches == 1, f"(d) dense on the prepacked weight launched K1 {launches} times")
+    check(rel < QAT_PACKED_REL_TOL, f"(d) QAT against the packed serve path: {rel:.4g} relative L2")
+    print(f"  (d) layer 0's trained w_up ({w.shape[0]} x {w.shape[1]}) after (a)'s QAT run: dense with QAT at (4, 4) "
+          f"against dense on its prepacked words (one K1 launch): {rel:.3g} relative L2 (the reference's bound "
+          f"{QAT_PACKED_REL_TOL})", flush=True)
+    return dict(rel_l2=rel, launches=launches, shape=list(w.shape))
+
+
+def phase_train(torch, card, report: dict) -> dict:
+    """Phase 21, the training path: (b) the training CLI on mamba2-130m at
+    full width, resumed from its own checkpoint; (a) llama3.2-3b at full
+    width, 10 steps with QAT w4a4 and 10 float (one more step traced),
+    through ``make_train_step``; (d) the QAT projection against its
+    prepacked words through K1; (c) the card against the CPU at 2 layers,
+    float and QAT, and a planted dropped straight-through term the checks
+    must reject."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    t_phase = time.monotonic()
+    out: dict = {}
+    # the CLI first and the traced step last: a profiler session can leave
+    # the later eager steps of its process slower (perf/profiler_residue.py)
+    t0 = time.monotonic()
+    out["b"] = _train_cli(torch, card)
+    out["b"]["phase_s"] = time.monotonic() - t0
+    cfg = get_config(TRAIN_ARCH)
+    qat = dataclasses.replace(cfg, quant=L.QuantConfig(bits={p: (4, 4) for p in TRAIN_QAT_PROJ}))
+    out["a"] = {"qat": _train_run(torch, card, qat, f"{TRAIN_ARCH} QAT w4a4", keep_w_up=True)}
+    w_up0 = out["a"]["qat"].pop("w_up0")
+    out["d"] = _qat_against_packed(torch, card, w_up0)
+    del w_up0
+    torch.cuda.empty_cache()
+    out["a"]["float"] = _train_run(torch, card, cfg, f"{TRAIN_ARCH} float", traced=True)
+    t0 = time.monotonic()
+    out["c"] = {}
+    for arch in TRAIN_CROSS:
+        init = T.init_params(dataclasses.replace(get_config(arch), **TRAIN_CROSS[arch]), seed=1, device="cpu")
+        for q in (False, True):
+            out["c"][f"{arch} {'qat' if q else 'float'}"] = _train_cross(torch, arch, q, init)
+        del init
+    out["c"]["phase_s"] = time.monotonic() - t0
+    print(f"  (c) {out['c']['phase_s']:.1f} s", flush=True)
+    out["phase_s"] = time.monotonic() - t_phase
+    print(f"  phase 21 on {card.name} ({card.power_limit}): {out['phase_s']:.1f} s", flush=True)
+    report["train"] = out
+    return out
+
+
+def train_only(torch, out_path: Path) -> int:
+    """Phase 21 in this process, on the kernels phase 1 built, its report
+    written to ``out_path`` (``main`` runs it so, in a process of its own)."""
+    from repro_torch.kernels import build
+
+    for name in build.SOURCES:
+        build.library(name)
+    smi_line = smi("name,power.limit")
+    props = torch.cuda.get_device_properties(0)
+    card = Card(name=torch.cuda.get_device_name(0), power_limit=smi_line.split(",")[-1].strip(),
+                sms=props.multi_processor_count, clock_mhz=float(smi("clocks.max.sm").split()[0]))
+    torch.cuda.reset_peak_memory_stats()
+    report: dict = {}
+    phase_train(torch, card, report)
+    report["train"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out_path.write_text(json.dumps(report["train"], default=str))
+    return 0
+
+
+def phase_train_process(report: dict) -> dict:
+    """Phase 21 in a fresh process (``--train-only``): the training steps
+    are host-bound eager code, which a profiler session of an earlier
+    phase can leave slower in this process (``perf/profiler_residue.py``)."""
+    out_path = OUT_DIR / "phase21.json"
+    out_path.unlink(missing_ok=True)
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--train-only", str(out_path)],
+                          timeout=900)
+    check(proc.returncode == 0 and out_path.exists(), f"phase 21's process exited with {proc.returncode}")
+    report["train"] = json.loads(out_path.read_text())
+    return report["train"]
+
+
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--train-only", type=Path, metavar="REPORT",
+                    help="run phase 21 alone in this process (the kernels built) and write its report to REPORT")
+    opts = ap.parse_args(argv)
 
     import torch
 
@@ -4950,12 +5534,14 @@ def main(argv=None) -> int:
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if opts.train_only:
+        return train_only(torch, opts.train_only)
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.serving import EngineConfig
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     OUT_DIR.mkdir(exist_ok=True)
     report: dict = {}
     t_start = time.monotonic()
@@ -5020,10 +5606,15 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         left = torch.cuda.memory_allocated() / 1e9
         report.setdefault("left_mem_gb", {})[phase] = left
-        print(f"  phase {phase} peak device memory {gb:.2f} GB, {left:.2f} GB left allocated after it", flush=True)
+        now = time.monotonic()
+        took = report.setdefault("phase_wall_s", {})[phase] = now - phase_t0[0]
+        phase_t0[0] = now
+        print(f"  phase {phase} peak device memory {gb:.2f} GB, {left:.2f} GB left allocated after it; {took:.1f} s",
+              flush=True)
         torch.cuda.reset_peak_memory_stats()
 
     torch.cuda.reset_peak_memory_stats()
+    phase_t0 = [time.monotonic()]
     print("phase 2: K1/K2 vs plain at the full-width decode shapes", flush=True)
     mm = phase_matmul(torch, card, timer, cfg, ecfg.n_slots, report)
     print(f"  K1 at the chunked step's rows (M = {ecfg.n_slots} x {CHUNK}):", flush=True)
@@ -5116,6 +5707,13 @@ def main(argv=None) -> int:
           f"phase 4's continuous cell", flush=True)
     st = phase_static(torch, card, en["fused"], report)
     peak("20")
+    print(f"phase 21: training: {TRAIN_ARCH} at full width through make_train_step ({TRAIN_STEPS} steps float, "
+          f"{TRAIN_STEPS} QAT w4a4), the training CLI on mamba2-130m resumed from its checkpoint, card vs CPU at 2 "
+          f"layers with a dropped straight-through term planted, QAT against the packed serve path (K1)", flush=True)
+    tr = phase_train_process(report)
+    report["phase_wall_s"]["21"] = time.monotonic() - phase_t0[0]
+    print(f"  phase 21 peak device memory {tr['peak_mem_gb']:.2f} GB (its own process); "
+          f"{report['phase_wall_s']['21']:.1f} s", flush=True)
 
     # per-decode-step totals per kernel: the sum over the launches of one step
     def step_sum(rows, key):
@@ -5236,6 +5834,7 @@ def main(argv=None) -> int:
                  bound_ms_decode=step_sum(moe_k1_decode, "bound_ms"),
                  library_ms_decode=step_sum(moe_k1_decode, "bmm_graph_ms"),
                  max_abs_err=mo["k1"]["max_err"]),
+             launches_train_qat_check=tr["d"]["launches"],
              launches_qwen=qw["a"]["counts"]["packed_dense_fused"], steps_qwen=qw["a"]["steps"],
              qwen=dict(
                  per="qwen2-vl-7b C = 1 step (phase 19, through the serve CLI): wq|wo 3584x3584, wk|wv "

@@ -15,6 +15,11 @@ CPU tests hold the port against the reference.
 
 Entry points (``serving.api.build_engine``, ``serving.engine.Engine``,
 ``models.transformer.init_params``,
-``kernels.packed_matmul.ops.prepack_dense``) run on the card unless the
-caller passes ``device="cpu"``; without a card they raise.
+``kernels.packed_matmul.ops.prepack_dense``, the serve CLI
+``launch.serve`` and the training CLI ``launch.train``) run on the card
+unless the caller passes ``device="cpu"`` (``--device cpu``); without a
+card they raise.  Training (``models.transformer.forward_train``,
+``launch.steps.make_train_step``, ``optim``, ``runtime``) computes its
+products in plain PyTorch with autograd, as the reference computes them
+in XLA outside any Pallas kernel.
 """

@@ -1,5 +1,5 @@
-"""Carry the reference's params into the port, so both run on identical
-weights and identical packed words.
+"""Carry the reference's params (and optimizer state) into the port, so
+both run on identical weights, packed words and moments.
 
 The reference's arrays arrive as numpy (``np.asarray`` of each leaf);
 its ``PackedDenseParams`` leaves are read by attribute, so this module
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.packed_matmul.ops import PackConfig, PackedDenseParams
+from repro_torch.optim import AdamWState
 
 
 def tensor_from_numpy(a, device: str | torch.device = "cpu") -> torch.Tensor:
@@ -36,9 +37,12 @@ def packed_from_jax(p, device: str | torch.device = "cpu") -> PackedDenseParams:
 
 def params_from_jax(tree, device: str | torch.device = "cpu"):
     """The reference's params tree (dicts of numpy arrays, stacked
-    ``[L, ...]``, packed leaves allowed) as the port's."""
+    ``[L, ...]``, packed leaves allowed) as the port's; an ``AdamWState``
+    (a NamedTuple of ``step``, ``mu``, ``nu``) becomes the port's."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if type(tree).__name__ == "AdamWState":
+        return AdamWState(*(params_from_jax(v, device) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device) for v in tree)
     if hasattr(tree, "w_packed"):

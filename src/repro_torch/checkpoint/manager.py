@@ -62,9 +62,13 @@ def _unflatten(template: Any, flat: dict[str, Any], prefix: str = "") -> Any:
     return flat[prefix.rstrip("/")]
 
 
-def _to_host(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
+def _to_host(leaf) -> tuple[np.ndarray, str]:
     """A copy of a leaf on the host and its manifest dtype; bfloat16 as
-    int16 bits."""
+    int16 bits.  A leaf that is not a tensor is stored as ``np.asarray``
+    of it, as the reference stores every leaf."""
+    if not isinstance(leaf, torch.Tensor):
+        arr = np.array(leaf)
+        return arr, str(arr.dtype)
     t = leaf.detach().to("cpu", copy=True).contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy(), BF16

@@ -1,4 +1,5 @@
-"""Decode-path layers (``repro.models.layers``) in PyTorch.
+"""The layers of ``repro.models.layers`` in PyTorch: decode, train
+(``attention_train``, ``mlp``, QAT ``dense``) and serve.
 
 Params are plain dicts of tensors with the reference's keys and layouts
 (``x @ W`` with W ``[d_in, d_out]``).  Every projection goes through
@@ -17,6 +18,7 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quant import fake_quant_act, fake_quant_weight
 from repro_torch.kernels.packed_matmul.ops import PackedDenseParams, packed_dense, prepack_dense
 from repro_torch.kernels.paged_gather.ops import paged_gather_kv
 
@@ -36,9 +38,11 @@ NO_QUANT = QuantConfig()
 
 
 def dense(params: dict, x: torch.Tensor, *, name: str = "", quant: QuantConfig = NO_QUANT) -> torch.Tensor:
-    """``x @ W``; prepacked weights run the packed serving path, and int8
+    """``x @ W``; prepacked weights run the packed serving path, int8
     serving weights (``{"levels", "scale"}``) are dequantized in ``x``'s
-    dtype before the product, in the reference's op order."""
+    dtype before the product, and a projection that ``quant`` names
+    trains with QAT fake-quant (straight-through gradients), all in the
+    reference's op order."""
     w = params["w"]
     if isinstance(w, PackedDenseParams):
         # the sigmoid proxy bounds activations to [0, 1], as the QAT path
@@ -48,8 +52,12 @@ def dense(params: dict, x: torch.Tensor, *, name: str = "", quant: QuantConfig =
         return y.reshape(*lead, w.n_out).to(x.dtype)
     if isinstance(w, dict):  # int8 serving layout {"levels", "scale"}
         w = w["levels"].to(x.dtype) * w["scale"].to(x.dtype)
-    elif quant.for_proj(name) is not None:
-        raise NotImplementedError("QAT fake-quant comes with the training slice (ROADMAP.md, port queue)")
+    else:
+        qa = quant.for_proj(name)
+        if qa is not None:  # QAT: fake-quant weight and the bounded pre-activation proxy
+            wb, ab = qa
+            w = fake_quant_weight(w, wb)
+            x = fake_quant_act(torch.sigmoid(x), ab)
     return x @ w.to(x.dtype)
 
 

@@ -1,16 +1,20 @@
-"""The Mamba2 decode path of ``repro.models.mamba`` in PyTorch.
+"""The Mamba2 (SSD) block of ``repro.models.mamba`` in PyTorch.
 
-One recurrent step per token: ``in_z``/``in_xbc``/``in_dt`` projections,
-the depthwise causal conv of width ``conv_width`` over the last
-``conv_width - 1`` inputs held in the conv state, the SSD state update
-``S <- exp(dt * A) S + dt B (x) x`` in float32, the gated output RMSNorm
-and ``out_proj``.  The projections go through :func:`dense`, so packed
-weights run the packed matmul kernel; the recurrence is plain PyTorch,
-as the reference's is plain ``jnp`` outside any Pallas kernel.
+Train path (:func:`mamba_train`): the sequence is split into chunks of
+``chunk`` tokens; the intra-chunk term is the quadratic masked product of
+the duality paper, the inter-chunk term a float32 recurrence over chunk
+states ``[B, H, N, P]`` (the reference's ``lax.scan``, here a Python loop
+over chunks).  Decode path: one recurrent step per token: ``in_z``/
+``in_xbc``/``in_dt`` projections, the depthwise causal conv of width
+``conv_width`` over the last ``conv_width - 1`` inputs held in the conv
+state, the SSD state update ``S <- exp(dt * A) S + dt B (x) x`` in
+float32, the gated output RMSNorm and ``out_proj``.  The projections go
+through :func:`dense`, so packed weights run the packed matmul kernel and
+QAT configs fake-quantize; the rest is plain PyTorch, as the reference's
+is plain ``jnp`` outside any Pallas kernel.
 
 One device only: the reference's head sharding (``shard_heads``,
-``axis_name``) waits for the mesh, and the chunked-scan training path
-(``mamba_train``) for training (ROADMAP.md, port queue).
+``axis_name``) waits for the mesh (ROADMAP.md, port queue).
 """
 from __future__ import annotations
 
@@ -84,6 +88,76 @@ def _project_in(params: dict, s: MambaSpec, h: torch.Tensor, quant: QuantConfig)
     b = xbc[..., s.d_inner : s.d_inner + n]
     c = xbc[..., s.d_inner + n :]
     return z, x, b, c, dt
+
+
+def _conv1d_causal(w: torch.Tensor, bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over the sequence: x [B, S, C], w [K, C]
+    (``out[s] = sum_k x[s - K + 1 + k] w[k]``, zeros before the start)."""
+    K, C = w.shape
+    xp = F.pad(x, (0, 0, K - 1, 0)).transpose(1, 2)  # [B, C, K - 1 + S]
+    out = F.conv1d(xp, w.to(x.dtype).t().unsqueeze(1), groups=C)  # weight [C, 1, K]
+    return out.transpose(1, 2) + bias.to(x.dtype)
+
+
+def mamba_train(params: dict, s: MambaSpec, x: torch.Tensor, *, quant: QuantConfig = NO_QUANT) -> torch.Tensor:
+    """x: [B, S, d_model] -> [B, S, d_model] (residual included).
+
+    The reference's chunked SSD scan op by op, dtypes included: ``dt`` is
+    float32 after ``+ dt_bias``, the decays, chunk states and inter-chunk
+    read-out run in float32, the intra-chunk product in ``x.dtype``.  The
+    upper triangle of the segment sums is zeroed **before** ``exp`` (it is
+    positive and overflows; ``0 * inf`` would poison the backward)."""
+    B, S, _ = x.shape
+    H, P, N, Q = s.n_heads, s.head_dim, s.d_state, min(s.chunk, S)
+    assert S % Q == 0, "sequence must divide the SSD chunk size"
+    h = rmsnorm(params["ln"], x)
+    z, xs, b, c, dt = _project_in(params, s, h, quant)
+    xbc = torch.cat([xs, b, c], dim=-1)
+    xbc = F.silu(_conv1d_causal(params["conv_w"], params["conv_b"], xbc))
+    xs = xbc[..., : s.d_inner].reshape(B, S, H, P)
+    b = xbc[..., s.d_inner : s.d_inner + N]
+    c = xbc[..., s.d_inner + N :]
+    dt = F.softplus(dt + params["dt_bias"])  # [B, S, H]
+    a = -torch.exp(params["a_log"])  # [H], negative
+    log_a = (dt * a).to(torch.float32)  # [B, S, H] (<= 0)
+
+    nc = S // Q
+    xs_c = xs.reshape(B, nc, Q, H, P)
+    b_c = b.reshape(B, nc, Q, N)
+    c_c = c.reshape(B, nc, Q, N)
+    dt_c = dt.reshape(B, nc, Q, H)
+    cum = torch.cumsum(log_a.reshape(B, nc, Q, H), dim=2)  # inclusive
+
+    # intra-chunk (quadratic, masked): y[i] += sum_{j<=i} (C_i.B_j) e^{cum_i-cum_j} dt_j x_j
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B, nc, Qi, Qj, H]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))[None, None, :, :, None]
+    decay = torch.exp(torch.where(mask, seg, 0.0)) * mask
+    cb = torch.einsum("bnis,bnjs->bnij", c_c, b_c)  # [B, nc, Qi, Qj]
+    scores = cb[:, :, :, :, None] * decay * dt_c[:, :, None, :, :]
+    y_intra = torch.einsum("bnijh,bnjhp->bnihp", scores.to(x.dtype), xs_c)
+
+    # chunk states: S_n = e^{cum_Q} S_{n-1} + sum_j e^{cum_Q - cum_j} dt_j B_j (x) x_j
+    tail = torch.exp(cum[:, :, -1:, :] - cum)  # [B, nc, Q, H]
+    contrib = torch.einsum("bnqh,bnqs,bnqhp->bnhsp", (tail * dt_c).to(torch.float32),
+                           b_c.to(torch.float32), xs_c.to(torch.float32))  # [B, nc, H, N, P]
+    gamma = torch.exp(cum[:, :, -1, :])  # [B, nc, H] total chunk decay
+    state = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    prev = []  # the state *before* each chunk, for the inter-chunk term
+    for n in range(nc):
+        prev.append(state)
+        state = state * gamma[:, n, :, None, None] + contrib[:, n]
+    prev_states = torch.stack(prev, dim=1)  # [B, nc, H, N, P]
+
+    # inter-chunk: y[i] += e^{cum_i} C_i . S_prev
+    y_inter = torch.einsum("bnqh,bnqs,bnhsp->bnqhp", torch.exp(cum), c_c.to(torch.float32),
+                           prev_states).to(x.dtype)
+
+    y = (y_intra + y_inter).reshape(B, S, H, P)
+    y = y + params["d_skip"].to(x.dtype)[None, None, :, None] * xs.reshape(B, S, H, P)
+    y = y.reshape(B, S, s.d_inner) * F.silu(z)
+    y = rmsnorm(params["out_norm"], y)
+    out = dense(params["out_proj"], y, name="ssm_out", quant=quant)
+    return x + out
 
 
 def mamba_decode(

@@ -1,4 +1,5 @@
-"""The decode paths of ``repro.models.transformer`` in PyTorch.
+"""The train forward and the decode paths of ``repro.models.transformer``
+in PyTorch.
 
 Params are a dict with the reference's pytree keys: ``embed`` [V, d],
 ``final_ln``, and ``layers`` — stacked ``[L, ...]`` tensors (the
@@ -6,6 +7,12 @@ reference's scan layout) or a list of per-layer dicts; the encoder-decoder
 family adds ``enc_layers`` and ``xattn_layers`` (stacked), the hybrid
 family one unstacked ``shared_attn``.  The reference scans the stacked
 layers; here a Python loop walks them.
+
+The train forward (:func:`forward_train`, the mean next-token loss of
+:func:`ce_loss_chunked`) runs every family, the QAT projections of
+``cfg.quant`` included, with each layer (or each ``remat_block`` group)
+recomputed in the backward when ``cfg.remat`` is set
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
 
 Two decode paths.  The paged one (:func:`forward_decode_paged`, the
 continuous-batching engine's step) serves the dense attention family
@@ -24,6 +31,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.packed_matmul.ops import PackedDenseParams
@@ -317,7 +325,7 @@ def forward_decode_paged(params: dict, cfg: ModelConfig, state: dict, block_tabl
     return head_paged(params, cfg, x, lens=lens, head=head), state
 
 
-# -- the fixed-batch decode (the serve CLI's --engine static) ---------------------
+# -- the train forward (next-token loss) ------------------------------------------
 
 
 def _hybrid_segments(cfg: ModelConfig) -> list[int]:
@@ -325,6 +333,159 @@ def _hybrid_segments(cfg: ModelConfig) -> list[int]:
     ``hybrid_attn_every`` layers each, the remainder last."""
     k, n = cfg.hybrid_attn_every, cfg.n_layers
     return [k] * (n // k) + ([n % k] if n % k else [])
+
+
+def _unbind_layers(stacked, n: int) -> list:
+    """Per-layer dicts of stacked ``[L, ...]`` params by ``torch.unbind``,
+    whose backward stacks the layers' gradients into one tensor a leaf (a
+    view per layer would add a zero-filled full-size gradient per layer);
+    a per-layer list is returned as it is."""
+    if isinstance(stacked, (list, tuple)):
+        return list(stacked)
+
+    def split(tree):
+        if isinstance(tree, dict):
+            parts = {k: split(v) for k, v in tree.items()}
+            return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+        return tree.unbind(0)
+
+    return split(stacked)
+
+
+def _maybe_ckpt(f, cfg: ModelConfig):
+    """``f`` recomputed in the backward (its activations not kept) when
+    ``cfg.remat`` is set."""
+    if not cfg.remat:
+        return f
+    return lambda *args: checkpoint(f, *args, use_reentrant=False)
+
+
+def _attn_mlp_block(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                    window: int) -> torch.Tensor:
+    x = L.attention_train(p["attn"], cfg.attn_spec(), x, positions, window=window, quant=cfg.quant)
+    if cfg.is_moe:  # one device: the reference's _moe_block outside a mesh
+        return X.moe_apply(p["moe"], cfg.moe_spec(), x)
+    return L.mlp(p["mlp"], cfg.mlp_spec(), x, quant=cfg.quant)
+
+
+def _scan_stack(body, cfg: ModelConfig, x: torch.Tensor, xs: list) -> torch.Tensor:
+    """``x = body(x, item)`` over the layers' items, each layer
+    checkpointed when ``cfg.remat``; with ``remat_block > 1`` dividing the
+    layer count, groups of that many layers are checkpointed instead, so
+    only group boundaries are kept for the backward."""
+    rb, n = cfg.remat_block, len(xs)
+    if cfg.remat and rb > 1 and n % rb == 0:
+        def group(x, *items):
+            for item in items:
+                x = body(x, item)
+            return x
+
+        for g in range(n // rb):
+            x = checkpoint(group, x, *xs[g * rb:(g + 1) * rb], use_reentrant=False)
+        return x
+    step = _maybe_ckpt(body, cfg)
+    for item in xs:
+        x = step(x, item)
+    return x
+
+
+def _run_attn_stack(layers: list, cfg: ModelConfig, x, positions, windows: list) -> torch.Tensor:
+    def body(carry, item):
+        p, win = item
+        return _attn_mlp_block(p, cfg, carry, positions, win)
+
+    return _scan_stack(body, cfg, x, list(zip(layers, windows)))
+
+
+def _run_ssm_stack(layers: list, cfg: ModelConfig, x) -> torch.Tensor:
+    s = cfg.ssm_spec()
+    return _scan_stack(lambda carry, p: M.mamba_train(p, s, carry, quant=cfg.quant), cfg, x, layers)
+
+
+def forward_train(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """batch: ``tokens`` [B, S] int, ``labels`` [B, S] int (+ ``positions``
+    [B, S, 3] for M-RoPE, + ``enc_embeds`` [B, Se, d] for encdec).
+    Returns the mean next-token cross-entropy, a float32 scalar.
+
+    The embedding table is cast to ``cfg.dtype`` before the rows are
+    gathered, as the reference does (its gradient then sums repeated
+    tokens in ``cfg.dtype``).  Stacked layer params are unbound once per
+    call (:func:`_unbind_layers`)."""
+    if cfg.zero3_regather:
+        raise NotImplementedError("zero3_regather re-gathers sharded weights over a mesh, which waits for "
+                                  "ROADMAP.md's port queue item 5 (the mesh)")
+    tokens = batch["tokens"].long()
+    B, S = tokens.shape
+    x = params["embed"].to(cfg.dtype)[tokens]
+    if cfg.use_mrope:
+        positions = batch["positions"]  # [B, S, 3]
+    else:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    layers = _unbind_layers(params["layers"], cfg.n_layers)
+
+    if cfg.family == "attn":
+        x = _run_attn_stack(layers, cfg, x, positions, cfg.windows())
+    elif cfg.family == "ssm":
+        x = _run_ssm_stack(layers, cfg, x)
+    elif cfg.family == "hybrid":
+        idx = 0
+        for seg in _hybrid_segments(cfg):
+            x = _run_ssm_stack(layers[idx: idx + seg], cfg, x)
+            idx += seg
+            x = _attn_mlp_block(params["shared_attn"], cfg, x, positions, 0)
+    elif cfg.family == "encdec":
+        enc = batch["enc_embeds"].to(cfg.dtype)  # [B, Se, d] stub frontend
+        Se = enc.shape[1]
+        enc_pos = torch.arange(Se, dtype=torch.int32, device=x.device)[None].expand(B, Se)
+        aspec, mspec = cfg.attn_spec(), cfg.mlp_spec()
+        G, hd = cfg.kv_heads, cfg.hd
+
+        def enc_body(carry, p):
+            h = L.attention_train(p["attn"], aspec, carry, enc_pos, window=-1)
+            return L.mlp(p["mlp"], mspec, h, quant=cfg.quant)
+
+        enc_step = _maybe_ckpt(enc_body, cfg)
+        for p in _unbind_layers(params["enc_layers"], cfg.enc_layers):
+            enc = enc_step(enc, p)
+
+        def dec_body(carry, p, px, enc):
+            h = L.attention_train(p["attn"], aspec, carry, positions, window=0, quant=cfg.quant)
+            ek = L.dense(px["xattn"]["wk"], enc, name="xattn_k", quant=cfg.quant).reshape(B, Se, G, hd)
+            ev = L.dense(px["xattn"]["wv"], enc, name="xattn_v", quant=cfg.quant).reshape(B, Se, G, hd)
+            h = L.cross_attention(px["xattn"], aspec, h, (ek, ev), quant=cfg.quant)
+            return L.mlp(p["mlp"], mspec, h, quant=cfg.quant)
+
+        dec_step = _maybe_ckpt(dec_body, cfg)
+        for p, px in zip(layers, _unbind_layers(params["xattn_layers"], cfg.n_layers)):
+            x = dec_step(x, p, px, enc)
+    else:
+        raise ValueError(cfg.family)
+
+    x = L.rmsnorm(params["final_ln"], x)
+    return ce_loss_chunked(x, params["embed"], batch["labels"])
+
+
+def ce_loss_chunked(x: torch.Tensor, embed: torch.Tensor, labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Tied-head cross-entropy, chunked over the sequence to bound the
+    ``[B, cs, V]`` logit buffer: ``n = max(1, S // min(chunk, S))`` chunks
+    of ``cs = S // n`` tokens, summed in float32 in order, divided by
+    ``B * S`` (tokens past ``n * cs`` count in the divisor only, as in
+    the reference)."""
+    B, S, d = x.shape
+    n = max(1, S // min(chunk, S))
+    cs = S // n
+    emb_t = embed.to(x.dtype).T
+    labels = labels.long()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        logits = (x[:, i * cs:(i + 1) * cs] @ emb_t).to(torch.float32)  # [B, cs, V]
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, i * cs:(i + 1) * cs, None])[..., 0]
+        total = total + torch.sum(logz - gold)
+    return total / (B * S)
+
+
+# -- the fixed-batch decode (the serve CLI's --engine static) ---------------------
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype: torch.dtype = torch.bfloat16,

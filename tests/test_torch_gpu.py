@@ -1613,3 +1613,124 @@ def test_static_serve_cli_on_the_card_matches_the_cpu(cuda, monkeypatch, arch):
             top2 = torch.topk(c[differ], 2, dim=-1).values
             assert bool(((top2[:, 0] - top2[:, 1]) < tie_bound).all()), (t, top2)
             break
+
+
+# -- the training path (no port kernel on it) ----------------------------------------
+
+# one arch per family: attn (dense and MoE), ssm, hybrid, encdec
+TRAIN_ARCHS = ("llama3.2-3b", "qwen3-moe-30b-a3b", "mamba2-130m", "zamba2-1.2b", "whisper-tiny")
+TRAIN_PROJ = ("attn_q", "attn_k", "attn_v", "attn_o", "mlp_up", "mlp_gate", "mlp_down", "ssm_in", "ssm_dt",
+              "ssm_out", "xattn_q", "xattn_k", "xattn_v", "xattn_o")
+
+
+def _train_batch(cfg, b: int = 2, s: int = 16) -> dict:
+    g = np.random.default_rng(0)
+    batch = {"tokens": g.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+             "labels": g.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = g.normal(size=(b, s // 2, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+class _QuantTape:
+    """The CPU's run records each ``fake_quant_act`` input and
+    ``fake_quant_weight`` output in call order; the card's run quantizes
+    those values at the same call (its own gradient), so that a level flip
+    at a rounding boundary (tanh and sigmoid round differently on the card)
+    does not cascade.  The card's own values are kept: its activation
+    inputs must lie within 1e-5 of the CPU's, and its weight-level flips
+    (values more than half a level step, 1/15, apart: the card divides by
+    15 as a multiplication by the reciprocal, one ulp off at the same
+    level) are counted."""
+
+    def __init__(self, monkeypatch):
+        from repro_torch.models import layers as L
+
+        self.act, self.weight, self.mode = L.fake_quant_act, L.fake_quant_weight, "record"
+        self.acts, self.weights, self.own_acts, self.weight_flips = [], [], [], 0
+        self.calls = [0, 0]
+        monkeypatch.setattr(L, "fake_quant_act", self._act)
+        monkeypatch.setattr(L, "fake_quant_weight", self._weight)
+
+    def replay(self):
+        self.mode, self.calls = "replay", [0, 0]
+
+    def _act(self, x, bits):
+        i = self.calls[0]
+        self.calls[0] += 1
+        if self.mode == "record":
+            self.acts.append(x.detach().clone())
+            return self.act(x, bits)
+        self.own_acts.append((self.acts[i], x.detach().cpu()))
+        return self.act(x + (self.acts[i].to(x.device) - x).detach(), bits)
+
+    def _weight(self, w, bits):
+        i = self.calls[1]
+        self.calls[1] += 1
+        out = self.weight(w, bits)
+        if self.mode == "record":
+            self.weights.append(out.detach().clone())
+            return out
+        r = self.weights[i].to(out.device)
+        self.weight_flips += int(((out.detach() - r).abs() > 1 / 15).sum())
+        return out + (r - out).detach()
+
+
+def _rel(a, b) -> float:
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("qat", [False, True], ids=["float", "qat-w4a4"])
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch, arch, qat):
+    """``forward_train`` with every gradient leaf, then one
+    ``make_train_step`` step (2 micro-batches), on the card and on the
+    CPU from the same weights and batch, at float32 and the smoke size: the
+    losses within 1e-5 relative, each gradient leaf (the backward's and the
+    one the step hands its optimizer) within 1e-4 relative L2, and the
+    card's AdamW step on the CPU's gradients within 1e-5 of the CPU's
+    params after it (each side's own step is not compared: its first
+    update is g / (|g| + eps), which turns a gradient near eps's rounding
+    into a share of its update); QAT at w4a4 on every projection through
+    :class:`_QuantTape`."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32,
+                              quant=L.QuantConfig(bits={p: (4, 4) for p in TRAIN_PROJ}) if qat else L.NO_QUANT)
+    init = T.init_params(cfg, seed=3, device="cpu")
+    batch = _train_batch(cfg)
+    tape = _QuantTape(monkeypatch) if qat else None
+    seen: list = []
+    inner = AdamW.update
+    monkeypatch.setattr(AdamW, "update", lambda self, grads, st, p: (
+        seen.append(tree_map(lambda g: g.detach().cpu().clone(), grads)), inner(self, grads, st, p))[1])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        if tape is not None and dev == "cuda":
+            tape.replay()
+        params = T.map_leaves(init, lambda a: a.clone().to(dev).requires_grad_(True))
+        loss = T.forward_train(params, cfg, {k: v.to(dev) for k, v in batch.items()})
+        loss.backward()
+        grads = [p.grad.cpu() for p in tree_leaves(params)]
+        step = S.make_train_step(cfg, None, S.TrainStepConfig(n_micro=2, lr=1e-3))
+        params = T.map_leaves(init, lambda a: a.clone().to(dev))
+        step_loss, params, _ = step(params, step.optimizer.init(params), {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (float(loss.detach()), grads, float(step_loss), [p.detach().cpu() for p in tree_leaves(params)])
+    (lc, gc, sc, pc), (lg, gg, sg, _) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and abs(sg - sc) <= 1e-5 * abs(sc), (lg, lc, sg, sc)
+    for k, (a, b) in enumerate(zip(gg + tree_leaves(seen[1]), gc + tree_leaves(seen[0]))):
+        assert _rel(a, b) <= 1e-4, (k, _rel(a, b))
+    # the card's optimizer on the CPU's step gradients
+    params = T.map_leaves(init, lambda a: a.clone().to("cuda"))
+    grads = tree_map(lambda g: g.to("cuda", copy=True), seen[0])
+    params, _ = inner(step.optimizer, grads, step.optimizer.init(params), params)
+    for k, (a, b) in enumerate(zip(tree_leaves(params), pc)):
+        assert _rel(a.cpu(), b) <= 1e-5, (k, _rel(a.cpu(), b))
+    if tape is not None:
+        act_err = max(float((r - o).abs().max()) for r, o in tape.own_acts)
+        assert act_err <= 1e-5, act_err
+        assert tape.weight_flips <= 1e-4 * sum(w.numel() for w in tape.weights), tape.weight_flips

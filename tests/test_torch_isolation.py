@@ -18,7 +18,7 @@ import importlib, pkgutil, sys
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for expected in ("repro_torch.models.moe", "repro_torch.checkpoint.manager", "repro_torch.serving.chaos",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.launch.train"):
     assert expected in names, (expected, names)
 for name in names:
     importlib.import_module(name)
