@@ -93,7 +93,7 @@ Phases, all on the card:
    phase 9's reserve cell, each served eagerly and captured by an untimed
    recording run, must give bit-identical sampled rows and equal tokens;
    then each cell is served in alternating timed turns (eager, captured,
-   captured, eager, ...; 2 pairs), every turn with the recorded tokens,
+   captured, eager, ...; 1 pair), every turn with the recorded tokens,
    printing step p50, tok/s and TTFT of every turn and the device time
    of one replay of each captured turn's graph.  Traces of the eager C = 1
    run and of both C = 16 runs give each one's device busy share and time
@@ -310,15 +310,15 @@ Phases, all on the card:
    ``repro_torch.launch.steps.make_train_step``, the step the training CLI
    runs: bf16 compute over float32 masters and moments, each layer
    recomputed in the backward, ``TokenStream`` batches of 8 x 512 tokens
-   in 2 micro-batches, lr 1e-3, clip 1.0; 10 steps float, then 10 with QAT
+   in 2 micro-batches, lr 1e-3, clip 1.0; 6 steps float, then 6 with QAT
    at w4a4 on every projection, each from ``init_params(seed 0)``: every
    loss finite and the last below the first; step p50 after one warm-up,
    AdamW's device time, tok/s, model-FLOPs utilisation against 989 TFLOP/s
    bf16 dense (6 x params x tokens plus attention's 12 x L x S x H x hd a
    token, remat's recompute not counted) and peak memory.  (b) The
    training CLI in-process on mamba2-130m at full width
-   (``TRAIN_CLI_FLAGS``): 40 steps checkpointed every 20, then a second
-   call to 60 on the same directory, which must resume at step 20 with
+   (``TRAIN_CLI_FLAGS``): 20 steps checkpointed every 10, then a second
+   call to 30 on the same directory, which must resume at step 10 with
    params and moments bit-identical to the checkpoint's files and to the
    state the first call saved; every loss finite, the second call's last
    below the first call's first; tok/s and a checkpoint's host time.  (c)
@@ -336,6 +336,33 @@ Phases, all on the card:
    kernel), then (c); in a process of its own (``--train-only``): its
    steps are host-bound eager code, which a profiler session can leave
    slower in its process (``perf/profiler_residue.py``).
+
+22. The paper's DSP-aware NAS (§V) and the Filter-Packing kernel it
+   searches for, in a process of its own (``--nas-only``; eager, host-bound
+   code, no profiler session): (a) ``repro_torch.core.nas.search`` at the
+   published widths, nothing cut (UltraNet and SkyNet at 160x320,
+   VGG-Tiny at 32x32; ``NAS_STEPS`` steps of batch 32 of 512 synthetic
+   images, all seven bit choices, the DSP proxy at eta 0.25, the DSP48E2
+   LUTs of kernel lengths 1 and 3 from the LUT cache): every history loss
+   finite and the last below the first; the selected bits, ``op_dsp``
+   against uniform w4a4's, step p50 after one warm-up (a step waits for
+   the device), images a second and peak memory; the bits go to
+   ``build/selected_bits.json``.  (b) UltraNet fine-tuned 40 steps at (a)'s
+   bits from (a)'s weights: the losses finite, the test IOU printed.  (c)
+   One search step on the card and on the CPU at float32 from the same
+   weights, random alphas and batch (VGG-Tiny at 32x32, UltraNet cut to
+   40x80, ``NAS_CROSS``), the card quantizing the CPU's values: the loss,
+   its terms and every gradient leaf within the stated tolerances, level
+   flips counted; a composite quantizer without its softmax must be
+   rejected.  (d) ``repro_torch.plan.compile --from-nas`` on (a)'s file,
+   one plan per spec: it validates, with (a)'s bits and ``op_dsp``.  (e)
+   A fine-tuned UltraNet 3x3 layer (64 to 64 at 10x20) at its searched pair
+   (the first of layers 4-7 with a Filter-Packing placement, else (4, 4)):
+   its weight and activation levels through ``packed_conv1d`` (K6) as three
+   row convolutions an output channel, phase 7's split; the integer sums
+   bit-exact against a float64 ``conv2d`` of the levels, folded by
+   ``int_conv_equivalence`` within 1e-5 relative L2 of ``conv2d`` of the
+   fake-quant tensors; 192 launches counted.
 
 Every engine's graph and memory pool is released before the next engine
 is built, and each phase prints its peak device memory.
@@ -1857,8 +1884,9 @@ def phase_chunked(torch, card, cfg, ecfg, c1: dict, fused: dict, report: dict) -
 # -- phase 10 ------------------------------------------------------------------
 
 # timed turns of each cell in phase 10: eager, captured, captured, eager, ...
-# pairs of timed turns (2, to keep the whole script inside its time limit)
-CAPTURE_PAIRS = 2
+# pairs of timed turns (1, to keep the whole script inside its time limit
+# with phase 22: the script took 900.3 s at 2 pairs)
+CAPTURE_PAIRS = 1
 
 
 def _sync_free_step(torch, eng) -> None:
@@ -1913,7 +1941,7 @@ def phase_capture(torch, card, cfg, ecfg, c1: dict, report: dict) -> dict:
         print(f"  {label}: captured and eager, {n_rows} sampled rows bit-identical, tokens equal", flush=True)
         del rows_e, rows_c
         turns = []
-        for i, capture in enumerate([False, True, True, False] * (CAPTURE_PAIRS // 2)):
+        for i, capture in enumerate(([False, True, True, False] * CAPTURE_PAIRS)[: 2 * CAPTURE_PAIRS]):
             eng = engine(e, capture)
             m, counts, wall = _serve(torch, eng, prompts, max_new)
             check(m["statuses"] == {"ok": len(prompts)}, f"{label} turn {i + 1}: statuses {m['statuses']}")
@@ -4982,19 +5010,20 @@ def phase_static(torch, card, fused: dict, report: dict) -> dict:
 # (a) llama3.2-3b ([hf:meta-llama/Llama-3.2-3B]: 28 layers, d 3072, vocab
 # 128256, nothing cut) through repro_torch.launch.steps.make_train_step, the
 # step the CLI runs: bf16 compute over float32 masters and moments, remat on,
-# TokenStream batches of 8 x 512 in 2 micro-batches, lr 1e-3, clip 1.0; 10
-# steps float, then 10 with QAT at w4a4 on every projection, each from
-# init_params(seed 0)
+# TokenStream batches of 8 x 512 in 2 micro-batches, lr 1e-3, clip 1.0; 6
+# steps float, then 6 with QAT at w4a4 on every projection, each from
+# init_params(seed 0) (10 + 10 until phase 22 took its share of the time)
 TRAIN_ARCH = "llama3.2-3b"
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_LR, TRAIN_STEPS = 8, 512, 2, 1e-3, 10
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_LR, TRAIN_STEPS = 8, 512, 2, 1e-3, 6
 TRAIN_QAT_PROJ = ("attn_q", "attn_k", "attn_v", "attn_o", "mlp_up", "mlp_gate", "mlp_down")
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
 # (b) the CLI end to end on mamba2-130m ([arXiv:2405.21060], 24 layers, d 768,
-# vocab 50432, nothing cut): 40 steps checkpointed every 20, then a second
-# call to 60 on the same directory, which resumes at step 20
-TRAIN_CLI_FLAGS = ["--arch", "mamba2-130m", "--full", "--batch", "8", "--seq", "256", "--ckpt-every", "20"]
-TRAIN_CLI_STEPS = (40, 60)
-TRAIN_CLI_RESUME = 20
+# vocab 50432, nothing cut): 20 steps checkpointed every 10, then a second
+# call to 30 on the same directory, which resumes at step 10 (40, 60 and 20
+# until phase 22 took its share of the time)
+TRAIN_CLI_FLAGS = ["--arch", "mamba2-130m", "--full", "--batch", "8", "--seq", "256", "--ckpt-every", "10"]
+TRAIN_CLI_STEPS = (20, 30)
+TRAIN_CLI_RESUME = 10
 TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
 # (c) the card against the CPU at float32, full width cut to 2 layers, one
 # make_train_step step (n_micro 1) from the same weights (seed 1) and batch
@@ -5487,9 +5516,10 @@ def phase_train(torch, card, report: dict) -> dict:
     return out
 
 
-def train_only(torch, out_path: Path) -> int:
-    """Phase 21 in this process, on the kernels phase 1 built, its report
-    written to ``out_path`` (``main`` runs it so, in a process of its own)."""
+def phase_only(torch, phase, key: str, out_path: Path) -> int:
+    """One phase (``phase_train``, ``phase_nas``) in this process, on the
+    kernel libraries phase 1 built, its report (``report[key]``) written to
+    ``out_path`` (``main`` runs it so, in a process of its own)."""
     from repro_torch.kernels import build
 
     for name in build.SOURCES:
@@ -5500,29 +5530,459 @@ def train_only(torch, out_path: Path) -> int:
                 sms=props.multi_processor_count, clock_mhz=float(smi("clocks.max.sm").split()[0]))
     torch.cuda.reset_peak_memory_stats()
     report: dict = {}
-    phase_train(torch, card, report)
-    report["train"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    out_path.write_text(json.dumps(report["train"], default=str))
+    phase(torch, card, report)
+    report[key]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    out_path.write_text(json.dumps(report[key], default=str))
     return 0
 
 
-def phase_train_process(report: dict) -> dict:
-    """Phase 21 in a fresh process (``--train-only``): the training steps
-    are host-bound eager code, which a profiler session of an earlier
-    phase can leave slower in this process (``perf/profiler_residue.py``)."""
-    out_path = OUT_DIR / "phase21.json"
+def phase_process(flag: str, key: str, phase_no: str, report: dict, timeout: int) -> dict:
+    """A phase in a fresh process (``flag``, see :func:`phase_only`): the
+    training steps and the search are host-bound eager code, which a
+    profiler session of an earlier phase can leave slower in its process
+    (``perf/profiler_residue.py``)."""
+    out_path = OUT_DIR / f"phase{phase_no}.json"
     out_path.unlink(missing_ok=True)
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--train-only", str(out_path)],
-                          timeout=900)
-    check(proc.returncode == 0 and out_path.exists(), f"phase 21's process exited with {proc.returncode}")
-    report["train"] = json.loads(out_path.read_text())
-    return report["train"]
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), flag, str(out_path)], timeout=timeout)
+    check(proc.returncode == 0 and out_path.exists(), f"phase {phase_no}'s process exited with {proc.returncode}")
+    report[key] = json.loads(out_path.read_text())
+    return report[key]
+
+
+# -- phase 22 ------------------------------------------------------------------
+
+# (a) the paper's search at the published widths, nothing cut: UltraNet and
+# SkyNet at DAC-SDC's 160x320, VGG-Tiny at CIFAR-10's 32x32; all seven bit
+# choices, the DSP proxy, eta 0.25, batch 32 of 512 synthetic images, the
+# DSP48E2 LUTs of kernel lengths 1 and 3 from the port's LUT cache
+NAS_SPECS = {"ultranet": (160, 320), "skynet": (160, 320), "vgg_tiny": (32, 32)}
+NAS_STEPS = 60
+NAS_ETA, NAS_BATCH, NAS_DATA = 0.25, 32, 512
+NAS_FINETUNE_STEPS = 40
+NAS_BITS_PATH = ROOT / "build" / "selected_bits.json"
+NAS_PLAN_PATH = ROOT / "build" / "nas_plan.json"
+# (c) one search step, the card against the CPU at float32 (TF32 off), on
+# the same weights, random alphas and batch: VGG-Tiny at its 32x32, UltraNet
+# cut to 40x80 (a sixteenth of its pixels, the CPU's share); the loss and its
+# terms within NAS_LOSS_RTOL relative, each weight, scale and bias gradient
+# within NAS_GRAD_RTOL relative L2, each architecture logit's within
+# NAS_ALPHA_GRAD_RTOL (a softmax Jacobian's difference of whole-tensor sums
+# over seven branches that nearly cancel: tests/test_torch_nas.py's bound).
+# The card takes each discrete decision on the CPU's recorded value at the
+# same call (each fake_quant_act input and fake_quant_weight output, each
+# ReLU's input; the card's own gradient), so that a level flip does not
+# cascade and a pre-activation within rounding of 0 does not pass gradient
+# on one side only (one such element moved VGG-Tiny's layer-2 weight
+# gradient by 5 %: the card's and a float64 CPU run agreed, the float32 CPU
+# run stood apart); its own activation inputs within NAS_ACT_ATOL of the
+# CPU's in the quantizer's range, its own weight levels one level off in at
+# most NAS_WEIGHT_FLIP_SHARE of the elements, its own ReLU mask flips
+# counted.  A composite quantizer without its softmax must be rejected.
+NAS_CROSS = {"vgg_tiny": (32, 32), "ultranet": (40, 80)}
+NAS_CROSS_BATCH = 8
+NAS_LOSS_RTOL, NAS_GRAD_RTOL, NAS_ALPHA_GRAD_RTOL = 1e-5, 1e-4, 1e-3
+NAS_ACT_ATOL, NAS_WEIGHT_FLIP_SHARE = 1e-4, 1e-3
+# (e) K6 on a fine-tuned UltraNet 3x3 layer, 64 to 64 at 10x20 (layers
+# 4-7): the levels' integer sums bit-exact against a float64 conv2d, folded
+# by int_conv_equivalence within NAS_K6_REL_TOL relative L2 of conv2d of the
+# fake-quant tensors (float32 rounding of the quantized values)
+NAS_K6_LAYERS = (4, 5, 6, 7)
+NAS_K6_REL_TOL = 1e-5
+
+
+def _nas_luts(kernel_lens=(1, 3)):
+    from repro_torch.core.packing import DSP48E2, cached_luts
+    from repro_torch.plan import search as plan_search
+
+    return cached_luts(plan_search.DEFAULT_LUT_PATH, profile=DSP48E2, kernel_lens=kernel_lens)
+
+
+@contextlib.contextmanager
+def _timed_batches(torch, stamps: list):
+    """Each batch ``search``/``finetune`` draws waits for the device first and
+    stamps the host clock: consecutive stamps bound one step's wall time."""
+    from repro_torch.data import synthetic
+
+    inner = synthetic.batches
+
+    def timed(*args, **kw):
+        for b in inner(*args, **kw):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            yield b
+
+    synthetic.batches = timed
+    try:
+        yield
+    finally:
+        synthetic.batches = inner
+
+
+def _nas_search(torch, card, name: str, luts) -> tuple[dict, object]:
+    """(a) for one spec: the search, its gates and readings."""
+    from repro_torch.core import nas as N
+    from repro_torch.core.nas import supernet as S
+    from repro_torch.models import convnets as C
+
+    spec = C.CONVNETS[name](in_hw=NAS_SPECS[name])
+    torch.cuda.reset_peak_memory_stats()
+    stamps: list = []
+    t0 = time.monotonic()
+    with _timed_batches(torch, stamps):
+        res = N.search(spec, luts, eta=NAS_ETA, proxy="dsp", steps=NAS_STEPS, batch=NAS_BATCH,
+                       n_data=NAS_DATA, seed=0, device="cuda")
+    wall = time.monotonic() - t0
+    steps = [b - a for a, b in zip(stamps, stamps[1:])]  # the last step's end is not stamped
+    timed = sorted(steps[1:])  # after one warm-up step
+    p50 = timed[len(timed) // 2]
+    losses = [h["loss"] for h in res.history]
+    check(all(math.isfinite(x) for x in losses), f"(a) {name}: a history loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"(a) {name}: the loss did not fall: {losses}")
+    uniform = S.op_dsp(spec, [(4, 4)] * len(spec.layers), luts)
+    macs = sum(spec.op_mul(i) for i in range(len(spec.layers)))
+    out = dict(spec=name, in_hw=list(spec.in_hw), steps=NAS_STEPS, bits=res.bits, op_dsp=res.op_dsp,
+               op_dsp_w4a4=uniform, op_dsp_share=res.op_dsp / uniform, macs_per_frame=macs,
+               history=res.history, final_task_loss=res.final_task_loss, final_metric=res.final_metric,
+               step_s=steps, step_s_p50=p50, images_per_s=NAS_BATCH / p50,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, wall_s=wall)
+    print(f"  (a) {name} at {spec.in_hw[0]}x{spec.in_hw[1]} ({macs / 1e6:.1f} M MACs a frame): {NAS_STEPS} steps of "
+          f"{NAS_BATCH} of {NAS_DATA} images, loss {losses[0]:.4f} -> {losses[-1]:.4f}; bits {res.bits}; op_dsp "
+          f"{res.op_dsp:.4g} against uniform w4a4's {uniform:.4g} ({100 * out['op_dsp_share']:.1f} %); metric "
+          f"{res.final_metric:.4f}; step p50 {p50 * 1e3:.2f} ms after one warm-up (the first {steps[0] * 1e3:.1f} "
+          f"ms), {out['images_per_s']:.0f} images/s; peak memory {out['peak_mem_gb']:.2f} GB; {wall:.1f} s on "
+          f"{card.name} ({card.power_limit})", flush=True)
+    return out, res
+
+
+def _nas_finetune(torch, card, bits, params) -> tuple[dict, dict]:
+    """(b): UltraNet fine-tuned at (a)'s bits from (a)'s weights."""
+    from repro_torch.core import nas as N
+    from repro_torch.models import convnets as C
+
+    spec = C.ultranet(in_hw=NAS_SPECS["ultranet"])
+    stamps: list = []
+    t0 = time.monotonic()
+    with _timed_batches(torch, stamps):
+        ft = N.finetune(spec, bits, steps=NAS_FINETUNE_STEPS, batch=NAS_BATCH, n_data=NAS_DATA, seed=0,
+                        params=params, device="cuda")
+    steps = sorted(b - a for a, b in zip(stamps[1:], stamps[2:]))
+    check(math.isfinite(ft["train_loss"]) and math.isfinite(ft["test_loss"]),
+          f"(b) a fine-tune loss is not finite: {ft['train_loss']}, {ft['test_loss']}")
+    out = dict(steps=NAS_FINETUNE_STEPS, bits=bits, train_loss=ft["train_loss"], test_loss=ft["test_loss"],
+               test_iou=ft["metric"], step_s_p50=steps[len(steps) // 2], wall_s=time.monotonic() - t0)
+    print(f"  (b) ultranet fine-tuned {NAS_FINETUNE_STEPS} steps at (a)'s bits from (a)'s weights: train loss "
+          f"{ft['train_loss']:.4f}, test loss {ft['test_loss']:.4f}, test IOU {ft['metric']:.4f} (not gated); step "
+          f"p50 {out['step_s_p50'] * 1e3:.2f} ms; {out['wall_s']:.1f} s", flush=True)
+    return out, ft["params"]
+
+
+@contextlib.contextmanager
+def _nas_quant_tape(torch, mode: str, tape: dict):
+    """The super-net's discrete decisions recorded (``"record"``, the CPU)
+    or replayed (``"replay"``, the card), in call order: each
+    ``fake_quant_act`` input and ``fake_quant_weight`` output (a level), and
+    each ReLU's input (its mask, and with it each max-pool's choice).  The
+    card computes each on the CPU's value at the same call, its own
+    gradient, and keeps its own values beside them."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.nas import supernet as S
+
+    act, weight, relu = S.fake_quant_act, S.fake_quant_weight, F.relu
+    calls = {"act": 0, "weight": 0, "relu": 0}
+
+    def replayed(kind, x):
+        i = calls[kind]
+        calls[kind] += 1
+        if mode == "record":
+            tape.setdefault(kind, []).append(x.detach().clone())
+            return x
+        return x + (tape[kind][i].to(x.device) - x).detach()
+
+    def act_hook(x, bits):
+        if mode == "replay":
+            tape.setdefault("act_own", []).append((x.detach().cpu(), bits))
+        return act(replayed("act", x), bits)
+
+    def weight_hook(w, bits):
+        out = weight(w, bits)
+        if mode == "replay":
+            r = tape["weight"][calls["weight"]].to(out.device)
+            flips = int(((out.detach() - r).abs() > 1.0 / ((1 << bits) - 1)).sum())  # levels 2/n apart
+            tape.setdefault("weight_flips", []).append((flips, out.numel()))
+        return replayed("weight", out)
+
+    def relu_hook(x):
+        if mode == "replay":
+            r = tape["relu"][calls["relu"]].to(x.device)
+            tape.setdefault("relu_flips", []).append((int(((x.detach() > 0) != (r > 0)).sum()), x.numel()))
+        return relu(replayed("relu", x))
+
+    with _swapped(S, fake_quant_act=act_hook, fake_quant_weight=weight_hook), _swapped(F, relu=relu_hook):
+        yield
+
+
+@contextlib.contextmanager
+def _swapped(module, **attrs):
+    saved = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def _nas_step_side(torch, spec, luts, init: dict, alphas0: dict, x, y, dev: str, tape: dict, mode: str) -> dict:
+    """One search step's loss (``search``'s Eq. 9: the task loss plus eta
+    times the DSP proxy) and its gradients on ``dev``."""
+    from repro_torch.core.nas import supernet as S
+    from repro_torch.models import convnets as C
+
+    space = S.SearchSpace()
+
+    def leaves(tree):
+        return {k: {kk: v.to(dev).clone().requires_grad_(True) for kk, v in d.items()} for k, d in tree.items()}
+
+    params, alphas = leaves(init), leaves(alphas0)
+    with _nas_quant_tape(torch, mode, tape):
+        pred = S.supernet_apply(params, alphas, spec, x.to(dev), space)
+        acc = C.task_loss(pred, y.to(dev), spec.head)
+        comp = S.complexity_loss(alphas, S.t_mul_tables(spec, luts, space, device=dev),
+                                 S.op_muls(spec, device=dev), proxy="dsp", bit_choices=space.bit_choices)
+        loss = acc + NAS_ETA * comp
+    loss.backward()
+    grads = {f"{k}/{kk}": v.grad.detach().cpu() if v.grad is not None else torch.zeros_like(v).cpu()
+             for tree in (params, alphas) for k, d in tree.items() for kk, v in d.items()}
+    return dict(loss=float(loss.detach()), task=float(acc.detach()), comp=float(comp.detach()), grads=grads,
+                alpha_keys={f"{k}/{kk}" for k, d in alphas.items() for kk in d})
+
+
+def _nas_cross(torch, name: str, luts, plant: bool = False) -> dict:
+    """(c) for one spec: the CPU's step, then the card's on its recorded
+    quantizer values; ``plant`` drops the card's composite softmax."""
+    from repro_torch.core.nas import supernet as S
+    from repro_torch.data import synthetic
+    from repro_torch.models import convnets as C
+
+    spec = C.CONVNETS[name](in_hw=NAS_CROSS[name])
+    init = C.init_params(3, spec, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    alphas = {k: {kk: torch.randn(v.shape, generator=g) for kk, v in d.items()}
+              for k, d in S.init_alphas(spec, S.SearchSpace(), device="cpu").items()}
+    if spec.head == "classify":
+        x, y = synthetic.classification_set(5, NAS_CROSS_BATCH, hw=spec.in_hw[0])
+    else:
+        x, y = synthetic.detection_set(5, NAS_CROSS_BATCH, hw=spec.in_hw)
+    tape: dict = {}
+    t0 = time.monotonic()
+    cpu = _nas_step_side(torch, spec, luts, init, alphas, x, y, "cpu", tape, "record")
+    cpu_s = time.monotonic() - t0
+
+    def drop_softmax(quant, alpha, v, space):
+        return torch.tensordot(alpha, torch.stack([quant(v, b) for b in space.bit_choices]), dims=1)
+
+    fault = _swapped(S, _composite=drop_softmax) if plant else contextlib.nullcontext()
+    with fault:
+        card = _nas_step_side(torch, spec, luts, init, alphas, x, y, "cuda", tape, "replay")
+    return _nas_cross_compare(torch, name, spec, cpu, card, tape, cpu_s, plant)
+
+
+def _nas_cross_compare(torch, name, spec, c: dict, g: dict, tape: dict, cpu_s: float, plant: bool) -> dict:
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+    out = dict(spec=name, in_hw=list(spec.in_hw), batch=NAS_CROSS_BATCH, cpu_s=cpu_s,
+               loss_cpu=c["loss"], loss_card=g["loss"])
+    fails = []
+    for k in ("loss", "task", "comp"):
+        out[f"{k}_rel"] = abs(g[k] - c[k]) / abs(c[k])
+        if out[f"{k}_rel"] > NAS_LOSS_RTOL:
+            fails.append(f"(c) {name}: the {k} term differs by {out[f'{k}_rel']:.3g} relative")
+    out["grad_rel"] = {}
+    for k, ref in c["grads"].items():
+        tol = NAS_ALPHA_GRAD_RTOL if k in c["alpha_keys"] else NAS_GRAD_RTOL
+        if not torch.any(ref != 0):
+            err = float(g["grads"][k].abs().max())
+            if err > 0:
+                fails.append(f"(c) {name}: gradient {k} is {err:.3g} where the CPU's is zero")
+            continue
+        out["grad_rel"][k] = rel(g["grads"][k], ref)
+        if out["grad_rel"][k] > tol:
+            fails.append(f"(c) {name}: gradient {k} differs by {out['grad_rel'][k]:.3g} relative L2")
+    own, ref = tape.get("act_own", []), tape["act"]
+    if (len(own) != len(ref) or len(tape.get("weight_flips", [])) != len(tape["weight"])
+            or len(tape.get("relu_flips", [])) != len(tape["relu"])):
+        fails.append(f"(c) {name}: {len(own)} quantizer calls on the card, {len(ref)} on the CPU")
+    act_err, act_flips, act_n = 0.0, 0, 0
+    for r, (o, bits) in zip(ref, own):
+        n = (1 << bits) - 1
+        rc, oc = r.clamp(0, 1), o.clamp(0, 1)
+        act_err = max(act_err, float((rc - oc).abs().max()))
+        act_flips += int((torch.round(rc * n) != torch.round(oc * n)).sum())
+        act_n += r.numel()
+    flips = sum(f for f, _ in tape.get("weight_flips", []))
+    total = sum(n for _, n in tape.get("weight_flips", [])) or 1
+    relu_flips = sum(f for f, _ in tape.get("relu_flips", []))
+    relu_n = sum(n for _, n in tape.get("relu_flips", []))
+    out.update(act_max_abs=act_err, act_flips=act_flips, act_elements=act_n, weight_flips=flips,
+               weight_elements=total, relu_flips=relu_flips, relu_elements=relu_n)
+    if act_err > NAS_ACT_ATOL:
+        fails.append(f"(c) {name}: the card's quantizer inputs differ from the CPU's by {act_err:.3g}")
+    if flips > NAS_WEIGHT_FLIP_SHARE * total:
+        fails.append(f"(c) {name}: {flips} of {total} weight levels flip between the card and the CPU")
+    worst = max(out["grad_rel"], key=out["grad_rel"].get)
+    out["grad_rel_max"] = out["grad_rel"][worst]
+    print(f"  (c){' planted:' if plant else ''} {name} at {spec.in_hw[0]}x{spec.in_hw[1]}, batch {NAS_CROSS_BATCH}, one "
+          f"search step, card vs CPU at float32: loss {out['loss_rel']:.2g} relative (task {out['task_rel']:.2g}, "
+          f"complexity {out['comp_rel']:.2g}), gradients within {out['grad_rel_max']:.2g} ({worst}); activation flips "
+          f"{act_flips} of {act_n} (inputs within {act_err:.2g}), weight level flips {flips} of {total}, ReLU mask "
+          f"flips {relu_flips} of {relu_n}; the CPU's step {cpu_s:.1f} s", flush=True)
+    check(not fails, "; ".join(fails))
+    return out
+
+
+def _nas_compile(torch, searched: dict) -> dict:
+    """(d): ``repro_torch.plan.compile --from-nas`` on (a)'s
+    ``selected_bits.json``, a plan per spec."""
+    from repro_torch.plan import compile as plan_compile
+    from repro_torch.plan.plan import DeployPlan
+
+    out = {}
+    for name, r in searched.items():
+        plan_compile.main(["--from-nas", str(NAS_BITS_PATH), "--nas-spec", name, "--out", str(NAS_PLAN_PATH)])
+        plan = DeployPlan.load(NAS_PLAN_PATH)  # validates, the content hash included
+        check(plan.bit_pairs() == [tuple(b) for b in r["bits"]], f"(d) {name}: the plan's bits are not (a)'s")
+        check(plan.predicted["op_dsp"] == r["op_dsp"] and plan.predicted["dsp_ops"] == r["op_dsp"],
+              f"(d) {name}: the plan's op_dsp {plan.predicted['op_dsp']} / dsp_ops {plan.predicted['dsp_ops']} "
+              f"are not (a)'s {r['op_dsp']}")
+        out[name] = dict(hash=plan.content_hash(), dsp_ops=plan.predicted["dsp_ops"],
+                         ideal_weight_bytes=plan.predicted["ideal_weight_bytes"])
+        print(f"  (d) python -m repro_torch.plan.compile --from-nas {NAS_BITS_PATH.relative_to(ROOT)} --nas-spec "
+              f"{name}: plan {out[name]['hash']} validates, dsp_ops {plan.predicted['dsp_ops']:.6g} = (a)'s op_dsp, "
+              f"{plan.predicted['ideal_weight_bytes'] / 1e3:.1f} kB of ideal packed weights", flush=True)
+    NAS_PLAN_PATH.unlink(missing_ok=True)
+    return out
+
+
+def _nas_k6(torch, card, bits, params) -> dict:
+    """(e): a fine-tuned UltraNet 3x3 layer (64 to 64 at 10x20) at its
+    searched pair through K6, as three row convolutions an output channel;
+    its input the layer's activation on one test image."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.quant import fake_quant as FQ
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import build
+    from repro_torch.kernels.filter_conv.ops import choose_filter_config, packed_conv1d
+    from repro_torch.models import convnets as C
+
+    def placed(pair):
+        cfg = choose_filter_config(*pair, 3)
+        return cfg is not None and cfg.k_p * cfg.n_p > 1
+
+    layer = next((i for i in NAS_K6_LAYERS if placed(bits[i])), None)
+    which = "its searched pair" if layer is not None else "(4, 4): no searched pair of layers 4-7 has a placement"
+    layer = NAS_K6_LAYERS[0] if layer is None else layer
+    wb, ab = bits[layer] if placed(bits[layer]) else (4, 4)
+    spec = C.ultranet(in_hw=NAS_SPECS["ultranet"])
+    x, _ = synthetic.detection_set(7, 1, hw=spec.in_hw)
+    seen = []
+
+    def capture(v, b):
+        seen.append(v)
+        return FQ.fake_quant_act(v, b)
+
+    with torch.no_grad():
+        C.apply(params, spec, x.cuda(), bits, quant_a=capture)
+    act = seen[layer - 1]  # quant_a runs from layer 1 on
+    w = params[f"layer{layer}"]["w"]
+    check(tuple(act.shape) == (1, 64, 10, 20) and tuple(w.shape) == (64, 64, 3, 3),
+          f"(e) layer {layer}: input {tuple(act.shape)}, weight {tuple(w.shape)}")
+    w_lvl, s_w, z_w = FQ.weight_to_int_levels(w, wb)
+    a_lvl, s_a = FQ.act_to_int_levels(act, ab)
+    (wi, ai), scale, zero = FQ.int_conv_equivalence(w_lvl, a_lvl, s_w, z_w, s_a)
+    rows = F.pad(ai[0], (0, 0, 1, 1))  # [64, 12, 20]: a zero row above and below
+    seqs = [rows[:, dy:dy + 10].permute(1, 0, 2).contiguous() for dy in range(3)]  # [10 rows, 64, 20]
+    taps = [[torch.flip(wi[o, :, dy], (1,)).contiguous() for dy in range(3)] for o in range(64)]
+    torch.cuda.synchronize()
+    build.reset_counts()
+    t0 = time.perf_counter()
+    outs = [sum(packed_conv1d(seqs[dy], taps[o][dy], w_bits=wb, a_bits=ab)[:, 1:21].to(torch.int64)
+                for dy in range(3)) for o in range(64)]
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    counts = build.counts()
+    ints = torch.stack(outs)  # [64, 10, 20]
+    want = F.conv2d(ai.to(torch.float64), wi.to(torch.float64), padding=1)[0]
+    exact = torch.equal(ints.to(torch.float64), want)
+    ones = F.conv2d(ai.to(torch.float64), torch.ones((1, 64, 3, 3), dtype=torch.float64, device="cuda"), padding=1)[0]
+    folded = scale * (ints.to(torch.float64) - zero * ones)
+    fq = F.conv2d(FQ.fake_quant_act(act, ab), FQ.fake_quant_weight(w, wb), padding=1)[0].to(torch.float64)
+    rel = float(torch.linalg.vector_norm(folded - fq) / torch.linalg.vector_norm(fq))
+    check(counts["filter_conv"] == 3 * 64, f"(e) K6 launched {counts['filter_conv']} times, not 3 x 64")
+    check(exact, f"(e) K6's integer sums differ from the float64 conv2d of the levels by "
+                 f"{float((ints.to(torch.float64) - want).abs().max())}")
+    check(rel <= NAS_K6_REL_TOL, f"(e) folded by int_conv_equivalence: {rel:.3g} relative L2 from conv2d of the "
+                                 f"fake-quant tensors")
+    cfg = choose_filter_config(wb, ab, 3)
+    print(f"  (e) ultranet layer {layer} (64 to 64 at 10x20) at w{wb}a{ab}, {which}, placement {tuple(cfg)}: "
+          f"{counts['filter_conv']} K6 launches (3 row convolutions x 64 output channels, [10, 64, 20] each) in "
+          f"{took * 1e3:.1f} ms, integer sums bit-exact against the float64 conv2d of the levels; folded by "
+          f"int_conv_equivalence {rel:.3g} relative L2 from conv2d of the fake-quant tensors", flush=True)
+    return dict(layer=layer, pair=[wb, ab], searched=which == "its searched pair", config=tuple(cfg),
+                launches=counts["filter_conv"], counts=counts, exact=exact, rel_l2=rel, wall_ms=took * 1e3)
+
+
+def phase_nas(torch, card, report: dict) -> dict:
+    """Phase 22, the paper's NAS and its check against K6: (a) ``search``
+    at the published widths, (b) UltraNet's fine-tune, (c) one search step
+    card vs CPU with a planted fault, (d) ``plan.compile --from-nas`` on
+    (a)'s bits, (e) K6 on a fine-tuned layer at its searched pair."""
+    t_phase = time.monotonic()
+    luts = _nas_luts()
+    out: dict = {"a": {}}
+    results = {}
+    for name in NAS_SPECS:
+        out["a"][name], results[name] = _nas_search(torch, card, name, luts)
+    NAS_BITS_PATH.parent.mkdir(parents=True, exist_ok=True)
+    NAS_BITS_PATH.write_text(json.dumps({name: {"bits": r["bits"], "op_dsp": r["op_dsp"], "metric": r["final_metric"]}
+                                         for name, r in out["a"].items()}))
+    ultra = results.pop("ultranet")
+    del results
+    out["b"], ft_params = _nas_finetune(torch, card, ultra.bits, ultra.params)
+    del ultra
+    out["e"] = _nas_k6(torch, card, out["b"]["bits"], ft_params)
+    del ft_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["d"] = _nas_compile(torch, out["a"])
+    t0 = time.monotonic()
+    out["c"] = {name: _nas_cross(torch, name, luts) for name in NAS_CROSS}
+    try:
+        _nas_cross(torch, "vgg_tiny", luts, plant=True)
+        fault = None
+    except PhaseError as e:
+        fault = str(e)
+    check(fault is not None, "(c) the checks pass a composite quantizer without its softmax")
+    out["c"]["fault"] = fault
+    out["c"]["phase_s"] = time.monotonic() - t0
+    print(f"  (c) planted composite without its softmax rejected: {fault[:300]}", flush=True)
+    NAS_BITS_PATH.unlink(missing_ok=True)
+    out["phase_s"] = time.monotonic() - t_phase
+    print(f"  phase 22 on {card.name} ({card.power_limit}): {out['phase_s']:.1f} s", flush=True)
+    report["nas"] = out
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train-only", type=Path, metavar="REPORT",
                     help="run phase 21 alone in this process (the kernels built) and write its report to REPORT")
+    ap.add_argument("--nas-only", type=Path, metavar="REPORT",
+                    help="run phase 22 alone in this process (the kernels built) and write its report to REPORT")
     opts = ap.parse_args(argv)
 
     import torch
@@ -5537,7 +5997,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if opts.train_only:
-        return train_only(torch, opts.train_only)
+        return phase_only(torch, phase_train, "train", opts.train_only)
+    if opts.nas_only:
+        return phase_only(torch, phase_nas, "nas", opts.nas_only)
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.serving import EngineConfig
@@ -5710,10 +6172,18 @@ def main(argv=None) -> int:
     print(f"phase 21: training: {TRAIN_ARCH} at full width through make_train_step ({TRAIN_STEPS} steps float, "
           f"{TRAIN_STEPS} QAT w4a4), the training CLI on mamba2-130m resumed from its checkpoint, card vs CPU at 2 "
           f"layers with a dropped straight-through term planted, QAT against the packed serve path (K1)", flush=True)
-    tr = phase_train_process(report)
+    tr = phase_process("--train-only", "train", "21", report, timeout=900)
     report["phase_wall_s"]["21"] = time.monotonic() - phase_t0[0]
     print(f"  phase 21 peak device memory {tr['peak_mem_gb']:.2f} GB (its own process); "
           f"{report['phase_wall_s']['21']:.1f} s", flush=True)
+    t22 = time.monotonic()
+    print(f"phase 22: the DSP-aware NAS at the published widths: search of {', '.join(NAS_SPECS)} ({NAS_STEPS} steps "
+          f"each), UltraNet's fine-tune ({NAS_FINETUNE_STEPS} steps), one search step card vs CPU with a planted "
+          f"fault, plan.compile --from-nas, K6 on a fine-tuned layer at its searched pair", flush=True)
+    nas = phase_process("--nas-only", "nas", "22", report, timeout=600)
+    report["phase_wall_s"]["22"] = time.monotonic() - t22
+    print(f"  phase 22 peak device memory {nas['peak_mem_gb']:.2f} GB (its own process); "
+          f"{report['phase_wall_s']['22']:.1f} s", flush=True)
 
     # per-decode-step totals per kernel: the sum over the launches of one step
     def step_sum(rows, key):
@@ -5959,7 +6429,10 @@ def main(argv=None) -> int:
              bound_ms=once(k6, "bound_ms"),
              bound_by=by_t(k6, lambda r: 1), library_ms=once(k6, "library_ms"),
              path="packed_conv1d, phase 7",
-             per=f"the {len(k6)} launches of phase 7, one each, summed", timing=GRAPH_TIMING),
+             per=f"the {len(k6)} launches of phase 7, one each, summed", timing=GRAPH_TIMING,
+             launches_nas=nas["e"]["launches"],
+             nas=dict(per="phase 22 (e): a fine-tuned UltraNet layer at its searched pair, three row convolutions "
+                          "an output channel", **{k: nas["e"][k] for k in ("layer", "pair", "config", "rel_l2")})),
     ]
     # K1/K2 at the tuned plan's placements: launches from the plan's first
     # timed run (its counters equal its per-step counts times its steps)

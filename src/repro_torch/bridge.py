@@ -4,7 +4,8 @@ both run on identical weights, packed words and moments.
 The reference's arrays arrive as numpy (``np.asarray`` of each leaf);
 its ``PackedDenseParams`` leaves are read by attribute, so this module
 imports nothing of the reference.  bfloat16 arrays (numpy's
-``ml_dtypes`` type) go through float32, which is exact.
+``ml_dtypes`` type) go through float32, which is exact.  Convnet weights
+go from HWIO to OIHW and images from NHWC to NCHW, the port's layouts.
 """
 from __future__ import annotations
 
@@ -48,3 +49,19 @@ def params_from_jax(tree, device: str | torch.device = "cpu"):
     if hasattr(tree, "w_packed"):
         return packed_from_jax(tree, device)
     return tensor_from_numpy(tree, device)
+
+
+def convnet_params_from_jax(tree, device: str | torch.device = "cpu") -> dict:
+    """The reference's convnet params (``{"layer{i}": {"w", "scale",
+    "bias"}}``, weights HWIO ``[k, k, cin/groups, cout]``) as the port's,
+    weights OIHW ``[cout, cin/groups, k, k]``."""
+    out = {}
+    for name, p in tree.items():
+        out[name] = {k: tensor_from_numpy(v, device) for k, v in p.items()}
+        out[name]["w"] = out[name]["w"].permute(3, 2, 0, 1).contiguous()
+    return out
+
+
+def images_from_jax(x, device: str | torch.device = "cpu") -> torch.Tensor:
+    """The reference's NHWC images as the port's NCHW."""
+    return tensor_from_numpy(x, device).permute(0, 3, 1, 2).contiguous()

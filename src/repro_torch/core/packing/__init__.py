@@ -18,6 +18,7 @@ from .optimizer import (
     default_lut_cache,
     lut_overhead_estimate,
 )
+from . import bitpack
 
 __all__ = [
     "DEFAULT_BITS",
@@ -30,6 +31,7 @@ __all__ = [
     "PackingConfig",
     "PackingLUT",
     "all_placements",
+    "bitpack",
     "best_packing",
     "build_lut",
     "cached_luts",

@@ -80,3 +80,13 @@ def act_to_int_levels(x: torch.Tensor, bits: int) -> tuple[torch.Tensor, float]:
     n = (1 << bits) - 1
     levels = torch.round(torch.clamp(x, 0.0, 1.0) * n).to(torch.int32)
     return levels, 1.0 / n
+
+
+def int_conv_equivalence(w_levels, a_levels, w_scale, w_zero, a_scale):
+    """Reference identity used by tests: float conv of fake-quant tensors ==
+    scale-folded integer conv of levels.
+
+        (s_w (W - z_w)) * (s_a A) = s_w s_a (W*A - z_w * sum(A))
+    """
+    wa = w_levels.to(torch.int32), a_levels.to(torch.int32)
+    return wa, w_scale * a_scale, w_zero

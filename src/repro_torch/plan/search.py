@@ -15,8 +15,8 @@ per-layer bit space.  Each candidate assignment is scored by
 
 and the search maximizes quality under a cost budget.  The result equals
 the reference's plan for the same inputs, content hash included.  The
-NAS adapter (``plan_from_nas_result``) waits for the convnet NAS
-(ROADMAP.md, port queue: "Training, QAT and NAS").
+NAS adapter (``plan_from_nas_result``) turns a convnet search result
+(``repro_torch.core.nas``) into the same artifact.
 """
 from __future__ import annotations
 
@@ -354,3 +354,51 @@ def plan_from_bits(
         budget=budget, predicted=totals,
     ).validate()
 
+
+def plan_from_nas_result(
+    result,
+    spec,
+    luts: Mapping[int, PackingLUT],
+    *,
+    arch: str,
+) -> DeployPlan:
+    """Adapter: a ``repro_torch.core.nas.SearchResult`` (convnet NAS) becomes the
+    same :class:`DeployPlan` artifact the serving searches emit, so the
+    paper's NAS path plugs into the one deployment format."""
+    bits = list(result.bits)
+    if len(bits) != len(spec.layers):
+        raise ValueError(
+            f"NAS result has {len(bits)} layers, spec has {len(spec.layers)}"
+        )
+    # NB: convnet plans report *ideal* bit-packed bytes (FPGA BRAM has no
+    # int32-word storage constraint) under a distinct key so the field is
+    # never confused with serving plans' actual packed-word `weight_bytes`
+    layers, totals = [], {"mul_ops": 0.0, "dsp_ops": 0.0, "ideal_weight_bytes": 0.0}
+    profile = None
+    for i, ((w, a), lspec) in enumerate(zip(bits, spec.layers)):
+        lut = luts[lspec.kernel if lspec.kernel in luts else max(luts)]
+        profile = profile or lut.profile
+        ops = float(spec.op_mul(i))
+        t = lut.t_mul(w, a)
+        kcfg = lut.config(w, a)
+        cost = {
+            "mul_ops": ops,
+            "dsp_ops": ops / t,
+            "ideal_weight_bytes": w / 8.0 * lspec.kernel * lspec.kernel * lspec.cin * lspec.cout,
+        }
+        for k in totals:
+            totals[k] += cost[k]
+        layers.append(
+            LayerPlan(
+                index=i, name=f"conv_{i}", w_bits=w, a_bits=a,
+                n_seg=kcfg.n_w, stride=kcfg.stride, acc_chunk=1,
+                overlap=kcfg.overlap, t_mul=t,
+                cost=cost,
+            )
+        )
+    return DeployPlan(
+        arch=arch, family="convnet", source="nas", profile=profile or "dsp48e2",
+        layers=layers, lm_head=None,
+        predicted={**totals, "op_dsp": getattr(result, "op_dsp", None),
+                   "final_metric": getattr(result, "final_metric", None)},
+    ).validate()

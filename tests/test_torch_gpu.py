@@ -1734,3 +1734,140 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch, arch, qat):
         act_err = max(float((r - o).abs().max()) for r, o in tape.own_acts)
         assert act_err <= 1e-5, act_err
         assert tape.weight_flips <= 1e-4 * sum(w.numel() for w in tape.weights), tape.weight_flips
+
+
+class _NasTape:
+    """The super-net's discrete decisions in call order: the CPU's run
+    records each ``fake_quant_act`` input, ``fake_quant_weight`` output and
+    ReLU input; the card's run takes each on the CPU's value at the same
+    call (its own gradient), so that neither a level flip nor a
+    pre-activation within rounding of 0 moves one side only.  The card's
+    own activation inputs are kept beside the CPU's."""
+
+    def __init__(self, monkeypatch):
+        import torch.nn.functional as F
+
+        from repro_torch.core.nas import supernet as S
+
+        self.fns = {"act": S.fake_quant_act, "weight": S.fake_quant_weight, "relu": F.relu}
+        self.taped = {k: [] for k in self.fns}
+        self.calls = dict.fromkeys(self.fns, 0)
+        self.mode, self.own_acts = "record", []
+        monkeypatch.setattr(S, "fake_quant_act", lambda x, b: self.fns["act"](self._take("act", x), b))
+        monkeypatch.setattr(S, "fake_quant_weight", lambda w, b: self._take("weight", self.fns["weight"](w, b)))
+        monkeypatch.setattr(F, "relu", lambda x: self.fns["relu"](self._take("relu", x)))
+
+    def replay(self):
+        self.mode, self.calls = "replay", dict.fromkeys(self.fns, 0)
+
+    def _take(self, kind, x):
+        i = self.calls[kind]
+        self.calls[kind] += 1
+        if self.mode == "record":
+            self.taped[kind].append(x.detach().clone())
+            return x
+        r = self.taped[kind][i].to(x.device)
+        if kind == "act":
+            self.own_acts.append((self.taped[kind][i], x.detach().cpu()))
+        return x + (r - x).detach()
+
+
+@pytest.mark.parametrize("name,hw", [("vgg_tiny", (16, 16)), ("ultranet", (32, 64)), ("skynet", (32, 64))])
+def test_nas_search_step_on_the_card_matches_the_cpu(cuda, monkeypatch, name, hw):
+    """One ``search`` step's loss (the task loss plus 0.25 times the DSP
+    proxy) and every gradient leaf of params and architecture logits, on
+    the card and on the CPU from the same weights, random logits and
+    batch, at float32 (TF32 off) over all seven bit choices: the loss
+    within 1e-5 relative, weight gradients within 1e-4 and the logits'
+    within 1e-3 relative L2 (chip_smoke.py phase 22 (c)'s bounds)."""
+    from repro_torch.core.nas import supernet as S
+    from repro_torch.core.packing import DSP48E2, build_lut
+    from repro_torch.data import synthetic
+    from repro_torch.models import convnets as C
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    spec, space = C.CONVNETS[name](in_hw=hw), S.SearchSpace()
+    luts = {k: build_lut(DSP48E2, kernel_len=k, seq_len=32) for k in (1, 3)}
+    init = C.init_params(3, spec, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    alphas0 = {k: {kk: torch.randn(v.shape, generator=g) for kk, v in d.items()}
+               for k, d in S.init_alphas(spec, space, device="cpu").items()}
+    if spec.head == "classify":
+        x, y = synthetic.classification_set(5, 4, hw=hw[0])
+    else:
+        x, y = synthetic.detection_set(5, 4, hw=hw)
+    tape = _NasTape(monkeypatch)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        if dev == "cuda":
+            tape.replay()
+        params = {k: {kk: v.to(dev).clone().requires_grad_(True) for kk, v in d.items()} for k, d in init.items()}
+        alphas = {k: {kk: v.to(dev).clone().requires_grad_(True) for kk, v in d.items()} for k, d in alphas0.items()}
+        pred = S.supernet_apply(params, alphas, spec, x.to(dev), space)
+        loss = C.task_loss(pred, y.to(dev), spec.head) + 0.25 * S.complexity_loss(
+            alphas, S.t_mul_tables(spec, luts, space, device=dev), S.op_muls(spec, device=dev))
+        loss.backward()
+        grads = {(f"{k}/{kk}", tree is alphas): (v.grad if v.grad is not None else torch.zeros_like(v)).cpu()
+                 for tree in (params, alphas) for k, d in tree.items() for kk, v in d.items()}
+        out[dev] = (float(loss.detach()), grads)
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+    for (k, is_alpha), b in gc.items():
+        if not torch.any(b != 0):
+            assert not torch.any(gg[(k, is_alpha)] != 0), k
+            continue
+        assert _rel(gg[(k, is_alpha)], b) <= (1e-3 if is_alpha else 1e-4), (k, _rel(gg[(k, is_alpha)], b))
+    assert max(float((r.clamp(0, 1) - o.clamp(0, 1)).abs().max()) for r, o in tape.own_acts) <= 1e-4
+
+
+@pytest.mark.parametrize("w_bits,a_bits", [(4, 4), (3, 2), (2, 2)])
+def test_nas_k6_int_conv_equivalence_on_a_layer(cuda, w_bits, a_bits):
+    """Phase 22 (e) at a small layer: a 3x3 conv's weight and activation
+    levels through ``packed_conv1d`` (K6, one launch a row convolution)
+    bit-exact against a float64 ``conv2d`` of the levels, and folded by
+    ``int_conv_equivalence`` within 1e-5 relative L2 of ``conv2d`` of the
+    fake-quant tensors."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.quant import fake_quant as FQ
+
+    cfg = choose_filter_config(w_bits, a_bits, 3)
+    assert cfg is not None and cfg.k_p * cfg.n_p > 1
+    g = torch.Generator(device="cuda").manual_seed(w_bits * 10 + a_bits)
+    cin, cout, h, wd = 16, 12, 8, 13
+    w = torch.randn((cout, cin, 3, 3), generator=g, device="cuda") / 12
+    x = torch.rand((1, cin, h, wd), generator=g, device="cuda") * 1.2 - 0.1
+    w_lvl, s_w, z_w = FQ.weight_to_int_levels(w, w_bits)
+    a_lvl, s_a = FQ.act_to_int_levels(x, a_bits)
+    (wi, ai), scale, zero = FQ.int_conv_equivalence(w_lvl, a_lvl, s_w, z_w, s_a)
+    rows = F.pad(ai[0], (0, 0, 1, 1))
+    seqs = [rows[:, dy:dy + h].permute(1, 0, 2).contiguous() for dy in range(3)]
+    build.reset_counts()
+    ints = torch.stack([sum(packed_conv1d(seqs[dy], torch.flip(wi[o, :, dy], (1,)).contiguous(), w_bits=w_bits,
+                                          a_bits=a_bits)[:, 1:wd + 1].to(torch.int64) for dy in range(3))
+                        for o in range(cout)])
+    torch.cuda.synchronize()
+    assert build.counts()["filter_conv"] == 3 * cout
+    want = F.conv2d(ai.to(torch.float64), wi.to(torch.float64), padding=1)[0]
+    assert torch.equal(ints.to(torch.float64), want)
+    ones = F.conv2d(ai.to(torch.float64), torch.ones((1, cin, 3, 3), dtype=torch.float64, device="cuda"), padding=1)[0]
+    folded = scale * (ints.to(torch.float64) - zero * ones)
+    fq = F.conv2d(FQ.fake_quant_act(x, a_bits), FQ.fake_quant_weight(w, w_bits), padding=1)[0].to(torch.float64)
+    assert _rel(folded, fq) <= 1e-5
+
+
+def test_nas_search_runs_on_the_card(cuda):
+    """``search`` and ``finetune`` end to end on the card at a small size:
+    finite history, the bits of the space, the params on the card."""
+    from repro_torch.core import nas as N
+    from repro_torch.core.packing import DSP48E2, build_lut
+    from repro_torch.models import convnets as C
+
+    spec = C.ultranet(in_hw=(32, 64))
+    luts = {k: build_lut(DSP48E2, kernel_len=k, seq_len=32) for k in (1, 3)}
+    res = N.search(spec, luts, eta=0.25, steps=4, batch=8, n_data=32, device="cuda")
+    assert all(np.isfinite(h["loss"]) for h in res.history) and len(res.bits) == len(spec.layers)
+    assert all(v.is_cuda for d in res.params.values() for v in d.values())
+    ft = N.finetune(spec, res.bits, steps=3, batch=8, n_data=32, params=res.params, device="cuda")
+    assert np.isfinite(ft["train_loss"]) and np.isfinite(ft["test_loss"]) and 0.0 <= ft["metric"] <= 1.0

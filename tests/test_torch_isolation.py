@@ -18,7 +18,9 @@ import importlib, pkgutil, sys
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for expected in ("repro_torch.models.moe", "repro_torch.checkpoint.manager", "repro_torch.serving.chaos",
-                 "repro_torch.launch.serve", "repro_torch.launch.train"):
+                 "repro_torch.launch.serve", "repro_torch.launch.train", "repro_torch.models.convnets",
+                 "repro_torch.data.synthetic", "repro_torch.core.nas.supernet",
+                 "repro_torch.core.customize.allocate", "repro_torch.core.packing.bitpack"):
     assert expected in names, (expected, names)
 for name in names:
     importlib.import_module(name)

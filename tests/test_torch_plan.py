@@ -579,8 +579,10 @@ def test_compile_options_equal_reference(tmp_path, args):
     assert (tmp_path / "ours.json").read_bytes() == (tmp_path / "ref.json").read_bytes()
 
 
-@pytest.mark.parametrize("flag,item", [(["--from-nas", "x.json"], "'Training, QAT and NAS'"),
+@pytest.mark.parametrize("flag,item", [(["--from-nas", "x.json", "--trace-cost"], "do not apply to --from-nas"),
                                        (["--trace-cost"], "'CLIs and benches'")])
 def test_compile_refuses_what_is_not_ported(flag, item):
+    """``--trace-cost`` waits for the port's step-cost tracer; with
+    ``--from-nas`` it is refused first, as the reference refuses it."""
     with pytest.raises(SystemExit, match=item):
         plan_compile.main(flag)
