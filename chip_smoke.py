@@ -90,7 +90,8 @@ Phases, all on the card:
    reference's ``jax.disable_jit()``): after a warm-up, an eager step at
    C = 1 and at C = 16 must make no synchronising call
    (``torch.cuda.set_sync_debug_mode("error")``); phase 4's cell and
-   phase 9's reserve cell, each served eagerly and captured by an untimed
+   phase 9's reserve cell, cut to their first ``CAPTURE_LAYERS`` (14) of 28
+   layers, each served eagerly and captured by an untimed
    recording run, must give bit-identical sampled rows and equal tokens;
    then each cell is served in alternating timed turns (eager, captured,
    captured, eager, ...; 1 pair), every turn with the recorded tokens,
@@ -363,6 +364,31 @@ Phases, all on the card:
    bit-exact against a float64 ``conv2d`` of the levels, folded by
    ``int_conv_equivalence`` within 1e-5 relative L2 of ``conv2d`` of the
    fake-quant tensors; 192 launches counted.
+
+23. Mesh serving, every rank on ``cuda:0`` (one card: ranks run one after
+   another, so times record a correctness run, not a speedup).  (a)
+   Phase 4's cell (llama3.2-3b at full width, w4a4, the packed (4, 4) head,
+   kernel gather, 8 slots, C = 1, phase 4's 8 prompts, 32 new tokens) at dp
+   2 x mp 1: tokens bit-identical to phase 4's.  (b) The same at dp 1 x mp
+   2 and dp 2 x mp 2, weights sliced, then packed against the global
+   normalizers: every replica one captured graph (two ranks' kernels a
+   step), launch counters and graph nodes equal to the per-step counts
+   times the steps and replicas, no leak on any replica; an untimed run's
+   sampled rows within ``MESH_ROW_REL_TOL`` relative L2 of phase 4's up to
+   each request's first token divergence, which must sit on a phase-4 top-2
+   gap under ``MESH_TIE_UNITS`` head units; the first ``MESH_EAGER_STEPS``
+   steps of every replica replayed on ``capture=False`` bit for bit; step
+   p50, one replay's device time, tok/s and peak memory.  (c) mamba2-130m
+   at full width, float32 weights and activations, mp 2 against mp 1: tokens
+   identical.  (d) qwen3-moe-30b-a3b at full width cut to
+   ``MESH_MOE_LAYERS`` layers, w4a4, mp 2 (64 experts a rank through
+   batched K1) against mp 1: rows and tokens as (b).  (e) 2 layers of
+   llama3.2-3b at float32: the card's mp 2 step (three chunked steps)
+   against the CPU's within ``MESH_CROSS_TOL``; a planted fault, each rank
+   keeping its own share unreduced, must be rejected.  (f) K1 at every mp 2
+   shard shape of (b) (M = 8) and over 64 experts (M = 1), K3 on the
+   per-rank pools (512 wide): bit-exact against their plain versions,
+   timed by graph beside their bounds, ``_int_mm`` and ``pool[table]``.
 
 Every engine's graph and memory pool is released before the next engine
 is built, and each phase prints its peak device memory.
@@ -773,14 +799,15 @@ def only_kernels(launched: dict) -> dict:
     return {"kinds": {"kernel": sum(launched.values())}, "kernels": dict(launched)}
 
 
-def check_graph(eng, per_step: dict, what: str, memset: bool = False) -> dict:
+def check_graph(eng, per_step: dict, what: str, memset: bool = False, prog=None) -> dict:
     """An engine's captured step against its launch counters: the launches
     its capture counted, and its graph's kernel nodes of the port's
     kernels, must both be ``per_step``; no memset node unless ``memset``
-    (phase 8's plain integer path, which launches no port kernel)."""
+    (phase 8's plain integer path, which launches no port kernel).
+    ``prog``: a replica's step program (default the first's)."""
     from repro_torch.kernels import build
 
-    prog = eng._program
+    prog = prog or eng._program
     check(prog.graph is not None, f"{what}: the engine's step was not captured")
     want = {k: v for k, v in per_step.items() if v}
     census = build.graph_census(prog.graph)
@@ -839,14 +866,17 @@ def gather_bytes(S, nb, ps, D, n_live, chunk, elem, scaled) -> int:
             + S * nb * 4 + S * 4 + (2 * n_live * ps * 4 if scaled else 0))
 
 
-def phase_gather(torch, card, timer, cfg, ecfg, report: dict) -> dict:
+def phase_gather(torch, card, timer, cfg, ecfg, report: dict, *, long: bool = True, served_cases=None,
+                 key: str = "gather") -> dict:
     """K3 at the engine's geometry and at a long-context one.  At the
     engine's, each slot's position lies on its last live page, so the chunk's
     lanes cross a page boundary and run past the live pages onto null ones
     (as a chunked step's invalid lanes do).  A call at the long geometry
     reads and writes 0.7-0.9 GB, far past the 50 MB L2, so its graph
     timings need no cold copies; the engine geometry's operands fit in L2,
-    as a step's do."""
+    as a step's do.  ``long=False`` leaves the long geometry out, and
+    ``served_cases`` (labels) keeps those cases and chunks of the engine's
+    (phase 23's per-rank pools); the rows go to ``report[key]``."""
     from repro_torch.kernels.paged_gather.kernel import paged_gather_plain, paged_gather_raw
 
     ps, D = ecfg.page_size, cfg.kv_heads * cfg.hd
@@ -854,7 +884,7 @@ def phase_gather(torch, card, timer, cfg, ecfg, report: dict) -> dict:
     geometries = [
         ("served", ecfg.n_slots, ecfg.blocks_per_slot, ecfg.pool_pages(), 1, (17, 96)),
         ("long", lg["S"], lg["max_len"] // ps, lg["S"] * (lg["max_len"] // ps) + 1, lg["seed"], lg["lengths"]),
-    ]
+    ][:2 if long else 1]
     rows, max_err = [], 0.0
     for geometry, S, nb, P, seed, lengths in geometries:
         table, pos, n_live, bf, lv, sc = gather_operands(torch, S, nb, ps, D, P, seed, lengths)
@@ -869,6 +899,8 @@ def phase_gather(torch, card, timer, cfg, ecfg, report: dict) -> dict:
             ("int8 pool -> bf16, window 40", (lv[0], lv[1]), (sc[0], sc[1]), 40),
         ]
         for (label, pools, scales, window), chunk in itertools.product(cases, (1, CHUNK)):
+            if served_cases is not None and (label, chunk) not in served_cases:
+                continue
             args = (table, pos, window, *pools, *scales)
             kw = dict(chunk=chunk, out_dtype=torch.bfloat16)
             got = paged_gather_raw(*args, **kw)
@@ -910,9 +942,10 @@ def phase_gather(torch, card, timer, cfg, ecfg, report: dict) -> dict:
                   f"{row['k3_graph_ms']:.4f}, {100 * row['fraction_of_bound']:.0f} % of its bound), plain "
                   f"{row['plain_ms']:.4f} ms, pool[table] {row['library_ms']:.4f} ms (graph "
                   f"{row['library_graph_ms']:.4f}){note}, bound {b_ms:.4f} ms; bit-exact", flush=True)
-        del table, pos, bf, lv, sc, cases, args, pools, scales
+        del table, pos, bf, lv, sc, cases
+        pools = scales = args = None  # the loop's views of the pools
         torch.cuda.empty_cache()
-    report["gather"] = rows
+    report[key] = rows
     return {"max_err": max_err, "rows": rows}
 
 
@@ -924,7 +957,7 @@ def check_clean(eng, what: str) -> None:
     retried step, no hard recovery.  The engine never samples a non-finite
     row (it strikes the request and replays it), so a kernel that emits a
     NaN now and then shows here, not in the sampled rows."""
-    n = (eng.scheduler.n_quarantines, eng.step_retries, eng.hard_recoveries)
+    n = (sum(r.scheduler.n_quarantines for r in eng.replicas), eng.step_retries, eng.hard_recoveries)
     check(n == (0, 0, 0), f"{what}: a run without chaos struck requests ({n[0]} quarantines, {n[1]} step "
                           f"retries, {n[2]} hard recoveries; fault log {eng.fault_log})")
 
@@ -1887,6 +1920,10 @@ def phase_chunked(torch, card, cfg, ecfg, c1: dict, fused: dict, report: dict) -
 # pairs of timed turns (1, to keep the whole script inside its time limit
 # with phase 22: the script took 900.3 s at 2 pairs)
 CAPTURE_PAIRS = 1
+# phase 10's depth: the first 14 of phase 4's 28 layers (its eager steps,
+# about 100 ms each at 28 layers, and their traces took 139 s of the script
+# on one H100; cut to keep the script inside its time with phase 23)
+CAPTURE_LAYERS = 14
 
 
 def _sync_free_step(torch, eng) -> None:
@@ -1907,8 +1944,9 @@ def _sync_free_step(torch, eng) -> None:
 
 def phase_capture(torch, card, cfg, ecfg, c1: dict, report: dict) -> dict:
     """The captured step against the eager one on phase 4's weights and
-    prompts, at C = 1 (phase 4's cell) and C = 16 under reserve admission
-    (phase 9's): no synchronising call in an eager step; an untimed
+    prompts cut to their first ``CAPTURE_LAYERS`` layers, at C = 1 (phase
+    4's cell) and C = 16 under reserve admission (phase 9's): no
+    synchronising call in an eager step; an untimed
     recording run of each mode, bit-identical sampled rows and equal
     tokens; then ``CAPTURE_PAIRS`` pairs of timed turns in alternating
     order; last, traces of the eager C = 1 run and of both C = 16 runs."""
@@ -1919,11 +1957,13 @@ def phase_capture(torch, card, cfg, ecfg, c1: dict, report: dict) -> dict:
 
     prompts, max_new = c1["prompts"], 32
     cells = {"C=1": ecfg, f"C={CHUNK}": dataclasses.replace(ecfg, chunk_tokens=CHUNK)}
+    cfg = dataclasses.replace(cfg, n_layers=CAPTURE_LAYERS)
+    params = dict(c1["params"], layers=c1["params"]["layers"][:CAPTURE_LAYERS])
     per_step = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": cfg.n_layers * 7 + 1,
                 "paged_gather": cfg.n_layers}
 
     def engine(e, capture: bool):
-        return Engine(cfg, c1["params"], e, head=c1["head"], capture=capture)
+        return Engine(cfg, params, e, head=c1["head"], capture=capture)
 
     for e in cells.values():
         _sync_free_step(torch, engine(e, False))
@@ -3544,13 +3584,15 @@ def moe_expert_shapes(cfg) -> dict[str, tuple[int, int, int, int]]:
     return {"w_up|w_gate": (E, d, f, 2 * L), "w_down": (E, f, d, L)}
 
 
-def _moe_kernels(torch, card, timer, cfg, report: dict) -> dict:
+def _moe_kernels(torch, card, timer, cfg, report: dict, *, ms=MOE_KERNEL_M, key: str = "moe_matmul",
+                 with_k2: bool = True) -> dict:
     """(a) K1 and K2 (block_k MOE_BLOCK_K) over the experts in one launch at
-    the served expert shapes, M rows a bucket (``MOE_KERNEL_M``), w4a4:
-    bit-exact against their plain versions, one captured call one kernel
-    node and nothing else, timed by graph beside the bytes bound and a bf16
+    the served expert shapes, M rows a bucket (``ms``), w4a4: bit-exact
+    against their plain versions, one captured call one kernel node and
+    nothing else, timed by graph beside the bytes bound and a bf16
     ``torch.bmm`` of the same shapes (the library yardstick; not the same
-    rounding)."""
+    rounding).  ``with_k2=False`` (phase 23) times and censuses K1 alone;
+    the rows go to ``report[key]``."""
     from repro_torch.kernels.packed_matmul import ref as pm
     from repro_torch.kernels.packed_matmul.kernel import (
         BM, BN, grid_plan, packed_dense_fused_plain, packed_dense_fused_raw, packed_matmul_plain,
@@ -3563,7 +3605,7 @@ def _moe_kernels(torch, card, timer, cfg, report: dict) -> dict:
     c = choose_config(4, 4)
     kw = dict(n_seg=c.n_seg, stride=c.stride, acc_chunk=c.acc_chunk, overlap=c.overlap)
     rows, max_err = [], 0.0
-    for M in MOE_KERNEL_M:
+    for M in ms:
         for name, (E, K, N, per_step) in moe_expert_shapes(cfg).items():
             x = torch.rand((E, M, K), generator=g, device="cuda") * 1.2 - 0.1
             wp = torch.empty((E, K, N // c.n_seg), dtype=torch.int32, device="cuda")
@@ -3584,7 +3626,7 @@ def _moe_kernels(torch, card, timer, cfg, report: dict) -> dict:
                   f"(a) batched K1/K2 differ from their plain versions at {name} M={M}: max {err}")
             max_err = max(max_err, err)
             del acc, a_sum, acc2, p_acc, p_sum, p_acc2
-            for kernel, fn in (("packed_dense_fused", k1), ("packed_matmul", k2)):
+            for kernel, fn in (("packed_dense_fused", k1), ("packed_matmul", k2))[:2 if with_k2 else 1]:
                 census, launched = device_nodes(torch, fn)
                 check(launched == {kernel: 1} and census == only_kernels(launched),
                       f"(a) a batched {kernel} call at {name} M={M} is not one kernel node: {census}")
@@ -3597,23 +3639,25 @@ def _moe_kernels(torch, card, timer, cfg, report: dict) -> dict:
             row = dict(shape=name, E=E, K=K, N=N, M=M, per_step=per_step, splits=splits,
                        k_per_split=k_per_split, blocks=E * -(-M // BM) * -(-Np // BN) * splits,
                        k1_graph_ms=timer.graph(lambda i: k1()), k1_ms=timer(k1, reps=10),
-                       k2_graph_ms=timer.graph(lambda i: k2()), k2_ms=timer(k2, reps=10),
                        plain_ms=timer(lambda: packed_dense_fused_plain(x, wp, a_bits=4, **kw), reps=1, warmup=0),
-                       k2_plain_ms=timer(lambda: packed_matmul_plain(a_lvl, wp, block_k=MOE_BLOCK_K, **kw),
-                                         reps=1, warmup=0),
                        bmm_graph_ms=timer.graph(lambda i: torch.bmm(xb, wb)),
                        bound_ms=b_ms, bound_by=b_by, t_bytes=t_b, t_ops=t_o, bytes=nbytes)
+            if with_k2:
+                row.update(k2_graph_ms=timer.graph(lambda i: k2()), k2_ms=timer(k2, reps=10),
+                           k2_plain_ms=timer(lambda: packed_matmul_plain(a_lvl, wp, block_k=MOE_BLOCK_K, **kw),
+                                             reps=1, warmup=0))
             row["k1_gbps"] = nbytes / row["k1_graph_ms"] / 1e6
             rows.append(row)
-            print(f"  (a) {name:12s} {E} x [{M}, {K}] x [{K}, {N}]: {row['blocks']} blocks ({splits} K "
+            k2_note = (f", K2 (block_k {MOE_BLOCK_K}) {row['k2_graph_ms']:.4f} ms; plain {row['plain_ms']:.2f} / "
+                       f"{row['k2_plain_ms']:.2f} ms" if with_k2 else f"; plain {row['plain_ms']:.2f} ms")
+            print(f"  {name:12s} {E} x [{M}, {K}] x [{K}, {N}]: {row['blocks']} blocks ({splits} K "
                   f"splits): K1 {row['k1_graph_ms']:.4f} ms by graph ({row['k1_gbps']:.0f} GB/s; events "
-                  f"{row['k1_ms']:.4f}), K2 (block_k {MOE_BLOCK_K}) {row['k2_graph_ms']:.4f} ms; plain "
-                  f"{row['plain_ms']:.2f} / {row['k2_plain_ms']:.2f} ms; bf16 bmm (not the same rounding) "
+                  f"{row['k1_ms']:.4f}){k2_note}; bf16 bmm (not the same rounding) "
                   f"{row['bmm_graph_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB); "
                   f"bit-exact, one kernel node a call", flush=True)
             del x, wp, a_lvl, xb, wb
             torch.cuda.empty_cache()
-    report["moe_matmul"] = rows
+    report[key] = rows
     return {"max_err": max_err, "rows": rows}
 
 
@@ -5977,6 +6021,390 @@ def phase_nas(torch, card, report: dict) -> dict:
     return out
 
 
+# -- phase 23 ------------------------------------------------------------------
+
+# phase 23's mesh cells (dp, mp) of phase 4's cell, every rank on cuda:0
+MESH_CELLS = ((2, 1), (1, 2), (2, 2))
+MESH_DEVICE = "cuda:0"
+# (b) and (d) gate a mesh run's sampled rows and tokens against the single
+# engine's as the reference gates token identity under a mesh
+# (tests/multidevice_checks.py): float32 weights, activations and pools,
+# where the two differ by the sum order of each block's reduction over the
+# ranks alone (about 1e-7 of a value): rows within MESH_F32_ROW_REL_TOL
+# relative L2 up to a request's first token divergence, which must sit on
+# a single-engine top-2 gap under MESH_F32_TIE.  On the w4a4 words
+# those few ulps cross 4-bit activation rounding boundaries (a level moves a
+# product by a weight level times w_scale / 15) thousands of times a step
+# at full width, and these random weights' top-2 gaps are small (p50 0.39,
+# 2 distinct tokens): measured on one H100, 5 of 8 requests
+# parted at float32 from the single engine at gaps up to 0.36 (41 head
+# units), in bfloat16 all 8, up to 0.84.  So the packed runs' rows and
+# divergences are reported against phase 9's rules (MESH_ROW_REL_TOL, gaps
+# in MESH_TIE_UNITS head units), not gated; the packed path is gated by
+# (a)'s bit-identical tokens, the replay on capture=False, (f)'s kernels
+# and the CPU tests against the reference (rows within 1e-5 at float32).
+MESH_F32_ROW_REL_TOL = 1e-4
+MESH_F32_TIE = 1e-4
+MESH_ROW_REL_TOL = CROSS_FLIP_REL_TOL
+MESH_TIE_UNITS = CHUNK_TIE_UNITS
+# (b): the first steps of every replica replayed on capture=False
+MESH_EAGER_STEPS = 8
+MESH_MAMBA = "mamba2-130m"
+# (d): qwen3-moe-30b-a3b cut to 4 of its 48 layers (phase 16 serves 12; 4
+# keep the build, 9.7 GB of float32 experts, and two serves inside the
+# phase's time)
+MESH_MOE_LAYERS = 4
+# (d)'s gate runs at this capacity factor (tests/multidevice_checks.py
+# check_moe_decode_psum's): no copy is dropped, so one rank's dispatch and
+# two ranks' compute the same MoE.  At the config's 1.25 (a bucket row an
+# expert at C = 1 on two ranks) each side drops other copies: a rank zeroes
+# its last local expert's last bucket row (the reference's clipped scatter),
+# expert 63's on rank 0 besides expert 127's, so mp 2 parts from mp 1 by
+# design (a row 0.275 relative L2 off at float32, measured on one H100)
+MESH_MOE_GATE_CAPACITY = 8.0
+# (e): the card's mp 2 step against the CPU's, 2 layers at float32; both
+# run float matmuls of the same weights (TF32 off), so the logits differ by
+# sum order alone
+MESH_CROSS_LAYERS = 2
+MESH_CROSS_TOL = 1e-3
+
+
+def mesh_matmul_shapes(cfg, mp: int) -> dict[str, tuple[int, int, int]]:
+    """name -> (K, N, launches a replica's step) of a tensor-parallel
+    rank's packed matmuls, every rank's launches counted."""
+    d, hd, L = cfg.d_model, cfg.hd, cfg.n_layers
+    q, kv, f = cfg.n_heads * hd // mp, cfg.kv_heads * hd // mp, cfg.d_ff // mp
+    return {"wq": (d, q, mp * L), "wk|wv": (d, kv, 2 * mp * L), "wo": (q, d, mp * L),
+            "w_up|w_gate": (d, f, 2 * mp * L), "w_down": (f, d, mp * L), "head": (d, cfg.vocab // mp, mp)}
+
+
+def _mesh_ecfg(ecfg, mesh):
+    from repro_torch.serving import MeshConfig
+
+    return dataclasses.replace(ecfg, mesh=MeshConfig(*mesh))
+
+
+def _mesh_twin(eng, ecfg, capture: bool | None):
+    """A fresh engine on ``eng``'s weights (its shards under mp > 1)."""
+    from repro_torch.serving import Engine
+
+    mp = eng.mp
+    return Engine(eng.cfg, None if mp > 1 else eng.params, ecfg, head=eng._head, device=eng.device,
+                  capture=capture, shard_params=eng.params if mp > 1 else None, devices=list(eng.mesh.devices))
+
+
+def _record_steps(eng, n: int) -> list:
+    """The first ``n`` steps of every replica: each step's batch (as the
+    program stages it) and logits, by wrapping the programs' launch and
+    wait."""
+    rec = [[] for _ in eng.replicas]
+    for rep in eng.replicas:
+        prog, out = rep.program, rec[rep.index]
+
+        def launch(tokens, pos, lens, table, inner=prog.launch, out=out):
+            if len(out) < n:
+                out.append([a.copy() for a in (tokens, pos, lens, table)])
+            return inner(tokens, pos, lens, table)
+
+        def wait(inner=prog.wait, out=out):
+            rows = inner()
+            if out and len(out[-1]) == 4:
+                out[-1].append(rows.copy())
+            return rows
+
+        prog.launch, prog.wait = launch, wait
+    return rec
+
+
+def _mesh_rows_against(rows: dict, tokens: dict, ref: dict, tie_bound: float, what: str,
+                       row_tol: float | None = None) -> dict:
+    """(b) and (d): a mesh run's rows and tokens against the single
+    engine's (phase 9's reading, its clean share reported), gated on rows
+    within ``row_tol`` relative L2 and divergences on gaps under
+    ``tie_bound``; ``row_tol=None`` reports alone."""
+    cmp = _against_c1(rows, tokens, ref, tie_bound)
+    cmp.pop("passes")
+    if row_tol is None:
+        return cmp
+    check(cmp["row_rel_max"] <= row_tol,
+          f"{what}: a sampled row {cmp['row_rel_max']:.3g} relative L2 from the single engine's")
+    check(all(gap <= tie_bound for _, _, gap in cmp["divergences"]),
+          f"{what}: tokens part from the single engine's at a top-2 gap above {tie_bound:.4g}: "
+          f"{cmp['divergences']}")
+    return cmp
+
+
+def _mesh_cell(torch, cfg, ecfg, mesh, p4: dict, single32: dict | None, tie_bound: float,
+               per_step1: dict) -> dict:
+    """(a) or (b): phase 4's cell on a ``mesh``: the timed run, its
+    counters and graphs; (b) also an untimed recording run (its rows
+    against phase 4's, reported) and the eager replay of its first steps,
+    then the mesh at float32 weights and activations against the single
+    engine's (``single32``), gated."""
+    import numpy as np
+
+    from repro_torch.serving import build_engine
+
+    dp, mp = mesh
+    label = f"dp {dp} x mp {mp}"
+    e = _mesh_ecfg(ecfg, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = build_engine(cfg, e, quant="packed", w_bits=4, a_bits=4, seed=0, devices=[MESH_DEVICE] * (dp * mp))
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    m, counts, wall = _serve(torch, eng, p4["prompts"], 32)
+    per_step = {k: v * mp for k, v in per_step1.items()}
+    check(m["statuses"] == {"ok": len(p4["prompts"])} and (m["dp"], m["mp"]) == mesh,
+          f"{label}: statuses {m['statuses']}")
+    check(counts == {k: v * m["steps"] * dp for k, v in per_step.items()},
+          f"{label}: launch counters {counts} != {per_step} x {m['steps']} steps x {dp} replicas")
+    graphs = [check_graph(eng, per_step, f"{label} replica {rep.index}", prog=rep.program) for rep in eng.replicas]
+    check(all(rep.program.captures == 1 for rep in eng.replicas), f"{label}: a replica captured twice")
+    replays = [replay_ms(torch, rep.program) for rep in eng.replicas]
+    eng.assert_no_leaks()
+    tokens = {r.rid: list(r.out_tokens) for r in eng.finished}
+    step_ms = [1e3 * x for x in eng.step_seconds]
+    r = dict(mesh=list(mesh), build_s=build_s, steps=m["steps"], wall_s=wall, tokens_per_s=m["tokens_per_s"],
+             step_ms_p50=float(np.median(step_ms)), step_ms_min=min(step_ms), ttft_ms_p50=1e3 * m["ttft_p50"],
+             replay_ms=replays, counts=counts, per_step=per_step, graph=graphs[0],
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             requests_per_replica=[sum(q.replica == i for q in eng.finished) for i in range(dp)])
+    eng.close()
+    if mp == 1:
+        check(tokens == p4["tokens"], f"{label}: tokens differ from phase 4's single engine")
+        r["tokens_equal_phase4"] = True
+    else:
+        # the untimed recording run, then the first steps on capture=False
+        twin = _mesh_twin(eng, e, capture=None)  # captured on the card
+        rec = _record_steps(twin, MESH_EAGER_STEPS)
+        rows, toks = _sampled_run(torch, twin, p4["prompts"], 32)
+        check(toks == tokens, f"{label}: the recording run gave other tokens than the timed run")
+        r["bf16_against_phase4"] = _mesh_rows_against(rows, toks, p4, tie_bound, label)
+        del rows
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        f32 = _mesh_sampled(torch, cfg32, dataclasses.replace(ecfg, packed_head=False), mesh, p4["prompts"], 32,
+                            seed=0)
+        r["against_single_f32"] = _mesh_rows_against(f32["samples"], f32["tokens"], single32, MESH_F32_TIE,
+                                                      f"{label} at float32", row_tol=MESH_F32_ROW_REL_TOL)
+        del f32
+        eager = _mesh_twin(eng, e, capture=False)
+        eager.warmup()
+        n = 0
+        for rep in eager.replicas:
+            for i, (tk, ps, ln, tb, want) in enumerate(rec[rep.index]):
+                got = rep.program.run(tk, ps, ln, tb)
+                check(got.tobytes() == want.tobytes(),
+                      f"{label} replica {rep.index} step {i}: capture=False's logits differ from the graph's")
+                n += 1
+        eager.close()
+        r["eager_steps_equal"] = n
+        del twin, eager, rec
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    cmp, c32 = r.get("bf16_against_phase4"), r.get("against_single_f32")
+    print(f"  {label}: {r['steps']} steps, {m['generated_tokens']} tokens in {wall:.2f} s: "
+          f"{r['tokens_per_s']:.1f} tok/s, step p50 {r['step_ms_p50']:.2f} ms (min {r['step_ms_min']:.2f}), one "
+          f"replay of each replica's graph {', '.join(f'{x:.2f}' for x in replays)} ms, TTFT p50 "
+          f"{r['ttft_ms_p50']:.1f} ms; requests a replica {r['requests_per_replica']}; launches {counts}; graph "
+          f"nodes {graphs[0]}; peak memory {r['peak_mem_gb']:.2f} GB; build {build_s:.1f} s; "
+          + ("tokens bit-identical to phase 4's" if cmp is None else
+             f"w4a4 bfloat16: {cmp['rows_compared']} rows against phase 4's up to each divergence, max rel L2 "
+             f"{cmp['row_rel_max']:.3g} (p50 {cmp['row_rel_p50']:.3g}), divergences (request, token, gap) "
+             f"{cmp['divergences']}; float32 weights against the single engine's: {c32['rows_compared']} rows, "
+             f"max rel L2 {c32['row_rel_max']:.3g} (p50 {c32['row_rel_p50']:.3g}), divergences "
+             f"{c32['divergences']}; {r['eager_steps_equal']} replica steps of capture=False bit-identical"),
+          flush=True)
+    return r
+
+
+def _mesh_sampled(torch, cfg, ecfg, mesh, prompts, max_new: int, **build_kw) -> dict:
+    """An untimed run of a fresh mesh engine: its sampled rows and tokens,
+    top-2 gaps, and the launches it counted."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.serving import build_engine
+
+    dp, mp = mesh
+    eng = build_engine(cfg, _mesh_ecfg(ecfg, mesh), devices=[MESH_DEVICE] * (dp * mp), **build_kw)
+    eng.warmup()
+    build.reset_counts()
+    rows, tokens = _sampled_run(torch, eng, prompts, max_new)
+    counts = build.counts()
+    eng.assert_no_leaks()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    gaps = {k: float(np.diff(np.partition(row, -2)[-2:])[0]) for k, row in rows.items()}
+    return dict(samples=rows, tokens=tokens, gaps=gaps, counts=counts)
+
+
+def _mesh_cross(torch, cfg) -> dict:
+    """(e): three chunked steps of :func:`forward_decode_paged_tp` on 2 ranks
+    at 2 layers, float32, the card (kernel gather) against the CPU (the
+    ``pool[table]`` gather) from the same weights; then the planted fault,
+    each rank's share left unreduced on the card."""
+    import numpy as np
+
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import slice_decode_params
+
+    mp = 2
+    cfg2 = dataclasses.replace(cfg, n_layers=MESH_CROSS_LAYERS, dtype=torch.float32)
+    lcfg = dataclasses.replace(cfg2, tp_shards=mp)
+    params = T.init_params(cfg2, seed=3, device="cuda")
+    shards = {"cuda": [slice_decode_params(params, cfg2, mp, r) for r in range(mp)]}
+    shards["cpu"] = [T.map_leaves(sh, lambda a: a.cpu()) for sh in shards["cuda"]]
+    S, C, ps, nb = CROSS_SLOTS, CHUNK, 16, CROSS_BLOCKS
+    table = torch.arange(1, S * nb + 1, dtype=torch.int32).reshape(S, nb)
+    lens = torch.tensor(CROSS_CHUNK_LENS, dtype=torch.int32)
+    live = lens > 0
+    rng = np.random.default_rng(23)
+    batches, pos = [], torch.zeros(S, dtype=torch.int32)
+    for _ in range(3):
+        batches.append((torch.from_numpy(rng.integers(0, cfg.vocab, (S, C)).astype(np.int32)), pos.clone()))
+        pos = pos + lens
+
+    def run(dev: str, plant: bool = False, steps: int = 3) -> list:
+        states = [T.init_paged_state(lcfg, S, S * nb + 1, ps, dtype=torch.float32, device=dev) for _ in range(mp)]
+        out = []
+        inner = T.all_reduce_sum
+        if plant:
+            T.all_reduce_sum = lambda parts: parts  # each rank keeps its own share
+        try:
+            for tokens, p in batches[:steps]:
+                logits, _ = T.forward_decode_paged_tp(
+                    shards[dev], lcfg, states, table.to(dev), tokens.to(dev), p.to(dev), lens=lens.to(dev),
+                    gather="kernel" if dev == "cuda" else "xla")
+                out.append(logits.float().cpu()[live])
+        finally:
+            T.all_reduce_sum = inner
+        return out
+
+    card, cpu = run("cuda"), run("cpu")
+    diffs = [float((a - b).abs().max()) for a, b in zip(card, cpu)]
+    check(max(diffs) <= MESH_CROSS_TOL, f"(e) the card's mp 2 steps differ from the CPU's by {diffs}")
+    planted = float((run("cuda", plant=True, steps=1)[0] - cpu[0]).abs().max())
+    check(planted > MESH_CROSS_TOL, f"(e) the planted unreduced shares passed ({planted:.3g})")
+    del params, shards
+    torch.cuda.empty_cache()
+    return dict(steps=3, max_abs=diffs, tol=MESH_CROSS_TOL, planted_max_abs=planted,
+                logit_scale=float(cpu[0].abs().max()))
+
+
+def phase_mesh(torch, card, cfg, ecfg, p4: dict, report: dict) -> dict:
+    """Phase 23: mesh serving, every rank on one card (see the module
+    docstring)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.serving import EngineConfig
+
+    t_phase = time.monotonic()
+    out: dict = {}
+    tie_bound = MESH_TIE_UNITS * p4["head_w_scale"] / ((1 << p4["head_a_bits"]) - 1)
+    per_step1 = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": cfg.n_layers * 7 + 1,
+                 "paged_gather": cfg.n_layers}
+    t0 = time.monotonic()
+    single32 = _mesh_sampled(torch, dataclasses.replace(cfg, dtype=torch.float32),
+                             dataclasses.replace(ecfg, packed_head=False), (1, 1), p4["prompts"], 32, seed=0)
+    print(f"  (a)-(b) phase 4's cell on a mesh, every rank on {MESH_DEVICE}; the w4a4 runs read against phase 4 "
+          f"with a tie bound of {MESH_TIE_UNITS} head units = {tie_bound:.4g}; the single engine at float32 "
+          f"weights for (b)'s gate: {time.monotonic() - t0:.1f} s, smallest top-2 gap "
+          f"{min(single32['gaps'].values()):.3g}", flush=True)
+    for mesh in MESH_CELLS:
+        out[f"{mesh[0]}x{mesh[1]}"] = _mesh_cell(torch, cfg, ecfg, mesh, p4, single32, tie_bound, per_step1)
+    out["tie_bound"] = tie_bound
+    del single32
+
+    # (c) mamba2-130m at float32, mp 2 against mp 1
+    t0 = time.monotonic()
+    mcfg = dataclasses.replace(get_config(MESH_MAMBA), dtype=torch.float32)
+    mecfg = EngineConfig(n_slots=8, page_size=16, max_len=256, chunk_tokens=1, gather_backend="kernel")
+    rng = np.random.default_rng(0)
+    mprompts = [rng.integers(0, mcfg.vocab, int(rng.integers(16, 65))).tolist() for _ in range(8)]
+    one = _mesh_sampled(torch, mcfg, mecfg, (1, 1), mprompts, 32, seed=0)
+    two = _mesh_sampled(torch, mcfg, mecfg, (1, 2), mprompts, 32, seed=0)
+    check(two["tokens"] == one["tokens"], "(c) mamba2-130m: mp 2 tokens differ from mp 1's")
+    rel = [float(np.linalg.norm(two["samples"][k] - v) / np.linalg.norm(v)) for k, v in one["samples"].items()]
+    out["c"] = dict(rows=len(rel), row_rel_max=max(rel), min_top2_gap=min(one["gaps"].values()),
+                    seconds=time.monotonic() - t0)
+    print(f"  (c) {MESH_MAMBA} at float32, mp 2 against mp 1: tokens identical over {len(rel)} sampled rows "
+          f"(max rel L2 {max(rel):.3g}; smallest top-2 gap {out['c']['min_top2_gap']:.3g}); "
+          f"{out['c']['seconds']:.1f} s", flush=True)
+    del one, two
+
+    # (d) qwen3-moe-30b-a3b at 4 layers: w4a4 mp 2 (64 experts a rank through
+    # batched K1) against mp 1, reported; float32 weights mp 2 against mp 1 at
+    # MESH_MOE_GATE_CAPACITY, gated
+    t0 = time.monotonic()
+    qcfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MESH_MOE_LAYERS)
+    qecfg = EngineConfig(n_slots=8, page_size=16, max_len=256, chunk_tokens=1, packed_head=True,
+                         head_bits=(4, 4), gather_backend="kernel")
+    qprompts = [rng.integers(0, qcfg.vocab, int(rng.integers(16, 65))).tolist() for _ in range(8)]
+    kw = dict(quant="packed", w_bits=4, a_bits=4, seed=0)
+    one = _mesh_sampled(torch, qcfg, qecfg, (1, 1), qprompts, 16, **kw)
+    two = _mesh_sampled(torch, qcfg, qecfg, (1, 2), qprompts, 16, **kw)
+    moe_per_step = {**dict.fromkeys(build.COUNTS, 0), "packed_dense_fused": 2 * (7 * MESH_MOE_LAYERS + 1),
+                    "paged_gather": 2 * MESH_MOE_LAYERS}
+    steps = two["counts"]["paged_gather"] // moe_per_step["paged_gather"]
+    check(two["counts"] == {k: v * steps for k, v in moe_per_step.items()},
+          f"(d) mp 2 launch counters {two['counts']} != {moe_per_step} x {steps} steps")
+    packed = _mesh_rows_against(two["samples"], two["tokens"], one, tie_bound, "(d) qwen3-moe w4a4 mp 2")
+    counts = two["counts"]
+    del one, two
+    q32 = dataclasses.replace(qcfg, dtype=torch.float32, capacity_factor=MESH_MOE_GATE_CAPACITY)
+    qe32 = dataclasses.replace(qecfg, packed_head=False)
+    one = _mesh_sampled(torch, q32, qe32, (1, 1), qprompts, 16, seed=0)
+    two = _mesh_sampled(torch, q32, qe32, (1, 2), qprompts, 16, seed=0)
+    cmp = _mesh_rows_against(two["samples"], two["tokens"], one, MESH_F32_TIE, "(d) qwen3-moe float32 mp 2",
+                             row_tol=MESH_F32_ROW_REL_TOL)
+    out["d"] = dict(w4a4_against_mp1=packed, f32_against_mp1=cmp, counts=counts, steps=steps,
+                    per_step=moe_per_step, seconds=time.monotonic() - t0)
+    print(f"  (d) qwen3-moe-30b-a3b at {MESH_MOE_LAYERS} layers, mp 2 (64 experts a rank) against mp 1: w4a4 "
+          f"bfloat16 {packed['rows_compared']} rows, max rel L2 {packed['row_rel_max']:.3g}, divergences "
+          f"{packed['divergences']}, launches {out['d']['counts']} over {steps} steps; float32 weights "
+          f"at capacity factor {MESH_MOE_GATE_CAPACITY} {cmp['rows_compared']} rows, max rel L2 {cmp['row_rel_max']:.3g} "
+          f"(p50 {cmp['row_rel_p50']:.3g}), divergences {cmp['divergences']}; {out['d']['seconds']:.1f} s", flush=True)
+    del one, two
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the card against the CPU at 2 layers
+    t0 = time.monotonic()
+    out["e"] = _mesh_cross(torch, cfg)
+    print(f"  (e) 2 layers at float32, the card's mp 2 steps against the CPU's: max |logit difference| "
+          f"{', '.join(f'{x:.3g}' for x in out['e']['max_abs'])} (logits up to {out['e']['logit_scale']:.3g}); "
+          f"the planted unreduced shares off by {out['e']['planted_max_abs']:.3g}, rejected; "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+
+    # (f) the kernels at the shard shapes
+    t0 = time.monotonic()
+    timer = Timer(torch)
+    print(f"  (f) K1 at the mp 2 shard shapes (M = {ecfg.n_slots}):", flush=True)
+    out["k1"] = phase_matmul_chunk(torch, card, timer, cfg, ecfg.n_slots, report, key="mesh_matmul",
+                                   head_m=ecfg.n_slots, shapes=mesh_matmul_shapes(cfg, 2))
+    print("  (f) K3 on a rank's pools (4 KV heads x 128):", flush=True)
+    out["k3"] = phase_gather(torch, card, timer, dataclasses.replace(cfg, kv_heads=cfg.kv_heads // 2), ecfg,
+                             report, long=False, served_cases={("bf16 pool, full causal", 1)}, key="mesh_gather")
+    for r in out["k3"]["rows"]:
+        r["per_step"] = 2 * cfg.n_layers  # both ranks' launches a replica's step
+    print(f"  (f) batched K1 over a rank's 64 experts (M = 1, (d)'s buckets):", flush=True)
+    out["k1_moe"] = _moe_kernels(torch, card, timer, dataclasses.replace(
+        get_config(MOE_ARCH), n_experts=64, n_layers=2 * MESH_MOE_LAYERS), report, ms=(1,),
+        key="mesh_moe_matmul", with_k2=False)
+    del timer
+    out["f_s"] = time.monotonic() - t0
+    out["phase_s"] = time.monotonic() - t_phase
+    print(f"  (f) {out['f_s']:.1f} s; phase 23 on {card.name} ({card.power_limit}): {out['phase_s']:.1f} s",
+          flush=True)
+    report["mesh"] = out
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train-only", type=Path, metavar="REPORT",
@@ -6112,7 +6540,7 @@ def main(argv=None) -> int:
     ch = phase_chunked(torch, card, cfg, ecfg, c1, en["fused"], report)
     peak("9")
     print(f"phase 10: the captured step against the eager one, C=1 and C={CHUNK}, on phase 4's weights "
-          f"and prompts", flush=True)
+          f"and prompts at {CAPTURE_LAYERS} of their layers", flush=True)
     phase_capture(torch, card, cfg, ecfg, c1, report)
     peak("10")
     print("phase 11: deployment plans: search, on-card autotune, K1/K2 at the plan's placements, the "
@@ -6130,6 +6558,9 @@ def main(argv=None) -> int:
           "admission, the same schedule on the wall clock", flush=True)
     lc = phase_lifecycle(torch, card, cfg, ecfg, c1, en["fused"], report)
     prompts4 = c1["prompts"]
+    # phase 23 reads its mesh runs against phase 4's rows and tokens
+    p4 = {k: c1[k] for k in ("prompts", "tokens", "samples", "gaps")}
+    p4.update(head_w_scale=c1["head"].w_scale, head_a_bits=c1["head"].a_bits)
     del c1
     peak("13")
     print(f"phase 14: gemma3-1b at full width past its 1024-token window: K1 at its shapes, the serve "
@@ -6184,6 +6615,15 @@ def main(argv=None) -> int:
     report["phase_wall_s"]["22"] = time.monotonic() - t22
     print(f"  phase 22 peak device memory {nas['peak_mem_gb']:.2f} GB (its own process); "
           f"{report['phase_wall_s']['22']:.1f} s", flush=True)
+    print(f"phase 23: mesh serving on {MESH_DEVICE}: phase 4's cell at dp x mp {', '.join(f'{a}x{b}' for a, b in MESH_CELLS)} "
+          f"against phase 4, captured against capture=False; {MESH_MAMBA} at float32 and qwen3-moe-30b-a3b at "
+          f"{MESH_MOE_LAYERS} layers, mp 2 against mp 1; card vs CPU at {MESH_CROSS_LAYERS} layers with a planted "
+          f"fault; K1 and K3 at the shard shapes", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    phase_t0[0] = time.monotonic()
+    ms = phase_mesh(torch, card, cfg, ecfg, p4, report)
+    del p4
+    peak("23")
 
     # per-decode-step totals per kernel: the sum over the launches of one step
     def step_sum(rows, key):
@@ -6219,6 +6659,10 @@ def main(argv=None) -> int:
     moe_k1_decode = [r for r in mo["k1"]["rows"] if r["M"] == min(MOE_KERNEL_M)]
     qwen_k1 = qw["k1"]["rows"]  # phase 19's C = 1 step: 28 layers x 7 and the head, M = 8
     whisper, zamba = st["whisper-tiny"], st["zamba2-1.2b"]  # phase 20's static steps, M = 8
+    mesh_k1 = ms["k1"]["rows"]  # phase 23's mp 2 step of a replica: both ranks' shapes, M = 8
+    mesh_moe = ms["k1_moe"]["rows"]  # phase 23 (d)'s batched experts, both ranks, M = 1
+    mesh_k3 = ms["k3"]["rows"]  # phase 23's per-rank pools, a replica's step (both ranks)
+    mesh_cells = {k: v for k, v in ms.items() if k in ("2x1", "1x2", "2x2")}
     chunked_launches = {k: {admit: r["counts"][k] for admit, r in ch.items()}
                         for k in ("packed_dense_fused", "paged_gather")}
 
@@ -6247,7 +6691,7 @@ def main(argv=None) -> int:
              launches=fused["counts"]["packed_dense_fused"],
              max_abs_err=max(mm["max_err"], mm_chunk["max_err"], gm["k1"]["max_err"], mb["k1"]["max_err"],
                              mo["k1"]["max_err"], qw["k1"]["max_err"], whisper["k1"]["max_err"],
-                             zamba["k1"]["max_err"]),
+                             zamba["k1"]["max_err"], ms["k1"]["max_err"], ms["k1_moe"]["max_err"]),
              ms=step_sum(served, "k1_graph_ms"), events_ms=step_sum(served, "k1_ms"),
              plain_ms=step_sum(served, "plain_ms"),
              bound_ms=step_sum(served, "bound_ms"), bound_by=by_t(served, lambda r: r["per_step"]),
@@ -6305,6 +6749,26 @@ def main(argv=None) -> int:
                  library_ms_decode=step_sum(moe_k1_decode, "bmm_graph_ms"),
                  max_abs_err=mo["k1"]["max_err"]),
              launches_train_qat_check=tr["d"]["launches"],
+             launches_mesh={k: r["counts"]["packed_dense_fused"] for k, r in mesh_cells.items()},
+             steps_mesh={k: r["steps"] for k, r in mesh_cells.items()},
+             launches_mesh_moe=ms["d"]["counts"]["packed_dense_fused"], steps_mesh_moe=ms["d"]["steps"],
+             mesh=dict(
+                 per="a replica's mp 2 step (phase 23 (b)): both ranks' wq 3072x1536, wk|wv 3072x512, wo "
+                     "1536x3072, w_up|w_gate 3072x4096, w_down 4096x3072 of 28 layers and head 3072x64128 "
+                     "slices, all at M = 8",
+                 ms=step_sum(mesh_k1, "k1_graph_ms"), events_ms=step_sum(mesh_k1, "k1_ms"),
+                 plain_ms=step_sum(mesh_k1, "plain_ms"), bound_ms=step_sum(mesh_k1, "bound_ms"),
+                 bound_by=by_t(mesh_k1, lambda r: r["per_step"]),
+                 library_ms=step_sum(mesh_k1, "int_mm_graph_ms"), library="torch._int_mm, M padded to 32",
+                 gbps=by_gbps(mesh_k1, "k1_graph_ms"), max_abs_err=ms["k1"]["max_err"]),
+             mesh_moe=dict(
+                 per=f"phase 23 (d)'s mp 2 step ({MESH_MOE_LAYERS} layers): both ranks' batched products over 64 "
+                     f"experts (w_up|w_gate 2048x768, w_down 768x2048) at M = 1 a bucket",
+                 ms=step_sum(mesh_moe, "k1_graph_ms"), events_ms=step_sum(mesh_moe, "k1_ms"),
+                 plain_ms=step_sum(mesh_moe, "plain_ms"), bound_ms=step_sum(mesh_moe, "bound_ms"),
+                 bound_by=by_t(mesh_moe, lambda r: r["per_step"]),
+                 library_ms=step_sum(mesh_moe, "bmm_graph_ms"),
+                 library="torch.bmm in bf16 (not the same rounding)", max_abs_err=ms["k1_moe"]["max_err"]),
              launches_qwen=qw["a"]["counts"]["packed_dense_fused"], steps_qwen=qw["a"]["steps"],
              qwen=dict(
                  per="qwen2-vl-7b C = 1 step (phase 19, through the serve CLI): wq|wo 3584x3584, wk|wv "
@@ -6354,7 +6818,7 @@ def main(argv=None) -> int:
                  library="torch.bmm in bf16 (not the same rounding)")),
         dict(name="paged_gather", route="cuda", source="src/repro_torch/csrc/paged_gather.cu",
              replaces="src/repro/kernels/paged_gather/kernel.py:121",
-             launches=fused["counts"]["paged_gather"], max_abs_err=max(ga["max_err"], gm["c"]["max_err"]),
+             launches=fused["counts"]["paged_gather"], max_abs_err=max(ga["max_err"], gm["c"]["max_err"], ms["k3"]["max_err"]),
              ms=step_sum(gather, "k3_graph_ms"), events_ms=step_sum(gather, "k3_ms"),
              plain_ms=step_sum(gather, "plain_ms"),
              bound_ms=step_sum(gather, "bound_ms"), bound_by="bytes",
@@ -6374,6 +6838,15 @@ def main(argv=None) -> int:
              launches_gemma=gm["a"]["counts"]["paged_gather"], steps_gemma=gm["a"]["steps"],
              launches_gemma_int8=gm["b"]["counts"]["paged_gather"],
              launches_moe=mo["C=16"]["counts"]["paged_gather"], steps_moe=mo["C=16"]["steps"],
+             launches_mesh={k: r["counts"]["paged_gather"] for k, r in mesh_cells.items()},
+             steps_mesh={k: r["steps"] for k, r in mesh_cells.items()},
+             mesh=dict(
+                 per="a replica's mp 2 step (phase 23 (b)): both ranks' launches on their pools of 4 KV heads "
+                     "x 128 (D 512), bf16, the served geometry",
+                 ms=step_sum(mesh_k3, "k3_graph_ms"), events_ms=step_sum(mesh_k3, "k3_ms"),
+                 plain_ms=step_sum(mesh_k3, "plain_ms"), bound_ms=step_sum(mesh_k3, "bound_ms"), bound_by="bytes",
+                 library_ms=step_sum(mesh_k3, "library_graph_ms"), library="pool[table], K and V",
+                 max_abs_err=ms["k3"]["max_err"]),
              gemma=dict(
                  per="launch on phase 14's served pools and block table, every slot decoding",
                  **{k: gm["c"][k] for k in ("live_pages", "positions", "max_err", "window_drops")},

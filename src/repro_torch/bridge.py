@@ -51,6 +51,15 @@ def params_from_jax(tree, device: str | torch.device = "cpu"):
     return tensor_from_numpy(tree, device)
 
 
+def shards_from_jax(stacked, mp: int, device: str | torch.device = "cpu") -> list:
+    """The reference's ``[mp]``-stacked tensor-parallel shards (its
+    ``stack_decode_shards`` output: ``_packed_shards``, ``_plan_shards``'s
+    trees and heads) as the port's list of per-rank trees."""
+    from repro_torch.parallel.sharding import unstack_decode_shards
+
+    return unstack_decode_shards(params_from_jax(stacked, device), mp)
+
+
 def convnet_params_from_jax(tree, device: str | torch.device = "cpu") -> dict:
     """The reference's convnet params (``{"layer{i}": {"w", "scale",
     "bias"}}``, weights HWIO ``[k, k, cin/groups, cout]``) as the port's,

@@ -1,4 +1,4 @@
-"""Serving CLI (``repro.launch.serve``) on one device: the continuous-batching
+"""Serving CLI (``repro.launch.serve``): the continuous-batching
 engine (default for the attn and ssm families) or the fixed-batch decode
 loop (``--engine static``, default for the encdec and hybrid families).
 
@@ -45,14 +45,22 @@ captured graph) or ``cpu`` (the plain PyTorch versions).  A kernel that
 fails to build or launch ends the run with its error; nothing falls back
 to the plain versions on the card.
 
-Refused: ``--mesh`` (one device only; ROADMAP.md port queue item 5).  The
-continuous engine refuses the encdec and hybrid families, as the
-reference's does: they decode through ``--engine static``.
+``--mesh DPxMP`` serves the continuous engine on a mesh: ``DP`` data
+replicas (their own page pools and schedulers) of ``MP`` tensor-parallel
+ranks (weights sliced, then packed).  Its ranks take one visible device
+each unless ``--mesh-devices`` lists them (``DP * MP`` entries, repeats
+allowed: ``cpu,cpu,cpu,cpu``, or ``cuda:0,cuda:0`` for two ranks on one
+card); a mesh of more ranks than visible devices raises otherwise, and
+with ``MP`` 1 every replica runs on ``--device``.  ``--engine static``
+refuses ``--mesh``, as the reference's does.  The continuous engine
+refuses the encdec and hybrid families, as the reference's does: they
+decode through ``--engine static``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --tokens 64
   PYTHONPATH=src python -m repro_torch.launch.serve --packed --wbits 4 --abits 4 --packed-head
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --int8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch whisper-tiny --tokens 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --mesh 2x2 --mesh-devices cpu,cpu,cpu,cpu
 """
 from __future__ import annotations
 
@@ -241,6 +249,7 @@ def _serve_continuous(args, cfg, plan=None) -> dict:
     eng = build_engine(
         cfg, ecfg, params=init_params(cfg, seed=0, device=dev), quant=quant,
         w_bits=args.wbits, a_bits=args.abits, plan=plan, device=dev,
+        devices=args.mesh_devices.split(",") if args.mesh_devices else None,
     )
     for prompt in _synth_prompts(cfg, args.requests or 2 * args.batch, args.prompt_len):
         eng.submit(prompt, args.tokens, deadline=args.deadline, ttft_deadline=args.ttft_deadline)
@@ -299,7 +308,11 @@ def main(argv=None) -> dict:
                     help="worst-case page reservation at admit, or on-demand growth with "
                     "lowest-progress preemption")
     ap.add_argument("--mesh", metavar="DPxMP", default=None,
-                    help="data x model mesh: refused, one device only (ROADMAP.md port queue item 5)")
+                    help="continuous engine: shard across a data x model mesh (e.g. 2x2: two data replicas "
+                    "with their own page pools/schedulers, two tensor-parallel model ranks)")
+    ap.add_argument("--mesh-devices", metavar="LIST", default=None,
+                    help="comma-separated device of each mesh rank, replica-major (default: one visible "
+                    "device a rank)")
     ap.add_argument("--int8", action="store_true", help="int8 weights (levels + per-column scales)")
     ap.add_argument("--plan", metavar="JSON",
                     help="deployment plan artifact (repro_torch.plan.compile): per-layer mixed-precision "
@@ -422,8 +435,9 @@ def main(argv=None) -> dict:
         mode += "+packed_head"
     tps = out["tokens_per_s"]
     tps_str = f"{tps:.1f}" if tps is not None else "n/a"
+    mesh_str = f" mesh={args.mesh}" if args.mesh else ""
     print(
-        f"arch={cfg.name} engine={engine} weights={mode} batch={args.batch} tokens/s={tps_str} "
+        f"arch={cfg.name} engine={engine} weights={mode} batch={args.batch}{mesh_str} tokens/s={tps_str} "
         f"latency={out['latency_ms_per_step']:.1f} ms/step"
     )
     if "statuses" in out:

@@ -313,6 +313,7 @@ def attention_decode_paged(
     pool_v_scale: torch.Tensor | None = None,
     lens: torch.Tensor | None = None,
     gather: str = "xla",
+    partial: bool = False,
 ) -> torch.Tensor:
     """One decode step against a paged KV pool; returns ``x + attn(x)``.
 
@@ -325,7 +326,14 @@ def attention_decode_paged(
     when ``j < lens[i]``; each valid lane attends causally up to its own
     position ``pos + j`` (the chunk's own rows included, just written), and
     invalid lanes scatter onto null page 0.  ``lens=None``: every lane is
-    valid."""
+    valid.
+
+    A tensor-parallel rank (the reference's ``axis_name``) passes its local
+    spec (``n_heads / mp`` heads, ``kv_heads / mp`` KV groups), its column
+    slices of ``wq``/``wk``/``wv``, its row slice of ``wo`` and pools of its
+    KV groups, with ``partial=True``: it gets its share of the output
+    projection, before the residual, which the mesh sums over the ranks
+    and adds to ``x`` (a sum after the residual would scale it by ``mp``)."""
     S, C, d = x.shape
     H, G, hd = s.n_heads, s.kv_heads, s.head_dim
     page_size = pool_k.shape[1]
@@ -379,7 +387,7 @@ def attention_decode_paged(
     p = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
     o = torch.einsum("bghqk,bkgd->bqghd", p, v_view.to(x.dtype))
     out = dense(params["wo"], o.reshape(S, C, H * hd), name="attn_o", quant=quant)
-    return x + out
+    return out if partial else x + out
 
 
 def prepack_lm_head(
@@ -390,14 +398,19 @@ def prepack_lm_head(
     t_max: torch.Tensor | float | None = None,
     device: str | torch.device = "cuda",
 ) -> PackedDenseParams:
-    """One-time quantize + bit-pack of the tied LM head (``embed.T``)."""
+    """One-time quantize + bit-pack of the tied LM head (``embed.T``).
+    ``t_max``: a vocab slice of the embedding packed against the whole
+    embedding's normalizer (a tensor-parallel rank's head) is a column
+    slice of the whole head's packed words."""
     return prepack_dense(embed.T.contiguous(), w_bits=w_bits, a_bits=a_bits, t_max=t_max,
                          device=device)
 
 
 def lm_head(x: torch.Tensor, embed: torch.Tensor, dtype: torch.dtype,
             packed: PackedDenseParams | None = None) -> torch.Tensor:
-    """Final logits: x [B, d] -> [B, V] float32, packed or tied float."""
+    """Final logits: x [B, d] -> [B, V] float32, packed or tied float.  A
+    tensor-parallel rank passes its vocab slice (``head_embed``, or the
+    packed head of those rows) and gets its columns of the logits."""
     if packed is not None:
         xq = torch.sigmoid(x).to(torch.float32)
         return packed_dense(xq, packed).to(torch.float32)
@@ -411,7 +424,12 @@ class MLPSpec:
     kind: str = "swiglu"  # swiglu | geglu | squared_relu | gelu
 
 
-def mlp(params: dict, s: MLPSpec, x: torch.Tensor, *, quant: QuantConfig = NO_QUANT) -> torch.Tensor:
+def mlp(params: dict, s: MLPSpec, x: torch.Tensor, *, quant: QuantConfig = NO_QUANT,
+        partial: bool = False) -> torch.Tensor:
+    """``x + mlp(x)``.  A tensor-parallel rank passes its column slices of
+    ``w_up``/``w_gate`` and its row slice of ``w_down`` (``s.d_ff`` the
+    local width) with ``partial=True`` and gets its share of the output,
+    before the residual, for the mesh to sum."""
     h = rmsnorm(params["ln"], x)
     up = dense(params["w_up"], h, name="mlp_up", quant=quant)
     if s.kind in ("swiglu", "geglu"):
@@ -424,4 +442,4 @@ def mlp(params: dict, s: MLPSpec, x: torch.Tensor, *, quant: QuantConfig = NO_QU
     else:
         act = F.gelu(up, approximate="tanh")
     out = dense(params["w_down"], act, name="mlp_down", quant=quant)
-    return x + out
+    return out if partial else x + out

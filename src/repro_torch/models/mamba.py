@@ -13,8 +13,15 @@ through :func:`dense`, so packed weights run the packed matmul kernel and
 QAT configs fake-quantize; the rest is plain PyTorch, as the reference's
 is plain ``jnp`` outside any Pallas kernel.
 
-One device only: the reference's head sharding (``shard_heads``,
-``axis_name``) waits for the mesh (ROADMAP.md, port queue).
+Tensor parallelism (the reference's ``shard_heads`` and ``axis_name``):
+a mesh rank runs the block on its contiguous group of heads
+(:class:`MambaSpec` ``shard_heads``; ``in_z``, the x part of ``in_xbc``,
+the conv channels, ``in_dt``, ``a_log``, ``dt_bias``, ``d_skip`` sliced per
+head group, the B and C columns replicated), the gated output RMSNorm over
+the *global* ``d_inner`` (a sum of squares reduced over the ranks in mid
+block) and ``out_proj`` row-parallel, reduced before the residual.  The
+ranks run in lockstep (:func:`mamba_decode_tp`), so the block runs in two
+phases around each reduction.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import all_reduce_sum
 from repro_torch.models.layers import NO_QUANT, QuantConfig, dense, rmsnorm
 
 
@@ -35,9 +43,14 @@ class MambaSpec:
     expand: int = 2
     conv_width: int = 4
     chunk: int = 256
+    # a tensor-parallel rank's head count (None: every head); d_inner is
+    # then the rank's local inner width
+    shard_heads: int | None = None
 
     @property
     def d_inner(self) -> int:
+        if self.shard_heads is not None:
+            return self.shard_heads * self.head_dim
         return self.expand * self.d_model
 
     @property
@@ -178,6 +191,16 @@ def mamba_decode(
     read-out in float32, cast to ``x.dtype`` before the ``d_skip`` term.
     ``F.softplus`` is the identity above 20 where ``jax.nn.softplus`` is
     not; in float32 the two agree there."""
+    y, new_state, new_conv_state = _decode_core(params, s, x, ssm_state, conv_state, quant)
+    y = rmsnorm(params["out_norm"], y)  # the reference's _out_norm on one device
+    out = dense(params["out_proj"], y, name="ssm_out", quant=quant)
+    return x + out, new_state, new_conv_state
+
+
+def _decode_core(params: dict, s: MambaSpec, x: torch.Tensor, ssm_state: torch.Tensor,
+                 conv_state: torch.Tensor, quant: QuantConfig):
+    """:func:`mamba_decode` up to the output norm: the gated output ``y *
+    silu(z)`` ``[B, 1, d_inner]`` and the new states."""
     B = x.shape[0]
     H, P, N = s.n_heads, s.head_dim, s.d_state
     h = rmsnorm(params["ln"], x)
@@ -202,9 +225,7 @@ def mamba_decode(
     y = torch.einsum("bs,bhsp->bhp", c.to(torch.float32), new_state).to(x.dtype)
     y = y + params["d_skip"].to(x.dtype)[None, :, None] * xs
     y = y.reshape(B, 1, s.d_inner) * F.silu(z)
-    y = rmsnorm(params["out_norm"], y)  # the reference's _out_norm on one device
-    out = dense(params["out_proj"], y, name="ssm_out", quant=quant)
-    return x + out, new_state, new_conv_state
+    return y, new_state, new_conv_state
 
 
 def mamba_decode_chunk(
@@ -235,3 +256,50 @@ def mamba_decode_chunk(
         st, cv = ns, nc
         hs.append(h[:, 0])
     return torch.stack(hs, dim=1), st, cv
+
+
+def mamba_decode_tp(
+    params: list[dict],
+    s: MambaSpec,
+    xs: list[torch.Tensor],  # per rank [B, C, d_model], replicated
+    ssm_states: list[torch.Tensor],  # per rank [B, H_loc, N, P] float32
+    conv_states: list[torch.Tensor],  # per rank [B, conv_width - 1, conv_dim_loc]
+    *,
+    lens: list[torch.Tensor] | None = None,
+    quant: QuantConfig = NO_QUANT,
+    eps: float = 1e-6,
+) -> tuple[list, list, list]:
+    """The block on ``mp`` tensor-parallel ranks in lockstep: each lane runs
+    every rank to its gated output, reduces the sums of squares for the
+    output norm over the **global** ``d_inner`` (the reference's
+    ``_out_norm`` with an axis), then every rank's ``out_proj`` share,
+    reduced before the replicated residual.  ``s`` is the local spec
+    (``shard_heads``).  One lane with ``lens=None`` is
+    :func:`mamba_decode`'s step, otherwise :func:`mamba_decode_chunk`'s
+    (lanes past ``lens`` keep the state).  Returns per-rank outputs ``[B,
+    C, d_model]`` and final states, as new tensors."""
+    mp = len(params)
+    sts, cvs = list(ssm_states), list(conv_states)
+    outs: list[list[torch.Tensor]] = [[] for _ in range(mp)]
+    for j in range(xs[0].shape[1]):
+        xj = [x[:, j:j + 1] for x in xs]
+        core = [_decode_core(params[r], s, xj[r], sts[r], cvs[r], quant) for r in range(mp)]
+        ys = [c[0] for c in core]
+        sq = all_reduce_sum([torch.sum(torch.square(y), dim=-1, keepdim=True, dtype=torch.float32)
+                             for y in ys])
+        d = float(mp * ys[0].shape[-1])
+        parts = []
+        for r in range(mp):
+            y = ys[r]
+            yn = (y * torch.rsqrt(sq[r] / d + eps).to(y.dtype)) * params[r]["out_norm"]["g"].to(y.dtype)
+            parts.append(dense(params[r]["out_proj"], yn, name="ssm_out", quant=quant))
+        red = all_reduce_sum(parts)
+        for r in range(mp):
+            _, ns, nc = core[r]
+            if lens is not None:
+                ok = lens[r] > j
+                ns = torch.where(ok[:, None, None, None], ns, sts[r])
+                nc = torch.where(ok[:, None, None], nc, cvs[r])
+            sts[r], cvs[r] = ns, nc
+            outs[r].append((xj[r] + red[r])[:, 0])
+    return [torch.stack(o, dim=1) for o in outs], sts, cvs

@@ -9,9 +9,14 @@ reference:
 * :func:`moe_reference`: every expert sees every token, outputs masked
   (the dense oracle the tests use);
 * :func:`moe_apply`: the serving path, :func:`_local_moe` with one
-  expert group.  The reference's all_to_all exchange and its
-  expert-sharded decode path (``_local_moe_expert_sharded``) wait for the
-  mesh (ROADMAP.md, port queue, "Mesh").
+  expert group;
+* :func:`_local_moe_expert_sharded`: the mesh's decode path, tokens
+  replicated over the model ranks, each rank running its ``E / mp`` local
+  experts, one reduction over the ranks combining them.
+
+The reference's all_to_all exchange (``_local_moe`` with an axis) is the
+training path's and waits for the training half of the mesh (ROADMAP.md,
+port queue, "Mesh").
 
 The dispatch reproduces the reference's, including two behaviours that
 the port must match bit for bit:
@@ -172,8 +177,8 @@ def _local_moe(params: dict, s: MoESpec, x: torch.Tensor, *, axis_name: str | No
     identity; the send buffer, the per-expert buckets and the combine
     follow it step by step, capacities from Python's ``round`` as there."""
     if axis_name is not None:
-        raise NotImplementedError("expert parallelism over a mesh axis waits for the mesh "
-                                  "(ROADMAP.md, port queue, 'Mesh')")
+        raise NotImplementedError("the all_to_all expert exchange is the training path's; it waits for "
+                                  "the training half of the mesh (ROADMAP.md, port queue, 'Mesh')")
     t, d = x.shape
     e_loc = _n_local_experts(params["w_up"])
     k = s.top_k
@@ -223,6 +228,64 @@ def _local_moe(params: dict, s: MoESpec, x: torch.Tensor, *, axis_name: str | No
     out = contrib[:, 0]
     for c in range(1, k):
         out = out + contrib[:, c]
+    return out
+
+
+def _local_moe_expert_sharded(params: dict, s: MoESpec, x: torch.Tensor, *, rank: int,
+                              mp: int) -> torch.Tensor:
+    """The mesh's decode-path MoE on model rank ``rank`` of ``mp``: x [t, d]
+    tokens (replicated on every rank) -> this rank's share of the expert
+    outputs [t, d], before the reduction over the ranks (no residual).
+
+    ``params`` hold the rank's ``E / mp`` local experts (experts
+    ``rank * E/mp`` onwards) and the whole router.  Every rank routes every
+    token; copies bound for another rank's experts, and copies over a local
+    expert's capacity ``round(t k / E * capacity_factor * mp)``, are
+    dropped here.  The dispatch follows the reference's: its stable sort by
+    local expert, its clipped bucket rows (:func:`_scatter_last`, the
+    reference's serial scatter), and its scatter-add combine, which adds
+    each token's kept copies in sorted order, i.e. by local expert."""
+    t, d = x.shape
+    e_loc = _n_local_experts(params["w_up"])
+    E = e_loc * mp
+    k = s.top_k
+    dev = x.device
+
+    h = rmsnorm(params["ln"], x)
+    topv, topi = _route(params, s, h)
+    topv = topv / (torch.sum(topv, dim=-1, keepdim=True) + 1e-9)
+
+    n_copy = t * k
+    expert_of_copy = topi.reshape(n_copy)
+    gate_of_copy = topv.reshape(n_copy)
+    token_of_copy = torch.div(torch.arange(n_copy, device=dev), k, rounding_mode="floor")
+
+    local_e = expert_of_copy - rank * e_loc
+    mine = (local_e >= 0) & (local_e < e_loc)
+    le = torch.where(mine, local_e, e_loc)
+    cap = int(max(1, round(n_copy / E * s.capacity_factor * mp)))  # per local expert
+    order = torch.argsort(le, stable=True)
+    le_s = le[order]
+    pos = torch.arange(n_copy, device=dev) - torch.searchsorted(le_s, le_s)
+    keep = (pos < cap) & (le_s < e_loc)
+    slot = torch.clamp(le_s * cap + pos, 0, e_loc * cap - 1)
+    buckets = _scatter_last(e_loc * cap, slot, torch.where(keep[:, None], h[token_of_copy[order]], 0.0), 0.0)
+    y = _expert_ffn(params, s, buckets.reshape(e_loc, cap, d)).reshape(e_loc * cap, d)
+
+    gate_w = torch.where(keep, gate_of_copy[order], 0.0).to(h.dtype)
+    contrib = y[slot] * gate_w[:, None]
+    # back to copy order (order is a permutation), then each token's k
+    # copies in sorted order: by local expert, its copies' experts being
+    # distinct; a dropped copy adds nothing to its token
+    inv = torch.empty_like(order).scatter_(0, order, torch.arange(n_copy, device=dev))
+    keep_c = keep[inv].reshape(t, k)
+    contrib_c = contrib[inv].reshape(t, k, d)
+    by_expert = torch.argsort(le.reshape(t, k), dim=1, stable=True)
+    keep_c = torch.gather(keep_c, 1, by_expert)
+    contrib_c = torch.gather(contrib_c, 1, by_expert[..., None].expand(t, k, d))
+    out = torch.zeros((t, d), dtype=h.dtype, device=dev)
+    for c in range(k):
+        out = out + torch.where(keep_c[:, c, None], contrib_c[:, c], 0.0)
     return out
 
 

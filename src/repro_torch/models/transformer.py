@@ -17,8 +17,12 @@ recomputed in the backward when ``cfg.remat`` is set
 Two decode paths.  The paged one (:func:`forward_decode_paged`, the
 continuous-batching engine's step) serves the dense attention family
 (KV page pools), with an MLP or with experts (a layer's ``moe`` block in
-place of its ``mlp``: :mod:`repro_torch.models.moe`, one device), and the
-SSM family (mamba2: slot-indexed recurrent state).  The fixed-batch one
+place of its ``mlp``: :mod:`repro_torch.models.moe`), and the SSM family
+(mamba2: slot-indexed recurrent state).  Its tensor-parallel form
+(:func:`forward_decode_paged_tp`, the mesh engine's step) runs ``mp``
+ranks' shards in lockstep, block by block, with one reduction over the
+ranks before each residual and the logits gathered over the vocab.  The
+fixed-batch one
 (:func:`init_cache`, :func:`forward_decode`, :func:`encode_for_decode`:
 the serve CLI's ``--engine static``) serves every family on a flat
 ``[L, B, T, ...]`` cache, the encoder-decoder (whisper) and hybrid
@@ -35,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.packed_matmul.ops import PackedDenseParams
+from repro_torch.launch.mesh import all_gather, all_reduce_sum
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as X
@@ -104,9 +109,13 @@ class ModelConfig:
                          top_k=self.top_k, capacity_factor=self.capacity_factor, kind=self.mlp_kind)
 
     def ssm_spec(self) -> M.MambaSpec:
-        """One device's spec (the reference's ``shard_heads`` waits for the mesh)."""
-        return M.MambaSpec(d_model=self.d_model, d_state=self.ssm_state,
-                           head_dim=self.ssm_head_dim, chunk=self.ssm_chunk)
+        """The SSM spec; under tensor parallelism (``tp_shards > 1``) a
+        rank's, its ``shard_heads`` the rank's share of the heads."""
+        shard_heads = None
+        if self.tp_shards > 1:
+            shard_heads = (2 * self.d_model) // self.ssm_head_dim // self.tp_shards  # expand=2
+        return M.MambaSpec(d_model=self.d_model, d_state=self.ssm_state, head_dim=self.ssm_head_dim,
+                           chunk=self.ssm_chunk, shard_heads=shard_heads)
 
     def windows(self) -> list[int]:
         pat = self.window_pattern
@@ -299,7 +308,8 @@ def head_paged(params: dict, cfg: ModelConfig, x: torch.Tensor, lens: torch.Tens
     else:
         last = torch.clamp(lens.long() - 1, min=0)
         x_last = x[torch.arange(x.shape[0], device=x.device), last]
-    return L.lm_head(x_last, params["embed"], cfg.dtype, packed=head)
+    # a tensor-parallel rank's tree carries its vocab slice beside the embedding
+    return L.lm_head(x_last, params.get("head_embed", params["embed"]), cfg.dtype, packed=head)
 
 
 def forward_decode_paged(params: dict, cfg: ModelConfig, state: dict, block_table: torch.Tensor,
@@ -323,6 +333,78 @@ def forward_decode_paged(params: dict, cfg: ModelConfig, state: dict, block_tabl
         x = decode_paged_layer(p, cfg, layer_state, block_table, x, pos, window=windows[i],
                                lens=lens, gather=gather)
     return head_paged(params, cfg, x, lens=lens, head=head), state
+
+
+def decode_paged_layer_tp(ps: list, cfg: ModelConfig, layer_states: list, block_tables: list, hs: list,
+                          poss: list, *, window: int = -1, lens: list | None = None,
+                          gather: str = "xla") -> list:
+    """One layer of the paged decode step on ``mp`` tensor-parallel ranks in
+    lockstep: per-rank params, state (updated in place), batch and hidden
+    states (replicated); ``cfg`` carries ``tp_shards = mp``.  Each block's
+    rank shares are summed over the ranks (:func:`all_reduce_sum`) before
+    its residual: attention, then the MLP (or the expert-sharded MoE); the
+    SSM block reduces twice, in its output norm and after ``out_proj``."""
+    mp = len(ps)
+    if cfg.family == "ssm":
+        outs, sts, cvs = M.mamba_decode_tp(
+            ps, cfg.ssm_spec(), hs, [st["ssm"] for st in layer_states], [st["conv"] for st in layer_states],
+            lens=lens, quant=cfg.quant)
+        for st, ns, nc in zip(layer_states, sts, cvs):
+            st["ssm"].copy_(ns)
+            st["conv"].copy_(nc)
+        return outs
+    aspec = cfg.attn_spec()
+    lane_lens = lens if lens is not None else [None] * mp
+    parts = [L.attention_decode_paged(
+        ps[r]["attn"], aspec, hs[r], layer_states[r]["k"], layer_states[r]["v"], block_tables[r], poss[r],
+        window=window, quant=cfg.quant, lens=lane_lens[r], gather=gather, partial=True) for r in range(mp)]
+    hs = [h + o for h, o in zip(hs, all_reduce_sum(parts))]
+    if cfg.is_moe:
+        S, C, d = hs[0].shape
+        parts = [X._local_moe_expert_sharded(ps[r]["moe"], cfg.moe_spec(), hs[r].reshape(S * C, d),
+                                             rank=r, mp=mp).reshape(S, C, d) for r in range(mp)]
+    else:
+        parts = [L.mlp(ps[r]["mlp"], cfg.mlp_spec(), hs[r], quant=cfg.quant, partial=True) for r in range(mp)]
+    return [h + o for h, o in zip(hs, all_reduce_sum(parts))]
+
+
+def forward_decode_paged_tp(shards: list, cfg: ModelConfig, states: list, block_table: torch.Tensor,
+                            tokens: torch.Tensor, pos: torch.Tensor, heads: list | None = None,
+                            lens: torch.Tensor | None = None, gather: str = "xla"):
+    """:func:`forward_decode_paged` on ``mp`` tensor-parallel ranks (the
+    reference's step under ``shard_map`` with ``axis_name="model"``).
+
+    ``shards`` are the ranks' trees (:func:`~repro_torch.parallel.slice_decode_params`,
+    packed or not; stacked or per-layer list layers), each on its rank's
+    device; ``states`` their paged states (local KV groups or SSM heads,
+    updated in place); ``cfg`` carries ``tp_shards = mp``; ``heads`` the
+    ranks' packed vocab slices of the head, or None for the tied float
+    head on ``head_embed``.  The batch is copied to every rank's device.
+    Returns ``(logits [S, V] float32 on the first rank's device, states)``;
+    the logits are the ranks' vocab slices concatenated, as the
+    reference's tiled ``all_gather``."""
+    _check_paged(cfg)
+    mp = len(shards)
+    if cfg.tp_shards != mp:
+        raise ValueError(f"{mp} shards for a config with tp_shards={cfg.tp_shards}")
+    devs = [sh["embed"].device for sh in shards]
+
+    def put(t):
+        return None if t is None else [t.to(dv) for dv in devs]
+
+    tables, poss, lenss = put(block_table), put(pos), put(lens)
+    xs = [embed_paged(sh, cfg, tk) for sh, tk in zip(shards, put(tokens))]
+    windows = cfg.windows()
+    for i in range(cfg.n_layers):
+        ps = [sh["layers"][i] if isinstance(sh["layers"], (list, tuple)) else layer_params(sh["layers"], i)
+              for sh in shards]
+        layer_states = [{name: pool[i] for name, pool in st.items()} for st in states]
+        xs = decode_paged_layer_tp(ps, cfg, layer_states, tables, xs, poss, window=windows[i], lens=lenss,
+                                   gather=gather)
+    heads = heads if heads is not None else [None] * mp
+    parts = [head_paged(sh, cfg, x, lens=None if lenss is None else lenss[r], head=heads[r])
+             for r, (sh, x) in enumerate(zip(shards, xs))]
+    return all_gather(parts, dim=1), states
 
 
 # -- the train forward (next-token loss) ------------------------------------------

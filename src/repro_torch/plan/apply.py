@@ -6,8 +6,9 @@ Generalizes ``serving.api.quantize_params_packed`` from one global
 stacked ``[L, ...]`` layout: byte for byte the params of the global
 path.  Heterogeneous plans unstack ``params["layers"]`` into the
 per-layer list that ``transformer.forward_decode_paged`` walks (each
-layer's packed metadata differs).  Tensor-parallel shards (``tp=``) wait
-for the mesh (ROADMAP.md, port queue, "Mesh").
+layer's packed metadata differs).  ``tp=(mp, rank)`` gives a mesh rank's
+tensor-parallel shard, sliced first, then packed against the global
+normalizers (:func:`_tp_tmax_tree`).
 """
 from __future__ import annotations
 
@@ -54,6 +55,22 @@ def tanh_max_tree(tree):
     return map_with_path(one, tree)
 
 
+def _tp_tmax_tree(global_layers, sliced_layers):
+    """The ``t_max_tree`` of a tensor-parallel slice: projection weights
+    take the *global* matrix's normalizer (their rows or columns were
+    sliced); MoE expert tensors take the slice's own (experts are whole
+    matrices sliced on the expert axis, so each expert's normalizer is
+    unchanged)."""
+
+    def one(path, g, s):
+        leaf = s if re.search(MOE_WEIGHT_RE, path) and not path.endswith("/w") else g
+        if getattr(leaf, "ndim", 0) < 2:
+            return torch.zeros(())
+        return torch.amax(torch.abs(torch.tanh(leaf)), dim=(-2, -1))
+
+    return map_with_path(one, global_layers, sliced_layers)
+
+
 def prepack_tree(tree, *, w_bits: int, a_bits: int, block_k: int | None = None,
                  skipped: list | None = None, t_max_tree=None,
                  device: str | torch.device = "cuda"):
@@ -94,10 +111,13 @@ def apply_plan(params: dict, cfg, plan: DeployPlan, *, verbose: bool = True, tp=
     (:func:`~repro_torch.models.layers.prepack_lm_head`) for the engine.
     The float ``embed`` stays (token lookups read it); only the head's
     matmul goes to the plan's bits.  Uniform plans keep the stacked
-    layout, heterogeneous ones become a per-layer list."""
-    if tp is not None:
-        raise NotImplementedError("tensor-parallel plan shards need the mesh (ROADMAP.md, port "
-                                  "queue, 'Mesh')")
+    layout, heterogeneous ones become a per-layer list.
+
+    ``tp=(mp, rank)`` makes mesh rank ``rank``'s tensor-parallel shard:
+    the weights are sliced first (:func:`~repro_torch.parallel.slice_decode_params`,
+    contiguous rank order), then quantized and packed against the global
+    normalizers, so the shard's packed words, the head's vocab slice
+    included, equal slices of the single-device prepack."""
     plan.validate()
     if plan.family != cfg.family:
         raise ValueError(
@@ -108,23 +128,34 @@ def apply_plan(params: dict, cfg, plan: DeployPlan, *, verbose: bool = True, tp=
             f"plan has {len(plan.layers)} layers, config {cfg.name!r} has {cfg.n_layers}"
         )
     dev = resolve_device(device)
+    global_layers, head_embed, head_tmax = params["layers"], params["embed"], None
+    if tp is not None:
+        from repro_torch.core.quant import weight_tanh_max
+        from repro_torch.parallel.sharding import slice_decode_params
+
+        mp, rank = tp
+        head_tmax = weight_tanh_max(params["embed"])
+        params = slice_decode_params(params, cfg, mp, rank)
+        head_embed = params["head_embed"]
     skipped: list[str] = []
     out = dict(params)
     if plan.uniform:
         lp = plan.layers[0]
-        out["layers"] = prepack_tree(params["layers"], w_bits=lp.w_bits, a_bits=lp.a_bits,
-                                     block_k=lp.block_k, skipped=skipped, device=dev)
+        out["layers"] = prepack_tree(
+            params["layers"], w_bits=lp.w_bits, a_bits=lp.a_bits, block_k=lp.block_k, skipped=skipped,
+            t_max_tree=None if tp is None else _tp_tmax_tree(global_layers, params["layers"]), device=dev)
     else:
         per_layer = T.unstack_layers(params, cfg.n_layers)["layers"]
+        global_per_layer = T.unstack_layers({"layers": global_layers}, cfg.n_layers)["layers"]
         out["layers"] = [
-            prepack_tree(layer, w_bits=lp.w_bits, a_bits=lp.a_bits, block_k=lp.block_k,
-                         skipped=skipped, device=dev)
-            for layer, lp in zip(per_layer, plan.layers)
+            prepack_tree(layer, w_bits=lp.w_bits, a_bits=lp.a_bits, block_k=lp.block_k, skipped=skipped,
+                         t_max_tree=None if tp is None else _tp_tmax_tree(g, layer), device=dev)
+            for layer, g, lp in zip(per_layer, global_per_layer, plan.layers)
         ]
     head = None
     if plan.lm_head is not None:
-        head = prepack_lm_head(params["embed"], w_bits=plan.lm_head.w_bits,
-                               a_bits=plan.lm_head.a_bits, device=dev)
+        head = prepack_lm_head(head_embed, w_bits=plan.lm_head.w_bits, a_bits=plan.lm_head.a_bits,
+                               t_max=head_tmax, device=dev)
     if skipped and verbose:
         uniq = sorted(set(skipped))
         print(f"apply_plan: {len(uniq)} projection tensors left in float: " + ", ".join(uniq))

@@ -1,4 +1,4 @@
-"""Continuous-batching decode engine (``repro.serving.engine``), one replica.
+"""Continuous-batching decode engine (``repro.serving.engine``).
 
 Each iteration runs one fused step over every slot: a chunk of up to
 ``chunk_tokens`` prompt (or replayed) tokens for a request still
@@ -92,10 +92,33 @@ no synchronisation and no timestamp.
 :class:`~repro_torch.obs.server.TelemetryServer` around ``run()``; the
 engine never opens a socket.
 
-Not ported yet, and refused where asked for (ROADMAP.md, port queue):
-mesh parallelism ("Mesh"; ``EngineConfig.from_cli`` refuses ``--mesh``)
-and the reference's flat observability keywords
-(``EngineConfig(attrib_every=...)``; use ``obs=ObsConfig(...)``).
+**Mesh parallelism** (the reference's).  ``EngineConfig.mesh =
+MeshConfig(dp, mp)`` serves ``dp`` data replicas, each with its own page
+pool, block table, scheduler, state and step program (requests are routed
+round-robin over the live replicas at admission), every replica stepped
+each iteration.  ``mp > 1`` also splits the model over ``mp``
+tensor-parallel ranks: heads, ``d_ff``, SSM heads, experts and the vocab
+are sliced, weights sliced first and then packed against the global
+normalizers (:func:`repro_torch.serving.api.build_engine`), and a
+replica's step runs its ranks in lockstep
+(:func:`~repro_torch.models.transformer.forward_decode_paged_tp`: one
+reduction before each residual, the logits gathered over the vocab).  The
+ranks sit on the devices of a :class:`~repro_torch.launch.mesh.Mesh`
+(``devices=``; one per visible device by default, raising when there are
+fewer).  With ``mp == 1`` and no device list every replica runs on the
+engine's device, as the reference's dp-only engine dispatches its one
+compiled step per replica, so each replica's tokens equal the single
+engine's bit for bit.  A replica whose ranks share one card is one
+captured CUDA graph on a stream of its own (its own split-K counters);
+ranks on several devices run eagerly.  Under ``mp > 1`` int8 KV pools
+and in-situ attribution are refused, as the reference refuses them.  A
+replica that stalls alone (waiting work, nothing placeable) while a
+sibling is live is quarantined whole for ``quarantine_ticks`` and its
+queue re-routed (the reference's replica watchdog).
+
+Not ported, and refused where asked for: the reference's flat
+observability keywords (``EngineConfig(attrib_every=...)``; use
+``obs=ObsConfig(...)``).
 """
 from __future__ import annotations
 
@@ -111,6 +134,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_gather.ops import check_gather_backend
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import prepack_lm_head
 from repro_torch.obs.attrib import LayerAttributor
@@ -147,10 +171,43 @@ class ObsConfig:
     telemetry_port: int | None = None
 
 
-# EngineConfig.from_cli's answer to a mesh: one replica only, until the
-# ROADMAP.md port queue item it names
-MESH_REFUSAL = ("--mesh: mesh parallelism is not ported yet; it waits for ROADMAP.md port queue "
-                "item 5 (Mesh)")
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Mesh shape for the serving engine: ``dp`` data replicas x ``mp``
+    tensor-parallel model ranks.  ``(1, 1)`` (the default) is the
+    single-device engine."""
+
+    dp: int = 1
+    mp: int = 1
+
+    def __post_init__(self):
+        if self.dp < 1 or self.mp < 1:
+            raise ValueError(f"mesh axes must be >= 1, got dp={self.dp} mp={self.mp}")
+
+    @property
+    def enabled(self) -> bool:
+        return self.dp > 1 or self.mp > 1
+
+    @property
+    def n_devices(self) -> int:
+        return self.dp * self.mp
+
+    @classmethod
+    def parse(cls, spec) -> "MeshConfig":
+        """``"2x2"`` / ``"2"`` / ``(2, 2)`` / ``None`` -> MeshConfig."""
+        if spec is None:
+            return cls()
+        if isinstance(spec, MeshConfig):
+            return spec
+        if isinstance(spec, str):
+            parts = [int(p) for p in spec.lower().split("x")]
+        else:
+            parts = [int(p) for p in spec]
+        if len(parts) == 1:
+            return cls(dp=parts[0])
+        if len(parts) == 2:
+            return cls(dp=parts[0], mp=parts[1])
+        raise ValueError(f"mesh spec must be DP or DPxMP, got {spec!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,6 +238,7 @@ class EngineConfig:
     gather_backend: str = "xla"  # "xla": pool[block_table]; "kernel": CUDA gather
     chaos: ChaosConfig = ChaosConfig()  # fault injection; off by default
     obs: ObsConfig = ObsConfig()  # tracing and attribution knobs; off by default
+    mesh: MeshConfig = MeshConfig()  # data replicas x tensor-parallel ranks
 
     @property
     def blocks_per_slot(self) -> int:
@@ -193,11 +251,9 @@ class EngineConfig:
     def from_cli(cls, args) -> "EngineConfig":
         """An EngineConfig from an argparse namespace (the serve CLI's flag
         set), field for field the reference's: missing attributes take the
-        field defaults, so partial namespaces work.  A ``mesh`` spec is
-        refused (``SystemExit``): one replica only."""
+        field defaults, so partial namespaces work; ``--mesh DPxMP`` enters
+        the engine here or through an explicit :class:`MeshConfig`."""
         g = lambda name, default: getattr(args, name, default)  # noqa: E731
-        if g("mesh", None) is not None:
-            raise SystemExit(MESH_REFUSAL)
         packed = bool(g("packed", False))
         return cls(
             n_slots=g("batch", 8),
@@ -222,6 +278,7 @@ class EngineConfig:
                 alloc_fault_rate=g("chaos_alloc_rate", 0.0),
                 nan_rate=g("chaos_nan_rate", 0.0),
             ),
+            mesh=MeshConfig.parse(g("mesh", None)),
         )
 
 
@@ -336,6 +393,16 @@ class StepProgram:
         adds nothing to the step.  Returns the logits ``[S, V]`` as a view
         of the host buffer, valid until the next step.  A failed replay
         raises."""
+        self.launch(tokens, pos, lens, table)
+        if launched is not None:
+            launched()
+        return self.wait()
+
+    @torch.inference_mode()
+    def launch(self, tokens: np.ndarray, pos: np.ndarray, lens: np.ndarray, table: np.ndarray) -> None:
+        """The first stage of :meth:`run`: stage the batch and enqueue the
+        step and the logits' host copy on the program's stream (a mesh
+        engine launches every replica before it waits for any)."""
         self.prepare()
         for sl, a in zip(self._slices, (table, tokens, pos, lens)):
             if sl.stop > sl.start:
@@ -348,8 +415,10 @@ class StepProgram:
             else:
                 self._forward()
             self._host.copy_(self.logits, non_blocking=True)
-        if launched is not None:
-            launched()
+
+    def wait(self) -> np.ndarray:
+        """The second stage of :meth:`run`: wait for the stream; the logits
+        as a view of the host buffer."""
         if self.stream is not None:
             self.stream.synchronize()
         return self._host_np
@@ -362,18 +431,58 @@ class StepProgram:
         self._ready = False
 
 
+
+
+@dataclasses.dataclass
+class _Replica:
+    """One data-parallel replica's serving state: its own page pool, block
+    table, scheduler (waiting queue and active slots), device state (one
+    state dict, or its ranks' under ``mp > 1``) and step program."""
+
+    index: int
+    allocator: PageAllocator  # possibly chaos-wrapped; the injector is shared
+    block_table: BlockTable
+    scheduler: Scheduler
+    state: dict | list | None = None
+    program: StepProgram | None = None
+    idle: int = 0  # consecutive stalled ticks (the replica watchdog's clock)
+    quarantined_until: float | None = None  # the tick the replica re-enters
+
+    @property
+    def quarantined(self) -> bool:
+        return self.quarantined_until is not None
+
+
+def _tensors(tree) -> list:
+    """The tensors of a state tree (dicts and lists), in a fixed order."""
+    out = []
+    T.map_leaves(tree, out.append)
+    return out
+
+
 class Engine:
     """Request-level serving engine: ``submit()`` prompts, ``run()`` to completion."""
 
     def __init__(self, cfg: T.ModelConfig, params: dict, ecfg: EngineConfig = EngineConfig(),
-                 head=None, *, device: str | torch.device = "cuda", capture: bool | None = None):
-        """``head`` injects prepacked LM-head weights; otherwise
+                 head=None, *, device: str | torch.device = "cuda", capture: bool | None = None,
+                 shard_params=None, devices=None):
+        """``head`` injects prepacked LM-head weights (with ``mp > 1`` the
+        ranks' vocab slices: a list, or ``[mp]``-stacked); otherwise
         ``ecfg.packed_head`` prepacks the tied embedding at
         ``ecfg.head_bits`` here.  ``params`` must already lie on ``device``.
         ``capture``: run the step as one captured CUDA graph (None: on a
         CUDA device); False runs it eagerly, True on the CPU raises.  The
         encdec and hybrid families raise, as the reference's engine does:
-        they decode through the fixed-batch loop."""
+        they decode through the fixed-batch loop.
+
+        With ``ecfg.mesh.mp > 1``, ``params`` are float or int8-dict weights
+        that the engine slices per rank, or ``shard_params`` holds the
+        ranks' trees already sliced and packed (a list, or ``[mp]``-stacked;
+        :func:`repro_torch.serving.api.build_engine` makes them, the
+        recommended front door).  ``devices`` places the ``dp x mp`` ranks
+        (:func:`~repro_torch.launch.mesh.make_mesh`); by default every
+        replica runs on ``device`` when ``mp == 1``, and a mesh with
+        ``mp > 1`` takes one rank per visible device."""
         T._check_paged(cfg)
         if ecfg.chunk_tokens < 1:
             raise ValueError("chunk_tokens must be >= 1")
@@ -387,28 +496,83 @@ class Engine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = ecfg
+        self.dp, self.mp = ecfg.mesh.dp, ecfg.mesh.mp
+        if self.mp > 1 and cfg.kv_dtype == "int8" and cfg.family == "attn":
+            raise NotImplementedError(
+                "int8 KV pools carry one scale per page row over the full "
+                "kv-head dim; a model-parallel slice would change every "
+                "scale.  Serve int8 KV with mp=1 or switch kv_dtype."
+            )
+        if ecfg.obs.attrib_every > 0 and self.mp > 1:
+            raise ValueError(
+                "in-situ attribution re-executes the step single-shard; it "
+                "is not supported with model parallelism (mesh.mp > 1) — "
+                "set attrib_every=0"
+            )
+        if devices is None and self.mp == 1:
+            devices = [self.device] * self.dp
+        self.mesh = make_mesh(self.dp, self.mp, devices, device_type=self.device.type)
         self._chaos = ChaosInjector(ecfg.chaos) if ecfg.chaos.enabled else None
-        self.allocator = PageAllocator(ecfg.pool_pages())
-        if self._chaos is not None:
-            self.allocator = self._chaos.wrap_allocator(self.allocator)
-        self.block_table = BlockTable(ecfg.n_slots, ecfg.blocks_per_slot)
-        self.scheduler = Scheduler(ecfg.n_slots, self.allocator, self.block_table, ecfg.page_size,
-                                   policy=ecfg.policy, admit=ecfg.admit)
-        if head is None and ecfg.packed_head:
-            head = prepack_lm_head(params["embed"], w_bits=ecfg.head_bits[0],
-                                   a_bits=ecfg.head_bits[1], device=self.device)
-        self._head = head
-        # the per-layer list form, sliced once instead of on every step
-        self.params = T.unstack_layers(params, cfg.n_layers)
-        self.state = T.init_paged_state(cfg, ecfg.n_slots, ecfg.pool_pages(), ecfg.page_size,
-                                        dtype=cfg.dtype, device=self.device)
+        self.replicas: list[_Replica] = []
+        for r in range(self.dp):
+            allocator = PageAllocator(ecfg.pool_pages())
+            if self._chaos is not None:
+                allocator = self._chaos.wrap_allocator(allocator)
+            table = BlockTable(ecfg.n_slots, ecfg.blocks_per_slot)
+            sched = Scheduler(ecfg.n_slots, allocator, table, ecfg.page_size, policy=ecfg.policy,
+                              admit=ecfg.admit)
+            self.replicas.append(_Replica(r, allocator, table, sched))
+        # replica 0's: the single-replica names every caller already holds
+        self.allocator = self.replicas[0].allocator
+        self.block_table = self.replicas[0].block_table
+        self.scheduler = self.replicas[0].scheduler
+        self._rr = 0  # round-robin request -> replica routing cursor
+        self.replica_quarantines = 0
+        # -- params and head: whole, or the ranks' shards when mp > 1
+        self._local_cfg = cfg if self.mp == 1 else dataclasses.replace(cfg, tp_shards=self.mp)
+        if self.mp == 1:
+            if head is None and ecfg.packed_head:
+                head = prepack_lm_head(params["embed"], w_bits=ecfg.head_bits[0], a_bits=ecfg.head_bits[1],
+                                       device=self.device)
+            self._head = head
+            # the per-layer list form, sliced once instead of on every step
+            self.params = T.unstack_layers(params, cfg.n_layers)
+            self._weights = [self.params]
+            self._heads = [head]
+        else:
+            from repro_torch.core.quant import weight_tanh_max
+            from repro_torch.parallel.sharding import slice_decode_params, unstack_decode_shards
+
+            if shard_params is None:
+                shard_params = [slice_decode_params(params, cfg, self.mp, r) for r in range(self.mp)]
+            shards = unstack_decode_shards(shard_params, self.mp)
+            if head is None and ecfg.packed_head:
+                emb = params["embed"]
+                vs = emb.shape[0] // self.mp
+                t_max = weight_tanh_max(emb)
+                head = [prepack_lm_head(emb[r * vs:(r + 1) * vs], w_bits=ecfg.head_bits[0],
+                                        a_bits=ecfg.head_bits[1], t_max=t_max, device=self.device)
+                        for r in range(self.mp)]
+            self._weights = [T.unstack_layers(sh, cfg.n_layers) for sh in shards]
+            self._heads = [None] * self.mp if head is None else unstack_decode_shards(head, self.mp)
+            self.params = self._weights  # the ranks' trees
+            self._head = head
+        self._placed: dict = {}
+        for rep in self.replicas:
+            devs = self.mesh.replica_devices(rep.index)
+            states = [T.init_paged_state(self._local_cfg, ecfg.n_slots, ecfg.pool_pages(), ecfg.page_size,
+                                         dtype=cfg.dtype, device=dv) for dv in devs]
+            rep.state = states[0] if self.mp == 1 else states
         self._ckpt = None
         if ecfg.snapshot_every > 0:
             from repro_torch.checkpoint import CheckpointManager
 
             snap_dir = ecfg.snapshot_dir or tempfile.mkdtemp(prefix="engine-snap-")
             self._ckpt = CheckpointManager(snap_dir, keep=2)
-        self._program = self._build_step(self.device.type == "cuda" if capture is None else capture)
+        capture = self.device.type == "cuda" if capture is None else capture
+        for rep in self.replicas:
+            rep.program = self._build_step(rep, capture)
+        self._program = self.replicas[0].program
         self._pending: list[Request] = []  # sorted by arrival
         self._next_rid = 0
         self.n_steps = 0
@@ -439,46 +603,115 @@ class Engine:
         self._win_preempts = WindowedSeries()
         self._attrib: LayerAttributor | None = None
         if ecfg.obs.attrib_every > 0:
+            # with dp > 1 (mp == 1) replica 0's step is sampled
             self._attrib = LayerAttributor(cfg, self.params, head=self._head, reps=ecfg.obs.attrib_reps,
                                            registry=self.registry, gather=ecfg.gather_backend,
-                                           device=self.device)
+                                           device=self.mesh.device(0, 0))
 
-    def _build_step(self, capture: bool) -> StepProgram:
-        """The step program: :func:`forward_decode_paged` over static
-        buffers, the pools of ``self.state`` updated in place (the
+    @property
+    def state(self):
+        """Replica 0's device state (the single-replica name); a step
+        program holds the tensors it was built on, so rebinding this
+        reaches the resets and restores, never the step."""
+        return self.replicas[0].state
+
+    @state.setter
+    def state(self, value) -> None:
+        self.replicas[0].state = value
+
+    # -- construction helpers ---------------------------------------------------
+
+    def _on(self, rank: int, device: torch.device):
+        """Rank ``rank``'s weights and head on ``device``: the engine's own
+        where they already lie there, else copies made once per device."""
+        key = (rank, device)
+        if key not in self._placed:
+            move = lambda a: a.to(device)  # noqa: E731 (no copy when already there)
+            head = self._heads[rank]
+            self._placed[key] = (T.map_leaves(self._weights[rank], move),
+                                 None if head is None else head.to(device))
+        return self._placed[key]
+
+    def _build_step(self, rep: _Replica, capture: bool) -> StepProgram:
+        """Replica ``rep``'s step program: :func:`forward_decode_paged` (or,
+        with ``mp > 1``, :func:`forward_decode_paged_tp` over its ranks)
+        over static buffers, the replica's state updated in place (the
         reference's donated state).  ``lens`` reaches the model only at
         ``C > 1``, as in the reference, so the C = 1 step is the plain
-        decode step."""
-        params, cfg, state, head = self.params, self.cfg, self.state, self._head
-        gather = self.ecfg.gather_backend
+        decode step.  A replica whose ranks sit on several devices runs
+        eagerly: one CUDA graph cannot span devices."""
+        devs = self.mesh.replica_devices(rep.index)
+        gather, state = self.ecfg.gather_backend, rep.state
+        if self.mp == 1:
+            cfg = self.cfg
+            params, head = self._on(0, devs[0])
 
-        def step(tokens, pos, lens, table):
-            logits, _ = T.forward_decode_paged(params, cfg, state, table, tokens, pos, head=head,
-                                               lens=lens, gather=gather)
-            return logits
+            def step(tokens, pos, lens, table):
+                logits, _ = T.forward_decode_paged(params, cfg, state, table, tokens, pos, head=head,
+                                                   lens=lens, gather=gather)
+                return logits
+        else:
+            cfg = self._local_cfg
+            placed = [self._on(r, dv) for r, dv in enumerate(devs)]
+            shards = [p for p, _ in placed]
+            heads = None if placed[0][1] is None else [h for _, h in placed]
+            capture = capture and all(dv == devs[0] for dv in devs)
+
+            def step(tokens, pos, lens, table):
+                logits, _ = T.forward_decode_paged_tp(shards, cfg, state, table, tokens, pos, heads=heads,
+                                                      lens=lens, gather=gather)
+                return logits
 
         return StepProgram(step, n_slots=self.ecfg.n_slots, chunk=self.ecfg.chunk_tokens,
-                           n_blocks=self.ecfg.blocks_per_slot, vocab=cfg.vocab, device=self.device,
+                           n_blocks=self.ecfg.blocks_per_slot, vocab=self.cfg.vocab, device=devs[0],
                            capture=capture)
 
-    def _reset_slot(self, slot: int) -> None:
+    def _reset_slot(self, slot: int, replica: int = 0) -> None:
         """Zero one slot's recurrent (SSM) state on (re-)admission, in place
-        and outside the step's graph: the next step's stream waits for the
-        writes (:meth:`StepProgram._on_stream`), and the graph, captured on
-        the same buffers, is never captured again.  Other families keep no
-        such state: nothing to do."""
-        T.reset_paged_slot(self.cfg, self.state, slot)
+        and outside the step's graph (on every rank of the replica): the
+        next step's stream waits for the writes
+        (:meth:`StepProgram._on_stream`), and the graph, captured on the
+        same buffers, is never captured again.  Other families keep no such
+        state: nothing to do."""
+        state = self.replicas[replica].state
+        for st in (state if self.mp > 1 else [state]):
+            T.reset_paged_slot(self._local_cfg, st, slot)
+
+    def _states_tree(self):
+        """The device state a snapshot saves: the state dict of a
+        single-device engine, else every replica's."""
+        if self.dp == 1 and self.mp == 1:
+            return self.state
+        return [rep.state for rep in self.replicas]
+
+    def _live_replicas(self) -> list[_Replica]:
+        return [r for r in self.replicas if not r.quarantined]
+
+    def _any_active(self) -> bool:
+        return any(rep.scheduler.active for rep in self.replicas)
+
+    def _all_done(self) -> bool:
+        return all(rep.scheduler.all_done() for rep in self.replicas)
+
+    def _active_items(self):
+        """(replica, slot, request) triples over every replica's batch."""
+        for rep in self.replicas:
+            for slot, req in rep.scheduler.active.items():
+                yield rep, slot, req
 
     def warmup(self) -> None:
-        """Prepare the step program (:meth:`StepProgram.prepare`: one eager
-        step with every slot inactive, then the capture on the card), so
-        kernel builds, first-call costs and the capture stay out of the
-        timed run.  ``run`` prepares it before its clock starts otherwise."""
-        self._program.prepare()
+        """Prepare every replica's step program (:meth:`StepProgram.prepare`:
+        one eager step with every slot inactive, then the capture on the
+        card), so kernel builds, first-call costs and the captures stay out
+        of the timed run.  ``run`` prepares them before its clock starts
+        otherwise."""
+        for rep in self.replicas:
+            rep.program.prepare()
 
     def close(self) -> None:
-        """Release the step's CUDA graph and its memory pool."""
-        self._program.close()
+        """Release the steps' CUDA graphs and their memory pools."""
+        for rep in self.replicas:
+            rep.program.close()
 
     def submit(self, prompt, max_new_tokens: int, arrival: float = 0.0, *,
                deadline: float | None = None, ttft_deadline: float | None = None,
@@ -540,11 +773,12 @@ class Engine:
             self._trace, self._trace_path = TraceRecorder(), trace
         for req in self._pending:
             self._trace_attach(req)
-        for req in self.scheduler.waiting:
-            self._trace_attach(req)
-        for req in self.scheduler.active.values():
-            self._trace_attach(req)
-            self._trace.req_phase(req.rid, "prefill", slot=req.slot)
+        for rep in self.replicas:
+            for req in rep.scheduler.waiting:
+                self._trace_attach(req)
+            for req in rep.scheduler.active.values():
+                self._trace_attach(req)
+                self._trace.req_phase(req.rid, "prefill", slot=req.slot)
         if self._chaos is not None:
             self._chaos.trace = self._trace
 
@@ -559,7 +793,7 @@ class Engine:
             chunk_tokens=self.ecfg.chunk_tokens, realtime=self._realtime, steps=self.n_steps,
             n_requests=len(self.finished), statuses=m["statuses"], injected=m["injected"],
             preemptions=m["preemptions"], step_retries=self.step_retries,
-            chaos_seed=self._chaos.cfg.seed if self._chaos is not None else None, dp=1, mp=1,
+            chaos_seed=self._chaos.cfg.seed if self._chaos is not None else None, dp=self.dp, mp=self.mp,
         )
         if self._trace_path is not None:
             tr.save(self._trace_path)
@@ -579,25 +813,53 @@ class Engine:
 
     def _emit_counter_tracks(self, tr: TraceRecorder) -> None:
         """One sample a step on each counter track: pool pressure, slot
-        occupancy, windowed throughput and the monotone fault counters."""
+        occupancy, windowed throughput and the monotone fault counters
+        (summed over the replicas)."""
         window = 5.0 if self._realtime else 32.0
         tps = self._win_tokens.rate(self._elapsed(), window)
-        sched = self.scheduler
-        tr.counter("pages", free=self.allocator.n_free)
-        tr.counter("slots", active=len(sched.active), waiting=len(sched.waiting) + len(self._pending))
+        tr.counter("pages", free=sum(r.allocator.n_free for r in self.replicas))
+        tr.counter("slots", active=sum(len(r.scheduler.active) for r in self.replicas),
+                   waiting=sum(len(r.scheduler.waiting) for r in self.replicas) + len(self._pending))
         tr.counter("tokens_per_s_window", tokens_per_s=tps or 0.0)
-        tr.counter("preemptions_total", preemptions=sched.n_preemptions)
+        tr.counter("preemptions_total", preemptions=self.preemptions)
         tr.counter("shed_total", shed=self.registry.counter("repro_requests_total").value(status="shed"))
 
     # -- lifecycle policing: host bookkeeping only, no device work ------------
 
+    def _route_replica(self) -> _Replica:
+        """Round-robin over the live (not quarantined) replicas: the
+        deterministic request -> replica assignment."""
+        pool = self._live_replicas() or self.replicas
+        rep = pool[self._rr % len(pool)]
+        self._rr += 1
+        return rep
+
+    def _admit(self, now: float) -> None:
+        while self._pending and self._pending[0].arrival <= now:
+            req = self._pending.pop(0)
+            rep = self._route_replica()
+            req.replica = rep.index
+            rep.scheduler.submit(req)
+        for rep in self.replicas:
+            if rep.quarantined:
+                continue
+            for req in rep.scheduler.admit(now):
+                # a (re-)admitted SSM request rebuilds its state from position 0
+                if self.dp == 1:
+                    self._reset_slot(req.slot)
+                else:
+                    self._reset_slot(req.slot, rep.index)
+                if self._trace is not None:
+                    self._trace.req_phase(req.rid, "prefill", slot=req.slot, replayed=req.n_preempted > 0)
+
     def _finalize(self, req: Request, status: str, now: float, reason: str | None = None) -> None:
         """Move a request to its terminal status exactly once, reclaiming
-        its slot and pages if it is resident."""
+        its slot and pages through its replica's scheduler if it is
+        resident."""
         assert req.status is None, f"rid {req.rid} already terminal ({req.status})"
         assert status in TERMINAL_STATUSES, status
         if req.slot != -1:
-            self.scheduler.finish(req, now)
+            self.replicas[req.replica].scheduler.finish(req, now)
         else:
             req.t_finish = now
         req.status = status
@@ -634,37 +896,39 @@ class Engine:
         return req.deadline - now - (est if est is not None else 0.0)
 
     def _police(self, now: float) -> None:
-        """Between-steps lifecycle pass: cooperative cancellation, deadline
-        expiry and infeasibility shedding, and bounded-queue backpressure."""
+        """Between-steps lifecycle pass, on every replica: cooperative
+        cancellation, deadline expiry and infeasibility shedding, and
+        bounded-queue backpressure (``max_waiting`` a replica)."""
         for req in [r for r in self._pending if r.cancel_requested]:
             self._pending.remove(req)
             self._finalize(req, "cancelled", now)
-        sched = self.scheduler
-        for req in [r for r in sched.waiting if r.cancel_requested]:
-            sched.remove_waiting(req)
-            self._finalize(req, "cancelled", now)
-        for req in [r for r in sched.active.values() if r.cancel_requested]:
-            self._finalize(req, "cancelled", now)
-        # active requests past a deadline are dropped mid-decode: their
-        # pages fund work that can still meet its deadline
-        for req in list(sched.active.values()):
-            reason = self._expired_reason(req, now)
-            if reason is not None:
-                self._finalize(req, "shed", now, reason=reason)
-        for req in list(sched.waiting):
-            reason = self._expired_reason(req, now)
-            if reason is None and req.deadline is not None:
-                est = self._est_service_time(req)
-                if est is not None and now + est > req.deadline:
-                    reason = "infeasible"
-            if reason is not None:
+        for rep in self.replicas:
+            sched = rep.scheduler
+            for req in [r for r in sched.waiting if r.cancel_requested]:
                 sched.remove_waiting(req)
-                self._finalize(req, "shed", now, reason=reason)
-        if self.ecfg.max_waiting:
-            while len(sched.waiting) > self.ecfg.max_waiting:
-                victim = min(sched.waiting, key=lambda r: (self._slack(r, now), -r.arrival, -r.rid))
-                sched.remove_waiting(victim)
-                self._finalize(victim, "shed", now, reason="queue-overflow")
+                self._finalize(req, "cancelled", now)
+            for req in [r for r in sched.active.values() if r.cancel_requested]:
+                self._finalize(req, "cancelled", now)
+            # active requests past a deadline are dropped mid-decode: their
+            # pages fund work that can still meet its deadline
+            for req in list(sched.active.values()):
+                reason = self._expired_reason(req, now)
+                if reason is not None:
+                    self._finalize(req, "shed", now, reason=reason)
+            for req in list(sched.waiting):
+                reason = self._expired_reason(req, now)
+                if reason is None and req.deadline is not None:
+                    est = self._est_service_time(req)
+                    if est is not None and now + est > req.deadline:
+                        reason = "infeasible"
+                if reason is not None:
+                    sched.remove_waiting(req)
+                    self._finalize(req, "shed", now, reason=reason)
+            if self.ecfg.max_waiting:
+                while len(sched.waiting) > self.ecfg.max_waiting:
+                    victim = min(sched.waiting, key=lambda r: (self._slack(r, now), -r.arrival, -r.rid))
+                    sched.remove_waiting(victim)
+                    self._finalize(victim, "shed", now, reason="queue-overflow")
 
     # -- faults: host bookkeeping, and the state restored in place ------------
 
@@ -672,7 +936,7 @@ class Engine:
         """One fault strike against a resident request: preempt it for a
         token-identical replay and quarantine its slot; past
         ``max_request_retries`` strikes it ends ``failed`` instead."""
-        sched = self.scheduler
+        sched = self.replicas[req.replica].scheduler
         slot = req.slot
         req.n_faults += 1
         sched.preempt(req, now)
@@ -687,19 +951,25 @@ class Engine:
             sched.remove_waiting(req)
             self._finalize(req, "failed", now)
 
+    def _pick_victim(self) -> Request:
+        """The lowest-progress active request over every replica (ties: the
+        youngest rid), the global twin of ``Scheduler.pick_victim``."""
+        return min((req for _, _, req in self._active_items()), key=lambda r: (r.n_fed, -r.rid))
+
     def _device_failed(self, exc: Exception) -> bool:
         """Whether a step's exception is the device's: a kernel library's
-        own error, or any fault after which the device no longer
+        own error, or any fault after which a device of the mesh no longer
         synchronises (a sticky CUDA error).  Those are never recovered."""
         if isinstance(exc, build.KernelError):
             return True
-        if self.device.type != "cuda":
-            return False
-        try:
-            torch.cuda.synchronize(self.device)
-        except RuntimeError as err:
-            exc.add_note(f"the device probe after the fault failed: {err}")
-            return True
+        for dev in dict.fromkeys(self.mesh.devices):
+            if dev.type != "cuda":
+                continue
+            try:
+                torch.cuda.synchronize(dev)
+            except RuntimeError as err:
+                exc.add_note(f"the device probe after the fault failed: {err}")
+                return True
         return False
 
     def _recover_hard_fault(self, exc: Exception, now: float) -> None:
@@ -709,87 +979,107 @@ class Engine:
         depend on the snapshot's age."""
         self.hard_recoveries += 1
         self.fault_log.append(f"step {self.n_steps}: {type(exc).__name__}: {exc}")
-        for req in list(self.scheduler.active.values()):
+        for _, _, req in list(self._active_items()):
             self._strike(req, now)
         self._restore_state()
 
     def _restore_state(self) -> None:
         """Write the latest snapshot (after the writer is done), or zeros,
-        into the state tensors in place: the step's graph and closure hold
-        these tensors, so they must never be rebound."""
+        into every replica's state tensors in place: the steps' graphs and
+        closures hold these tensors, so they must never be rebound."""
+        tree = self._states_tree()
         snap = None
         if self._ckpt is not None:
             self._ckpt.wait()
             if self._ckpt.latest_step() is not None:
-                _, snap = self._ckpt.restore(self.state)
-        for key, t in self.state.items():
-            if snap is None:
+                _, snap = self._ckpt.restore(tree)
+        if snap is None:
+            for t in _tensors(tree):
                 t.zero_()
-                continue
-            src = snap[key]
+            return
+        for t, src in zip(_tensors(tree), _tensors(snap)):
             if src.shape != t.shape or src.dtype != t.dtype:
-                raise ValueError(f"snapshot leaf {key!r} is {src.dtype}{tuple(src.shape)}, the state's "
+                raise ValueError(f"a snapshot leaf is {src.dtype}{tuple(src.shape)}, the state's "
                                  f"{t.dtype}{tuple(t.shape)}")
             t.copy_(src)
 
     def _snapshot(self) -> None:
-        """Save the state (copied to the host now, on the step's stream,
-        whose step has ended; written to disk in the background)."""
+        """Save the state (copied to the host now, on the first replica's
+        stream, after every replica's step has ended; written to disk in the
+        background)."""
         with self._program._on_stream():
-            self._ckpt.save_async(self.n_steps, self.state)
+            self._ckpt.save_async(self.n_steps, self._states_tree())
 
     def _fund_pages(self, now: float) -> None:
         """On-demand admission: before the step, grow every active slot's
-        page list to cover its chunk.  Slots are funded in descending
-        progress; when the pool runs dry the lowest-progress slot is
-        preempted (its pages freed for the rest), possibly the requester
-        itself, which then leaves the batch and replays later.  The
-        highest-progress slot can always be funded (``submit`` bounds every
-        request by the pool), so each step advances at least one request."""
+        page list to cover its chunk, each replica from its own pool.
+        Slots are funded in descending progress; when a pool runs dry its
+        lowest-progress slot is preempted (its pages freed for the rest),
+        possibly the requester itself, which then leaves the batch and
+        replays later.  The highest-progress slot can always be funded
+        (``submit`` bounds every request by the pool), so each step advances
+        at least one request a replica."""
         C = self.ecfg.chunk_tokens
-        sched = self.scheduler
-        for req in sorted(sched.active.values(), key=lambda r: (-r.n_fed, r.rid)):
-            if req.slot == -1:
-                continue  # already preempted as someone else's victim
-            last_pos = req.n_fed + req.n_feed(C) - 1
-            while not sched.ensure_pages(req, last_pos):
-                victim = sched.pick_victim()
-                sched.preempt(victim)
-                self._win_preempts.add(now)
-                if self._trace is not None:
-                    self._trace.req_event(victim.rid, "preempt", reason="pages")
-                    self._trace.req_phase(victim.rid, "queued", reason="preempt")
-                if victim is req:
-                    break
+        for rep in self.replicas:
+            sched = rep.scheduler
+            for req in sorted(sched.active.values(), key=lambda r: (-r.n_fed, r.rid)):
+                if req.slot == -1:
+                    continue  # already preempted as someone else's victim
+                last_pos = req.n_fed + req.n_feed(C) - 1
+                while not sched.ensure_pages(req, last_pos):
+                    victim = sched.pick_victim()
+                    sched.preempt(victim)
+                    self._win_preempts.add(now)
+                    if self._trace is not None:
+                        self._trace.req_event(victim.rid, "preempt", reason="pages")
+                        self._trace.req_phase(victim.rid, "queued", reason="preempt")
+                    if victim is req:
+                        break
+
+    def _dispatch(self, tokens, pos, lens, tables, launched=None) -> list:
+        """Every replica's step: one program's :meth:`StepProgram.run`, or
+        every replica's launch before any wait.  Returns each replica's
+        logits ``[S, V]`` (views of the programs' host buffers)."""
+        if self.dp == 1:
+            if launched is None:
+                return [self._program.run(tokens[0], pos[0], lens[0], tables[0])]
+            return [self._program.run(tokens[0], pos[0], lens[0], tables[0], launched)]
+        for rep in self.replicas:
+            i = rep.index
+            rep.program.launch(tokens[i], pos[i], lens[i], tables[i])
+        if launched is not None:
+            launched()
+        return [rep.program.wait() for rep in self.replicas]
 
     def _step_once(self, now_fn) -> bool:
-        """Fund (on-demand), step and sample once; False when no step
-        completed: funding preempted every slot, injected faults used up
-        the retries, or a hard fault was recovered."""
-        S, C = self.ecfg.n_slots, self.ecfg.chunk_tokens
+        """Fund (on-demand), step every replica and sample once; False when
+        no step completed: funding preempted every slot, injected faults
+        used up the retries, or a hard fault was recovered."""
+        R, S, C = self.dp, self.ecfg.n_slots, self.ecfg.chunk_tokens
         if self.ecfg.admit == "on-demand":
             self._fund_pages(now_fn())
-            if not self.scheduler.active:
+            if not self._any_active():
                 return False  # everything preempted; admission retries next loop
-        tokens = np.zeros((S, C), np.int32)
-        pos = np.zeros((S,), np.int32)
-        lens = np.zeros((S,), np.int32)
-        for slot, req in self.scheduler.active.items():
+        tokens = np.zeros((R, S, C), np.int32)
+        pos = np.zeros((R, S), np.int32)
+        lens = np.zeros((R, S), np.int32)
+        for rep, slot, req in self._active_items():
             chunk, start = req.next_chunk(C)
-            tokens[slot, : len(chunk)] = chunk
-            pos[slot] = start
-            lens[slot] = len(chunk)
-        table = self.block_table.as_array()
+            tokens[rep.index, slot, : len(chunk)] = chunk
+            pos[rep.index, slot] = start
+            lens[rep.index, slot] = len(chunk)
+        tables = [rep.block_table.as_array() for rep in self.replicas]
         tr = self._trace
         if tr is not None:
-            for slot, req in self.scheduler.active.items():
-                if lens[slot] and tr.phase(req.rid) == "prefill":
-                    tr.req_event(req.rid, "prefill_chunk", start=int(pos[slot]), n=int(lens[slot]))
+            for rep, slot, req in self._active_items():
+                if lens[rep.index, slot] and tr.phase(req.rid) == "prefill":
+                    tr.req_event(req.rid, "prefill_chunk", start=int(pos[rep.index, slot]),
+                                 n=int(lens[rep.index, slot]))
         attrib = self._attrib is not None and (self.n_steps + 1) % self.ecfg.obs.attrib_every == 0
         if attrib:
-            # the pre-step state, copied before the step writes it; injected
-            # faults raise before anything is staged, so the copy outlives
-            # the retries, and a hard fault drops it
+            # replica 0's pre-step state, copied before the step writes it;
+            # injected faults raise before anything is staged, so the copy
+            # outlives the retries, and a hard fault drops it
             self._attrib.stage(self.state, self._program.stream)
         t_span = [0.0, 0.0]  # the step's dispatch start and end (tracing only)
         for attempt in range(self.ecfg.max_step_retries + 1):
@@ -797,20 +1087,19 @@ class Engine:
                 if self._chaos is not None:
                     self._chaos.before_step()  # raises before anything is staged
                 if tr is None:
-                    logits_np = self._program.run(tokens, pos, lens, table)
+                    logits = self._dispatch(tokens, pos, lens, tables)
                 else:
                     t_span[0] = tr.now()
-                    logits_np = self._program.run(tokens, pos, lens, table,
-                                                  lambda: t_span.__setitem__(1, tr.now()))
+                    logits = self._dispatch(tokens, pos, lens, tables,
+                                            lambda: t_span.__setitem__(1, tr.now()))
                 break
             except InjectedFault:
                 self.step_retries += 1
                 if tr is not None:
                     tr.instant("step_retry", attempt=attempt)
                 if attempt == self.ecfg.max_step_retries:
-                    # the fault outlasted the retries: strike the lowest-progress
-                    # request (the reference's _pick_victim on one replica)
-                    self._strike(self.scheduler.pick_victim(), now_fn())
+                    # the fault outlasted the retries: strike the lowest-progress request
+                    self._strike(self._pick_victim(), now_fn())
                     return False
             except Exception as exc:  # a hard fault: the state writes are suspect
                 if self._device_failed(exc):
@@ -820,11 +1109,11 @@ class Engine:
                 self._recover_hard_fault(exc, now_fn())
                 return False
         self.n_steps += 1
-        n_active = len(self.scheduler.active)
+        n_active = sum(len(r.scheduler.active) for r in self.replicas)
         self.slot_token_steps += n_active
         self.fed_tokens += int(lens.sum())
         if tr is not None:
-            t_wait = tr.now()  # run() returned after the stream's wait
+            t_wait = tr.now()  # the dispatch returned after the streams' waits
             tr.complete("dispatch", t_span[0], t_span[1], step=self.n_steps)
             tr.complete("device_wait", t_span[1], t_wait, step=self.n_steps)
             tr.complete("step", t_span[0], t_wait, step=self.n_steps, active=n_active, fed=int(lens.sum()))
@@ -839,20 +1128,22 @@ class Engine:
                     and self.n_steps % self.ecfg.obs.trace_checkpoint_every == 0):
                 tr.save(self._trace_path)  # a partial trace a crash leaves behind
         if self._chaos is not None:
-            logits_np = logits_np.copy()  # the program's host buffer stays clean
-            sampling = [s for s, r in self.scheduler.active.items() if r.n_fed + int(lens[s]) >= len(r.seq)]
-            self._chaos.poison_logits(logits_np, sampling)
+            logits = [rows.copy() for rows in logits]  # the programs' host buffers stay clean
+            for rep in self.replicas:
+                sampling = [s for s, r in rep.scheduler.active.items()
+                            if r.n_fed + int(lens[rep.index, s]) >= len(r.seq)]
+                self._chaos.poison_logits(logits[rep.index], sampling)
         t = now_fn()
         if self._ckpt is not None and self.n_steps % self.ecfg.snapshot_every == 0:
             self._snapshot()
         n_new = 0
-        for slot, req in list(self.scheduler.active.items()):
-            req.n_fed += int(lens[slot])
+        for rep, slot, req in list(self._active_items()):
+            req.n_fed += int(lens[rep.index, slot])
             if req.n_fed < len(req.seq):
                 continue  # mid-prompt / mid-replay: logits not sampled
             if tr is not None:
                 tr.req_phase(req.rid, "decode", slot=slot)
-            row = logits_np[slot]
+            row = logits[rep.index][slot]
             if not np.isfinite(row).all():
                 # never sample a non-finite row: strike the request, whose
                 # replay samples this token again
@@ -875,6 +1166,37 @@ class Engine:
         reg.counter("repro_fed_tokens_total", "valid token lanes fed").inc(float(lens.sum()))
         return True
 
+    def _replica_watchdog(self) -> None:
+        """dp > 1 only: a replica with waiting work and an empty batch while
+        a sibling is live is quarantined whole after ``watchdog_ticks``
+        stalled ticks, and its waiting queue re-routed to the least-loaded
+        live replica, so a wedged pool degrades capacity instead of wedging
+        every request routed to it."""
+        if self.dp == 1:
+            return
+        for rep in self.replicas:
+            sched = rep.scheduler
+            stalled = bool(sched.waiting) and not sched.active and not rep.quarantined
+            rep.idle = rep.idle + 1 if stalled else 0
+            if rep.idle <= self.ecfg.watchdog_ticks:
+                continue
+            others = [o for o in self.replicas if o is not rep and not o.quarantined]
+            if not others:
+                continue  # nowhere to re-route; the global watchdog sheds
+            rep.idle = 0
+            rep.quarantined_until = self.ticks + self.ecfg.quarantine_ticks
+            self.replica_quarantines += 1
+            target = min(others, key=lambda o: (len(o.scheduler.active) + len(o.scheduler.waiting), o.index))
+            moved = 0
+            while sched.waiting:
+                req = sched.waiting.popleft()
+                req.replica = target.index
+                target.scheduler.submit(req)
+                moved += 1
+            if self._trace is not None:
+                self._trace.instant("replica_quarantine", replica=rep.index, until_tick=rep.quarantined_until,
+                                    rerouted=moved, target=target.index)
+
     def run(self, *, realtime: bool = True, max_steps: int | None = None, trace=None) -> dict:
         """Drive the engine until every submitted request reaches a terminal
         status, or until ``max_steps`` steps in all (a later call resumes).
@@ -882,7 +1204,7 @@ class Engine:
         ``realtime=False`` uses a deterministic virtual clock (1.0 per step;
         idle ticks also advance it, idle gaps jump to the next arrival).
         Each loop iteration polices, then admits, then steps.  The step
-        program is prepared (on the card: captured) before the clock
+        programs are prepared (on the card: captured) before the clock
         starts, so neither the capture nor first-call costs enter the
         step-time estimate that realtime deadlines use.
 
@@ -893,29 +1215,26 @@ class Engine:
         self._realtime = realtime
         if trace is not None:
             self._arm_trace(trace)
-        self._program.prepare()
+        self.warmup()
         t_wall0 = self._t_wall0 = time.monotonic()
         self._t_run_end = None
-        sched = self.scheduler
         idle = 0
 
         def now() -> float:
             return (time.monotonic() - t_wall0) if realtime else self._vclock
 
-        while self._pending or not sched.all_done():
+        while self._pending or not self._all_done():
             if max_steps is not None and self.n_steps >= max_steps:
                 break
             self.ticks += 1
-            sched.release_quarantined(self.ticks)
+            for rep in self.replicas:
+                rep.scheduler.release_quarantined(self.ticks)
+                if rep.quarantined and self.ticks >= rep.quarantined_until:
+                    rep.quarantined_until = None
             self._police(now())
-            while self._pending and self._pending[0].arrival <= now():
-                sched.submit(self._pending.pop(0))
-            for req in sched.admit(now()):
-                # a (re-)admitted SSM request rebuilds its state from position 0
-                self._reset_slot(req.slot)
-                if self._trace is not None:
-                    self._trace.req_phase(req.rid, "prefill", slot=req.slot, replayed=req.n_preempted > 0)
-            if not sched.active:
+            self._admit(now())
+            self._replica_watchdog()
+            if not self._any_active():
                 if self._pending:
                     # nothing running: wait for (or jump to) the next arrival
                     nxt = self._pending[0].arrival
@@ -925,11 +1244,11 @@ class Engine:
                         self._vclock = max(self._vclock, nxt)
                     idle = 0
                     continue
-                if sched.all_done():
+                if self._all_done():
                     continue  # the loop condition exits
                 # waiting work but nothing placeable (quarantined slots, a
                 # flaky allocator, or a stall): after watchdog_ticks idle
-                # ticks the watchdog sheds the head, so run() neither raises
+                # ticks the watchdog sheds a head, so run() neither raises
                 # nor spins forever
                 idle += 1
                 if realtime:
@@ -937,9 +1256,12 @@ class Engine:
                 else:
                     self._vclock += 1.0
                 if idle > self.ecfg.watchdog_ticks:
-                    victim = sched.waiting[0]
-                    sched.remove_waiting(victim)
-                    self._finalize(victim, "shed", now(), reason="watchdog")
+                    for rep in self.replicas:
+                        if rep.scheduler.waiting:
+                            victim = rep.scheduler.waiting[0]
+                            rep.scheduler.remove_waiting(victim)
+                            self._finalize(victim, "shed", now(), reason="watchdog")
+                            break
                     idle = 0
                 continue
             idle = 0
@@ -954,8 +1276,10 @@ class Engine:
                 self._step_time_ewma = dt if ewma is None else 0.8 * ewma + 0.2 * dt
             else:
                 self._vclock += 1.0
-        if not self._pending and sched.all_done():
-            sched.release_quarantined(None)
+        if not self._pending and self._all_done():
+            for rep in self.replicas:
+                rep.scheduler.release_quarantined(None)
+                rep.quarantined_until = None
             if self._ckpt is not None:
                 self._ckpt.wait()
             self.assert_no_leaks()
@@ -965,11 +1289,22 @@ class Engine:
             self._seal_trace()
         return out
 
+    @property
+    def preemptions(self) -> int:
+        return sum(rep.scheduler.n_preemptions for rep in self.replicas)
+
     def assert_no_leaks(self) -> None:
-        """Every page back on the free list, every slot free, the block
-        table cleared; raises AssertionError otherwise."""
-        self.allocator.assert_no_leaks()
-        self.scheduler.assert_all_reclaimed()
+        """On every replica: every page back on its free list, every slot
+        free, the block table cleared; raises AssertionError naming the
+        leaking replica otherwise."""
+        for rep in self.replicas:
+            try:
+                rep.allocator.assert_no_leaks()
+                rep.scheduler.assert_all_reclaimed()
+            except AssertionError as exc:
+                if self.dp == 1:
+                    raise
+                raise AssertionError(f"replica {rep.index}: {exc}") from exc
 
     def _elapsed(self) -> float:
         """Engine-clock time since run() started: the virtual clock, or wall
@@ -996,6 +1331,8 @@ class Engine:
             "engine": self.ecfg.policy,
             "admit": self.ecfg.admit,
             "chunk_tokens": self.ecfg.chunk_tokens,
+            "dp": self.dp,
+            "mp": self.mp,
             "n_requests": len(done),
             "n_ok": len(ok),
             "statuses": dict(Counter(r.status for r in done)),
@@ -1003,8 +1340,9 @@ class Engine:
             "generated_tokens_ok": sum(len(r.out_tokens) for r in ok),
             "prompt_tokens": sum(len(r.prompt) for r in done),
             "fed_tokens": self.fed_tokens,
-            "preemptions": self.scheduler.n_preemptions,
-            "quarantines": self.scheduler.n_quarantines,
+            "preemptions": self.preemptions,
+            "quarantines": sum(r.scheduler.n_quarantines for r in self.replicas),
+            "replica_quarantines": self.replica_quarantines,
             "step_retries": self.step_retries,
             "hard_recoveries": self.hard_recoveries,
             "injected": (self._chaos.counters() if self._chaos is not None
@@ -1017,7 +1355,7 @@ class Engine:
             "latency_p99": percentile(lat, 99),
             "ttft_p50": percentile(ttft, 50),
             "ttft_p99": percentile(ttft, 99),
-            "slot_occupancy": (self.slot_token_steps / (self.n_steps * self.ecfg.n_slots)
+            "slot_occupancy": (self.slot_token_steps / (self.n_steps * self.ecfg.n_slots * self.dp)
                                if self.n_steps else 0.0),
         }
 
@@ -1028,8 +1366,8 @@ class Engine:
         if window is None:
             window = 5.0 if self._realtime else 32.0
         now = self._elapsed()
-        sched = self.scheduler
-        n_active = len(sched.active)
+        n_active = sum(len(r.scheduler.active) for r in self.replicas)
+        n_waiting = sum(len(r.scheduler.waiting) for r in self.replicas)
         return {
             "now": now,
             "window": window,
@@ -1037,10 +1375,10 @@ class Engine:
             "steps_per_s_window": self._win_steps.rate(now, window),
             "shed_rate_window": self._win_sheds.rate(now, window),
             "preemption_rate_window": self._win_preempts.rate(now, window),
-            "queue_depth": len(self._pending) + len(sched.waiting),
+            "queue_depth": len(self._pending) + n_waiting,
             "active_slots": n_active,
-            "slot_occupancy": n_active / self.ecfg.n_slots,
-            "free_pages": self.allocator.n_free,
+            "slot_occupancy": n_active / (self.ecfg.n_slots * self.dp),
+            "free_pages": sum(r.allocator.n_free for r in self.replicas),
             "steps": self.n_steps,
             "statuses": dict(Counter(r.status for r in self.finished)),
         }
@@ -1049,9 +1387,10 @@ class Engine:
         """Prometheus text exposition of :attr:`registry`, its point-in-time
         gauges refreshed at the scrape."""
         reg = self.registry
-        sched = self.scheduler
-        reg.gauge("repro_queue_depth", "pending + waiting requests").set(len(self._pending) + len(sched.waiting))
-        reg.gauge("repro_active_slots", "slots decoding/prefilling").set(len(sched.active))
-        reg.gauge("repro_free_pages", "page-pool headroom").set(self.allocator.n_free)
-        reg.gauge("repro_preemptions", "scheduler preemptions so far").set(sched.n_preemptions)
+        reg.gauge("repro_queue_depth", "pending + waiting requests").set(
+            len(self._pending) + sum(len(r.scheduler.waiting) for r in self.replicas))
+        reg.gauge("repro_active_slots", "slots decoding/prefilling").set(
+            sum(len(r.scheduler.active) for r in self.replicas))
+        reg.gauge("repro_free_pages", "page-pool headroom").set(sum(r.allocator.n_free for r in self.replicas))
+        reg.gauge("repro_preemptions", "scheduler preemptions so far").set(self.preemptions)
         return reg.prometheus_text()

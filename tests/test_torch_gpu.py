@@ -1871,3 +1871,110 @@ def test_nas_search_runs_on_the_card(cuda):
     assert all(v.is_cuda for d in res.params.values() for v in d.values())
     ft = N.finetune(spec, res.bits, steps=3, batch=8, n_data=32, params=res.params, device="cuda")
     assert np.isfinite(ft["train_loss"]) and np.isfinite(ft["test_loss"]) and 0.0 <= ft["metric"] <= 1.0
+
+
+# -- mesh serving: dp replicas x mp tensor-parallel ranks, every rank on the card -----
+
+
+def _replica_logits(eng) -> list:
+    """Spy on every replica's step program: a copy of each replica's logits
+    a step (a single-replica engine's ``run`` calls ``launch``/``wait`` too)."""
+    seen = [[] for _ in eng.replicas]
+    for rep in eng.replicas:
+        wait = rep.program.wait
+
+        def spy(wait=wait, out=seen[rep.index]):
+            rows = wait()
+            out.append(rows.copy())
+            return rows
+
+        rep.program.wait = spy
+    return seen
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2), (2, 1)], ids=["1x2", "2x2", "2x1"])
+@pytest.mark.parametrize("arch,quant", [("llama3.2-3b", "packed"), ("mamba2-130m", None),
+                                        ("qwen3-moe-30b-a3b", "packed")])
+def test_captured_mesh_engine_equals_the_eager_engine(cuda, arch, quant, mesh):
+    """A mesh engine with every rank on the card, each replica one captured
+    graph on its own stream, against capture=False on the same shards:
+    every replica's logits a step bit-identical, the same tokens, steps and
+    preemptions; the counters are the graphs' launches times the steps and
+    the replicas; the graph holds a rank's kernels twice (mp = 2)."""
+    from repro_torch.serving import Engine, MeshConfig
+
+    dp, mp = mesh
+    cfg = get_config(arch, smoke=True)
+    ecfg = EngineConfig(n_slots=3, page_size=4, max_len=32, n_pages=6, chunk_tokens=4, admit="on-demand",
+                        packed_head=quant == "packed", head_bits=(4, 4), gather_backend="kernel",
+                        mesh=MeshConfig(dp, mp))
+    devices = [cuda] * (dp * mp)
+    base = build_engine(cfg, ecfg, quant=quant, w_bits=4, a_bits=4, seed=3, device=cuda, devices=devices)
+    g = np.random.default_rng(7)
+    prompts = [g.integers(1, cfg.vocab, n).tolist() for n in (9, 6, 11, 7)]
+    runs = []
+    for capture in (False, True):
+        eng = Engine(cfg, None if mp > 1 else base.params, ecfg, head=base._head, device=cuda,
+                     capture=capture, shard_params=base.params if mp > 1 else None, devices=devices)
+        logits = _replica_logits(eng)
+        for p in prompts:
+            eng.submit(p, 6)
+        build.reset_counts()
+        m = eng.run(realtime=False)
+        assert m["statuses"] == {"ok": 4} and (m["dp"], m["mp"]) == mesh
+        eng.assert_no_leaks()
+        counts = build.counts()
+        if capture:
+            want = {}
+            if cfg.family == "attn":
+                want["paged_gather"] = mp * cfg.n_layers
+            if quant == "packed":
+                want["packed_dense_fused"] = mp * (7 * cfg.n_layers + 1)
+            for rep in eng.replicas:
+                prog = rep.program
+                assert prog.captures == 1 and prog.launches == want
+                census = build.graph_census(prog.graph)["kernels"]
+                assert {k: census.get(k, 0) for k in want} == want
+            assert counts == {k: want.get(k, 0) * m["steps"] * dp for k in build.COUNTS}
+        runs.append((m, counts, logits, {r.rid: r.out_tokens for r in eng.finished}))
+        eng.close()
+    (m_e, counts_e, logits_e, toks_e), (m_c, counts_c, logits_c, toks_c) = runs
+    for key in ("steps", "fed_tokens", "preemptions"):
+        assert m_c[key] == m_e[key], key
+    assert toks_c == toks_e and counts_c == counts_e
+    for i in range(dp):
+        assert len(logits_c[i]) == len(logits_e[i]) == m_c["steps"]
+        for t, (a, b) in enumerate(zip(logits_c[i], logits_e[i])):
+            assert a.tobytes() == b.tobytes(), (i, t)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-130m", "qwen3-moe-30b-a3b"])
+def test_mesh_engine_on_the_card_matches_the_cpu(cuda, arch):
+    """dp 2 x mp 2 at float32 on the forced-preemption workload, the card's
+    ranks against the CPU's on the same float weights: the same tokens,
+    steps and preemptions, every sampled row within 1e-4."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import MeshConfig
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
+    params = T.init_params(cfg, seed=5, device="cpu")
+    ecfg = EngineConfig(n_slots=3, page_size=4, max_len=32, n_pages=6, chunk_tokens=4, admit="on-demand",
+                        gather_backend="kernel", mesh=MeshConfig(2, 2))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = build_engine(cfg, ecfg, params=T.map_leaves(params, lambda a: a.to(dev)), device=dev,
+                           devices=[dev] * 4)
+        rows = {}
+        eng.on_sample = lambda rid, t, row, rows=rows: rows.__setitem__((rid, t), row.copy())
+        rng = np.random.default_rng(17)
+        for ln in (9, 6, 11, 9, 6, 11):
+            eng.submit(rng.integers(1, cfg.vocab, size=ln).tolist(), 6)
+        m = eng.run(realtime=False)
+        eng.assert_no_leaks()
+        out.append(({r.rid: r.out_tokens for r in eng.finished}, m["steps"], m["preemptions"], rows))
+        eng.close()
+    (toks_g, steps_g, pre_g, rows_g), (toks_c, steps_c, pre_c, rows_c) = out
+    assert toks_g == toks_c and (steps_g, pre_g) == (steps_c, pre_c) and pre_g > 0
+    assert sorted(rows_g) == sorted(rows_c)
+    for k in rows_c:
+        np.testing.assert_allclose(rows_g[k], rows_c[k], rtol=0, atol=1e-4)

@@ -20,7 +20,8 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(repro_torch.__p
 for expected in ("repro_torch.models.moe", "repro_torch.checkpoint.manager", "repro_torch.serving.chaos",
                  "repro_torch.launch.serve", "repro_torch.launch.train", "repro_torch.models.convnets",
                  "repro_torch.data.synthetic", "repro_torch.core.nas.supernet",
-                 "repro_torch.core.customize.allocate", "repro_torch.core.packing.bitpack"):
+                 "repro_torch.core.customize.allocate", "repro_torch.core.packing.bitpack",
+                 "repro_torch.launch.mesh", "repro_torch.parallel.sharding"):
     assert expected in names, (expected, names)
 for name in names:
     importlib.import_module(name)

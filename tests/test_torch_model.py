@@ -163,25 +163,30 @@ def _recording(eng, ref: bool):
     """Keep every sampled logits row of an engine's run, keyed by (request
     id, index of the sampled token).  The port's engine hands them to its
     ``on_sample`` hook; the reference's step is wrapped: a request sampled
-    in a step when its token count grew, from the row of the slot it held."""
+    in a step when its token count grew, from the row of the slot it held
+    in its replica (a step calls ``_step`` once a replica, or once with
+    every replica's ``[dp, S, V]`` logits on a mesh)."""
     rec = {}
     if not ref:
         eng.on_sample = lambda rid, t, row: rec.__setitem__((rid, t), row.copy())
         return rec
-    last = {}
+    calls = []
     inner, once = eng._step, eng._step_once
 
     def step(*args):
         out = inner(*args)
-        last["logits"] = np.asarray(out[0], np.float32)
+        calls.append(np.asarray(out[0], np.float32))
         return out
 
     def step_once(now_fn):
-        before = {s: (r, len(r.out_tokens)) for s, r in eng.scheduler.active.items()}
+        calls.clear()
+        before = {(rep.index, s): (r, len(r.out_tokens)) for rep in eng.replicas
+                  for s, r in rep.scheduler.active.items()}
         out = once(now_fn)
-        for s, (r, t) in before.items():
+        for (i, s), (r, t) in before.items():
             if len(r.out_tokens) > t:
-                rec[(r.rid, t)] = last["logits"][s]
+                rows = calls[-1][i] if eng.mp > 1 else calls[i - eng.dp]
+                rec[(r.rid, t)] = rows[s]
         return out
 
     eng._step, eng._step_once = step, step_once

@@ -412,6 +412,15 @@ def test_mixed_plan_apply_matches_reference_per_layer(fix3):
     assert wk.cfg.n_seg == 3 and wk.w_packed.shape[-1] * 3 == 33 and wk.n_out == 32
 
 
+def _packed_leaves(tree, path=""):
+    """(path, leaf) of every packed leaf of a params tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _packed_leaves(v, f"{path}/{k}")
+    elif hasattr(tree, "w_bits"):
+        yield path, tree
+
+
 def test_bridge_carries_a_mixed_plan(fix3):
     """The reference's heterogeneous apply_plan result crosses as a
     per-layer list of packed leaves with differing placements and block_k."""
@@ -424,9 +433,20 @@ def test_bridge_carries_a_mixed_plan(fix3):
 
 
 def test_apply_plan_refuses_tp_and_mismatches(fix3):
+    """``tp=(2, rank)``: each mesh rank's sliced-then-packed layers and head
+    equal the reference's (carried across); then the refusals."""
     cfg, plan = fix3["cfg"], fix3["plan"]
-    with pytest.raises(NotImplementedError, match="'Mesh'"):
-        P.apply_plan(fix3["tp"], cfg, plan, tp=(2, 0), device="cpu")
+    for rank in range(2):
+        ours, head = P.apply_plan(fix3["tp"], cfg, plan, verbose=False, tp=(2, rank), device="cpu")
+        rparams, rhead = RP.apply_plan(fix3["rp"], fix3["rcfg"], fix3["rplan"], verbose=False, tp=(2, rank))
+        carried, chead = params_from_jax(_np(rparams)), packed_from_jax(_np(rhead))
+        assert torch.equal(head.data, chead.data) and head.w_scale == chead.w_scale
+        for mine, theirs in zip(ours["layers"], carried["layers"]):
+            for path, leaf in _packed_leaves(mine):
+                other = dict(_packed_leaves(theirs))[path]
+                assert torch.equal(leaf.data, other.data) and leaf.cfg == other.cfg, (rank, path)
+                assert (leaf.w_scale, leaf.block_k) == (other.w_scale, other.block_k), (rank, path)
+        assert torch.equal(ours["head_embed"], carried["head_embed"])
     with pytest.raises(ValueError, match="layers"):
         P.apply_plan(fix3["tp"], dataclasses.replace(cfg, n_layers=2), plan, device="cpu")
     skipped = []

@@ -339,15 +339,26 @@ def test_cli_conflicts_exit_as_the_reference(case):
     assert isinstance(ours.value.code, str) and ours.value.code == want
 
 
-@pytest.mark.parametrize("argv,item", [(["--mesh", "2x2"], "item 5"), (["--mesh", "1"], "item 5")],
-                         ids=["mesh-2x2", "mesh-1"])
-def test_cli_refuses_what_the_port_lacks(monkeypatch, argv, item):
-    """``--mesh`` exits naming its ROADMAP.md port queue item, before any
-    weight is made."""
-    monkeypatch.setattr(serve, "init_params", lambda *a, **k: pytest.fail("weights were made"))
-    with pytest.raises(SystemExit) as info:
-        serve.main(argv + ["--device", "cpu"])
-    assert isinstance(info.value.code, str) and f"ROADMAP.md port queue {item}" in info.value.code
+@pytest.mark.parametrize("argv,port_argv", [
+    (["--mesh", "2", "--chunk-tokens", "2", *SMALL],
+     ["--mesh", "2x2", "--mesh-devices", "cpu,cpu,cpu,cpu", "--chunk-tokens", "2", *SMALL]),
+    (["--mesh", "1", *SMALL], None)], ids=["mesh-2x2", "mesh-1"])
+def test_cli_refuses_what_the_port_lacks(monkeypatch, argv, port_argv):
+    """``--mesh`` against the reference's CLI.  ``mesh-1``: both serve one
+    replica.  ``mesh-2x2``: with one device each, both CLIs refuse a 2 x 2
+    mesh (the reference asserts its host devices, the port names the
+    device list it needs); the port's 2 x 2 on four CPU ranks then serves
+    as the reference's dp 2 does (the tensor-parallel sums change rows by
+    float rounding only)."""
+    if port_argv is not None:
+        with pytest.raises(AssertionError, match="not enough host devices"):
+            ref_serve.main(["--mesh", "2x2", *SMALL])
+        with pytest.raises(ValueError, match="a 2x2 mesh needs 4 devices, 1 cpu"):
+            serve.main(["--mesh", "2x2", *SMALL, "--device", "cpu"])
+    rout, out, ref, port = _run_both(monkeypatch, argv, port_argv=port_argv)
+    _check(rout, out, ref, port)
+    assert (out["dp"], out["mp"]) == ((2, 2) if port_argv else (1, 1))
+    assert rout["dp"] == out["dp"]
 
 
 def _ref_static_inputs(cfg, batch: int, enc_len: int):
@@ -478,9 +489,9 @@ def _namespace(argv):
      "--chaos-alloc-rate", "0.2", "--chaos-nan-rate", "0.3", "--chaos-seed", "7"]],
     ids=["defaults", "packed", "packed-head", "every-knob"])
 def test_engine_config_from_cli_matches_reference(argv):
-    """``EngineConfig.from_cli`` field for field the reference's (its mesh
-    field aside), on the reference CLI's own parsed arguments; a partial
-    namespace takes the defaults, and a mesh is refused."""
+    """``EngineConfig.from_cli`` field for field the reference's, on the
+    reference CLI's own parsed arguments; a partial namespace takes the
+    defaults, and a mesh spec parses as the reference's."""
     import argparse
 
     from repro.serving import EngineConfig as RefEngineConfig
@@ -489,11 +500,13 @@ def test_engine_config_from_cli_matches_reference(argv):
     theirs, ours = RefEngineConfig.from_cli(ns), EngineConfig.from_cli(ns)
     for f in dataclasses.fields(ours):
         a, b = getattr(ours, f.name), getattr(theirs, f.name)
-        if f.name in ("obs", "chaos"):
+        if f.name in ("obs", "chaos", "mesh"):
             assert dataclasses.asdict(a) == {k: v for k, v in dataclasses.asdict(b).items()
                                              if k in dataclasses.asdict(a)}, f.name
         else:
             assert a == b, f.name
     assert EngineConfig.from_cli(argparse.Namespace()) == EngineConfig()
-    with pytest.raises(SystemExit, match="item 5"):
-        EngineConfig.from_cli(argparse.Namespace(**{**vars(ns), "mesh": "2x2"}))
+    for spec in ("2x2", "2", "1x4"):
+        mesh_ns = argparse.Namespace(**{**vars(ns), "mesh": spec})
+        assert (dataclasses.asdict(EngineConfig.from_cli(mesh_ns).mesh)
+                == dataclasses.asdict(RefEngineConfig.from_cli(mesh_ns).mesh))
