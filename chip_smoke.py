@@ -90,7 +90,7 @@ Phases, all on the card:
    reference's ``jax.disable_jit()``): after a warm-up, an eager step at
    C = 1 and at C = 16 must make no synchronising call
    (``torch.cuda.set_sync_debug_mode("error")``); phase 4's cell and
-   phase 9's reserve cell, cut to their first ``CAPTURE_LAYERS`` (14) of 28
+   phase 9's reserve cell, cut to their first ``CAPTURE_LAYERS`` (7) of 28
    layers, each served eagerly and captured by an untimed
    recording run, must give bit-identical sampled rows and equal tokens;
    then each cell is served in alternating timed turns (eager, captured,
@@ -114,7 +114,7 @@ Phases, all on the card:
    equal to the plan's prediction, the launch counters and the graph's
    port kernel nodes equal to the per-step counts the plan implies (times
    the steps); then timed in alternating turns with phase 4's w4a4 cell
-   (plan, w4a4, w4a4, plan, ...; 2 pairs), each turn giving the tokens of
+   (plan, w4a4; 1 pair), each turn giving the tokens of
    its cell's first run, and traced once.  The same pairs at 3 layers
    (w8a8, w5a4, w3a2 at their tuned ``block_k``, the (8, 8) head) on the
    card and the CPU from the same packed words, within phase 5's and
@@ -125,8 +125,8 @@ Phases, all on the card:
 12. int8 KV pools and int8 serving weights: (a) phase 4's cell with
    ``kv_dtype="int8"``, every turn ``ok`` with its census (197 K1 and 28
    K3, every K3 node ``gather_i8``, no memset) and counters checked, timed
-   in alternating turns with phase 4's bf16 pools (int8, bf16, bf16, int8;
-   2 pairs), its sampled rows and tokens read against phase 4's (not a
+   in alternating turns with phase 4's bf16 pools (int8, bf16; 1 pair),
+   its sampled rows and tokens read against phase 4's (not a
    gate); (b) phase 9's on-demand cell on int8 pools at phase 9's page
    count (it must preempt and leak nothing) and at phase 9's pool bytes
    (levels and scales counted, about 1.99x the pages); (c) phase 5's
@@ -318,8 +318,8 @@ Phases, all on the card:
    bf16 dense (6 x params x tokens plus attention's 12 x L x S x H x hd a
    token, remat's recompute not counted) and peak memory.  (b) The
    training CLI in-process on mamba2-130m at full width
-   (``TRAIN_CLI_FLAGS``): 20 steps checkpointed every 10, then a second
-   call to 30 on the same directory, which must resume at step 10 with
+   (``TRAIN_CLI_FLAGS``): 10 steps checkpointed every 5, then a second
+   call to 15 on the same directory, which must resume at step 5 with
    params and moments bit-identical to the checkpoint's files and to the
    state the first call saved; every loss finite, the second call's last
    below the first call's first; tok/s and a checkpoint's host time.  (c)
@@ -389,6 +389,31 @@ Phases, all on the card:
    shard shape of (b) (M = 8) and over 64 experts (M = 1), K3 on the
    per-rank pools (512 wide): bit-exact against their plain versions,
    timed by graph beside their bounds, ``_int_mm`` and ``pool[table]``.
+
+24. The training half of the mesh (``make_train_step`` under
+   ``ShardingRules``), every rank on ``cuda:0``, in a process of its own
+   (``--mesh-train-only``; the ranks run one after another, so times
+   record a correctness run).  (a) llama3.2-3b at full width and depth at
+   dp 2 x mp 2 with ZeRO over the data axis and the per-layer regather,
+   phase 21's batch (8 x 512 tokens, 2 micro-batches): losses finite and
+   falling; step p50 after one warm-up, tok/s, MFU, peak memory; the
+   kernel launch counters (the training path reaches no TPU kernel).  (b)
+   The same cut to 8 layers with fsdp None, "data", and "data" with
+   ``zero3_regather``: regather on and off bit-identical in losses and
+   params, None against "data" within float32 tolerance, each one's peak
+   memory.  (c) qwen3-moe-30b-a3b at full width, 2 of 48 layers, dp 1 x mp
+   2, tokens over the model axis (two ``all_to_all`` exchanges a layer
+   each way), 8 x 256 tokens at capacity 1.25 beside the single-device
+   step (copies dropped counted); at float32 and capacity 8.0 every
+   gradient leaf of mp 2 within 1e-4 relative L2 of one device's.  (d)
+   llama3.2-3b at full width, 2 layers at float32, dp 2 x mp 2: the card's
+   loss and every rank's gradient copy against the CPU's run of the same
+   mesh step; a planted fault, one data replica skipping the gradient sum,
+   must be rejected.  (e) mamba2-130m at full width through the
+   fault-tolerant runner over 2 x 2: a failure after a checkpoint, the
+   retry restoring the shards, the run ending as a fault-free one bit for
+   bit, and the last checkpoint restored onto 1 x 4 and 4 x 1 meshes
+   bit-identical to the gathered state.
 
 Every engine's graph and memory pool is released before the next engine
 is built, and each phase prints its peak device memory.
@@ -1920,10 +1945,11 @@ def phase_chunked(torch, card, cfg, ecfg, c1: dict, fused: dict, report: dict) -
 # pairs of timed turns (1, to keep the whole script inside its time limit
 # with phase 22: the script took 900.3 s at 2 pairs)
 CAPTURE_PAIRS = 1
-# phase 10's depth: the first 14 of phase 4's 28 layers (its eager steps,
+# phase 10's depth: the first 7 of phase 4's 28 layers (its eager steps,
 # about 100 ms each at 28 layers, and their traces took 139 s of the script
-# on one H100; cut to keep the script inside its time with phase 23)
-CAPTURE_LAYERS = 14
+# on one H100; cut to 14 to keep the script inside its time with phase 23,
+# to 7 with phase 24)
+CAPTURE_LAYERS = 7
 
 
 def _sync_free_step(torch, eng) -> None:
@@ -2025,8 +2051,8 @@ def phase_capture(torch, card, cfg, ecfg, c1: dict, report: dict) -> dict:
 # -- phase 11 ------------------------------------------------------------------
 
 # phase 11's timed turns, alternating: plan, w4a4, w4a4, plan, ... (PLAN_PAIRS
-# pairs; 2, to keep the whole script inside its time limit)
-PLAN_PAIRS = 2
+# pairs; 1, to keep the whole script inside its time limit with phase 24)
+PLAN_PAIRS = 1
 # phase 11's card-vs-CPU fixture: one layer of each pair of the searched plan
 PLAN_CROSS_BITS = ((8, 8), (5, 4), (3, 2))
 
@@ -2356,8 +2382,9 @@ def phase_plan(torch, card, cfg, ecfg, c1: dict, report: dict) -> dict:
 # -- phase 12 ------------------------------------------------------------------
 
 # timed turns of each of phase 12's cell pairs, alternating (first, second,
-# second, first, ...): INT8_TURN_PAIRS pairs
-INT8_TURN_PAIRS = 2
+# second, first, ...): INT8_TURN_PAIRS pairs (1 since phase 24 took its share
+# of the script's time; 2 before)
+INT8_TURN_PAIRS = 1
 
 # phase 12 (d) tolerance.  quant="int8" quantizes no activation: both sides
 # dequantize the same int8 weight levels and scales (products exact in
@@ -5062,12 +5089,13 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_LR, TRAIN_STEPS = 8, 512, 2, 1e-3, 6
 TRAIN_QAT_PROJ = ("attn_q", "attn_k", "attn_v", "attn_o", "mlp_up", "mlp_gate", "mlp_down")
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
 # (b) the CLI end to end on mamba2-130m ([arXiv:2405.21060], 24 layers, d 768,
-# vocab 50432, nothing cut): 20 steps checkpointed every 10, then a second
-# call to 30 on the same directory, which resumes at step 10 (40, 60 and 20
-# until phase 22 took its share of the time)
-TRAIN_CLI_FLAGS = ["--arch", "mamba2-130m", "--full", "--batch", "8", "--seq", "256", "--ckpt-every", "10"]
-TRAIN_CLI_STEPS = (20, 30)
-TRAIN_CLI_RESUME = 10
+# vocab 50432, nothing cut): 10 steps checkpointed every 5, then a second
+# call to 15 on the same directory, which resumes at step 5 (40, 60 and 20
+# until phase 22 took its share of the time, then 20, 30 and 10 until
+# phase 24 did)
+TRAIN_CLI_FLAGS = ["--arch", "mamba2-130m", "--full", "--batch", "8", "--seq", "256", "--ckpt-every", "5"]
+TRAIN_CLI_STEPS = (10, 15)
+TRAIN_CLI_RESUME = 5
 TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
 # (c) the card against the CPU at float32, full width cut to 2 layers, one
 # make_train_step step (n_micro 1) from the same weights (seed 1) and batch
@@ -5568,6 +5596,7 @@ def phase_only(torch, phase, key: str, out_path: Path) -> int:
 
     for name in build.SOURCES:
         build.library(name)
+    OUT_DIR.mkdir(exist_ok=True)
     smi_line = smi("name,power.limit")
     props = torch.cuda.get_device_properties(0)
     card = Card(name=torch.cuda.get_device_name(0), power_limit=smi_line.split(",")[-1].strip(),
@@ -6405,12 +6434,508 @@ def phase_mesh(torch, card, cfg, ecfg, p4: dict, report: dict) -> dict:
     return out
 
 
+# -- phase 24 ------------------------------------------------------------------
+
+# the training half of the mesh (make_train_step under ShardingRules), every
+# rank on one card, in a process of its own (--mesh-train-only); the ranks
+# run one after another, so the times record a correctness run, not a speedup
+MT_DEVICE = "cuda:0"
+# (a) llama3.2-3b at full width and depth over dp 2 x mp 2, ZeRO over the
+# data axis with the per-layer regather: phase 21's batch (8 x 512 tokens,
+# 2 micro-batches) and lr, one warm-up step and MT_STEPS - 1 timed; the
+# state, one copy of the params split over the four ranks (float32 params,
+# gradients and two moments, 16 B a param), 51.4 GB
+MT_MESH = (2, 2)
+MT_STEPS = 5
+# (b) the same cut to MT_CUT_LAYERS layers, three ways: fsdp None, "data",
+# and "data" with zero3_regather, MT_CUT_STEPS steps each (peak memory of
+# the steps; the earlier variants' results kept on the host): regather on
+# and off bit-identical in losses and params.  fsdp None against "data":
+# the same forward (the first loss bit-identical), the gradients summed
+# over the replicas in another float32 order (the shared gathered weight's
+# against each copy's), so the first batch's gradients within
+# MT_CUT_GRAD_REL_L2 relative L2 a leaf, the later losses within
+# MT_CUT_LOSS_RTOL, and the params within the reference's bound,
+# 2.5 lr a step (tests/multidevice_checks.py check_train_parity: Adam's
+# first steps are about sign(g) lr, so an element whose gradient sits at
+# rounding scale may step the other way; measured on one H100: 4.3e-4
+# relative L2 after 3 steps at bf16)
+MT_CUT_LAYERS, MT_CUT_STEPS = 8, 3
+MT_CUT_GRAD_REL_L2, MT_CUT_LOSS_RTOL = 1e-5, 1e-4
+# (c) qwen3-moe-30b-a3b at full width cut to MT_MOE_LAYERS of 48 layers,
+# dp 1 x mp 2, MT_MOE_BATCH x MT_MOE_SEQ tokens (the sequence divides by mp,
+# so tokens shard over the model axis: the all_to_all path) at its capacity
+# 1.25, MT_MOE_STEPS steps beside the single-device step at the same cut,
+# copies dropped counted on an untimed forward of the first batch; the gate
+# at float32 and capacity 8.0 (no copy dropped) on MT_MOE_GATE_BATCH x
+# MT_MOE_GATE_SEQ tokens: every gradient leaf of mp 2 within MT_GRAD_REL_L2
+# relative L2 of the single device's
+MT_MOE_LAYERS, MT_MOE_BATCH, MT_MOE_SEQ, MT_MOE_STEPS = 2, 8, 256, 3
+MT_MOE_GATE_BATCH, MT_MOE_GATE_SEQ, MT_MOE_GATE_CAPACITY = 2, 128, 8.0
+# (d) llama3.2-3b at full width cut to 2 layers, float32 (TF32 off), dp 2 x
+# mp 2 (fsdp None: every leaf replicated over the data axis),
+# MT_CROSS_BATCH x MT_CROSS_SEQ tokens, 2 micro-batches: the card's loss and
+# gradients against the CPU's run of the same mesh step from the same
+# weights: the loss within MT_LOSS_RTOL, each gradient leaf within
+# MT_GRAD_REL_L2 relative L2 over every rank's copy; replica 1 skipping the
+# data-axis gradient sum must be rejected
+MT_CROSS_LAYERS, MT_CROSS_BATCH, MT_CROSS_SEQ = 2, 4, 32
+MT_LOSS_RTOL, MT_GRAD_REL_L2 = 1e-5, 1e-4
+# (e) mamba2-130m at full width through the fault-tolerant runner over 2 x 2
+# (ZeRO over data), MT_RUNNER_BATCH x MT_RUNNER_SEQ tokens, a checkpoint
+# every step, MT_RUNNER_STEPS steps, a failure injected before the last step
+# (after the previous step's checkpoint): the retry restores it onto the
+# mesh and the run ends as a fault-free one, loss for loss and bit for bit;
+# the last checkpoint (the final state) restored by
+# resume_or_init(shardings=) onto 1 x 4 and 4 x 1 meshes equals the gathered
+# final state bit for bit (5 steps checkpointed every 2 until the phase
+# went over its time)
+MT_RUNNER_ARCH, MT_RUNNER_BATCH, MT_RUNNER_SEQ, MT_RUNNER_STEPS = "mamba2-130m", 4, 256, 3
+MT_CKPT_DIR = ROOT / "build" / "mesh_train_ckpt"
+
+
+def _mt_batch(torch, cfg, step: int, batch: int, seq: int, device: str = MT_DEVICE) -> dict:
+    from repro_torch.data.tokens import TokenStream
+
+    ts = TokenStream(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+    return {k: torch.from_numpy(v).to(device) for k, v in ts.batch(step).items()}
+
+
+def _mt_setup(torch, cfg, mesh, fsdp, *, seed: int = 0, device: str = "cuda"):
+    """Params made whole on ``device`` from ``seed``, placed as the mesh's
+    shards by ``param_shardings`` and the whole copy freed; the rules."""
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as PS
+
+    rules = PS.ShardingRules(mesh=mesh, batch="data", fsdp=fsdp)
+    params = T.init_params(cfg, seed=seed, device=device)
+    n_params = sum(p.numel() for p in _leaves(params))
+    sharded = LM.shard_tree(params, PS.param_shardings(params, rules), mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sharded, rules, n_params
+
+
+def _leaves(tree):
+    from repro_torch.optim.adamw import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def _mt_steps(torch, cfg, rules, params, n_steps: int, batch: int, seq: int, n_micro: int,
+              first_grads: bool = False) -> dict:
+    """``n_steps`` steps of ``make_train_step`` under ``rules``; each step's
+    wall time (``float(loss)`` waits for the device), the losses and the
+    peak memory of the steps (reset after the set-up); with
+    ``first_grads``, the first batch's gradients (gathered on the host)
+    from an untimed ``loss_and_grads`` before the steps."""
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import steps as S
+
+    step = S.make_train_step(cfg, rules, S.TrainStepConfig(n_micro=n_micro, lr=TRAIN_LR))
+    grads = None
+    if first_grads:
+        _, g = step.loss_and_grads(params, _mt_batch(torch, cfg, 0, batch, seq))
+        grads = _named_leaves(LM.gather_tree(g, "cpu"))
+        del g
+        for x in _leaves(params):
+            for q in x.parts:
+                q.grad = None
+    opt = step.optimizer.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall = [], []
+    for i in range(n_steps):
+        b = _mt_batch(torch, cfg, i, batch, seq)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, params, opt = step(params, opt, b)
+        losses.append(float(loss))
+        wall.append(time.perf_counter() - t)
+    check(all(math.isfinite(x) for x in losses), f"{cfg.name}: a loss is not finite: {losses}")
+    timed = sorted(wall[1:])
+    return dict(losses=losses, step_s=wall, step_s_p50=timed[len(timed) // 2],
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, params=params, opt=opt, grads=grads)
+
+
+def _rel_l2(torch, a, b) -> float:
+    """Relative L2 of ``a`` against ``b`` (any devices), in float64 on the
+    card."""
+    a, b = (t.detach().to(MT_DEVICE, torch.float64) for t in (a, b))
+    den = float(b.norm())
+    return float((a - b).norm()) / den if den else float((a - b).norm())
+
+
+def _mt_rel_parts(torch, a, b) -> float:
+    """Relative L2 of sharded leaf ``a`` against ``b`` (same layout, any
+    devices) over every rank's part, in float64 on the card."""
+    num = den = 0.0
+    for p, q in zip(a.parts, b.parts):
+        p, q = (t.detach().to(MT_DEVICE, torch.float64) for t in (p, q))
+        num += float(torch.sum((p - q) ** 2))
+        den += float(torch.sum(q ** 2))
+    return (num / den) ** 0.5 if den else num ** 0.5
+
+
+def _mt_full(torch, card) -> dict:
+    """(a): llama3.2-3b at full width and depth, dp 2 x mp 2, ZeRO-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as LM
+
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), zero3_regather=True)
+    mesh = LM.make_mesh(*MT_MESH, [MT_DEVICE] * (MT_MESH[0] * MT_MESH[1]))
+    torch.cuda.reset_peak_memory_stats()
+    params, rules, n_params = _mt_setup(torch, cfg, mesh, "data")
+    setup_gb = torch.cuda.max_memory_allocated() / 1e9
+    build.reset_counts()  # the path's run starts here
+    r = _mt_steps(torch, cfg, rules, params, MT_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO)
+    launches = build.counts()
+    del params, r["params"], r["opt"]
+    check(r["losses"][-1] < r["losses"][0], f"(a) the loss did not fall: {r['losses']}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_params * tokens + 12 * cfg.n_layers * TRAIN_SEQ * cfg.n_heads * cfg.hd * tokens
+    p50 = r["step_s_p50"]
+    out = dict(mesh=MT_MESH, fsdp="data", zero3_regather=True, n_params=n_params, losses=r["losses"],
+               step_s=r["step_s"], step_s_p50=p50, tokens_per_s=tokens / p50, flops_per_step=flops,
+               mfu=flops / p50 / BF16_FLOPS_PER_S, peak_mem_gb=r["peak_mem_gb"], setup_peak_mem_gb=setup_gb,
+               train_state_gb=16 * n_params / 1e9, launches=launches, wall_s=time.monotonic() - t0)
+    print(f"  (a) {TRAIN_ARCH} at full width ({cfg.n_layers} layers, {n_params / 1e9:.3f} G params), dp {MT_MESH[0]} x mp "
+          f"{MT_MESH[1]} on {MT_DEVICE}, fsdp=\"data\" with zero3_regather, {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+          f"({TRAIN_MICRO} micro-batches): loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; step p50 "
+          f"{p50 * 1e3:.1f} ms after one warm-up (the first {r['step_s'][0] * 1e3:.1f} ms), {out['tokens_per_s']:.0f} "
+          f"tok/s, MFU {out['mfu'] * 100:.2f} % of {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16 dense on {card.name} "
+          f"({card.power_limit}); peak memory {r['peak_mem_gb']:.2f} GB in the steps ({setup_gb:.2f} GB placing the "
+          f"shards; train state {out['train_state_gb']:.2f} GB); kernel launches {launches}; {out['wall_s']:.1f} s",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mt_cut(torch, card) -> dict:
+    """(b): 8 layers, fsdp None, "data" and "data" with zero3_regather."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as LM
+
+    t0 = time.monotonic()
+    base = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=MT_CUT_LAYERS)
+    mesh = LM.make_mesh(*MT_MESH, [MT_DEVICE] * (MT_MESH[0] * MT_MESH[1]))
+    out, host = {}, {}
+    for label, fsdp, z3 in (("fsdp None", None, False), ("fsdp data", "data", False),
+                            ("fsdp data + regather", "data", True)):
+        cfg = dataclasses.replace(base, zero3_regather=z3)
+        params, rules, n_params = _mt_setup(torch, cfg, mesh, fsdp)
+        r = _mt_steps(torch, cfg, rules, params, MT_CUT_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO,
+                      first_grads=not z3)
+        host[label] = (r["losses"], _named_leaves(LM.gather_tree(r["params"], "cpu")), r["grads"])
+        del params, r["params"], r["opt"], r["grads"]
+        out[label] = {k: r[k] for k in ("losses", "step_s", "step_s_p50", "peak_mem_gb")}
+        print(f"  (b) {label}: losses {r['losses']}, step p50 {r['step_s_p50'] * 1e3:.1f} ms, peak memory "
+              f"{r['peak_mem_gb']:.2f} GB", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l0, p0, g0), (l1, p1, _) = host["fsdp data"], host["fsdp data + regather"]
+    check(l0 == l1, f"(b) regather on and off: losses {l0} against {l1}")
+    check(all(torch.equal(p0[k].to(MT_DEVICE), p1[k].to(MT_DEVICE)) for k in p0),
+          "(b) regather on and off: the params after the steps differ")
+    lnone, pnone, gnone = host["fsdp None"]
+    grad_rel = max(_rel_l2(torch, g0[k], gnone[k]) for k in gnone)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lnone, l0))
+    param_abs = max(float((p0[k].to(MT_DEVICE) - pnone[k].to(MT_DEVICE)).abs().max()) for k in pnone)
+    param_rel = max(_rel_l2(torch, p0[k], pnone[k]) for k in pnone)
+    bound = 2.5 * TRAIN_LR * MT_CUT_STEPS
+    check(lnone[0] == l0[0] and grad_rel <= MT_CUT_GRAD_REL_L2 and loss_rel <= MT_CUT_LOSS_RTOL
+          and param_abs <= bound,
+          f"(b) fsdp None against \"data\": first losses {lnone[0]} / {l0[0]}, gradients {grad_rel:.3g}, losses "
+          f"{loss_rel:.3g}, params {param_abs:.3g} (bound {bound:.3g})")
+    out["none_vs_data"] = dict(grad_rel_l2=grad_rel, loss_rel=loss_rel, param_max_abs=param_abs,
+                               param_rel_l2=param_rel, param_bound=bound)
+    del host
+    out["wall_s"] = time.monotonic() - t0
+    peaks = " / ".join(f"{out[k]['peak_mem_gb']:.2f}" for k in ("fsdp None", "fsdp data", "fsdp data + regather"))
+    nd = out["none_vs_data"]
+    print(f"  (b) regather on/off bit-identical; fsdp None against \"data\": first batch's gradients "
+          f"{nd['grad_rel_l2']:.3g} relative L2 (worst leaf), losses {nd['loss_rel']:.3g}, params {nd['param_rel_l2']:.3g} "
+          f"relative L2, {nd['param_max_abs']:.3g} at most (bound {nd['param_bound']:.3g}); peak memory None / data / "
+          f"data + regather {peaks} GB on {card.name} ({card.power_limit}); {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def _kept_rows(counts: list):
+    """Each expert FFN call's kept copies (the bucket rows holding a token:
+    nonzero rows) appended to ``counts``."""
+    from repro_torch.models import moe as X
+
+    inner = X._expert_ffn
+
+    def counting(p, s, x):
+        counts.append(int((x.abs().sum(-1) > 0).sum()))
+        return inner(p, s, x)
+
+    X._expert_ffn = counting
+    try:
+        yield
+    finally:
+        X._expert_ffn = inner
+
+
+def _mt_moe(torch, card) -> dict:
+    """(c): qwen3-moe-30b-a3b, 2 layers, mp 2 (all_to_all) against one device."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as PS
+
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MT_MOE_LAYERS)
+    mesh = LM.make_mesh(1, 2, [MT_DEVICE] * 2)
+    out = {}
+    copies = MT_MOE_BATCH * MT_MOE_SEQ * cfg.top_k * cfg.n_layers
+    for label in ("mp 2", "one device"):
+        if label == "mp 2":
+            params, rules, n_params = _mt_setup(torch, cfg, mesh, None)
+        else:
+            params, rules = T.init_params(cfg, seed=0, device="cuda"), None
+        r = _mt_steps(torch, cfg, rules, params, MT_MOE_STEPS, MT_MOE_BATCH, MT_MOE_SEQ, 1)
+        kept: list = []
+        with _kept_rows(kept), torch.no_grad():
+            S.make_prefill_step(cfg, rules)(r["params"], _mt_batch(torch, cfg, 0, MT_MOE_BATCH, MT_MOE_SEQ))
+        del params, r["params"], r["opt"]
+        out[label] = {k: r[k] for k in ("losses", "step_s", "step_s_p50", "peak_mem_gb")}
+        out[label]["dropped_copies"] = copies - sum(kept)
+        print(f"  (c) {MOE_ARCH} {MT_MOE_LAYERS} layers, {label}: losses {r['losses']}, step p50 "
+              f"{r['step_s_p50'] * 1e3:.1f} ms, peak memory {r['peak_mem_gb']:.2f} GB; copies dropped "
+              f"{copies - sum(kept)} of {copies} at capacity {cfg.capacity_factor}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the gate: float32, capacity 8.0 (nothing dropped), mp 2 against one device
+    gcfg = dataclasses.replace(cfg, dtype=torch.float32, capacity_factor=MT_MOE_GATE_CAPACITY)
+    one = T.init_params(gcfg, seed=2, device="cuda")
+    b = _mt_batch(torch, gcfg, 0, MT_MOE_GATE_BATCH, MT_MOE_GATE_SEQ)
+    step1 = S.make_train_step(gcfg, None, S.TrainStepConfig(n_micro=1))
+    l1, g1 = step1.loss_and_grads(one, b)
+    g1 = {k: v.detach().clone() for k, v in _named_leaves(g1).items()}
+    rules = PS.ShardingRules(mesh=mesh, batch="data")
+    sharded = LM.shard_tree(one, PS.param_shardings(one, rules), mesh)
+    del one
+    l2, g2 = S.make_train_step(gcfg, rules, S.TrainStepConfig(n_micro=1)).loss_and_grads(sharded, b)
+    rels = {k: _rel_l2(torch, LM.gather_array(g), g1[k]) for k, g in _named_leaves(g2).items()}
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(float(l2) - float(l1)) / abs(float(l1))
+    check(loss_rel <= MT_LOSS_RTOL and rels[worst] <= MT_GRAD_REL_L2,
+          f"(c) mp 2 against one device at capacity {MT_MOE_GATE_CAPACITY}: loss {loss_rel:.3g}, {worst} "
+          f"{rels[worst]:.3g} relative L2")
+    out["gate"] = dict(capacity=MT_MOE_GATE_CAPACITY, tokens=MT_MOE_GATE_BATCH * MT_MOE_GATE_SEQ, loss_rel=loss_rel,
+                       worst_leaf=worst, worst_rel_l2=rels[worst])
+    del sharded, g1, g2
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.monotonic() - t0
+    print(f"  (c) gate at float32, capacity {MT_MOE_GATE_CAPACITY}, {MT_MOE_GATE_BATCH} x {MT_MOE_GATE_SEQ} tokens: "
+          f"loss {loss_rel:.3g} relative, worst gradient leaf {worst} {rels[worst]:.3g} relative L2 (mp 2 against one "
+          f"device) on {card.name} ({card.power_limit}); {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def _named_leaves(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _named_leaves(sub, f"{prefix}{key}/").items()}
+    return {prefix.rstrip("/"): tree}
+
+
+def _skipping_data_sum(LM, mesh):
+    """A planted fault: replica 1 keeps its own gradients of every leaf
+    replicated over the data axis (it skips the data-axis sum)."""
+    inner = LM.sum_replicated_grads
+
+    def skipping(x):
+        if "data" in x.axes():
+            return inner(x)
+        keep = {k: x.parts[k].grad.clone() for k in range(mesh.mp, 2 * mesh.mp)}
+        inner(x)
+        for k, g in keep.items():
+            x.parts[k].grad.copy_(g)
+
+    return skipping
+
+
+def _mt_cross(torch, card) -> dict:
+    """(d): the card's mesh step against the CPU's, 2 layers at float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as PS
+
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=MT_CROSS_LAYERS, dtype=torch.float32)
+    init = T.map_leaves(T.init_params(cfg, seed=1, device="cuda"), lambda a: a.cpu())
+    host_batch = _mt_batch(torch, cfg, 0, MT_CROSS_BATCH, MT_CROSS_SEQ, device="cpu")
+    sides = {}
+    for dev in ("cpu", "cuda"):
+        mesh = LM.make_mesh(*MT_MESH, [dev if dev == "cpu" else MT_DEVICE] * 4)
+        rules = PS.ShardingRules(mesh=mesh, batch="data")
+        params = LM.shard_tree(init, PS.param_shardings(init, rules), mesh)
+        step = S.make_train_step(cfg, rules, S.TrainStepConfig(n_micro=TRAIN_MICRO))
+        t = time.perf_counter()
+        loss, grads = step.loss_and_grads(params, {k: v.to(dev) for k, v in host_batch.items()})
+        sides[dev] = (float(loss), _named_leaves(grads), time.perf_counter() - t, step, params, mesh)
+    (lc, gc_, cpu_s, *_), (lg, gg, card_s, step, params, mesh) = sides["cpu"], sides["cuda"]
+
+    def compare(grads):
+        rels = {k: _mt_rel_parts(torch, grads[k], gc_[k]) for k in gc_}
+        worst = max(rels, key=rels.get)
+        return rels, worst
+
+    rels, worst = compare(gg)
+    loss_rel = abs(lg - lc) / abs(lc)
+    check(loss_rel <= MT_LOSS_RTOL and rels[worst] <= MT_GRAD_REL_L2,
+          f"(d) the card's mesh step against the CPU's: loss {loss_rel:.3g}, {worst} {rels[worst]:.3g} relative L2")
+    for x in _leaves(params):
+        for q in x.parts:
+            q.grad = None
+    inner = LM.sum_replicated_grads
+    LM.sum_replicated_grads = _skipping_data_sum(LM, mesh)
+    try:
+        _, planted = step.loss_and_grads(params, {k: v.to(MT_DEVICE) for k, v in host_batch.items()})
+    finally:
+        LM.sum_replicated_grads = inner
+    prels, pworst = compare(_named_leaves(planted))
+    check(prels[pworst] > MT_GRAD_REL_L2, f"(d) the planted skipped data-axis sum passed ({prels[pworst]:.3g})")
+    del sides, params, planted
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(layers=MT_CROSS_LAYERS, tokens=MT_CROSS_BATCH * MT_CROSS_SEQ, loss_card=lg, loss_cpu=lc,
+               loss_rel=loss_rel, worst_leaf=worst, worst_rel_l2=rels[worst], planted_worst_leaf=pworst,
+               planted_rel_l2=prels[pworst], cpu_s=cpu_s, card_s=card_s, wall_s=time.monotonic() - t0)
+    print(f"  (d) card against CPU, {MT_CROSS_LAYERS} layers at float32, dp 2 x mp 2, {MT_CROSS_BATCH} x "
+          f"{MT_CROSS_SEQ} tokens: loss {loss_rel:.3g} relative, worst gradient leaf {worst} {rels[worst]:.3g} "
+          f"relative L2 over every copy; the planted skipped data-axis sum {pworst} {prels[pworst]:.3g} (rejected); "
+          f"CPU {cpu_s:.1f} s, card {card_s:.2f} s; {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def _mt_runner(torch, card) -> dict:
+    """(e): mamba2-130m through the fault-tolerant runner over 2 x 2, a
+    failure after a checkpoint, the checkpoint onto 1 x 4 and 4 x 1."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWState
+    from repro_torch.parallel import sharding as PS
+    from repro_torch.runtime import FaultTolerantRunner, RunnerConfig
+
+    t0 = time.monotonic()
+    cfg = get_config(MT_RUNNER_ARCH)
+    mesh = LM.make_mesh(*MT_MESH, [MT_DEVICE] * 4)
+    rules = PS.ShardingRules(mesh=mesh, batch="data", fsdp="data")
+    init = T.init_params(cfg, seed=0, device="cuda")
+    step = S.make_train_step(cfg, rules, S.TrainStepConfig(n_micro=1, lr=TRAIN_LR))
+
+    def fresh():
+        params = LM.shard_tree(init, PS.param_shardings(init, rules), mesh)
+        return params, step.optimizer.init(params)
+
+    runs = {}
+    for fail in (False, True):
+        losses, failed, wall = [], [], []
+
+        def train(state, batch, losses=losses, wall=wall):
+            t = time.perf_counter()
+            loss, params, opt = step(*state, batch)
+            losses.append(float(loss))
+            wall.append(time.perf_counter() - t)
+            return loss, (params, opt)
+
+        def injector(s, fail=fail, failed=failed):
+            if fail and s == MT_RUNNER_STEPS - 1 and not failed:
+                failed.append(s)
+                raise RuntimeError("injected failure after the previous step's checkpoint")
+
+        shutil.rmtree(MT_CKPT_DIR, ignore_errors=True)
+        mgr = CheckpointManager(MT_CKPT_DIR, keep=5)
+        runner = FaultTolerantRunner(train, mgr, RunnerConfig(ckpt_every=1))
+        state, stats = runner.run(fresh(), lambda s: _mt_batch(torch, cfg, s, MT_RUNNER_BATCH, MT_RUNNER_SEQ),
+                                  MT_RUNNER_STEPS, failure_injector=injector)
+        check(stats.restarts == int(fail) and state[0]["embed"].mesh is mesh,
+              f"(e) restarts {stats.restarts}, the state on {state[0]['embed'].mesh.shape}")
+        runs[fail] = dict(losses=losses, final=LM.gather_tree(state, "cpu"), wall=wall)
+        del state
+        if fail:  # the last checkpoint (step 4, the final state) onto other meshes
+            restored = {}
+            for dp, mp in ((1, 4), (4, 1)):
+                other = LM.make_mesh(dp, mp, [MT_DEVICE] * 4)
+                named = _mt_named(PS.param_shardings(init, PS.ShardingRules(mesh=other, batch="data", fsdp="data")),
+                                  other)
+                n, got = FaultTolerantRunner(train, mgr).resume_or_init(
+                    fresh(), shardings=(named, AdamWState(step=None, mu=named, nu=named)))
+                same = all(torch.equal(a, b) for a, b in zip(_leaves(LM.gather_tree(got, "cpu")),
+                                                              _leaves(runs[fail]["final"])))
+                check(n == MT_RUNNER_STEPS - 1 and got[0]["embed"].mesh.shape == (dp, mp) and same,
+                      f"(e) the last checkpoint on {dp} x {mp}: step {n}, bit-identical {same}")
+                restored[f"{dp}x{mp}"] = same
+                del got
+            runs[fail]["restored"] = restored
+        gc.collect()
+        torch.cuda.empty_cache()
+    clean, faulted = runs[False], runs[True]
+    check(faulted["losses"] == clean["losses"], f"(e) losses after the retry {faulted['losses']} against {clean['losses']}")
+    check(all(torch.equal(a, b) for a, b in zip(_leaves(faulted["final"]), _leaves(clean["final"]))),
+          "(e) the state after the retry differs from the fault-free run's")
+    shutil.rmtree(MT_CKPT_DIR, ignore_errors=True)
+    timed = sorted(clean["wall"][1:])
+    out = dict(losses=clean["losses"], step_s=clean["wall"], step_s_p50=timed[len(timed) // 2],
+               restored=faulted["restored"], wall_s=time.monotonic() - t0)
+    print(f"  (e) {MT_RUNNER_ARCH} at full width through the runner over 2 x 2 (fsdp \"data\"), {MT_RUNNER_BATCH} x "
+          f"{MT_RUNNER_SEQ} tokens: a failure before step {MT_RUNNER_STEPS - 1} restored the step-{MT_RUNNER_STEPS - 2} "
+          f"checkpoint onto the mesh and the run "
+          f"ended loss for loss and bit for bit as the fault-free one ({clean['losses']}); step p50 "
+          f"{out['step_s_p50'] * 1e3:.1f} ms; the last checkpoint onto 1 x 4 and 4 x 1 bit-identical to the gathered "
+          f"state; "
+          f"{out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def _mt_named(specs, mesh):
+    from repro_torch.launch import mesh as LM
+
+    if isinstance(specs, dict):
+        return {k: _mt_named(v, mesh) for k, v in specs.items()}
+    return LM.NamedSharding(mesh, specs)
+
+
+def phase_mesh_train(torch, card, report: dict) -> dict:
+    """Phase 24: the training half of the mesh, every rank on one card (see
+    the module docstring)."""
+    t_phase = time.monotonic()
+    out: dict = {}
+    out["a"] = _mt_full(torch, card)
+    out["b"] = _mt_cut(torch, card)
+    out["c"] = _mt_moe(torch, card)
+    out["d"] = _mt_cross(torch, card)
+    out["e"] = _mt_runner(torch, card)
+    out["phase_s"] = time.monotonic() - t_phase
+    print(f"  phase 24 on {card.name} ({card.power_limit}): {out['phase_s']:.1f} s", flush=True)
+    report["mesh_train"] = out
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train-only", type=Path, metavar="REPORT",
                     help="run phase 21 alone in this process (the kernels built) and write its report to REPORT")
     ap.add_argument("--nas-only", type=Path, metavar="REPORT",
                     help="run phase 22 alone in this process (the kernels built) and write its report to REPORT")
+    ap.add_argument("--mesh-train-only", type=Path, metavar="REPORT",
+                    help="run phase 24 alone in this process (the kernels built) and write its report to REPORT")
     opts = ap.parse_args(argv)
 
     import torch
@@ -6428,6 +6953,8 @@ def main(argv=None) -> int:
         return phase_only(torch, phase_train, "train", opts.train_only)
     if opts.nas_only:
         return phase_only(torch, phase_nas, "nas", opts.nas_only)
+    if opts.mesh_train_only:
+        return phase_only(torch, phase_mesh_train, "mesh_train", opts.mesh_train_only)
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.serving import EngineConfig
@@ -6624,6 +7151,15 @@ def main(argv=None) -> int:
     ms = phase_mesh(torch, card, cfg, ecfg, p4, report)
     del p4
     peak("23")
+    print(f"phase 24: the training half of the mesh on {MT_DEVICE}: {TRAIN_ARCH} at full width and depth through "
+          f"make_train_step at dp {MT_MESH[0]} x mp {MT_MESH[1]} with ZeRO-3, {MT_CUT_LAYERS} layers three ways, "
+          f"{MOE_ARCH} at {MT_MOE_LAYERS} layers over the all_to_all path, card vs CPU with a planted fault, "
+          f"{MT_RUNNER_ARCH} through the fault-tolerant runner restored onto other meshes", flush=True)
+    t24 = time.monotonic()
+    mt = phase_process("--mesh-train-only", "mesh_train", "24", report, timeout=600)
+    report["phase_wall_s"]["24"] = time.monotonic() - t24
+    print(f"  phase 24 peak device memory {mt['peak_mem_gb']:.2f} GB (its own process); "
+          f"{report['phase_wall_s']['24']:.1f} s", flush=True)
 
     # per-decode-step totals per kernel: the sum over the launches of one step
     def step_sum(rows, key):

@@ -60,6 +60,16 @@ def shards_from_jax(stacked, mp: int, device: str | torch.device = "cpu") -> lis
     return unstack_decode_shards(params_from_jax(stacked, device), mp)
 
 
+def sharded_from_jax(tree, specs, mesh):
+    """The reference's params (or ``AdamWState``) as the port's per-rank
+    shards on ``mesh`` by a matching tree of partition specs
+    (``param_shardings``, ``param_shardings_opt``); the step count stays
+    one tensor on the first rank's device."""
+    from repro_torch.launch.mesh import shard_tree
+
+    return shard_tree(params_from_jax(tree), specs, mesh)
+
+
 def convnet_params_from_jax(tree, device: str | torch.device = "cpu") -> dict:
     """The reference's convnet params (``{"layer{i}": {"w", "scale",
     "bias"}}``, weights HWIO ``[k, k, cin/groups, cout]``) as the port's,

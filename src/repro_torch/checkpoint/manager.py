@@ -1,5 +1,5 @@
 """Checkpoints of trees of torch tensors with atomic commits and an
-asynchronous writer (``repro.checkpoint.manager``, one device).
+asynchronous writer (``repro.checkpoint.manager``).
 
 Layout, the reference's, file for file:
 
@@ -13,7 +13,13 @@ Layout, the reference's, file for file:
 * ``save_async`` copies every leaf to the host at once (synchronously) and
   writes the files in a daemon thread; ``wait`` joins it, and every save
   waits for the one before;
-* ``keep`` checkpoints are kept, the oldest removed after each commit.
+* ``keep`` checkpoints are kept, the oldest removed after each commit;
+* a mesh's sharded leaves (:class:`~repro_torch.launch.mesh.Sharded`) are
+  saved whole, so the files do not depend on the mesh, and restore onto
+  any mesh: a sharded template leaf onto its own mesh and spec, or each
+  leaf onto ``shardings`` (a matching tree of
+  :class:`~repro_torch.launch.mesh.NamedSharding`), the reference's
+  elastic restore.
 
 bfloat16 leaves are stored as the reference's ``np.save`` of an
 ``ml_dtypes.bfloat16`` array stores them, as raw 2-byte void (``<V2``)
@@ -31,6 +37,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.launch.mesh import NamedSharding, Sharded, gather_array, shard_array
 
 BF16 = "bfloat16"
 
@@ -62,14 +70,33 @@ def _unflatten(template: Any, flat: dict[str, Any], prefix: str = "") -> Any:
     return flat[prefix.rstrip("/")]
 
 
+def _at(tree: Any, key: str) -> Any:
+    """The node of ``tree`` at a flattened leaf's key (the template's
+    path, so a partition spec, a tuple, stays one node); None under a
+    None subtree (no sharding for those leaves)."""
+    for k in key.split("/"):
+        if tree is None:
+            return None
+        if isinstance(tree, dict):
+            tree = tree[k]
+        elif hasattr(tree, "_fields"):
+            tree = getattr(tree, k)
+        else:
+            tree = tree[int(k)]
+    return tree
+
+
 def _to_host(leaf) -> tuple[np.ndarray, str]:
     """A copy of a leaf on the host and its manifest dtype; bfloat16 as
     int16 bits.  A leaf that is not a tensor is stored as ``np.asarray``
     of it, as the reference stores every leaf."""
-    if not isinstance(leaf, torch.Tensor):
+    if isinstance(leaf, Sharded):
+        t = gather_array(leaf, "cpu")
+    elif not isinstance(leaf, torch.Tensor):
         arr = np.array(leaf)
         return arr, str(arr.dtype)
-    t = leaf.detach().to("cpu", copy=True).contiguous()
+    else:
+        t = leaf.detach().to("cpu", copy=True).contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy(), BF16
     arr = t.numpy()
@@ -160,11 +187,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, *, step: int | None = None,
+    def restore(self, template: Any, *, step: int | None = None, shardings: Any = None,
                 device: str | torch.device | None = None) -> tuple[int, Any]:
         """Restore step ``step`` (default: the latest) into the structure of
         ``template``: each leaf a new tensor on ``device``, or on its
-        template leaf's device."""
+        template leaf's device; a leaf with a :class:`NamedSharding` in
+        ``shardings`` (a matching tree) is placed as that mesh's shards
+        (the elastic-rescale path: saved from mesh A, restored on mesh B),
+        and a sharded template leaf without one as the template's."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -173,6 +203,15 @@ class CheckpointManager:
         loaded = {}
         for key, leaf in _flatten(template).items():
             meta = manifest[key]
-            dev = device if device is not None else getattr(leaf, "device", "cpu")
-            loaded[key] = _load(path / meta["file"], meta["dtype"]).to(dev)
+            arr = _load(path / meta["file"], meta["dtype"])
+            target = None if shardings is None else _at(shardings, key)
+            if target is None and isinstance(leaf, Sharded):
+                target = NamedSharding(leaf.mesh, leaf.spec)
+            if target is not None:
+                if not isinstance(target, NamedSharding):
+                    raise TypeError(f"{key}: a restore sharding is a NamedSharding, not {type(target).__name__}")
+                loaded[key] = shard_array(arr, target)
+            else:
+                dev = device if device is not None else getattr(leaf, "device", "cpu")
+                loaded[key] = arr.to(dev)
         return step, _unflatten(template, loaded)

@@ -165,11 +165,17 @@ def attention_train(
     *,
     window: int = 0,
     quant: QuantConfig = NO_QUANT,
+    partial: bool = False,
 ) -> torch.Tensor:
     """Full-sequence attention, ``x + attn(x)``: ``window`` -1 is
     bidirectional (the encoder), 0 full causal, > 0 a causal sliding
     window.  Queries go in ``q_chunk`` blocks (``max(1, S // min(q_chunk,
-    S))`` of them), each against every key, as the reference's scan."""
+    S))`` of them), each against every key, as the reference's scan.
+
+    A tensor-parallel rank passes its local spec (its contiguous heads and
+    KV groups), its column slices of ``wq``/``wk``/``wv`` and its row slice
+    of ``wo`` with ``partial=True``, and gets its share of the output
+    projection, before the residual, for the mesh to sum."""
     B, S, d = x.shape
     H, G, hd = s.n_heads, s.kv_heads, s.head_dim
     h = rmsnorm(params["ln"], x)
@@ -203,7 +209,8 @@ def attention_train(
         p = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
         outs.append(torch.einsum("bhqk,bkhd->bqhd", p, v))
     o = torch.cat(outs, dim=1).reshape(B, S, H * hd)
-    return x + dense(params["wo"], o, name="attn_o", quant=quant)
+    out = dense(params["wo"], o, name="attn_o", quant=quant)
+    return out if partial else x + out
 
 
 def quantize_kv_row(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -20,8 +20,8 @@ the conv channels, ``in_dt``, ``a_log``, ``dt_bias``, ``d_skip`` sliced per
 head group, the B and C columns replicated), the gated output RMSNorm over
 the *global* ``d_inner`` (a sum of squares reduced over the ranks in mid
 block) and ``out_proj`` row-parallel, reduced before the residual.  The
-ranks run in lockstep (:func:`mamba_decode_tp`), so the block runs in two
-phases around each reduction.
+ranks run in lockstep (:func:`mamba_decode_tp`, :func:`mamba_train_tp`),
+so the block runs in two phases around each reduction.
 """
 from __future__ import annotations
 
@@ -120,6 +120,15 @@ def mamba_train(params: dict, s: MambaSpec, x: torch.Tensor, *, quant: QuantConf
     read-out run in float32, the intra-chunk product in ``x.dtype``.  The
     upper triangle of the segment sums is zeroed **before** ``exp`` (it is
     positive and overflows; ``0 * inf`` would poison the backward)."""
+    y = _train_core(params, s, x, quant)
+    y = rmsnorm(params["out_norm"], y)
+    out = dense(params["out_proj"], y, name="ssm_out", quant=quant)
+    return x + out
+
+
+def _train_core(params: dict, s: MambaSpec, x: torch.Tensor, quant: QuantConfig) -> torch.Tensor:
+    """:func:`mamba_train` up to the output norm: the gated output ``y *
+    silu(z)`` ``[B, S, d_inner]``."""
     B, S, _ = x.shape
     H, P, N, Q = s.n_heads, s.head_dim, s.d_state, min(s.chunk, S)
     assert S % Q == 0, "sequence must divide the SSD chunk size"
@@ -167,10 +176,32 @@ def mamba_train(params: dict, s: MambaSpec, x: torch.Tensor, *, quant: QuantConf
 
     y = (y_intra + y_inter).reshape(B, S, H, P)
     y = y + params["d_skip"].to(x.dtype)[None, None, :, None] * xs.reshape(B, S, H, P)
-    y = y.reshape(B, S, s.d_inner) * F.silu(z)
-    y = rmsnorm(params["out_norm"], y)
-    out = dense(params["out_proj"], y, name="ssm_out", quant=quant)
-    return x + out
+    return y.reshape(B, S, s.d_inner) * F.silu(z)
+
+
+def _out_norm_tp(params: list[dict], ys: list[torch.Tensor], eps: float) -> list[torch.Tensor]:
+    """The gated output RMSNorm on ``mp`` ranks: each rank's sum of squares
+    reduced over the ranks, the mean taken over the **global** ``d_inner``
+    (the reference's ``_out_norm`` with an axis)."""
+    sq = all_reduce_sum([torch.sum(torch.square(y), dim=-1, keepdim=True, dtype=torch.float32) for y in ys])
+    d = float(len(ys) * ys[0].shape[-1])
+    return [(y * torch.rsqrt(q / d + eps).to(y.dtype)) * p["out_norm"]["g"].to(y.dtype)
+            for p, y, q in zip(params, ys, sq)]
+
+
+def mamba_train_tp(params: list[dict], s: MambaSpec, xs: list[torch.Tensor], *,
+                   quant: QuantConfig = NO_QUANT, eps: float = 1e-6) -> list[torch.Tensor]:
+    """:func:`mamba_train` on ``mp`` tensor-parallel ranks in lockstep:
+    each rank runs its heads (``s`` the local spec, ``params`` its compute
+    shard: ``in_z``, the x part of ``in_xbc``, the conv channels,
+    ``in_dt``, ``a_log``, ``dt_bias``, ``d_skip`` and ``out_norm`` of its
+    heads, the whole B and C columns), the output norm over the global
+    ``d_inner``, then its ``out_proj`` share, summed over the ranks before
+    the replicated residual.  Returns each rank's ``x + out``."""
+    ys = [_train_core(p, s, x, quant) for p, x in zip(params, xs)]
+    parts = [dense(p["out_proj"], y, name="ssm_out", quant=quant)
+             for p, y in zip(params, _out_norm_tp(params, ys, eps))]
+    return [x + o for x, o in zip(xs, all_reduce_sum(parts))]
 
 
 def mamba_decode(
@@ -284,16 +315,9 @@ def mamba_decode_tp(
     for j in range(xs[0].shape[1]):
         xj = [x[:, j:j + 1] for x in xs]
         core = [_decode_core(params[r], s, xj[r], sts[r], cvs[r], quant) for r in range(mp)]
-        ys = [c[0] for c in core]
-        sq = all_reduce_sum([torch.sum(torch.square(y), dim=-1, keepdim=True, dtype=torch.float32)
-                             for y in ys])
-        d = float(mp * ys[0].shape[-1])
-        parts = []
-        for r in range(mp):
-            y = ys[r]
-            yn = (y * torch.rsqrt(sq[r] / d + eps).to(y.dtype)) * params[r]["out_norm"]["g"].to(y.dtype)
-            parts.append(dense(params[r]["out_proj"], yn, name="ssm_out", quant=quant))
-        red = all_reduce_sum(parts)
+        yns = _out_norm_tp(params, [c[0] for c in core], eps)
+        red = all_reduce_sum([dense(params[r]["out_proj"], yns[r], name="ssm_out", quant=quant)
+                              for r in range(mp)])
         for r in range(mp):
             _, ns, nc = core[r]
             if lens is not None:

@@ -1,4 +1,4 @@
-"""Mixture-of-Experts layer (``repro.models.moe``) in PyTorch, one device.
+"""Mixture-of-Experts layer (``repro.models.moe``) in PyTorch.
 
 Token-choice top-k routing with capacity, a scatter into per-expert
 capacity buckets, one batched matmul pair over the experts, and the
@@ -12,11 +12,13 @@ reference:
   expert group;
 * :func:`_local_moe_expert_sharded`: the mesh's decode path, tokens
   replicated over the model ranks, each rank running its ``E / mp`` local
-  experts, one reduction over the ranks combining them.
-
-The reference's all_to_all exchange (``_local_moe`` with an axis) is the
-training path's and waits for the training half of the mesh (ROADMAP.md,
-port queue, "Mesh").
+  experts, one reduction over the ranks combining them;
+* :func:`_local_moe` with ``axis_name``: the mesh's train and prefill
+  path, tokens sharded over the model ranks, each rank's copies sent to
+  the rank that owns their expert and the results sent back, two
+  :func:`~repro_torch.launch.mesh.all_to_all` exchanges each way (the
+  ranks run in lockstep in one process, so the call takes every rank's
+  params and tokens as lists in rank order).
 
 The dispatch reproduces the reference's, including two behaviours that
 the port must match bit for bit:
@@ -50,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.packed_matmul.ops import PackedDenseParams, packed_dense
+from repro_torch.launch.mesh import all_to_all
 from repro_torch.models.layers import rmsnorm
 
 
@@ -167,18 +170,24 @@ def moe_reference(params: dict, s: MoESpec, x: torch.Tensor) -> torch.Tensor:
     return x + out.reshape(B, S, d)
 
 
-def _local_moe(params: dict, s: MoESpec, x: torch.Tensor, *, axis_name: str | None = None) -> torch.Tensor:
-    """The reference's ``_local_moe`` on one device: x [t, d] tokens ->
-    [t, d] expert outputs (no residual).
+def _local_moe(params, s: MoESpec, x, *, axis_name: str | None = None):
+    """The reference's ``_local_moe``: x [t, d] tokens -> [t, d] expert
+    outputs (no residual).
 
-    With one expert group every copy's destination rank is 0, so the
-    reference's stable sort by rank keeps the copies in token order (copy
-    ``c`` of token ``t`` at ``t * k + c``) and its all_to_all is the
-    identity; the send buffer, the per-expert buckets and the combine
-    follow it step by step, capacities from Python's ``round`` as there."""
+    One device (``axis_name=None``): with one expert group every copy's
+    destination rank is 0, so the reference's stable sort by rank keeps
+    the copies in token order (copy ``c`` of token ``t`` at ``t * k + c``)
+    and its all_to_all is the identity; the send buffer, the per-expert
+    buckets and the combine follow it step by step, capacities from
+    Python's ``round`` as there.
+
+    With ``axis_name`` (the model axis): ``params`` and ``x`` are lists,
+    rank ``r``'s local experts and its local tokens, and so is the result
+    (:func:`_local_moe_all_to_all`)."""
     if axis_name is not None:
-        raise NotImplementedError("the all_to_all expert exchange is the training path's; it waits for "
-                                  "the training half of the mesh (ROADMAP.md, port queue, 'Mesh')")
+        if isinstance(x, torch.Tensor):
+            raise TypeError("_local_moe with an axis takes every rank's params and tokens as per-rank lists")
+        return _local_moe_all_to_all(params, s, x)
     t, d = x.shape
     e_loc = _n_local_experts(params["w_up"])
     k = s.top_k
@@ -229,6 +238,80 @@ def _local_moe(params: dict, s: MoESpec, x: torch.Tensor, *, axis_name: str | No
     for c in range(1, k):
         out = out + contrib[:, c]
     return out
+
+
+def _local_moe_all_to_all(params: list, s: MoESpec, xs: list) -> list:
+    """The reference's ``_local_moe`` under ``shard_map`` with the model
+    axis named, its ``M = len(params)`` ranks in lockstep: rank ``r``
+    routes its ``t`` local tokens' ``n = t k`` copies, groups them by the
+    rank owning their expert (a stable sort) into a send buffer of ``M``
+    blocks of ``c_send = round(n / M * capacity_factor)`` rows, copies past
+    a block's capacity dropped (clipped onto a later row, which the
+    reference's serial scatter lets the later writer win:
+    :func:`_scatter_last`); one :func:`all_to_all` sends each block to its
+    rank with the experts' ids; each rank buckets what it received by
+    local expert (``c_exp = round(M c_send / e_loc * capacity_factor)`` rows
+    each, invalid rows in an overflow bucket), runs its experts, and a
+    second :func:`all_to_all` returns the rows to their senders, which
+    combine each token's kept copies weighted by their gates, added in
+    the send buffer's order as the reference's scatter-add does.
+    Capacities follow each rank's local counts, so copies drop differently
+    from one device's dispatch."""
+    M = len(params)
+    e_loc = _n_local_experts(params[0]["w_up"])
+    k = s.top_k
+    t, d = xs[0].shape
+    n_copy = t * k
+    c_send = int(max(1, round(n_copy / M * s.capacity_factor)))
+    n_recv = M * c_send
+    c_exp = int(max(1, round(n_recv / e_loc * s.capacity_factor)))
+    sends_x, sends_e, routes = [], [], []
+    for p, x in zip(params, xs):
+        dev = x.device
+        h = rmsnorm(p["ln"], x)
+        topv, topi = _route(p, s, h)
+        topv = topv / (torch.sum(topv, dim=-1, keepdim=True) + 1e-9)
+        expert_of_copy = topi.reshape(n_copy)
+        token_of_copy = torch.div(torch.arange(n_copy, device=dev), k, rounding_mode="floor")
+        dest_rank = torch.div(expert_of_copy, e_loc, rounding_mode="floor")
+        order = torch.argsort(dest_rank, stable=True)
+        rank_sorted = dest_rank[order]
+        pos_in_rank = torch.arange(n_copy, device=dev) - torch.searchsorted(rank_sorted, rank_sorted)
+        keep = pos_in_rank < c_send
+        slot = torch.clamp(rank_sorted * c_send + pos_in_rank, 0, n_recv - 1)
+        sends_x.append(_scatter_last(n_recv, slot, torch.where(keep[:, None], h[token_of_copy[order]], 0.0), 0.0))
+        sends_e.append(_scatter_last(n_recv, slot, torch.where(keep, expert_of_copy[order], -1), -1))
+        routes.append((order, keep, slot, topv.reshape(n_copy), h.dtype))
+    backs = []
+    for r, (p, recv_x, recv_e) in enumerate(zip(params, all_to_all(sends_x), all_to_all(sends_e))):
+        dev = recv_x.device
+        local_expert = torch.where(recv_e >= 0, recv_e - r * e_loc, e_loc)
+        order2 = torch.argsort(local_expert, stable=True)
+        le_sorted = local_expert[order2]
+        pos_in_exp = torch.arange(n_recv, device=dev) - torch.searchsorted(le_sorted, le_sorted)
+        keep2 = (pos_in_exp < c_exp) & (le_sorted < e_loc)
+        slot2 = torch.clamp(le_sorted * c_exp + pos_in_exp, 0, e_loc * c_exp - 1)
+        buckets = _scatter_last(e_loc * c_exp, slot2, torch.where(keep2[:, None], recv_x[order2], 0.0), 0.0)
+        y = _expert_ffn(p, s, buckets.reshape(e_loc, c_exp, d)).reshape(e_loc * c_exp, d)
+        inv2 = torch.empty_like(order2).scatter_(0, order2, torch.arange(n_recv, device=dev))
+        backs.append(torch.where(keep2[:, None], y[slot2], 0.0)[inv2])
+    outs = []
+    for back, (order, keep, slot, gate_of_copy, dtype) in zip(all_to_all(backs), routes):
+        dev = back.device
+        gate_w = torch.where(keep, gate_of_copy[order], 0.0).to(dtype)
+        contrib = back[slot] * gate_w[:, None]
+        # to copy order, then each token's k copies in send-buffer order
+        inv = torch.empty_like(order).scatter_(0, order, torch.arange(n_copy, device=dev))
+        keep_c = keep[inv].reshape(t, k)
+        contrib_c = contrib[inv].reshape(t, k, d)
+        by_send = torch.argsort(inv.reshape(t, k), dim=1)
+        keep_c = torch.gather(keep_c, 1, by_send)
+        contrib_c = torch.gather(contrib_c, 1, by_send[..., None].expand(t, k, d))
+        out = torch.zeros((t, d), dtype=dtype, device=dev)
+        for c in range(k):
+            out = out + torch.where(keep_c[:, c, None], contrib_c[:, c], 0.0)
+        outs.append(out)
+    return outs
 
 
 def _local_moe_expert_sharded(params: dict, s: MoESpec, x: torch.Tensor, *, rank: int,
@@ -289,10 +372,16 @@ def _local_moe_expert_sharded(params: dict, s: MoESpec, x: torch.Tensor, *, rank
     return out
 
 
-def moe_apply(params: dict, s: MoESpec, x: torch.Tensor, *, axis_name: str | None = None) -> torch.Tensor:
+def moe_apply(params, s: MoESpec, x, *, axis_name: str | None = None):
     """Production MoE block: x [B, S, d] -> x + MoE(x).  Packed experts
     carry their own bits, so it takes no ``quant`` (the reference's is
-    unused)."""
+    unused).  With ``axis_name``, per-rank lists of params and local
+    tokens in, per-rank results out (:func:`_local_moe`)."""
+    if axis_name is not None:
+        if isinstance(x, torch.Tensor):
+            raise TypeError("moe_apply with an axis takes every rank's params and tokens as per-rank lists")
+        outs = _local_moe(params, s, [a.reshape(-1, a.shape[-1]) for a in x], axis_name=axis_name)
+        return [a + o.reshape(a.shape) for a, o in zip(x, outs)]
     B, S, d = x.shape
     out = _local_moe(params, s, x.reshape(B * S, d), axis_name=axis_name)
     return x + out.reshape(B, S, d)

@@ -39,10 +39,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.packed_matmul.ops import PackedDenseParams
+from repro_torch.launch import mesh as LM
 from repro_torch.launch.mesh import all_gather, all_reduce_sum
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as X
+from repro_torch.parallel import sharding as PS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -492,10 +494,15 @@ def forward_train(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     The embedding table is cast to ``cfg.dtype`` before the rows are
     gathered, as the reference does (its gradient then sums repeated
     tokens in ``cfg.dtype``).  Stacked layer params are unbound once per
-    call (:func:`_unbind_layers`)."""
-    if cfg.zero3_regather:
-        raise NotImplementedError("zero3_regather re-gathers sharded weights over a mesh, which waits for "
-                                  "ROADMAP.md's port queue item 5 (the mesh)")
+    call (:func:`_unbind_layers`).  Under sharding rules with a mesh
+    (:func:`~repro_torch.parallel.sharding.use_rules`) the params are
+    sharded and the mesh runs the step (:func:`_forward_train_mesh`);
+    ``cfg.zero3_regather`` does nothing without one, as in the reference."""
+    rules = PS.mesh_rules(PS.current_rules())
+    if rules is not None:
+        return _forward_train_mesh(params, cfg, batch, rules)
+    if isinstance(params["embed"], LM.Sharded):
+        raise TypeError("sharded params run under use_rules(ShardingRules(mesh=...))")
     tokens = batch["tokens"].long()
     B, S = tokens.shape
     x = params["embed"].to(cfg.dtype)[tokens]
@@ -545,6 +552,196 @@ def forward_train(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
     x = L.rmsnorm(params["final_ln"], x)
     return ce_loss_chunked(x, params["embed"], batch["labels"])
+
+
+# -- the train forward on a mesh ------------------------------------------------------
+
+# ROADMAP.md, port queue 1: the families the mesh's train path refuses
+MESH_TRAIN_ITEM = "ROADMAP.md, port queue 1, item 2 (the encdec and hybrid families under sharding rules)"
+
+
+def _mesh_check(cfg: ModelConfig, rules) -> None:
+    """What the port's mesh step supports: the attn and ssm families, the
+    reference's default axis mapping (tensor parallelism over ``model``,
+    the batch over ``data``, ZeRO over ``data`` or off), and head, width,
+    expert and vocab counts that divide by ``mp`` (each rank runs whole
+    heads)."""
+    if cfg.family not in ("attn", "ssm"):
+        raise NotImplementedError(f"forward_train under sharding rules runs the attn and ssm families, not "
+                                  f"{cfg.family!r}: {MESH_TRAIN_ITEM}")
+    mesh = rules.mesh
+    for field in ("heads", "kv_heads", "ff", "vocab", "experts"):
+        if getattr(rules, field) != "model":
+            raise NotImplementedError(f"the mesh's train step maps {field} to the model axis, not "
+                                      f"{getattr(rules, field)!r}")
+    if LM._spec_axes(rules.batch, mesh) != ("data",) or rules.fsdp not in (None, "data"):
+        raise NotImplementedError(f"the mesh's train step shards the batch (and ZeRO, if on) over the data "
+                                  f"axis, not batch={rules.batch!r}, fsdp={rules.fsdp!r}")
+    mp = mesh.mp
+    counts = {"vocab": cfg.vocab}
+    if cfg.family == "attn":
+        counts.update(n_heads=cfg.n_heads, kv_heads=cfg.kv_heads)
+        counts.update({"n_experts": cfg.n_experts} if cfg.is_moe else {"d_ff": cfg.d_ff})
+    else:
+        counts["ssm heads"] = cfg.ssm_spec().n_heads
+    for what, n in counts.items():
+        PS._tp_check(n, mp, what)
+
+
+def _attn_mlp_block_tp(ps: list, cfg: ModelConfig, xs: list, positions: list, window: int) -> list:
+    """One attention (dense or MoE) layer on a replica's ``mp`` ranks in
+    lockstep (``cfg`` carries ``tp_shards = mp``): each block's rank shares
+    summed over the ranks before the residual."""
+    aspec = cfg.attn_spec()
+    parts = [L.attention_train(p["attn"], aspec, x, pos, window=window, quant=cfg.quant, partial=True)
+             for p, x, pos in zip(ps, xs, positions)]
+    xs = [x + o for x, o in zip(xs, all_reduce_sum(parts))]
+    if cfg.is_moe:
+        return _moe_block_tp([p["moe"] for p in ps], cfg, xs)
+    parts = [L.mlp(p["mlp"], cfg.mlp_spec(), x, quant=cfg.quant, partial=True) for p, x in zip(ps, xs)]
+    return [x + o for x, o in zip(xs, all_reduce_sum(parts))]
+
+
+def _moe_block_tp(ps: list, cfg: ModelConfig, xs: list) -> list:
+    """The reference's ``_moe_block`` under a mesh, one replica's ranks:
+    when the sequence divides by ``mp`` the tokens shard over the model
+    axis (rank ``r`` takes positions ``r S/mp ..``) and exchange copies
+    with the experts' ranks (:func:`~repro_torch.models.moe._local_moe`
+    with the axis), the outputs gathered back along the sequence; else
+    every rank runs its local experts on every token and the shares are
+    summed (:func:`~repro_torch.models.moe._local_moe_expert_sharded`)."""
+    B, S, d = xs[0].shape
+    mp = len(ps)
+    s = cfg.moe_spec()
+    if S % mp == 0:
+        sl = S // mp
+        loc = [x[:, r * sl:(r + 1) * sl] for r, x in enumerate(xs)]
+        ys = X.moe_apply(ps, s, loc, axis_name="model")
+        full = all_gather(ys, dim=1)
+        return [full.to(x.device) for x in xs]
+    parts = [X._local_moe_expert_sharded(p, s, x.reshape(B * S, d), rank=r, mp=mp).reshape(B, S, d)
+             for r, (p, x) in enumerate(zip(ps, xs))]
+    return [x + o for x, o in zip(xs, all_reduce_sum(parts))]
+
+
+def _ce_loss_vocab_tp(xs: list, embeds: list, labels: list, chunk: int = 512) -> torch.Tensor:
+    """:func:`ce_loss_chunked`'s float32 sum (before the division) over a
+    replica's ``mp`` vocab shards: rank ``r`` has embedding rows ``r V/mp
+    ..``; each chunk's log-sum-exp is the log-sum-exp of the ranks' own,
+    and each gold logit comes from the rank whose rows hold its label.  On
+    the first rank's device."""
+    B, S, _ = xs[0].shape
+    n = max(1, S // min(chunk, S))
+    cs = S // n
+    total = None
+    for i in range(n):
+        lse, gold = [], []
+        for x, emb, lab in zip(xs, embeds, labels):
+            vl = emb.shape[0]
+            off = len(lse) * vl
+            logits = (x[:, i * cs:(i + 1) * cs] @ emb.to(x.dtype).T).to(torch.float32)  # [B, cs, V/mp]
+            lse.append(torch.logsumexp(logits, dim=-1)[..., None])
+            loc = lab[:, i * cs:(i + 1) * cs].long() - off
+            ok = (loc >= 0) & (loc < vl)
+            g = torch.gather(logits, -1, loc.clamp(0, vl - 1)[..., None])[..., 0]
+            gold.append(torch.where(ok, g, 0.0)[..., None])
+        logz = torch.logsumexp(all_gather(lse, dim=-1), dim=-1)
+        part = torch.sum(logz - all_gather(gold, dim=-1).sum(-1))
+        total = part if total is None else total + part
+    return total
+
+
+def _sharded_layers(layers, n: int) -> list:
+    """Per-layer trees of sharded leaves: a per-layer list as it is, or
+    each layer of stacked ``[L, ...]`` leaves."""
+    if isinstance(layers, (list, tuple)):
+        return list(layers)
+    return [map_leaves(layers, lambda a, i=i: a.layer(i)) for i in range(n)]
+
+
+def _forward_train_mesh(params: dict, cfg: ModelConfig, batch: dict, rules) -> torch.Tensor:
+    """:func:`forward_train` on the rules' ``dp x mp`` mesh: the
+    reference's sharded step, whose loss is the unsharded one.
+
+    ``params`` hold :class:`~repro_torch.launch.mesh.Sharded` leaves laid
+    out by ``param_shardings`` (stacked ``[L, ...]`` layers, or a list of
+    per-layer trees); the batch's rows split over the ``dp`` replicas, and
+    each replica's ``mp`` ranks run in lockstep, every rank holding the
+    replicated hidden states: the embedding lookup over vocab shards
+    (each rank's rows, summed over the ranks), each layer's attention or
+    SSM heads and MLP columns (or experts) on their ranks, each block's
+    shares summed before its residual, and the loss over vocab shards with
+    a global log-sum-exp.  With ``fsdp="data"`` each rank's weights are
+    gathered over the data axis before use: a layer's inside the layer
+    loop when ``cfg.zero3_regather`` (freed after it, and gathered again in
+    the backward under remat), every layer's before layer 0 otherwise.
+    The mean over every replica's tokens is returned on the first rank's
+    device."""
+    _mesh_check(cfg, rules)
+    mesh = rules.mesh
+    dp, mp = mesh.shape
+    lcfg = dataclasses.replace(cfg, tp_shards=mp)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    if B % dp:
+        raise ValueError(f"a batch of {B} rows does not split over {dp} data replicas")
+    rows = B // dp
+
+    def local(key: str, i: int, r: int) -> torch.Tensor:
+        return batch[key][i * rows:(i + 1) * rows].to(mesh.device(i, r))
+
+    emb = PS.regather_layer_params(params["embed"], rules)
+    vl = cfg.vocab // mp
+    xs, positions = [], []
+    for i in range(dp):
+        looked = []
+        for r in range(mp):
+            tok = local("tokens", i, r).long() - r * vl
+            ok = (tok >= 0) & (tok < vl)
+            looked.append(torch.where(ok[..., None], emb.part(i, r).to(cfg.dtype)[tok.clamp(0, vl - 1)], 0.0))
+        xs.append(all_reduce_sum(looked))
+        if cfg.use_mrope:
+            positions.append([local("positions", i, r) for r in range(mp)])
+        else:
+            positions.append([torch.arange(S, dtype=torch.int32, device=mesh.device(i, r))[None].expand(rows, S)
+                              for r in range(mp)])
+
+    layers = _sharded_layers(params["layers"], cfg.n_layers)
+    if not cfg.zero3_regather:
+        layers = [PS.regather_layer_params(lp, rules) for lp in layers]
+
+    def gathered(lp):
+        return PS.regather_layer_params(lp, rules) if cfg.zero3_regather else lp
+
+    if cfg.family == "attn":
+        def body(xs, item):
+            lp, win = item
+            lp = gathered(lp)
+            return [_attn_mlp_block_tp(PS.rank_trees(lp, i, mp), lcfg, xs[i], positions[i], win) for i in range(dp)]
+
+        xs = _scan_stack(body, cfg, xs, list(zip(layers, cfg.windows())))
+    else:
+        s = lcfg.ssm_spec()
+
+        def body(xs, lp):
+            lp = gathered(lp)
+            xbc = LM.gather_axis(lp["in_xbc"]["w"], "model")
+            out = []
+            for i in range(dp):
+                ps = [PS.ssm_compute_shard(st, xbc.part(i, r), cfg, mp, r)
+                      for r, st in enumerate(PS.rank_trees(lp, i, mp))]
+                out.append(M.mamba_train_tp(ps, s, xs[i], quant=cfg.quant))
+            return out
+
+        xs = _scan_stack(body, cfg, xs, layers)
+
+    total = None
+    for i in range(dp):
+        fl = PS.rank_trees(params["final_ln"], i, mp)
+        hs = [L.rmsnorm(f, x) for f, x in zip(fl, xs[i])]
+        part = _ce_loss_vocab_tp(hs, [emb.part(i, r) for r in range(mp)], [local("labels", i, r) for r in range(mp)])
+        total = part if total is None else total + part.to(total.device)
+    return total / (B * S)
 
 
 def ce_loss_chunked(x: torch.Tensor, embed: torch.Tensor, labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:

@@ -10,6 +10,12 @@ whole-tree float32 temporary about 3 GB a leaf, so only one leaf's
 temporaries live at a time.  Leaves are visited in sorted-key order, as
 ``jax.tree.leaves`` visits a dict, so :func:`global_norm` sums in the
 reference's order.
+
+Sharded trees (:class:`~repro_torch.launch.mesh.Sharded` leaves, a
+mesh's params): the moments are sharded as the params, every part is
+updated in place on its own device, and :func:`global_norm` counts each
+element once (one part a block), so a replicated leaf's copies add
+nothing beyond the first.
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from repro_torch.launch.mesh import Sharded
 
 
 def tree_leaves(tree: Any) -> list:
@@ -59,10 +67,13 @@ class AdamW:
 
     def init(self, params: Any) -> AdamWState:
         def zeros(p):
+            if isinstance(p, Sharded):
+                return p.map(zeros)
             return torch.zeros(p.shape, dtype=self.moment_dtype or p.dtype, device=p.device)
 
         leaves = tree_leaves(params)
-        step = torch.zeros((), dtype=torch.int32, device=leaves[0].device if leaves else None)
+        first = leaves[0].parts[0] if leaves and isinstance(leaves[0], Sharded) else leaves[0] if leaves else None
+        step = torch.zeros((), dtype=torch.int32, device=first.device if first is not None else None)
         return AdamWState(step=step, mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
     def _lr(self, step: torch.Tensor):
@@ -83,18 +94,21 @@ class AdamW:
         mu_hat_scale = 1.0 / (1 - torch.pow(b1, step_f))
         nu_hat_scale = 1.0 / (1 - torch.pow(b2, step_f))
         lr = self._lr(step)
-        for leaf in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.mu), tree_leaves(state.nu)):
+        for leaf in _part_leaves(params, grads, state.mu, state.nu):
             # a leaf past _SLICE elements goes in slices of its leading dim
             # of at most _SLICE elements (elementwise, so the same bits),
             # bounding the temporaries
             n = leaf[0].numel()
+            consts = (scale, mu_hat_scale, nu_hat_scale, lr)
+            if leaf[0].device != step.device:  # a mesh rank on another device
+                consts = tuple(t.to(leaf[0].device) if isinstance(t, torch.Tensor) else t for t in consts)
             if n > _SLICE and leaf[0].dim() > 1:
                 rows = max(1, _SLICE // (n // leaf[0].shape[0]))
                 parts = zip(*(t.split(rows) for t in leaf))
             else:
                 parts = [leaf]
             for p, g, m, v in parts:
-                self._update_leaf(p, g, m, v, scale, mu_hat_scale, nu_hat_scale, lr)
+                self._update_leaf(p, g, m, v, *consts)
         return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
 
     def _update_leaf(self, p, g, m, v, scale, mu_hat_scale, nu_hat_scale, lr) -> None:
@@ -119,12 +133,24 @@ class AdamW:
 _SLICE = 1 << 26
 
 
+def _part_leaves(*trees):
+    """Matching leaves of same-structured trees, a sharded leaf's parts
+    one by one (rank order)."""
+    for leaf in zip(*(tree_leaves(t) for t in trees)):
+        if isinstance(leaf[0], Sharded):
+            yield from zip(*(x.parts for x in leaf))
+        else:
+            yield leaf
+
+
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the float32 sum of squares over every leaf, leaf by leaf."""
+    """sqrt of the float32 sum of squares over every leaf, leaf by leaf (a
+    sharded leaf's unique parts in rank order, on the first's device)."""
     total = None
     for x in tree_leaves(tree):
-        sq = torch.sum(torch.square(x.to(torch.float32)))
-        total = sq if total is None else total + sq
+        for part in x.unique_parts() if isinstance(x, Sharded) else [x]:
+            sq = torch.sum(torch.square(part.to(torch.float32)))
+            total = sq if total is None else total + sq.to(total.device)
     return torch.sqrt(total)
 
 

@@ -1,4 +1,9 @@
-"""Tensor-parallel decode shards (``repro.parallel.sharding``'s serving half)."""
-from repro_torch.parallel.sharding import slice_decode_params, stack_decode_shards, unstack_decode_shards
+"""Sharding rules and tensor-parallel shards (``repro.parallel.sharding``)."""
+from repro_torch.parallel.sharding import (
+    P, ShardingRules, current_rules, param_shardings, regather_layer_params, shard, slice_decode_params, spec,
+    spec_for_param_path, stack_decode_shards, unstack_decode_shards, use_rules,
+)
 
-__all__ = ["slice_decode_params", "stack_decode_shards", "unstack_decode_shards"]
+__all__ = ["P", "ShardingRules", "current_rules", "param_shardings", "regather_layer_params", "shard",
+           "slice_decode_params", "spec", "spec_for_param_path", "stack_decode_shards", "unstack_decode_shards",
+           "use_rules"]

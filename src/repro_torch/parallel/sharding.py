@@ -1,25 +1,154 @@
-"""Tensor-parallel decode shards for mesh serving (the serving half of
-``repro.parallel.sharding``).
+"""Logical-axis sharding rules and tensor-parallel shards
+(``repro.parallel.sharding``).
 
-A model rank runs the paged decode path on a *contiguous rank-order slice*
-of every sharded matrix: ``wq``/``wk``/``wv``/``w_up``/``w_gate``/``in_z``/
-``in_xbc``/``in_dt`` column-parallel, ``wo``/``w_down``/``out_proj``
-row-parallel, MoE experts on the expert axis, the LM head on vocab rows.
-Contiguity is what makes a shard quantized and packed against the global
-normalizer equal a slice of the global prepack, and keeps KV-head and SSM
-head groups adjacent in their state.
+The training half: model code reads the active :class:`ShardingRules`
+(:func:`use_rules`, :func:`current_rules`), which map logical axes to the
+mesh's ``data`` and ``model`` axes; :func:`spec_for_param_path` and
+:func:`param_shardings` give each parameter its partition spec by tree
+path, as the reference's do (tensor parallelism over ``model``, ZeRO
+parameter sharding over ``data`` with ``fsdp="data"``), and
+:func:`regather_layer_params` is the ZeRO-3 gather of one layer's weights.
+A spec is the port's :class:`P`, a tuple with one entry a dimension.
+Outside a mesh the rules are inactive and :func:`shard` is a no-op; under
+one it is a no-op too, since the per-rank parts of a
+:class:`~repro_torch.launch.mesh.Sharded` leaf fix the layout.
 
-The training half (``ShardingRules``, ``spec_for_param_path``,
-``param_shardings``, ``regather_layer_params``) waits for the training
-slice of the mesh (ROADMAP.md, port queue item 5).
+The serving half: a model rank runs the paged decode path on a
+*contiguous rank-order slice* of every sharded matrix: ``wq``/``wk``/
+``wv``/``w_up``/``w_gate``/``in_z``/``in_xbc``/``in_dt`` column-parallel,
+``wo``/``w_down``/``out_proj`` row-parallel, MoE experts on the expert
+axis, the LM head on vocab rows.  Contiguity is what makes a shard
+quantized and packed against the global normalizer equal a slice of the
+global prepack, and keeps KV-head and SSM head groups adjacent in their
+state.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import re
+import threading
+from typing import Any
 
 import torch
 
 from repro_torch.kernels.packed_matmul.ops import PackedDenseParams
+from repro_torch.launch import mesh as LM
+
+
+class P(tuple):
+    """A partition spec (the reference's ``jax.sharding.PartitionSpec``):
+    one entry a dimension, a mesh axis name, a tuple of them, or None."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "P(" + ", ".join(map(repr, self)) + ")"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    batch: Any = ("pod", "data")
+    heads: Any = "model"
+    kv_heads: Any = "model"
+    ff: Any = "model"
+    vocab: Any = "model"
+    experts: Any = "model"
+    seq_mp: Any = "model"
+    fsdp: Any = None  # "data" for ZeRO parameter sharding
+    enabled: bool = True
+    mesh: Any = None  # a repro_torch.launch.mesh.Mesh
+
+    def resolve(self, *logical: str | None) -> P:
+        return P(*(None if name is None else getattr(self, name) for name in logical))
+
+
+_state = threading.local()
+
+
+def current_rules() -> ShardingRules | None:
+    return getattr(_state, "rules", None)
+
+
+@contextlib.contextmanager
+def use_rules(rules: ShardingRules | None):
+    prev = current_rules()
+    _state.rules = rules
+    try:
+        yield
+    finally:
+        _state.rules = prev
+
+
+def mesh_rules(rules) -> ShardingRules | None:
+    """``rules`` when they run the mesh path (enabled, with a mesh), None
+    when the one-device path runs (None, disabled, or no mesh)."""
+    if rules is None:
+        return None
+    if not isinstance(rules, ShardingRules):
+        raise TypeError(f"rules must be a ShardingRules or None, not {type(rules).__name__}")
+    return rules if rules.enabled and rules.mesh is not None else None
+
+
+def shard(x, *logical: str | None):
+    """Annotate ``x`` with logical axes: a no-op (inactive rules, or the
+    layout already fixed by a sharded leaf's parts)."""
+    return x
+
+
+def spec(*logical: str | None) -> P:
+    """The partition spec of logical axes under the active rules (``P()``
+    when inactive)."""
+    rules = current_rules()
+    if rules is None or not rules.enabled:
+        return P()
+    return rules.resolve(*logical)
+
+
+def spec_for_param_path(path: str, rules: ShardingRules, ndim: int) -> P:
+    mp, dp = rules.heads, rules.fsdp  # tensor-parallel axis, optional ZeRO axis
+    if "embed" in path:
+        return P(rules.vocab, dp)
+    if re.search(r"(wq|wk|wv)/w", path):
+        base = (dp, mp)
+    elif "wo/w" in path:
+        base = (mp, dp)
+    elif re.search(r"(w_up|w_gate)/w$", path):  # dense MLP [d, ff]
+        base = (dp, mp)
+    elif path.endswith("w_down/w"):
+        base = (mp, dp)
+    elif re.search(r"(w_up|w_gate)$", path):  # MoE [E, d, f]
+        base = (rules.experts, dp, None)
+    elif path.endswith("w_down"):
+        base = (rules.experts, None, dp)
+    elif re.search(r"(in_z|in_xbc)/w", path):
+        base = (dp, mp)
+    elif "in_dt/w" in path:
+        base = (dp, None)  # the small dt head: its output dim replicated
+    elif "out_proj/w" in path:
+        base = (mp, dp)
+    elif "router" in path:
+        base = (None, None)
+    else:
+        return P(*([None] * ndim))  # norms, conv, biases: replicated
+    pad = ndim - len(base)  # stacked layer params carry a leading L axis
+    return P(*([None] * pad), *base)
+
+
+def _map_with_path(tree, fn, path: str = ""):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(v, fn, f"{path}/{k}" if path else str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(_map_with_path(v, fn, f"{path}/{i}" if path else str(i)) for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def param_shardings(params_shape, rules: ShardingRules):
+    """Each leaf's spec by its path (``layers/attn/wq/w``), from its
+    number of dimensions; leaves may be tensors, sharded leaves or
+    anything with a ``shape``."""
+    return _map_with_path(params_shape, lambda path, leaf: spec_for_param_path(path, rules, len(leaf.shape)))
 
 
 def _tp_check(n: int, mp: int, what: str) -> None:
@@ -133,29 +262,53 @@ def slice_decode_params(params: dict, cfg, mp: int, rank: int) -> dict:
         out["layers"] = block
         return out
     # ssm: heads shard contiguously; the B and C columns feed every head (replicated)
-    sspec = cfg.ssm_spec()
-    H, P, N = sspec.n_heads, sspec.head_dim, sspec.d_state
-    d_in = sspec.d_inner
+    H, P_ = cfg.ssm_spec().n_heads, cfg.ssm_spec().head_dim
     _tp_check(H, mp, "ssm heads")
-    h_loc = H // mp
-    di_loc = h_loc * P
+    di_loc = H // mp * P_
     x0 = rank * di_loc
-    xbc_ranges = [(x0, di_loc), (d_in, N), (d_in + N, N)]
-    heads = slice(rank * h_loc, (rank + 1) * h_loc)
-    out["layers"] = {
-        "ln": lp["ln"],
-        "in_z": {"w": _w_cols(lp["in_z"]["w"], x0, di_loc)},
-        "in_xbc": {"w": _w_col_concat(lp["in_xbc"]["w"], xbc_ranges)},
-        "in_dt": {"w": _w_cols(lp["in_dt"]["w"], rank * h_loc, h_loc)},
-        "conv_w": _w_col_concat(lp["conv_w"], xbc_ranges),
-        "conv_b": _w_col_concat(lp["conv_b"], xbc_ranges),
-        "a_log": lp["a_log"][..., heads],
-        "dt_bias": lp["dt_bias"][..., heads],
-        "d_skip": lp["d_skip"][..., heads],
-        "out_norm": {"g": lp["out_norm"]["g"][..., x0:x0 + di_loc]},
-        "out_proj": {"w": _w_rows(lp["out_proj"]["w"], x0, di_loc)},
-    }
+    storage = dict(lp, in_z={"w": _w_cols(lp["in_z"]["w"], x0, di_loc)},
+                   out_proj={"w": _w_rows(lp["out_proj"]["w"], x0, di_loc)})
+    out["layers"] = ssm_compute_shard(storage, lp["in_xbc"]["w"], cfg, mp, rank)
     return out
+
+
+def ssm_compute_shard(storage: dict, in_xbc: torch.Tensor, cfg, mp: int, rank: int) -> dict:
+    """Rank ``rank``'s compute shard of one mamba layer from its storage
+    (``param_shardings``'s layout, gathered over the fsdp axis):
+    ``in_z`` and ``out_proj`` are stored as the rank's head group already;
+    ``in_xbc`` is stored column-sharded over the ranks without regard to
+    its x, B and C parts, so the rank takes its x part and the whole B and
+    C from ``in_xbc``, the whole matrix (gathered over the model axis);
+    the replicated ``in_dt``, conv, ``a_log``, ``dt_bias``, ``d_skip`` and
+    ``out_norm`` are cut to the rank's heads.  ``cfg`` is the global
+    config; the values equal :func:`slice_decode_params`'s."""
+    sspec = cfg.ssm_spec()
+    P_, N, d_in = sspec.head_dim, sspec.d_state, sspec.d_inner
+    h_loc = sspec.n_heads // mp
+    di_loc = h_loc * P_
+    x0 = rank * di_loc
+    ranges = [(x0, di_loc), (d_in, N), (d_in + N, N)]
+    heads = slice(rank * h_loc, (rank + 1) * h_loc)
+    return {
+        "ln": storage["ln"],
+        "in_z": storage["in_z"],
+        "in_xbc": {"w": _w_col_concat(in_xbc, ranges)},
+        "in_dt": {"w": _w_cols(storage["in_dt"]["w"], rank * h_loc, h_loc)},
+        "conv_w": _w_col_concat(storage["conv_w"], ranges),
+        "conv_b": _w_col_concat(storage["conv_b"], ranges),
+        "a_log": storage["a_log"][..., heads],
+        "dt_bias": storage["dt_bias"][..., heads],
+        "d_skip": storage["d_skip"][..., heads],
+        "out_norm": {"g": storage["out_norm"]["g"][..., x0:x0 + di_loc]},
+        "out_proj": storage["out_proj"],
+    }
+
+
+def rank_trees(tree, replica: int, mp: int) -> list:
+    """Replica ``replica``'s ``mp`` per-rank trees of a tree of
+    :class:`~repro_torch.launch.mesh.Sharded` leaves (each leaf's part of
+    that rank), in rank order."""
+    return [_map(tree, lambda a, r=r: a.part(replica, r) if isinstance(a, LM.Sharded) else a) for r in range(mp)]
 
 
 def _zip_map(fn, trees: list):
@@ -209,3 +362,14 @@ def unstack_decode_shards(shards, mp: int) -> list:
                           else None if a is None else a[r])
 
     return [_map(shards, rank_of(r)) for r in range(mp)]
+
+
+def regather_layer_params(layer_params, rules: ShardingRules | None):
+    """The ZeRO-3 gather point: a layer's sharded weights gathered over the
+    fsdp axis (:func:`~repro_torch.launch.mesh.gather_axis`, one copy a
+    device), called inside the layer loop so each layer's are gathered
+    when it runs and freed after it (recomputed in the backward under
+    remat).  A no-op without a mesh or ZeRO sharding."""
+    if mesh_rules(rules) is None or rules.fsdp is None:
+        return layer_params
+    return _map(layer_params, lambda a: LM.gather_axis(a, rules.fsdp) if isinstance(a, LM.Sharded) else a)

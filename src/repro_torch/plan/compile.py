@@ -14,7 +14,7 @@ adapts a convnet NAS result (``{model: {"bits": [[w, a], ...], "op_dsp":
 ..., "metric": ...}}``, as ``repro_torch.core.nas.search`` selects it) into
 a plan, as the reference does.  ``--trace-cost`` waits for a step-cost
 tracer of the port (the reference traces a jaxpr with
-``repro/launch/cost.py``; ROADMAP.md, port queue, "CLIs and benches").
+``repro/launch/cost.py``; ROADMAP.md, port queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ from repro_torch.plan import search as plan_search
 
 NOT_PORTED = {
     "trace_cost": "--trace-cost needs a step-cost tracer, not ported yet (the reference's "
-                  "repro/launch/cost.py; ROADMAP.md, port queue, 'CLIs and benches')",
+                  "repro/launch/cost.py; ROADMAP.md, port queue 1, item 4: the step-cost tracer)",
 }
 
 

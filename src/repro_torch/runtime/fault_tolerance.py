@@ -1,5 +1,6 @@
-"""Fault-tolerant training runner (``repro.runtime.fault_tolerance``), one
-device: checkpoint/restart, failure injection and straggler detection.
+"""Fault-tolerant training runner (``repro.runtime.fault_tolerance``):
+checkpoint/restart, failure injection and straggler detection, on one
+device or a mesh.
 
 The runner wraps a ``(state, batch) -> (loss, state)`` step with:
 
@@ -20,8 +21,10 @@ histogram go through a :class:`~repro_torch.obs.metrics.MetricsRegistry`
 under the reference's names (``repro_train_steps_total``,
 ``repro_train_restarts_total``, ``repro_train_stragglers_total``,
 ``repro_train_step_seconds``); pass the serving engine's registry to
-expose both in one scrape.  The reference's elastic restore onto another
-mesh (``shardings=``) waits for the mesh (ROADMAP.md, port queue item 5).
+expose both in one scrape.  A mesh's state (sharded leaves) is saved
+whole; a retry restores it onto the same mesh, and
+:meth:`FaultTolerantRunner.resume_or_init` with ``shardings=`` onto any
+other (the reference's elastic restore).
 """
 from __future__ import annotations
 
@@ -75,13 +78,12 @@ class FaultTolerantRunner:
 
     def resume_or_init(self, init_state: Any, shardings: Any = None) -> tuple[int, Any]:
         """``(step, state)`` of the latest checkpoint, restored onto
-        ``init_state``'s structure and devices, or ``(0, init_state)``."""
-        if shardings is not None:
-            raise NotImplementedError("restoring onto shardings needs the mesh, which waits for ROADMAP.md's "
-                                      "port queue item 5")
+        ``init_state``'s structure and devices (its sharded leaves onto
+        their meshes), or onto ``shardings`` (a matching tree of
+        ``NamedSharding``); or ``(0, init_state)``."""
         if self.ckpt.latest_step() is None:
             return 0, init_state
-        return self.ckpt.restore(init_state)
+        return self.ckpt.restore(init_state, shardings=shardings)
 
     def run(
         self,

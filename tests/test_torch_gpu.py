@@ -1978,3 +1978,80 @@ def test_mesh_engine_on_the_card_matches_the_cpu(cuda, arch):
     assert sorted(rows_g) == sorted(rows_c)
     for k in rows_c:
         np.testing.assert_allclose(rows_g[k], rows_c[k], rtol=0, atol=1e-4)
+
+
+# -- the training half of the mesh (mesh_train) -----------------------------------------
+
+
+@pytest.mark.parametrize("fsdp", [None, "data"], ids=["replicated", "zero3"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen3-moe-30b-a3b", "mamba2-130m"])
+def test_mesh_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch, arch, fsdp):
+    """``make_train_step`` on a 2 x 2 mesh (ZeRO-3 with ``fsdp="data"``, the
+    MoE over the all_to_all path), every rank on the card against every
+    rank on the CPU, at float32 (TF32 off) and the smoke size from the same
+    weights and batch: the loss within 1e-5 relative, each gradient leaf
+    within 1e-4 relative L2 over every rank's copy, and one step's params
+    within 2.5 lr (Adam's sign(g) steps on elements whose gradient is at
+    rounding scale)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel import sharding as PS
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32, zero3_regather=fsdp is not None)
+    init = T.init_params(cfg, seed=4, device="cpu")
+    batch = _train_batch(cfg, b=4)
+    lr = 3e-4
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        mesh = LM.make_mesh(2, 2, [dev] * 4)
+        rules = PS.ShardingRules(mesh=mesh, batch="data", fsdp=fsdp)
+        params = LM.shard_tree(init, PS.param_shardings(init, rules), mesh)
+        step = S.make_train_step(cfg, rules, S.TrainStepConfig(n_micro=2, lr=lr))
+        loss, grads = step.loss_and_grads(params, {k: v.to(dev) for k, v in batch.items()})
+        grads = [[q.detach().cpu().clone() for q in g.parts] for g in tree_leaves(grads)]
+        for x in tree_leaves(params):
+            for q in x.parts:
+                q.grad = None
+        step(params, step.optimizer.init(params), {k: v.to(dev) for k, v in batch.items()})
+        out.append((float(loss), grads, [[q.detach().cpu() for q in x.parts] for x in tree_leaves(params)]))
+    (lg, gg, pg), (lc, gc, pc) = out
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(gg, gc):
+        assert _rel(torch.cat([t.reshape(-1) for t in a]), torch.cat([t.reshape(-1) for t in b])) <= 1e-4
+    for a, b in zip(pg, pc):
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=0, atol=2.5 * lr)
+
+
+def test_mesh_train_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    """Params sharded on a 2 x 2 CPU mesh, saved, restored onto a 1 x 4 mesh
+    of the card (``restore(shardings=)``): every part its block bit for
+    bit; saved again from the card, the files byte-equal."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel import sharding as PS
+
+    cfg = get_config("mamba2-130m", smoke=True)
+    init = T.init_params(cfg, seed=6, device="cpu")
+    cpu_mesh = LM.make_mesh(2, 2, ["cpu"] * 4)
+    specs = PS.param_shardings(init, PS.ShardingRules(mesh=cpu_mesh, batch="data", fsdp="data"))
+    CheckpointManager(tmp_path / "a").save(3, LM.shard_tree(init, specs, cpu_mesh))
+    card_mesh = LM.make_mesh(1, 4, [cuda] * 4)
+    cspecs = PS.param_shardings(init, PS.ShardingRules(mesh=card_mesh, batch="data", fsdp="data"))
+
+    def named(tree):
+        return {k: named(v) for k, v in tree.items()} if isinstance(tree, dict) else LM.NamedSharding(card_mesh, tree)
+
+    step, got = CheckpointManager(tmp_path / "a").restore(init, shardings=named(cspecs))
+    assert step == 3
+    for a, b in zip(tree_leaves(got), tree_leaves(init)):
+        assert a.parts[0].device.type == "cuda" and torch.equal(LM.gather_array(a, "cpu"), b)
+    CheckpointManager(tmp_path / "b").save(3, got)
+    for f in sorted((tmp_path / "a" / "step_00000003").iterdir()):
+        assert (tmp_path / "b" / "step_00000003" / f.name).read_bytes() == f.read_bytes(), f.name

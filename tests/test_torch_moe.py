@@ -185,7 +185,7 @@ def test_local_moe_and_moe_apply_match_reference(cf, tokens):
     x3 = x.reshape(2, tokens // 2, 16)
     _close(X.moe_apply(tp, s, torch.from_numpy(x3)),
            jax.jit(lambda p, x: RX.moe_apply(p, rs, x))(rp, jnp.asarray(x3)), MOE_ATOL)
-    with pytest.raises(NotImplementedError, match="Mesh"):
+    with pytest.raises(TypeError, match="per-rank lists"):  # the all_to_all path takes every rank's tokens
         X.moe_apply(tp, s, torch.from_numpy(x3), axis_name="model")
 
 

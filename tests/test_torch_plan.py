@@ -600,7 +600,7 @@ def test_compile_options_equal_reference(tmp_path, args):
 
 
 @pytest.mark.parametrize("flag,item", [(["--from-nas", "x.json", "--trace-cost"], "do not apply to --from-nas"),
-                                       (["--trace-cost"], "'CLIs and benches'")])
+                                       (["--trace-cost"], "port queue 1, item 4")])
 def test_compile_refuses_what_is_not_ported(flag, item):
     """``--trace-cost`` waits for the port's step-cost tracer; with
     ``--from-nas`` it is refused first, as the reference refuses it."""

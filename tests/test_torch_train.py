@@ -51,10 +51,12 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
 from repro_torch.core import quant as Q
 from repro_torch.core.quant import fake_quant as FQ
+from repro_torch.launch import mesh as LM
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as X
 from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding as PS
 
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
@@ -446,9 +448,23 @@ def test_remat_on_equals_remat_off_bit_for_bit(arch, remat_block):
 
 
 def test_forward_train_refuses_the_mesh_and_needs_the_batch_extras():
-    _, cfg = _cfgs("llama3.2-3b", zero3_regather=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        T.forward_train(params_from_jax(_ref_params("llama3.2-3b")), cfg, {})
+    """``zero3_regather`` without a mesh changes nothing (the reference's
+    regather is a no-op there); sharded params without mesh rules, and the
+    encdec family under them, are refused; the batch extras are needed."""
+    _, cfg = _cfgs("llama3.2-3b")
+    params = params_from_jax(_ref_params("llama3.2-3b"))
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
+    assert torch.equal(T.forward_train(params, dataclasses.replace(cfg, zero3_regather=True), batch),
+                       T.forward_train(params, cfg, batch))
+    mesh = LM.make_mesh(2, 2, ["cpu"] * 4)
+    rules = PS.ShardingRules(mesh=mesh, batch="data")
+    with pytest.raises(TypeError, match="use_rules"):
+        T.forward_train(LM.shard_tree(params, PS.param_shardings(params, rules), mesh), cfg, batch)
+    _, wcfg = _cfgs("whisper-tiny")
+    wparams = params_from_jax(_ref_params("whisper-tiny"))
+    with pytest.raises(NotImplementedError, match="port queue 1, item 2"), PS.use_rules(rules):
+        T.forward_train(LM.shard_tree(wparams, PS.param_shardings(wparams, rules), mesh), wcfg,
+                        {k: torch.from_numpy(v) for k, v in _batch(wcfg).items()})
     for arch, key in (("qwen2-vl-7b", "positions"), ("whisper-tiny", "enc_embeds")):
         _, cfg = _cfgs(arch)
         batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items() if k != key}

@@ -387,10 +387,16 @@ def test_straggler_detection(tmp_path):
 
 
 def test_resume_refuses_shardings(tmp_path):
+    """Without a checkpoint ``resume_or_init`` returns the initial state;
+    with one, a restore sharding must be a ``NamedSharding`` (None leaves
+    the leaf on its template's device); restores onto meshes are
+    ``tests/test_torch_mesh_train.py``'s."""
     runner = FaultTolerantRunner(_counting_step, CheckpointManager(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        runner.resume_or_init({"x": torch.tensor(0)}, shardings={"x": None})
-    assert runner.resume_or_init({"x": torch.tensor(7)})[0] == 0
+    assert runner.resume_or_init({"x": torch.tensor(7)}, shardings={"x": None}) == (0, {"x": torch.tensor(7)})
+    runner.ckpt.save(3, {"x": torch.tensor(5)})
+    assert runner.resume_or_init({"x": torch.tensor(7)}, shardings={"x": None}) == (3, {"x": torch.tensor(5)})
+    with pytest.raises(TypeError, match="NamedSharding"):
+        runner.resume_or_init({"x": torch.tensor(0)}, shardings={"x": ("data",)})
 
 
 # -- make_train_step ------------------------------------------------------------------
@@ -482,7 +488,7 @@ def test_make_train_step_gradients_equal_forward_train_backward(monkeypatch, arc
 
 def test_make_train_step_refuses_sharding_rules_and_prefills():
     _, cfg = _cfgs("llama3.2-3b")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(TypeError, match="ShardingRules"):  # a mesh step takes the rules themselves
         S.make_train_step(cfg, object())
     rcfg, _ = _cfgs("llama3.2-3b")
     rparams = RT.init_params(jax.random.PRNGKey(0), rcfg)
